@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where a superstep's time goes on the card: torch.profiler over a few
-supersteps of the two fits that ``chip_smoke.py`` runs, built by its
+supersteps of the four fits that ``chip_smoke.py`` runs, built by its
 ``full_size_data`` and ``full_size_solver``.
 
     python3 profile_superstep.py [--out DIR] [--steps N]
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use).  For each
-fit (sparse: the 131072 x 16384 brick layout; dense: 400000 x 2000) it runs
-one untimed superstep, then N profiled ones, and prints one JSON line with
-the host seconds per superstep, the device time per superstep summed over
-kernels and copies, the device's idle share (1 - device time / host time;
-one stream, so kernels do not overlap), and the kernels by device time.
+fit (sparse: the 131072 x 16384 brick layout; dense: 400000 x 2000; dense
+Jacobi: the same data through the fused superstep, and through the unfused
+Jacobi one) it runs one untimed superstep, then N profiled ones, and
+prints one JSON line with the host seconds per superstep, the device time
+per superstep summed over kernels and copies, the device's idle share
+(1 - device time / host time; one stream, so kernels do not overlap), and
+the kernels by device time.
 The Chrome traces go to DIR when given.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
-import chip_smoke  # noqa: E402  (the two fits' data, solver and lam1)
+import chip_smoke  # noqa: E402  (the fits' data, solver, lam1 and names)
 
 
 def device_us(evt) -> float:
@@ -31,14 +33,6 @@ def device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
-
-
-def short_name(key: str) -> str:
-    """A kernel's name without its template and argument lists."""
-    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
-    for cut in ("(", "<"):
-        key = key.split(cut)[0]
-    return key[:60]
 
 
 def profile_fit(torch, solver, steps, out, tag):
@@ -63,7 +57,7 @@ def profile_fit(torch, solver, steps, out, tag):
             continue
         us = device_us(evt)
         if us > 0:
-            rows.append((short_name(evt.key), us, evt.count))
+            rows.append((chip_smoke.short_name(evt.key), us, evt.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     if out is not None:
@@ -92,17 +86,25 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("profile_superstep: no CUDA device is available")
+    from repro_torch.core.dglmnet import DGLMNETConfig
     from repro_torch.core.solver import GLMSolver
     from repro_torch.data import synthetic
 
     # the solver turns TF32 off itself
     dev = torch.device("cuda", 0)
-    for tag in ("sparse", "dense"):
-        ds = chip_smoke.full_size_data(synthetic, tag)
-        solver = chip_smoke.full_size_solver(GLMSolver, ds, dev)
+    cells = (("sparse", "sparse", None), ("dense", "dense", None),
+             ("dense_jacobi", "dense", DGLMNETConfig(coupling="jacobi")),
+             ("dense_jacobi_unfused", "dense",
+              DGLMNETConfig(coupling="jacobi", fuse_superstep=False)))
+    ds, ds_kind = None, None
+    for tag, kind, config in cells:
+        if kind != ds_kind:        # the dense data serves two cells
+            ds = None              # free the old data before making the new
+            ds, ds_kind = chip_smoke.full_size_data(synthetic, kind), kind
+        solver = chip_smoke.full_size_solver(GLMSolver, ds, dev, config)
         print(json.dumps(profile_fit(torch, solver, args.steps, args.out,
                                      tag)), flush=True)
-        del solver, ds
+        del solver
         torch.cuda.empty_cache()
 
 

@@ -8,4 +8,4 @@ GLMSolver``, which runs on the card unless the caller passes
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
-__all__ = ["core", "data", "kernels", "convert"]
+__all__ = ["core", "data", "kernels", "serve", "convert", "device", "timing"]

@@ -11,18 +11,20 @@ import torch
 
 from repro_torch.core.dglmnet import FitState
 from repro_torch.data.design import BlockSparseDesign, DenseDesign
+from repro_torch.device import resolve_device
 
 
 def _t(a, dtype, device):
-    return torch.from_numpy(np.array(a, dtype)).to(device)
+    return torch.from_numpy(np.array(a, dtype)).to(resolve_device(device))
 
 
 def design_from_numpy(*, tile_size: int, data=None, bricks=None,
                       brick_row=None, brick_tile=None, tile_ptr=None,
-                      row_block=None, n_rows=None, device="cpu"):
+                      row_block=None, n_rows=None, device=None):
     """A ``DenseDesign`` from ``data`` (n, p_pad), or a ``BlockSparseDesign``
     from the brick leaves (``bricks``, ``brick_row``, ``brick_tile``,
-    ``tile_ptr``) and the static geometry (``row_block``, ``n_rows``)."""
+    ``tile_ptr``) and the static geometry (``row_block``, ``n_rows``), on
+    ``device`` (None: the CUDA card)."""
     if data is not None:
         data = np.asarray(data, np.float32)
         if data.shape[1] % tile_size:
@@ -41,9 +43,10 @@ def design_from_numpy(*, tile_size: int, data=None, bricks=None,
         int(n_rows), len(tile_ptr) - 1, K)
 
 
-def state_from_numpy(beta, xb, mu, cursor=0, step=0, *, device="cpu"):
-    """A ``FitState`` from (beta, X beta, mu, cursor, step) host values;
-    ``cursor`` may be the JAX state's (1,) per-shard array."""
+def state_from_numpy(beta, xb, mu, cursor=0, step=0, *, device=None):
+    """A ``FitState`` from (beta, X beta, mu, cursor, step) host values on
+    ``device`` (None: the CUDA card); ``cursor`` may be the JAX state's (1,)
+    per-shard array."""
     return FitState(
         beta=_t(beta, np.float32, device), xb=_t(xb, np.float32, device),
         mu=_t(np.asarray(mu, np.float32).reshape(()), np.float32, device),

@@ -1,13 +1,21 @@
-"""Block coordinate-descent sweep over the feature tiles of one device.
+"""Block coordinate-descent sweeps over the feature tiles of one device.
 
-Mirrors ``repro.core.cd`` for the default Gauss-Seidel coupling: tiles are
-processed cyclically and tile t sees the margin delta of tiles < t.  Per
-tile, ``design.tile_gram`` gives the Gram block G and the gradient g (the
-``tile_gram`` kernel on a brick layout, a matrix product on a dense one),
-``ops.cd_tile_solve`` runs the exact sequential chain of coordinate
-updates, and ``design.tile_matvec`` folds the tile's step into the margin
-delta.  The tile loop is a Python loop: the budget and the screening mask
-are known on the host, so a dead tile is skipped without asking the card.
+Mirrors ``repro.core.cd``:
+
+  * ``gauss-seidel`` (the default): tiles are processed cyclically and tile
+    t sees the margin delta of tiles < t.  Per tile, ``design.tile_gram``
+    gives the Gram block G and the gradient g (the ``tile_gram`` kernel on a
+    brick layout, a matrix product on a dense one), ``ops.cd_tile_solve``
+    runs the exact sequential chain of coordinate updates, and
+    ``design.tile_matvec`` folds the tile's step into the margin delta.
+  * ``jacobi``: every tile's G and g come up front at the entering iterate
+    (``design.all_tile_grams``), each tile solves from a zero step as a
+    virtual node of its own, and one ``design.matvec`` forms the margin
+    delta.  This is the unfused form of the fused superstep
+    (``fuse_superstep=False``).
+
+The tile loops are Python loops: the budget and the screening mask are
+known on the host, so a dead tile is skipped without asking the card.
 """
 from __future__ import annotations
 
@@ -60,3 +68,29 @@ def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
         xdb = xdb + design.tile_matvec(tid, dt_new - dt)
         dbeta[sl] = dt_new
     return dbeta, xdb, tiles_done
+
+
+def sweep_jacobi(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1, lam2,
+                 start_tile: int = 0, num_tiles=None, active=None,
+                 tile_active=None, penf=None):
+    """Jacobi-across-tiles sweep; returns (dbeta, xdb, tiles_done).
+
+    ``dbeta`` and ``xdb`` must be zero on entry (the start of an outer
+    iteration).  The budget window and ``tile_active`` pick the live tiles
+    on the host; only those cost a Gram and a solve.  ``active`` and
+    ``penf`` act per coordinate as in ``sweep_gauss_seidel``.
+    """
+    nt = design.n_tiles
+    tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
+    live = alb_live_mask(nt, start_tile, tiles_done)
+    if tile_active is not None:
+        live = live & np.asarray(tile_active, bool)
+    G_all, g_all = design.all_tile_grams(w, s, live)
+    d = ops.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+                               penf=penf, tile_live=live)
+    if active is not None:
+        d = torch.where(active > 0, d, torch.zeros_like(d))
+    return d, design.matvec(d), tiles_done
+
+
+SWEEPS = {"gauss-seidel": sweep_gauss_seidel, "jacobi": sweep_jacobi}

@@ -1,16 +1,24 @@
 """d-GLMNET on one device: the configuration, the fit state and one outer
 iteration ("superstep").
 
-Mirrors the unfused single-device superstep of ``repro.core.dglmnet``
-(paper Algorithm 4 with one node):
+Mirrors the single-device supersteps of ``repro.core.dglmnet`` (paper
+Algorithm 4 with one node):
   1. link stats (loss, s, w) at beta from the kept margins X beta [glm_stats]
-  2. one Gauss-Seidel cycle of tile coordinate descent   [cd.py: tile_gram,
-                                                          cd_tile_solve]
+  2. one cycle of tile coordinate descent, Gauss-Seidel or Jacobi across
+     tiles                                  [cd.py: tile_gram, cd_tile_solve]
   3. the line search for alpha, Armijo after an alpha_init pre-search
                                              [linesearch.py: alpha_search]
   4. beta += alpha dbeta, X beta += alpha X dbeta, and the trust-region
      scale mu doubles after a short step or halves (not below 1) after a
      unit step (Algorithm 1, lines 8-12).
+
+With ``coupling="jacobi"`` and ``fuse_superstep=True`` (the default for that
+coupling, as in the reference) steps 1-3 take two fused launches instead:
+``ops.fused_stats_sweep`` (stats, every live tile's Gram and solve; the
+``stats_gram_solve`` kernel on a dense design) and ``ops.fused_ls`` (the
+margin delta and the losses of all ``full_candidates``; ``margin_ls``),
+then ``select_precomputed`` picks alpha.  That one-pass line search is the
+route the reference takes on its accelerator; it runs on both devices here.
 
 The superstep queues its work on the device and returns tensors; the
 caller reads the metrics once per superstep.
@@ -49,7 +57,11 @@ class DGLMNETConfig:
     max_backtracks: int = 20
     # sweep
     tile_size: int = 256
-    coupling: str = "gauss-seidel"
+    coupling: str = "gauss-seidel"          # or "jacobi"
+    # the fused Jacobi superstep (two launches); inert for gauss-seidel
+    fuse_superstep: bool = True
+    # "fp32"; "bf16" Gram/margin inputs are not ported yet
+    precision: str = "fp32"
     # outer loop
     max_outer: int = 100
     tol: float = 1e-8
@@ -74,8 +86,9 @@ METRIC_KEYS = ("f", "f_before", "loss", "alpha", "mu", "nnz",
                "accepted_unit", "D")
 
 
-def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device="cpu"):
-    """Build the superstep closure for a design of ``n_tiles`` tiles.
+def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
+    """Build the superstep closure for a design of ``n_tiles`` tiles on
+    ``device`` (None: the CUDA card).
 
     The returned ``superstep(design, y, weights, offset, lams, penf, state,
     *, active=None, tile_active=None)`` takes the combined
@@ -85,48 +98,32 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device="cpu"):
     per-tile summary on the host).  It returns (new state, metrics), the
     metrics being 0-d device tensors keyed by ``METRIC_KEYS``.
     """
-    if config.coupling != "gauss-seidel":
+    if config.precision == "bf16":
         raise NotImplementedError(
-            f"coupling={config.coupling!r}: the Jacobi coupling and its fused "
-            "superstep (the stats_gram_solve and margin_ls kernels) are "
-            "ported in a later slice; use coupling='gauss-seidel'")
+            "precision='bf16' (bf16 Gram and margin inputs of the fused "
+            "kernels) is not ported yet; use precision='fp32'")
+    if config.precision != "fp32":
+        raise ValueError(f"unknown precision {config.precision!r}")
+    if config.coupling not in cd_lib.SWEEPS:
+        raise ValueError(f"unknown coupling {config.coupling!r}; have "
+                         f"{sorted(cd_lib.SWEEPS)}")
     fam = config.family
+    sweep = cd_lib.SWEEPS[config.coupling]
     alphas0 = linesearch.candidate_alphas(config.ls_delta,
                                           config.ls_grid_size, device)
+    cand = linesearch.full_candidates(config.ls_delta, config.ls_grid_size,
+                                      config.backtrack_b,
+                                      config.max_backtracks, device)
 
-    def superstep(design, y, weights, offset, lams, penf, state: FitState,
-                  *, active=None, tile_active=None):
-        beta, xb, mu, cursor, step = state
-        lam1, lam2 = float(lams[0]), float(lams[1])
-
-        # (1) link statistics at the current iterate (weighted, offset)
-        loss_i, s, w = ops.glm_stats(y, xb, fam, weights=weights,
-                                     offset=offset)
-        L = torch.sum(loss_i)
+    def f_at(beta, L, lam1, lam2, penf):
         R0 = linesearch.penalty_terms(beta, torch.zeros_like(beta),
                                       torch.zeros_like(alphas0[:1]), lam1,
                                       lam2, penf)[0]
-        f_cur = L + R0
+        return L + R0
 
-        # (2) the local quadratic sub-problem: one full tile cycle (one
-        # device has no slow peers, so no ALB budget)
-        dbeta, xdb, tiles_done = cd_lib.sweep_gauss_seidel(
-            design, s, w, beta, torch.zeros_like(beta), torch.zeros_like(xb),
-            mu=mu, nu=config.nu, lam1=lam1, lam2=lam2, start_tile=cursor,
-            active=active, tile_active=tile_active, penf=penf)
-
-        # (3) line search on the weighted Armijo sums
-        grad_dot_dir = -torch.sum(s * xdb)
-        quad_form = (mu * torch.sum(w * xdb * xdb)
-                     + config.nu * torch.sum(dbeta * dbeta))
-        ls = linesearch.search(
-            y, xb, xdb, beta, dbeta, family=fam, lam1=lam1, lam2=lam2,
-            f_current=f_cur, grad_dot_dir=grad_dot_dir, quad_form=quad_form,
-            alphas=alphas0, sigma=config.sigma, b=config.backtrack_b,
-            gamma=config.gamma, max_backtracks=config.max_backtracks,
-            weights=weights, offset=offset, penf=penf)
-
-        # (4) apply the step; adapt mu
+    def finish(state, ls, dbeta, xdb, f_cur, L, tiles_done):
+        """Apply the step; adapt mu; the metrics."""
+        beta, xb, mu, cursor, step = state
         beta_new = beta + ls.alpha * dbeta
         xb_new = xb + ls.alpha * xdb
         if config.adaptive_mu:
@@ -145,4 +142,67 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device="cpu"):
                              (cursor + tiles_done) % n_tiles, step + 1)
         return new_state, metrics
 
+    def superstep(design, y, weights, offset, lams, penf, state: FitState,
+                  *, active=None, tile_active=None):
+        beta, xb, mu, cursor, _ = state
+        lam1, lam2 = float(lams[0]), float(lams[1])
+
+        # (1) link statistics at the current iterate (weighted, offset)
+        loss_i, s, w = ops.glm_stats(y, xb, fam, weights=weights,
+                                     offset=offset)
+        L = torch.sum(loss_i)
+        f_cur = f_at(beta, L, lam1, lam2, penf)
+
+        # (2) the local quadratic sub-problem: one full tile cycle (one
+        # device has no slow peers, so no ALB budget)
+        dbeta, xdb, tiles_done = sweep(
+            design, s, w, beta, torch.zeros_like(beta), torch.zeros_like(xb),
+            mu=mu, nu=config.nu, lam1=lam1, lam2=lam2, start_tile=cursor,
+            active=active, tile_active=tile_active, penf=penf)
+
+        # (3) line search on the weighted Armijo sums
+        grad_dot_dir = -torch.sum(s * xdb)
+        quad_form = (mu * torch.sum(w * xdb * xdb)
+                     + config.nu * torch.sum(dbeta * dbeta))
+        ls = linesearch.search(
+            y, xb, xdb, beta, dbeta, family=fam, lam1=lam1, lam2=lam2,
+            f_current=f_cur, grad_dot_dir=grad_dot_dir, quad_form=quad_form,
+            alphas=alphas0, sigma=config.sigma, b=config.backtrack_b,
+            gamma=config.gamma, max_backtracks=config.max_backtracks,
+            weights=weights, offset=offset, penf=penf)
+        return finish(state, ls, dbeta, xdb, f_cur, L, tiles_done)
+
+    def superstep_fused(design, y, weights, offset, lams, penf,
+                        state: FitState, *, active=None, tile_active=None):
+        beta, xb, mu, _, _ = state
+        lam1, lam2 = float(lams[0]), float(lams[1])
+
+        # (1+2) fused launch: stats, every live tile's Gram and gradient and
+        # the Jacobi tile solves
+        loss_i, s, w, dbeta, _, _ = ops.fused_stats_sweep(
+            design, y, xb, beta, fam, mu=mu, nu=config.nu, lam1=lam1,
+            lam2=lam2, weights=weights, offset=offset, penf=penf,
+            tile_live=tile_active)
+        if active is not None:
+            dbeta = torch.where(active > 0, dbeta, torch.zeros_like(dbeta))
+        L = torch.sum(loss_i)
+        f_cur = f_at(beta, L, lam1, lam2, penf)
+
+        # (3) fused launch: the margin delta and every candidate's loss;
+        # Algorithm 3 then picks from them
+        xdb, losses = ops.fused_ls(design, y, xb, dbeta, cand, fam,
+                                   weights=weights, offset=offset)
+        grad_dot_dir = -torch.sum(s * xdb)
+        quad_form = (mu * torch.sum(w * xdb * xdb)
+                     + config.nu * torch.sum(dbeta * dbeta))
+        ls = linesearch.select_precomputed(
+            losses, cand, beta, dbeta, lam1, lam2, f_current=f_cur,
+            grad_dot_dir=grad_dot_dir, quad_form=quad_form,
+            sigma=config.sigma, gamma=config.gamma,
+            grid_size=config.ls_grid_size,
+            max_backtracks=config.max_backtracks, penf=penf)
+        return finish(state, ls, dbeta, xdb, f_cur, L, n_tiles)
+
+    if config.coupling == "jacobi" and config.fuse_superstep:
+        return superstep_fused
     return superstep

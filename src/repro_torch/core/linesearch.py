@@ -10,6 +10,11 @@ paper (defaults b = 0.5, sigma = 0.01, gamma = 0):
 Every candidate's loss comes from the one-pass ``alpha_search`` kernel; the
 penalties are separable and formed here.  Selection is branch-free tensor
 code, so a superstep on the card never waits for the host.
+
+The fused Jacobi superstep takes the one-pass form: the losses of
+``full_candidates`` (the unit step, the grid and every backtracking chain)
+come from one pass over the data, and ``select_precomputed`` replays the
+two-phase decisions of ``search`` from them.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -28,8 +34,9 @@ class LineSearchResult(NamedTuple):
     D: torch.Tensor              # the paper's directional decrease bound
 
 
-def candidate_alphas(delta, grid_size, device="cpu"):
-    """Algorithm 3's candidates ``[1, logspace(delta .. 1)]`` in float32.
+def candidate_alphas(delta, grid_size, device=None):
+    """Algorithm 3's candidates ``[1, logspace(delta .. 1)]`` in float32 on
+    ``device`` (None: the CUDA card).
 
     The grid is formed as ``jnp.logspace`` forms it on XLA: a float32
     linspace of the exponents, point i being start (1 - i (1/(m-1))), then
@@ -45,7 +52,7 @@ def candidate_alphas(delta, grid_size, device="cpu"):
         else np.full(grid_size, start, f32)
     grid = np.power(10.0, lin.astype(np.float64)).astype(f32)
     alphas = np.concatenate([np.ones(1, f32), grid])
-    return torch.from_numpy(alphas).to(device)
+    return torch.from_numpy(alphas).to(resolve_device(device))
 
 
 def backtrack_chains(alphas, b, max_backtracks):
@@ -55,6 +62,16 @@ def backtrack_chains(alphas, b, max_backtracks):
         torch.arange(max_backtracks, dtype=torch.float32,
                      device=alphas.device))
     return alphas[:, None] * powers[None, :]
+
+
+def full_candidates(delta, grid_size, b, max_backtracks, device=None):
+    """The one-pass candidate set: ``[1, grid]`` followed by each of those
+    candidates' full Armijo chain, (1 + grid_size) (1 + max_backtracks) step
+    sizes (294 at the defaults).  No padding: the TPU's 128-lane multiple
+    is not the card's."""
+    alphas0 = candidate_alphas(delta, grid_size, device)
+    chains = backtrack_chains(alphas0, b, max_backtracks)
+    return torch.cat([alphas0, chains.reshape(-1)])
 
 
 def _at(v, idx):
@@ -118,4 +135,25 @@ def search(y, xb, xdb, beta, dbeta, *, family, lam1, lam2, f_current,
     losses_bt = ops.alpha_search(y, xb, xdb, bt, family, weights=weights,
                                  offset=offset)
     f_bt = losses_bt + penalty_terms(beta, dbeta, bt, lam1, lam2, penf)
+    return armijo_select(f_cand[0], f_bt, bt, f_current, sigma, D)
+
+
+def select_precomputed(losses, cand, beta, dbeta, lam1, lam2, *, f_current,
+                       grad_dot_dir, quad_form, sigma, gamma, grid_size,
+                       max_backtracks, penf=None) -> LineSearchResult:
+    """Algorithm 3 from the losses of ``full_candidates``: the grid argmin,
+    then that candidate's backtracking chain by index, the same decisions
+    as ``search`` without another pass over the data."""
+    K0 = 1 + grid_size
+    B = max_backtracks
+    pens = penalty_terms(beta, dbeta, cand, lam1, lam2, penf)
+    f_cand = losses + pens
+    R1 = pens[0]
+    R0 = penalty_terms(beta, dbeta, torch.zeros_like(cand[:1]), lam1, lam2,
+                       penf)[0]
+    D = grad_dot_dir + gamma * quad_form + R1 - R0
+    i0 = torch.argmin(f_cand[:K0])
+    idx = K0 + i0 * B + torch.arange(B, device=cand.device)
+    bt = cand.index_select(0, idx)
+    f_bt = f_cand.index_select(0, idx)
     return armijo_select(f_cand[0], f_bt, bt, f_current, sigma, D)

@@ -18,10 +18,14 @@ sum_i c_i l_i; padded rows weigh 0), margin ``offset``, an unpenalized
 ``penalty_factor``.  ``lambda_max`` is the smallest lam1 with every
 penalized coordinate at zero, taken at the null model (intercept fitted).
 
+``coupling="jacobi"`` runs the fused Jacobi superstep (two fused launches,
+``fuse_superstep=True``, the default) or its unfused form.  ``predict`` on a
+SparseCOO goes through the serving engine (``serve/engine.py``) and its
+fused gather-dot-link kernel; ``save`` writes a serving artifact.
+
 Not ported yet (each raises NotImplementedError): a mesh, streaming and
 file inputs, ``standardize``, checkpoints, ``fit_path``, ``fit_cv`` and
-``predict`` on a SparseCOO (which in the JAX package goes through the
-serving kernel).
+``precision="bf16"``.
 """
 from __future__ import annotations
 
@@ -38,28 +42,14 @@ from repro_torch.core.dglmnet import DGLMNETConfig, FitResult, FitState
 from repro_torch.data import design as design_lib
 from repro_torch.data.design import DesignMatrix
 from repro_torch.data.sparse import SparseCOO
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.serve import artifact
+from repro_torch.serve.artifact import ServableModel
+from repro_torch.serve.engine import ScoringEngine
 
 _HISTORY_KEYS = ("f", "alpha", "mu", "nnz", "accepted_unit")
 _PF_EPS = 1e-12          # pf below this counts as "unpenalized"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card, and raises when there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        # full fp32 Gram sums: TF32 would break the 1e-5 bar on beta
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _not_ported(what: str):
@@ -115,6 +105,7 @@ class GLMSolver:
         self.intercept_: float = 0.0
         self._state: Optional[FitState] = None
         self._lmax: Optional[float] = None
+        self._serve_cache = None
 
         y = np.asarray(y, np.float32)
         n = y.shape[0]
@@ -313,11 +304,33 @@ class GLMSolver:
 
     # ------------------------------------------------------------ predict
 
+    def _serve_engine(self, beta: np.ndarray, intercept: float):
+        """The scoring engine over (beta, b0) on this session's device,
+        cached on the coefficient bytes so repeated predicts reuse the
+        compacted table."""
+        key = (beta.tobytes(), float(intercept))
+        if self._serve_cache is None or self._serve_cache[0] != key:
+            model = ServableModel(
+                betas=np.array(beta[None, :], np.float32),
+                intercepts=np.asarray([intercept], np.float32),
+                family=self.config.family)
+            self._serve_cache = (key, ScoringEngine(model,
+                                                    device=self.device))
+        return self._serve_cache[1]
+
+    def save(self, path, *, quantize=None):
+        """Export the fitted model as a versioned serving artifact
+        (``serve/artifact.py``); ``quantize="int8"`` writes the
+        shared-scale int8 table."""
+        return artifact.export(self, path, quantize=quantize)
+
     def predict(self, X_new, *, beta=None, intercept=None, offset=None,
                 kind: str = "response"):
-        """Predict on new dense rows with the fitted (or a given) beta.
+        """Predict on new rows with the fitted (or a given) beta.
         ``kind="link"`` gives margins X beta + b0 + o, ``"response"`` the
-        family's inverse link."""
+        family's inverse link.  SparseCOO rows are scored by the serving
+        engine's fused sparse kernel (gather, dot, link) over the active
+        set; dense rows by a host product."""
         beta = self.beta_ if beta is None else np.asarray(beta, np.float32)
         if beta is None:
             raise ValueError("no fitted coefficients; call fit first or "
@@ -327,8 +340,8 @@ class GLMSolver:
             raise ValueError(f"unknown kind {kind!r}; use 'link' or "
                              "'response'")
         if isinstance(X_new, SparseCOO):
-            raise _not_ported("predict on SparseCOO rows (the serving "
-                              "kernel predict_tile)")
+            eng = self._serve_engine(np.asarray(beta, np.float32), intercept)
+            return eng.score_coo(X_new, kind=kind, offset=offset)[:, 0]
         m = np.asarray(X_new, np.float32) @ beta + intercept
         if offset is not None:
             m = m + np.asarray(offset, np.float32)

@@ -5,6 +5,8 @@ the design matrix only through these operators:
 
   * ``tile_gram(tid, w, r)``: G = X_t^T diag(w) X_t (T, T) and g = X_t^T r
     for feature tile ``tid``;
+  * ``all_tile_grams(w, r, tile_live)``: every live tile's (G, g) at once,
+    (n_tiles, T, T) and (n_tiles, T), dead tiles zero (the Jacobi sweep);
   * ``tile_matvec(tid, v_t)``: X_t v_t over all rows;
   * ``matvec(v)`` / ``rmatvec(r)``: X v and X^T r in packed column order.
 
@@ -12,7 +14,10 @@ Two layouts:
 
   * ``DenseDesign``: an (n, p_pad) tensor with zero padding columns.  Its
     tile Gram is a plain matrix product (``torch.matmul``), as the JAX
-    package leaves it to XLA.
+    package leaves it to XLA.  ``tiles3()`` is the tile-major
+    (n_tiles, n, T) view the fused superstep reads: a strided view of the
+    row-major data, not a copy (the JAX session caches a transposed copy,
+    which doubles the design's memory).
   * ``BlockSparseDesign``: CSR-of-bricks.  The matrix is cut into
     (row_block x tile_size) bricks; only non-empty bricks are stored,
     tile-major, with a CSR ``tile_ptr`` over feature tiles.  The tile Gram
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.sparse import SparseCOO
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -57,6 +63,18 @@ class DesignMatrix:
 
     def tile_gram(self, tid: int, w, r):
         raise NotImplementedError
+
+    def all_tile_grams(self, w, r, tile_live=None):
+        """(G_all (n_tiles, T, T), g_all (n_tiles, T)) from ``tile_gram``
+        of each live tile; ``tile_live`` is an optional host (n_tiles,) bool
+        mask, and a dead tile costs nothing and gets G = g = 0."""
+        nt, T = self.n_tiles, self.tile_size
+        G_all = torch.zeros((nt, T, T), dtype=w.dtype, device=w.device)
+        g_all = torch.zeros((nt, T), dtype=w.dtype, device=w.device)
+        for tid in range(nt):
+            if tile_live is None or tile_live[tid]:
+                G_all[tid], g_all[tid] = self.tile_gram(tid, w, r)
+        return G_all, g_all
 
     def tile_matvec(self, tid: int, v_t):
         raise NotImplementedError
@@ -93,6 +111,13 @@ class DenseDesign(DesignMatrix):
     def _tile(self, tid: int):
         c0 = tid * self.tile_size
         return self.data[:, c0:c0 + self.tile_size]
+
+    def tiles3(self):
+        """(n_tiles, n_rows, T) tile-major view of ``data`` (no copy): tile
+        t's row i is the contiguous slice ``data[i, tT:(t+1)T]``."""
+        n = self.data.shape[0]
+        return self.data.view(n, self.n_tiles, self.tile_size) \
+            .permute(1, 0, 2)
 
     def tile_gram(self, tid: int, w, r):
         Xt = self._tile(tid)
@@ -161,6 +186,21 @@ class BlockSparseDesign(DesignMatrix):
     def tile_gram(self, tid: int, w, r):
         tb, rows = self.tile_bricks(tid)
         return ops.tile_gram(tb, rows, tb.shape[0], w, r)
+
+    def gather_all_tiles(self):
+        """Every tile's bricks as one batched layout: (bricks3 (nt, K, rb,
+        T), rows (nt, K), valid (nt, K) 0/1), K = max_bricks_per_tile.
+        Slots past a tile's population hold clamped copies of in-range
+        bricks with valid = 0 (the plain fused route masks them).  A copy
+        of the bricks: the CUDA route reads them in place instead."""
+        K = self.max_bricks_per_tile
+        dev = self.device
+        start = torch.from_numpy(self.tile_ptr[:-1].astype(np.int64)).to(dev)
+        stop = torch.from_numpy(self.tile_ptr[1:].astype(np.int64)).to(dev)
+        idx = start[:, None] + torch.arange(K, device=dev)[None, :]
+        valid = (idx < stop[:, None]).to(self.bricks.dtype)
+        safe = torch.clamp(idx, max=self.bricks.shape[0] - 1)
+        return self.bricks[safe], self.brick_row[safe], valid
 
     def tile_matvec(self, tid: int, v_t):
         tb, rows = self.tile_bricks(tid)
@@ -278,8 +318,9 @@ def _brick_index(rows, cols, n_loc, p_loc, tile_size, row_block):
 
 def build_block_sparse(coo: SparseCOO, tile_size: int, *,
                        row_block: int = 256, reorder: bool = True,
-                       device="cpu"):
-    """Pack a host SparseCOO into the brick layout on ``device``.
+                       device=None):
+    """Pack a host SparseCOO into the brick layout on ``device`` (None:
+    the CUDA card).
 
     Returns (BlockSparseDesign, DesignInfo).  The packing (column order,
     brick order, CSR offsets) is the JAX builder's, so beta can be compared
@@ -294,7 +335,7 @@ def build_block_sparse(coo: SparseCOO, tile_size: int, *,
     cols = col_of_feature[coo.cols]
     order, inv, brick_row, brick_tile, tile_ptr, n_bricks = _brick_index(
         rows, cols, n_loc, p_loc, tile_size, row_block)
-    device = torch.device(device)
+    device = resolve_device(device)
     bricks = torch.zeros((max(n_bricks, 1), row_block, tile_size),
                          dtype=torch.float32, device=device)
     if n_bricks:
@@ -318,9 +359,11 @@ def build_block_sparse(coo: SparseCOO, tile_size: int, *,
     return design, info
 
 
-def dense_design(X, tile_size: int, *, device="cpu"):
+def dense_design(X, tile_size: int, *, device=None):
     """(DenseDesign, DesignInfo) from an (n, p) array; features are padded
-    with zero columns to a tile multiple on the device itself."""
+    with zero columns to a tile multiple on the device itself (None: the
+    CUDA card)."""
+    device = resolve_device(device)
     X = np.asarray(X, np.float32)
     n, p = X.shape
     data = torch.zeros((n, p + (-p) % tile_size), dtype=torch.float32,
@@ -331,10 +374,12 @@ def dense_design(X, tile_size: int, *, device="cpu"):
 
 def as_design(X, tile_size: int, *, row_block: int = 256,
               reorder: bool = True, info: Optional[DesignInfo] = None,
-              device="cpu"):
+              device=None):
     """Coerce a dense array, a SparseCOO or a pre-built design into
-    (DesignMatrix, DesignInfo).  A pre-built design must come with the
-    DesignInfo of its builder, which maps beta back to feature order."""
+    (DesignMatrix, DesignInfo) on ``device`` (None: the CUDA card).  A
+    pre-built design must come with the DesignInfo of its builder, which
+    maps beta back to feature order."""
+    device = resolve_device(device)
     if isinstance(X, DesignMatrix):
         if info is None:
             raise ValueError(
@@ -343,7 +388,7 @@ def as_design(X, tile_size: int, *, row_block: int = 256,
                 "to the original feature order")
         if X.tile_size != tile_size:
             raise ValueError(f"design tile_size {X.tile_size} != {tile_size}")
-        if X.device.type != torch.device(device).type:
+        if X.device.type != device.type:
             raise ValueError(f"design lives on {X.device}, not {device}")
         return X, info
     if isinstance(X, SparseCOO):

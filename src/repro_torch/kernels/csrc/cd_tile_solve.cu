@@ -12,18 +12,14 @@
 // T = 256) and one read of G (256 KiB), microseconds for the card's rates,
 // but every step depends on the one before it.  The fp32 G of one tile does
 // not fit in the 227 KB of shared memory a block may hold, so it stays in
-// global memory.  Design: one block of T threads; thread k owns g_k and d_k
-// in registers.  At step j thread j forms the update and writes its delta to
-// shared slot j; one __syncthreads() later every thread k applies
-// g_k -= mu delta G[k, j].  Thread k reads row k of G left to right over the
-// chain, so each 128-byte line it touches serves 32 steps from L1; the loads
-// do not depend on the chain and are issued ahead of the barrier.  Each slot
-// is written once, so one barrier per step suffices.  The arithmetic is
-// rounded step by step (no fused multiply-add) in the order of the plain
-// version, so the kernel reproduces it bit for bit on the same inputs.
+// global memory.  Design: one block of T threads running the chain of
+// cd_chain.cuh (thread k owns g_k and d_k in registers, one barrier per
+// step, rounded step by step so it matches the plain version bit for bit).
 // Gauss-Seidel couples the tiles through the margins, so there is one launch
 // per tile.
 #include <cuda_runtime.h>
+
+#include "cd_chain.cuh"
 
 namespace {
 
@@ -37,37 +33,9 @@ __global__ void cd_tile_solve_kernel(const float* __restrict__ G,
                                      float* __restrict__ out, int T) {
   extern __shared__ float delta_s[];
   const int k = threadIdx.x;
-  const float mu = params[0];
-  const float nu = params[1];
-  const float lam1 = params[2];
-  const float lam2 = params[3];
-  float gk = g[k];
-  float dk = dbeta[k];
-  const float bk = beta[k];
-  const float hk = h[k];
-  const float l1 = __fmul_rn(lam1, penf[k]);
-  const float den = __fadd_rn(__fadd_rn(__fmul_rn(mu, hk), nu),
-                              __fmul_rn(lam2, penf[k]));
-  const float den_safe = fmaxf(den, 1e-30f);
-  const float muhk = __fmul_rn(mu, hk);
-  const float* Grow = G + (long long)k * T;
-  for (int j = 0; j < T; ++j) {
-    const float Gkj = __ldg(Grow + j);
-    if (k == j) {
-      float num = __fadd_rn(__fadd_rn(gk, __fmul_rn(muhk, __fadd_rn(bk, dk))),
-                            __fmul_rn(nu, bk));
-      float mag = fmaxf(__fsub_rn(fabsf(num), l1), 0.f);
-      float sgn = num > 0.f ? 1.f : (num < 0.f ? -1.f : 0.f);
-      float u = __fdiv_rn(__fmul_rn(sgn, mag), den_safe);
-      if (!(den > 0.f)) u = bk;
-      float dnew = __fsub_rn(u, bk);
-      delta_s[j] = __fsub_rn(dnew, dk);
-      dk = dnew;
-    }
-    __syncthreads();
-    gk = __fsub_rn(gk, __fmul_rn(__fmul_rn(mu, delta_s[j]), Gkj));
-  }
-  out[k] = dk;
+  out[k] = repro::cd_chain(G, g[k], h[k], beta[k], dbeta[k], penf[k],
+                           params[0], params[1], params[2], params[3],
+                           delta_s, T, k);
 }
 
 }  // namespace

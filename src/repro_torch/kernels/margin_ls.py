@@ -1,0 +1,55 @@
+"""K6 margin_ls: fused launch 2 of the Jacobi superstep (dense).
+
+The CUDA kernel is ``csrc/margin_ls.cu``; it replaces
+``repro/kernels/superstep_tile.py::margin_ls_pallas``.  ``plain`` is its
+plain PyTorch version (``kernels/ref.py``).  One logical launch is two CUDA
+launches: the per-block pass and the fixed-order finishing sum.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.glm_stats import FAMILY_CODES
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = build.CudaKernel(
+    "margin_ls", "repro_margin_ls",
+    [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+     _P])
+
+ROWS_PER_BLOCK = 1024     # kRowsPerBlock in the source
+
+plain = ref.fused_ls_dense
+
+
+def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None):
+    """(xdb (n,), losses (K,)) from the CUDA kernel; X (n, p) row-major with
+    p a multiple of 4, read in place."""
+    if family not in FAMILY_CODES:
+        raise ValueError(f"margin_ls has no CUDA body for family {family!r}")
+    build.check_cuda("margin_ls", torch.float32, X, dbeta, y, xb, weights,
+                     alphas, offset)
+    n, p = X.shape
+    if p % 4 or X.data_ptr() % 16 or dbeta.shape != (p,) or n == 0 or any(
+            t is not None and t.shape != (n,)
+            for t in (y, xb, weights, offset)) \
+            or alphas.dim() != 1 or alphas.shape[0] == 0:
+        raise ValueError(
+            f"margin_ls: bad shapes X {tuple(X.shape)} (p a multiple of 4, "
+            f"16-byte aligned), dbeta {tuple(dbeta.shape)}, alphas "
+            f"{tuple(alphas.shape)}")
+    K = alphas.shape[0]
+    nblocks = -(-n // ROWS_PER_BLOCK)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    xdb = torch.empty(n, **f32)
+    partials = torch.empty(nblocks * K, **f32)
+    losses = torch.empty(K, **f32)
+    KERNEL(build.ptr(X), n, p, build.ptr(dbeta), build.ptr(y), build.ptr(xb),
+           build.ptr(weights), build.ptr(offset), build.ptr(alphas), K,
+           build.ptr(xdb), build.ptr(partials), build.ptr(losses),
+           FAMILY_CODES[family], build.stream_of(X))
+    return xdb, losses

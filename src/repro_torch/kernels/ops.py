@@ -8,13 +8,17 @@ through the kernels.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import glm as glm_lib
 from repro_torch.kernels import alpha_search as alpha_search_k
 from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
 from repro_torch.kernels import glm_stats as glm_stats_k
+from repro_torch.kernels import margin_ls as margin_ls_k
+from repro_torch.kernels import predict_tile as predict_tile_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import stats_gram_solve as stats_gram_solve_k
 from repro_torch.kernels import tile_gram as tile_gram_k
 
 KERNELS = {
@@ -22,6 +26,9 @@ KERNELS = {
     "cd_tile_solve": cd_tile_solve_k.KERNEL,
     "tile_gram": tile_gram_k.KERNEL,
     "alpha_search": alpha_search_k.KERNEL,
+    "stats_gram_solve": stats_gram_solve_k.KERNEL,
+    "margin_ls": margin_ls_k.KERNEL,
+    "predict_tile": predict_tile_k.KERNEL,
 }
 
 
@@ -54,15 +61,10 @@ def cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1, lam2, *,
     if not _on_card(g):
         return ref.cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1,
                                  lam2, penf=penf)
-    # fill kernels, not host-to-device copies: a copy from pageable host
-    # memory would make the host wait for the card once per tile
-    mu = mu.to(torch.float32).reshape(()) if torch.is_tensor(mu) \
-        else g.new_full((), mu)
-    params = torch.stack([mu, g.new_full((), nu), g.new_full((), lam1),
-                          g.new_full((), lam2)])
     if penf is None:
         penf = torch.ones_like(g)
-    return cd_tile_solve_k.launch(G, g, h, beta_t, dbeta_t, params, penf)
+    return cd_tile_solve_k.launch(G, g, h, beta_t, dbeta_t,
+                                  _params(mu, nu, lam1, lam2, g), penf)
 
 
 def tile_gram(bricks, rows, n_valid, w, r):
@@ -102,3 +104,130 @@ def alpha_search(y, xb, xdb, alphas, family, *, weights=None, offset=None):
                                 offset=offset)
     return alpha_search_k.launch(y, xb, xdb, weights, alphas, fam.name,
                                  offset=offset)
+
+
+def _params(mu, nu, lam1, lam2, like):
+    """[mu, nu, lam1, lam2] as a device (4,) f32 tensor, built by fill
+    kernels: a copy from pageable host memory would make the host wait for
+    the card."""
+    mu = mu.to(torch.float32).reshape(()) if torch.is_tensor(mu) \
+        else like.new_full((), mu)
+    return torch.stack([mu, like.new_full((), nu), like.new_full((), lam1),
+                        like.new_full((), lam2)])
+
+
+def jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2, *, penf=None,
+                       tile_live=None):
+    """The (p,) Jacobi step: each live tile's chain from a zero step (K2 per
+    live tile on the card); dead tiles (host ``tile_live`` False) get 0."""
+    if not _on_card(g_all):
+        return ref.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+                                      penf=penf, tile_live=tile_live)
+    nt, T = g_all.shape
+    dbeta = torch.zeros_like(beta)
+    zeros = torch.zeros_like(g_all[0])
+    for t in range(nt):
+        if tile_live is not None and not tile_live[t]:
+            continue
+        sl = slice(t * T, (t + 1) * T)
+        dbeta[sl] = cd_tile_solve(
+            G_all[t], g_all[t], torch.diagonal(G_all[t]).contiguous(),
+            beta[sl], zeros, mu, nu, lam1, lam2,
+            penf=None if penf is None else penf[sl])
+    return dbeta
+
+
+def tile_order(tile_live, nt: int, device):
+    """(order (nt,) int32 on ``device``: live tiles first, then dead ones;
+    n_live), the tile remap of the fused kernel.  The host mask goes over
+    through pinned memory without blocking the host."""
+    live = np.ones(nt, bool) if tile_live is None \
+        else np.asarray(tile_live, bool)
+    order = np.concatenate([np.flatnonzero(live), np.flatnonzero(~live)])
+    host = torch.from_numpy(order.astype(np.int32)).pin_memory()
+    return host.to(device, non_blocking=True), int(live.sum())
+
+
+def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
+                      weights=None, offset=None, penf=None, tile_live=None):
+    """Fused launch 1 of the Jacobi superstep: link stats, every live tile's
+    Gram and gradient, and each live tile's chain from a zero step.
+
+    Returns (loss_i, s, w, dbeta (p,), G_all (nt, T, T), g_all (nt, T)).
+    ``tile_live`` is an optional host (nt,) bool mask: dead tiles cost no
+    Gram or solve work and get G = g = 0 and a zero step.  A dense design
+    on the card runs K5 (``stats_gram_solve``) over the row-major data in
+    place; a brick design on the card composes K1, then K3 and K2 for each
+    live tile (the reference has no fused brick kernel either).
+    """
+    fam = glm_lib.resolve_family(family)
+    if weights is None:
+        weights = torch.ones_like(y)
+    dense = hasattr(design, "tiles3")
+    if not _on_card(y):
+        if dense:
+            loss_i, s, w, G_all, g_all, dbeta = ref.stats_gram_solve(
+                design.tiles3(), y, xb, weights, beta, fam, mu=mu, nu=nu,
+                lam1=lam1, lam2=lam2, offset=offset, penf=penf,
+                tile_live=tile_live)
+            return loss_i, s, w, dbeta, G_all, g_all
+        b3, rows, valid = design.gather_all_tiles()
+        loss_i, s, w, G_all, g_all = ref.fused_stats_gram_bricks(
+            b3, rows, valid, y, xb, weights, fam, offset=offset,
+            tile_live=tile_live)
+        dbeta = ref.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1,
+                                       lam2, penf=penf, tile_live=tile_live)
+        return loss_i, s, w, dbeta, G_all, g_all
+    if penf is None:
+        penf = torch.ones_like(beta)
+    if dense:
+        order, n_live = tile_order(tile_live, design.n_tiles, y.device)
+        loss_i, s, w, G_all, g_all, dbeta = stats_gram_solve_k.launch(
+            design.data, y, xb, weights, offset, beta, penf,
+            _params(mu, nu, lam1, lam2, y), order, n_live, design.tile_size,
+            fam.name)
+        return loss_i, s, w, dbeta, G_all, g_all
+    loss_i, s, w = glm_stats(y, xb, fam, weights=weights, offset=offset)
+    G_all, g_all = design.all_tile_grams(w, s, tile_live)
+    dbeta = jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+                               penf=penf, tile_live=tile_live)
+    return loss_i, s, w, dbeta, G_all, g_all
+
+
+def fused_ls(design, y, xb, dbeta, alphas, family, *, weights=None,
+             offset=None):
+    """Fused launch 2 of the Jacobi superstep: the margin delta xdb = X dbeta
+    and every candidate step's loss, (xdb (n,), losses (K,)).  A dense
+    design on the card runs K6 (``margin_ls``); a brick design forms xdb
+    with ``design.matvec`` and the losses with K4 over all candidates."""
+    fam = glm_lib.resolve_family(family)
+    if weights is None:
+        weights = torch.ones_like(y)
+    if hasattr(design, "tiles3"):
+        if not _on_card(y):
+            return ref.fused_ls_dense(design.tiles3(), y, xb, dbeta, weights,
+                                      alphas, fam, offset=offset)
+        return margin_ls_k.launch(design.data, dbeta, y, xb, weights, alphas,
+                                  fam.name, offset=offset)
+    xdb = design.matvec(dbeta)
+    return xdb, alpha_search(y, xb, xdb, alphas, fam, weights=weights,
+                             offset=offset)
+
+
+def predict_tile(slots, vals, table, b0, family, *, kind="link"):
+    """Fused sparse scoring (K7): out[b, l] = link(sum_j vals[b, j]
+    table[slots[b, j], l] + b0[l]).
+
+    slots (B, J) int32, vals (B, J) f32, table (A+1, L) f32 with an all-zero
+    last row (the padding target), b0 (L,).  A family without a link body
+    in the kernel raises on either device: there is no fall back.
+    """
+    fam = glm_lib.resolve_family(family)
+    if kind not in ("link", "response"):
+        raise ValueError(f"unknown kind {kind!r}; use 'link' or 'response'")
+    if fam.name not in predict_tile_k.LINK_CODES:
+        raise ValueError(
+            f"predict_tile has no link body for family {fam.name!r}")
+    if not _on_card(vals):
+        return ref.predict_tile(slots, vals, table, b0, fam, kind=kind)
+    return predict_tile_k.launch(slots, vals, table, b0, fam.name, kind)

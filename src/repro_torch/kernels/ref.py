@@ -1,12 +1,18 @@
-"""Plain PyTorch versions of the four CUDA kernels of this package.
+"""Plain PyTorch versions of the CUDA kernels of this package.
 
 They mirror ``repro/kernels/ref.py`` (the JAX oracles) operation for
 operation.  ``kernels/ops.py`` runs them for tensors on the CPU, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  Nothing
 on the solver's path calls them for a CUDA tensor.
+
+``tile_live`` arguments are optional host (n_tiles,) bool masks: only the
+live tiles' Grams are formed, and dead tiles get G = g = 0 and a zero step
+(the JAX oracle's ``shaped_tile_grams`` compacts the same way, under a
+``lax.cond`` over fixed compaction sizes that eager PyTorch does not need).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import glm as glm_lib
@@ -19,9 +25,11 @@ def cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1, lam2, penf=None):
     beta_t the fixed outer iterate; dbeta_t the accumulated step (updated);
     penf optional (T,) penalty factors (0 = unpenalized).  Returns the new
     (T,) step.  Updating coordinate j by delta changes g_k by
-    -mu * delta * G[k, j], so X is never touched again.
+    -mu * delta * G[k, j], so X is never touched again.  Leading batch
+    dimensions solve several tiles side by side (the Jacobi sweep), each
+    with the same operations as one tile alone.
     """
-    T = g.shape[0]
+    T = g.shape[-1]
     pf = torch.ones_like(g) if penf is None else penf
     mu = torch.as_tensor(mu, dtype=g.dtype, device=g.device)
     nu = torch.as_tensor(nu, dtype=g.dtype, device=g.device)
@@ -32,15 +40,32 @@ def cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1, lam2, penf=None):
     g_c = g.clone()
     d_c = dbeta_t.clone()
     for j in range(T):
-        num = g_c[j] + mu * h[j] * (beta_t[j] + d_c[j]) + nu * beta_t[j]
-        u = glm_lib.soft_threshold(num, lam1v[j]) / den_safe[j]
+        b_j = beta_t[..., j]
+        num = g_c[..., j] + mu * h[..., j] * (b_j + d_c[..., j]) + nu * b_j
+        u = glm_lib.soft_threshold(num, lam1v[..., j]) / den_safe[..., j]
         # dead coordinate (all-zero column, nu == lam2 == 0): keep at 0
-        u = torch.where(den[j] > 0, u, beta_t[j])
-        d_new = u - beta_t[j]
-        delta = d_new - d_c[j]
-        g_c = g_c - mu * delta * G[:, j]
-        d_c[j] = d_new
+        u = torch.where(den[..., j] > 0, u, b_j)
+        d_new = u - b_j
+        delta = d_new - d_c[..., j]
+        g_c = g_c - (mu * delta)[..., None] * G[..., :, j]
+        d_c[..., j] = d_new
     return d_c
+
+
+def jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2, penf=None,
+                       tile_live=None):
+    """Every tile's chain from a zero step (Jacobi: the tiles do not see
+    each other's steps); returns the (p,) step, zero on dead tiles."""
+    nt, T = g_all.shape
+    beta_r = beta.reshape(nt, T)
+    penf_r = None if penf is None else penf.reshape(nt, T)
+    h_all = torch.diagonal(G_all, dim1=1, dim2=2)
+    d = cd_tile_solve(G_all, g_all, h_all, beta_r, torch.zeros_like(beta_r),
+                      mu, nu, lam1, lam2, penf=penf_r)
+    if tile_live is not None:
+        live = torch.from_numpy(np.asarray(tile_live, bool)).to(d.device)
+        d = torch.where(live[:, None], d, torch.zeros_like(d))
+    return d.reshape(-1)
 
 
 def tile_gram(bricks, rows, n_valid, w2, r2):
@@ -74,3 +99,118 @@ def alpha_search(y, xb, xdb, weights, alphas, family, offset=None):
     m = xb[None, :] + alphas[:, None] * xdb[None, :]
     loss, _, _ = fam.stats(y[None, :], m)
     return torch.sum(loss * weights[None, :], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# fused superstep (K5 stats_gram_solve, K6 margin_ls)
+# ---------------------------------------------------------------------------
+
+
+def gram_dense_tiles(Xt3, w, r):
+    """(G_all (nt, T, T), g_all (nt, T)) from the tile-major (nt, n, T)
+    operand: G_t = X_t^T diag(w) X_t, g_t = X_t^T r, one batched product
+    each, summed in float64 and rounded to float32.  A float32 product on
+    the card may sum its n rows in one running sum, which drifts by up to
+    n x 6e-8 of a sum of near-equal terms such as the intercept's diagonal
+    entry, so the plain version would be the worse of the two it is held
+    against."""
+    X64 = Xt3.double()
+    G = torch.matmul((X64 * w.double()[None, :, None]).transpose(1, 2), X64)
+    g = torch.matmul(X64.transpose(1, 2), r.double()[None, :, None])[..., 0]
+    return G.float(), g.float()
+
+
+def gram_brick_tiles(b3, rows, valid, w, r):
+    """(G_all, g_all) from the batched brick layout of
+    ``BlockSparseDesign.gather_all_tiles``: b3 (nt, K, rb, T), rows (nt, K)
+    row-block ids, valid (nt, K) 0/1.  Each tile's K bricks are one
+    (K rb, T) operand of a batched product, summed in float64 as in
+    ``gram_dense_tiles``."""
+    nt, K, rb, T = b3.shape
+    b3f = b3.reshape(nt, K * rb, T).double()
+    rows = rows.long()
+    wk = (w.reshape(-1, rb)[rows] * valid[..., None]).reshape(nt, K * rb, 1)
+    rk = (r.reshape(-1, rb)[rows] * valid[..., None]).reshape(nt, K * rb, 1)
+    G = torch.matmul((b3f * wk.double()).transpose(1, 2), b3f)
+    g = torch.matmul(b3f.transpose(1, 2), rk.double())[..., 0]
+    return G.float(), g.float()
+
+
+def shaped_tile_grams(n_tiles, gram_of_ids, tile_live):
+    """The live tiles' (G, g) from ``gram_of_ids(ids)``, scattered into
+    zeros; every tile when ``tile_live`` is None."""
+    if tile_live is None:
+        return gram_of_ids(slice(None))
+    ids = torch.from_numpy(np.flatnonzero(np.asarray(tile_live, bool)))
+    G_s, g_s = gram_of_ids(ids)
+    G = G_s.new_zeros((n_tiles,) + tuple(G_s.shape[1:]))
+    g = g_s.new_zeros((n_tiles,) + tuple(g_s.shape[1:]))
+    G[ids.to(G.device)] = G_s
+    g[ids.to(g.device)] = g_s
+    return G, g
+
+
+def fused_stats_gram_dense(Xt3, y, xb, weights, family, offset=None,
+                           tile_live=None):
+    """(loss_i, s, w, G_all, g_all): the link stats and every live tile's
+    Gram and gradient (r = s: the step enters at zero) on the dense
+    tile-major layout."""
+    loss_i, s, w = glm_stats(y, xb, weights, family, offset=offset)
+    G, g = shaped_tile_grams(
+        Xt3.shape[0], lambda ids: gram_dense_tiles(Xt3[ids], w, s),
+        tile_live)
+    return loss_i, s, w, G, g
+
+
+def fused_stats_gram_bricks(b3, rows, valid, y, xb, weights, family,
+                            offset=None, tile_live=None):
+    """Brick-layout twin of ``fused_stats_gram_dense``."""
+    loss_i, s, w = glm_stats(y, xb, weights, family, offset=offset)
+    G, g = shaped_tile_grams(
+        b3.shape[0],
+        lambda ids: gram_brick_tiles(b3[ids], rows[ids], valid[ids], w, s),
+        tile_live)
+    return loss_i, s, w, G, g
+
+
+def stats_gram_solve(Xt3, y, xb, weights, beta, family, *, mu, nu, lam1,
+                     lam2, offset=None, penf=None, tile_live=None):
+    """K5's function: (loss_i, s, w, G_all, g_all, dbeta (p,)), the stats,
+    every live tile's Gram and gradient, and each live tile's chain from a
+    zero step; dead tiles get G = g = 0 and a zero step."""
+    loss_i, s, w, G, g = fused_stats_gram_dense(
+        Xt3, y, xb, weights, family, offset=offset, tile_live=tile_live)
+    dbeta = jacobi_tile_solves(G, g, beta, mu, nu, lam1, lam2, penf=penf,
+                               tile_live=tile_live)
+    return loss_i, s, w, G, g, dbeta
+
+
+def fused_ls_dense(Xt3, y, xb, dbeta, weights, alphas, family, offset=None):
+    """K6's function: the margin delta xdb = X dbeta (summed over tiles)
+    and every candidate step's loss, (xdb (n,), losses (K,))."""
+    nt, _, T = Xt3.shape
+    dr = dbeta.reshape(nt, T)
+    xdb = torch.sum(torch.matmul(Xt3, dr[:, :, None])[..., 0], dim=0)
+    losses = alpha_search(y, xb, xdb, weights, alphas, family,
+                          offset=offset)
+    return xdb, losses
+
+
+# ---------------------------------------------------------------------------
+# predict_tile (K7): fused sparse scoring for serving
+# ---------------------------------------------------------------------------
+
+
+def predict_tile(slots, vals, table, b0, family, kind="link"):
+    """out[b, l] = link(sum_j vals[b, j] table[slots[b, j], l] + b0[l]).
+
+    slots (B, J) int32 rows of the compacted table (padding and inactive
+    features point at its trailing all-zero row); vals (B, J) f32; table
+    (A+1, L) f32; b0 (L,).  ``kind="link"`` gives margins, ``"response"``
+    the family's inverse link.
+    """
+    rows = table[slots.long()]                               # (B, J, L)
+    m = torch.einsum("bj,bjl->bl", vals, rows) + b0.reshape(1, -1)
+    if kind == "link":
+        return m
+    return glm_lib.resolve_family(family).predict(m)

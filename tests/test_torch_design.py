@@ -41,7 +41,8 @@ SHAPES = [  # (n, p, used_cols, tile, row_block)
 def test_build_block_sparse_is_bit_identical(n, p, used, T, rb, reorder):
     jc, tc = _coo_pair(n + p, n, p, 4 * n, used)
     jd, ji = jdesign.build_block_sparse(jc, T, row_block=rb, reorder=reorder)
-    td, ti = tdesign.build_block_sparse(tc, T, row_block=rb, reorder=reorder)
+    td, ti = tdesign.build_block_sparse(tc, T, row_block=rb, reorder=reorder,
+                                        device="cpu")
     np.testing.assert_array_equal(ti.col_of_feature, ji.col_of_feature)
     np.testing.assert_array_equal(td.bricks.numpy(), np.asarray(jd.bricks))
     np.testing.assert_array_equal(td.brick_row.numpy(),
@@ -86,7 +87,7 @@ def _operators_agree(td, jd, seed):
 def test_brick_operators_match_jax(n, p, used, T, rb):
     jc, tc = _coo_pair(n * p, n, p, 4 * n, used)
     jd, _ = jdesign.build_block_sparse(jc, T, row_block=rb)
-    td, _ = tdesign.build_block_sparse(tc, T, row_block=rb)
+    td, _ = tdesign.build_block_sparse(tc, T, row_block=rb, device="cpu")
     _operators_agree(td, jd, seed=n)
     # the trailing all-zero features fill whole tiles with no bricks
     assert np.diff(td.tile_ptr).min() >= 0
@@ -97,7 +98,7 @@ def test_dense_operators_match_jax(n, p, T):
     X = np.random.default_rng(p).normal(size=(n, p)).astype(np.float32)
     X[:, p - 3:] = 0.0                  # all-zero trailing columns
     jd, ji = jdesign.dense_design(X, T)
-    td, ti = tdesign.dense_design(X, T)
+    td, ti = tdesign.dense_design(X, T, device="cpu")
     assert td.shape == tuple(jd.shape) and ti.shape == ji.shape
     np.testing.assert_array_equal(td.data.numpy(), np.asarray(jd.data))
     _operators_agree(td, jd, seed=n)
@@ -110,21 +111,24 @@ def test_design_from_numpy_carries_a_jax_design_across():
         tile_size=16, bricks=np.asarray(jd.bricks),
         brick_row=np.asarray(jd.brick_row),
         brick_tile=np.asarray(jd.brick_tile),
-        tile_ptr=np.asarray(jd.tile_ptr), row_block=32, n_rows=jd.n_rows)
-    built, _ = tdesign.build_block_sparse(tc, 16, row_block=32)
+        tile_ptr=np.asarray(jd.tile_ptr), row_block=32, n_rows=jd.n_rows,
+        device="cpu")
+    built, _ = tdesign.build_block_sparse(tc, 16, row_block=32,
+                                         device="cpu")
     assert td.max_bricks_per_tile == built.max_bricks_per_tile
     assert torch.equal(td.bricks, built.bricks)
     _operators_agree(td, jd, seed=1)
     X = np.random.default_rng(0).normal(size=(20, 32)).astype(np.float32)
-    dd = convert.design_from_numpy(tile_size=16, data=X)
+    dd = convert.design_from_numpy(tile_size=16, data=X, device="cpu")
     assert dd.n_tiles == 2 and torch.equal(dd.data, torch.from_numpy(X))
     with pytest.raises(ValueError):
-        convert.design_from_numpy(tile_size=16, data=X[:, :20])
+        convert.design_from_numpy(tile_size=16, data=X[:, :20],
+                                  device="cpu")
 
 
 def test_design_info_pack_unpack_round_trip():
     jc, tc = _coo_pair(9, 100, 70, 400, 60)
-    td, ti = tdesign.build_block_sparse(tc, 16, row_block=32)
+    td, ti = tdesign.build_block_sparse(tc, 16, row_block=32, device="cpu")
     _, ji = jdesign.build_block_sparse(jc, 16, row_block=32)
     beta = np.arange(70, dtype=np.float32)
     packed = ti.pack_beta(beta, td.shape[1])

@@ -9,14 +9,18 @@ tests).  On the card:
 Tolerances: K2 is rounded step by step like its plain version and is held
 bit for bit; K1 at 1e-5 (probit 3e-4: erfc against log_ndtr); K3 and K4
 are float32 sums in another order, held at 1e-5 relative to the largest
-entry.
+entry.  K5 holds its stats like K1 and G, g like K3; its step runs the K2
+chain on a G summed in another order, so it is held at 1e-4 of the largest
+step.  K6 and K7 are float32 sums in another order (1e-5).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import linesearch
 from repro_torch.core.dglmnet import DGLMNETConfig
 from repro_torch.core.solver import GLMSolver
+from repro_torch.data import design as tdesign
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops, ref
 
@@ -132,6 +136,109 @@ def test_fit_on_the_card_matches_the_cpu(cuda, sparse):
     assert sum(cc.values()) == 0
     assert cg["glm_stats"] >= 6 and cg["alpha_search"] >= 12
     assert cg["cd_tile_solve"] >= 6 * nt
+    assert (cg["tile_gram"] > 0) == sparse
+    np.testing.assert_allclose(rg.history["f"], rc.history["f"], rtol=1e-4)
+    np.testing.assert_allclose(rg.beta, rc.beta, atol=1e-3)
+
+
+def _labels(rng, family, n, dev):
+    y = rng.poisson(1.0, n) if family == "poisson" \
+        else rng.choice([-1.0, 1.0], n)
+    return torch.from_numpy(y.astype(np.float32)).to(dev)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("T", [128, 256])
+def test_stats_gram_solve_kernel(cuda, family, T):
+    rng = np.random.default_rng(T)
+    n, nt = 20_003, 3
+    X = (0.1 * rng.normal(size=(n, nt * T))).astype(np.float32)
+    design, _ = tdesign.dense_design(X, T, device=cuda)
+    y = _labels(rng, family, n, cuda)
+    beta = _vec(rng, nt * T, cuda, 0.1)
+    xb, off = design.matvec(beta), _vec(rng, n, cuda, 0.1)
+    wt = torch.rand(n, device=cuda)
+    penf = torch.rand(nt * T, device=cuda) + 0.5
+    live = np.array([True, False, True])
+    kw = dict(mu=torch.tensor(1.5, device=cuda), nu=1e-6, lam1=0.02,
+              lam2=0.01)
+    before = ops.launch_counts()["stats_gram_solve"]
+    got = ops.fused_stats_sweep(design, y, xb, beta, family, weights=wt,
+                                offset=off, penf=penf, tile_live=live, **kw)
+    assert ops.launch_counts()["stats_gram_solve"] == before + 1
+    want = ref.stats_gram_solve(design.tiles3(), y, xb, wt, beta, family,
+                                offset=off, penf=penf, tile_live=live, **kw)
+    tol = 3e-4 if family == "probit" else 1e-5
+    for a, b in zip(got[:3], want[:3]):
+        assert _rel(a, b) <= tol
+    assert _rel(got[4], want[3]) <= tol and _rel(got[5], want[4]) <= tol
+    assert not got[4][1].any() and not got[5][1].any()
+    d, dw = got[3], want[5]
+    assert float((d - dw).abs().max()) <= 1e-4 * max(
+        float(dw.abs().max()), 1e-3)
+    assert not d[T:2 * T].any() and d.abs().max() > 0
+
+
+@pytest.mark.parametrize("family", FAMS)
+def test_margin_ls_kernel(cuda, family):
+    rng = np.random.default_rng(7)
+    n, p = 70_001, 384
+    X = (0.1 * rng.normal(size=(n, p))).astype(np.float32)
+    design, _ = tdesign.dense_design(X, 128, device=cuda)
+    y = _labels(rng, family, n, cuda)
+    xb, off, dbeta = _vec(rng, n, cuda), _vec(rng, n, cuda, 0.1), \
+        _vec(rng, p, cuda, 0.3)
+    wt = torch.rand(n, device=cuda)
+    cand = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=cuda)
+    xdb, losses = ops.fused_ls(design, y, xb, dbeta, cand, family,
+                               weights=wt, offset=off)
+    xdb2, losses2 = ref.fused_ls_dense(design.tiles3(), y, xb, dbeta, wt,
+                                       cand, family, offset=off)
+    assert _rel(xdb, xdb2) <= 1e-5 and _rel(losses, losses2) <= 1e-5
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("kind", ["link", "response"])
+def test_predict_tile_kernel(cuda, family, kind):
+    rng = np.random.default_rng(3)
+    A, L, B, J = 1000, 11, 3001, 45
+    table = np.zeros((A + 1, L), np.float32)
+    table[:-1] = 0.2 * rng.normal(size=(A, L))
+    slots = torch.from_numpy(rng.integers(0, A + 1, size=(B, J))
+                             .astype(np.int32)).to(cuda)
+    vals, b0 = _vec(rng, B * J, cuda).reshape(B, J), _vec(rng, L, cuda)
+    table = torch.from_numpy(table).to(cuda)
+    got = ops.predict_tile(slots, vals, table, b0, family, kind=kind)
+    want = ref.predict_tile(slots, vals, table, b0, family, kind=kind)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+def test_jacobi_fit_on_the_card_matches_the_cpu(cuda, sparse, fused):
+    if sparse:
+        ds = synthetic.make_sparse(n=3000, p=600, avg_nnz=20, k_true=30,
+                                   seed=1)
+    else:
+        ds = synthetic.make_dense(n=3000, p=300, k_true=20, seed=1)
+    cfg = DGLMNETConfig(tile_size=128, coupling="jacobi",
+                        fuse_superstep=fused)
+    fits = []
+    for dev in ("cpu", cuda):
+        s = GLMSolver(ds.train.X, ds.train.y, config=cfg, device=dev,
+                      fit_intercept=True, row_block=256)
+        ops.reset_launch_counts()
+        res = s.fit(lam1=0.05 * s.lambda_max(), max_outer=6, tol=0.0)
+        fits.append((res, ops.launch_counts()))
+    (rc, cc), (rg, cg) = fits
+    assert sum(cc.values()) == 0
+    dense_fused = fused and not sparse
+    assert (cg["stats_gram_solve"] > 0) == dense_fused
+    assert (cg["margin_ls"] > 0) == dense_fused
     assert (cg["tile_gram"] > 0) == sparse
     np.testing.assert_allclose(rg.history["f"], rc.history["f"], rtol=1e-4)
     np.testing.assert_allclose(rg.beta, rc.beta, atol=1e-3)

@@ -14,7 +14,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.core.dglmnet", "repro_torch.kernels.ops",
-           "repro_torch.data.design", "repro_torch.data.synthetic"]
+           "repro_torch.data.design", "repro_torch.data.synthetic",
+           "repro_torch.serve", "repro_torch.serve.engine",
+           "repro_torch.timing", "repro_torch.kernels.stats_gram_solve",
+           "repro_torch.kernels.margin_ls", "repro_torch.kernels.predict_tile"]
 
 
 def _port_files():

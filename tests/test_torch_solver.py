@@ -130,14 +130,15 @@ def test_supersteps_in_lock_step(kind, family):
     T, rb = 16, 32
     jd = _jax_design(kind, X, T, rb)
     if kind == "dense":
-        td = convert.design_from_numpy(tile_size=T, data=np.asarray(jd.data))
+        td = convert.design_from_numpy(tile_size=T, data=np.asarray(jd.data),
+                                       device="cpu")
     else:
         td = convert.design_from_numpy(
             tile_size=T, bricks=np.asarray(jd.bricks),
             brick_row=np.asarray(jd.brick_row),
             brick_tile=np.asarray(jd.brick_tile),
             tile_ptr=np.asarray(jd.tile_ptr), row_block=rb,
-            n_rows=jd.n_rows)
+            n_rows=jd.n_rows, device="cpu")
     n_rows, p_pad = td.shape
     nt = td.n_tiles
     pad = n_rows - len(y)
@@ -151,13 +152,14 @@ def test_supersteps_in_lock_step(kind, family):
                                                     tile_size=T),
                                             n_tiles_local=nt))
     tstep = tdglmnet.make_superstep(TConfig(family=family, tile_size=T),
-                                    n_tiles=nt)
+                                    n_tiles=nt, device="cpu")
     state = JState(jnp.zeros(p_pad), jnp.zeros(n_rows), jnp.float32(1.0),
                    jnp.zeros((1,), jnp.int32), jnp.int32(0))
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
     for _ in range(6):
         tstate = convert.state_from_numpy(state.beta, state.xb, state.mu,
-                                          state.cursor, state.step)
+                                          state.cursor, state.step,
+                                          device="cpu")
         new_t, mt = tstep(td, t(yv), t(wv), t(ov), lams, t(pfv), tstate)
         state, mj = jstep(jd, jnp.asarray(yv), jnp.asarray(wv),
                           jnp.asarray(ov), jnp.full((1,), nt, jnp.int32),
@@ -179,7 +181,7 @@ def test_supersteps_in_lock_step(kind, family):
 
 def test_candidate_alphas_match_jax():
     from repro.core import linesearch as jlinesearch
-    ours = tlinesearch.candidate_alphas(1e-3, 13).numpy()
+    ours = tlinesearch.candidate_alphas(1e-3, 13, device="cpu").numpy()
     theirs = np.asarray(jlinesearch.candidate_alphas(1e-3, 13))
     np.testing.assert_array_equal(ours, theirs)
     bt = tlinesearch.backtrack_chains(torch.from_numpy(ours[:3]), 0.5, 20)
@@ -205,15 +207,46 @@ def test_unported_options_raise():
     for bad in (dict(mesh=object()), dict(standardize=True)):
         with pytest.raises(NotImplementedError):
             TSolver(X, y, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TSolver(X, y, device="cpu",
-                config=TConfig(tile_size=8, coupling="jacobi"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TSolver(X, y, device="cpu", config=TConfig(
+            tile_size=8, coupling="jacobi", precision="bf16"))
     s = TSolver(X, y, **kw)
     s.fit(lam1=0.1, max_outer=3)
     for call in (s.fit_path, s.fit_cv,
-                 lambda: s.fit(ckpt_manager=object()),
-                 lambda: s.predict(tsparse.SparseCOO(
-                     np.zeros(1, np.int64), np.zeros(1, np.int64),
-                     np.ones(1, np.float32), (1, 6)))):
+                 lambda: s.fit(ckpt_manager=object())):
         with pytest.raises(NotImplementedError):
+            call()
+    # ported since: the Jacobi coupling and predict on SparseCOO rows
+    TSolver(X, y, device="cpu", config=TConfig(tile_size=8,
+                                               coupling="jacobi"))
+    out = s.predict(tsparse.SparseCOO(np.zeros(1, np.int64),
+                                      np.zeros(1, np.int64),
+                                      np.ones(1, np.float32), (1, 6)))
+    assert out.shape == (1,)
+
+
+def test_builders_default_to_the_card(monkeypatch):
+    """Every public entry point that places tensors takes device=None as
+    the card, and raises without one instead of running on the CPU."""
+    from repro_torch.data import design as tdesign
+    from repro_torch.serve import ScoringEngine, ServableModel
+    X = np.ones((8, 4), np.float32)
+    coo = tsparse.SparseCOO(np.arange(4), np.arange(4),
+                            np.ones(4, np.float32), (8, 4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: tdesign.dense_design(X, 4),
+        lambda: tdesign.build_block_sparse(coo, 4, row_block=4),
+        lambda: tdesign.as_design(X, 4),
+        lambda: convert.design_from_numpy(tile_size=4, data=X),
+        lambda: convert.state_from_numpy(np.zeros(4), np.zeros(8), 1.0),
+        lambda: tlinesearch.candidate_alphas(1e-3, 13),
+        lambda: tlinesearch.full_candidates(1e-3, 13, 0.5, 20),
+        lambda: tdglmnet.make_superstep(TConfig(tile_size=4), n_tiles=1),
+        lambda: ScoringEngine(ServableModel(
+            betas=np.ones((1, 4), np.float32),
+            intercepts=np.zeros(1, np.float32), family="squared")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
