@@ -25,6 +25,10 @@ drives each path through the entry points a user calls and checks it:
     counts the CUDA launches behind each of its logical launches; the
     unfused Jacobi superstep on the same data follows for comparison.
 
+K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
+the fp32 FMA one and the tensor-core one, with the share of each and the
+TF32 TFLOP/s executed, and checks that G is exactly symmetric.
+
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the counts must equal the path's exact needs.  Small fits
 on the card (Gauss-Seidel and both Jacobi forms) are also held against the
@@ -46,6 +50,7 @@ import time
 SEED = 0
 REPO = pathlib.Path(__file__).resolve().parent
 H100_FP32_FLOPS = 67e12     # dense fp32 outside the tensor cores (SXM, 700 W)
+H100_TF32_FLOPS = 495e12    # dense TF32 on the tensor cores (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 
 
@@ -86,6 +91,27 @@ def bound_ms(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bounds(bytes_moved: float, gram_flops: float, other_flops: float,
+                executed_flops: float, ms: float) -> dict:
+    """K3's and K5's two bounds.  gram_flops: one FMA a row for each of G's
+    T (T + 1) / 2 unique entries; other_flops: the rest (w scaling, g,
+    stats); executed_flops: the TF32 products the kernel issues (three a
+    product, over the whole upper blocks and rows it streams).  The FMA
+    bound puts all the work on the fp32 pipes; the tensor-core bound, the
+    least time on the pipe the kernel uses, three TF32 products of G's
+    unique entries.  Each share is that bound over ``ms``."""
+    fma, fma_by = bound_ms(bytes_moved, gram_flops + other_flops)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_tc = 3.0 * gram_flops / H100_TF32_FLOPS * 1e3
+    tc, tc_by = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc,
+                                                            "operations")
+    return dict(bound_ms=tc, bound_by=tc_by, bound_fma_ms=fma,
+                bound_fma_by=fma_by, share_of_tensor_core_bound=tc / ms,
+                share_of_fma_bound=fma / ms,
+                tflops_needed=gram_flops / ms / 1e9,
+                tf32_tflops_executed=executed_flops / ms / 1e9)
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -166,6 +192,7 @@ def fused_parity(np, torch, solver, dev, report, parity):
     from repro_torch.core import linesearch
     from repro_torch.kernels import margin_ls as margin_ls_k
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import gram_tc
     from repro_torch.kernels import stats_gram_solve as sgs_k
 
     design = solver.design
@@ -212,6 +239,8 @@ def fused_parity(np, torch, solver, dev, report, parity):
         check(not bool(got[4][3].any()) and not bool(got[3][3 * T:4 * T]
                                                      .any()),
               f"stats_gram_solve {fam}: the dead tile was touched")
+        check(torch.equal(got[4], got[4].transpose(1, 2)),
+              f"stats_gram_solve {fam}: G is not symmetric")
         ed = float((got[3] - want[5]).abs().max()) / max(
             float(want[5].abs().max()), 1e-3)
         parity[f"stats_gram_solve/{fam}/dbeta"] = ed
@@ -250,12 +279,14 @@ def fused_parity(np, torch, solver, dev, report, parity):
         torch.einsum("nti,ntj->tij", X3 * w_[:, None, None], X3),
         torch.einsum("nti,n->ti", X3, s_)), 3, 1)
     # G is symmetric: the least work is its T (T + 1) / 2 unique entries
-    # (one FMA a row each), the w scaling and g's FMAs, per tile
-    k5_flops = n_all * n * (T * (T + 1) + 3.0 * T) + 20.0 * n
+    # (one FMA a row each), beside the w scaling and g's FMAs, per tile
+    bn = gram_tc.band(T)
     k5_bytes = (n * n_all * T + 7 * n + nt * (T * T + T) + 3 * p) * 4.0
-    b_ms, b_by = bound_ms(k5_bytes, k5_flops)
+    bounds = gram_bounds(
+        k5_bytes, n_all * n * T * (T + 1.0), n_all * n * 3.0 * T + 20.0 * n,
+        6.0 * n_all * gram_tc.n_pairs(T) * bn * bn * n, k5_ms)
     report["stats_gram_solve"] = dict(
-        ms=k5_ms, plain_ms=k5_plain, bound_ms=b_ms, bound_by=b_by,
+        ms=k5_ms, plain_ms=k5_plain, **bounds,
         library_ms=k5_lib, library_covers="G and g only (torch.einsum)",
         plain_note="the plain version sums G and g in float64; the float32 "
                    "product is library_ms",
@@ -478,7 +509,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
     from repro_torch.kernels import glm_stats as glm_stats_k
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import gram_tc, ops, ref
     from repro_torch.kernels import tile_gram as tile_gram_k
 
     torch.manual_seed(SEED)
@@ -599,6 +630,13 @@ def main() -> None:
     e3 = max(errs(G, G2)[1], errs(g, g2)[1])
     parity["tile_gram"] = e3
     check(e3 <= tol["tile_gram"], f"tile_gram: error {e3}")
+    # only G's upper blocks are computed and mirrored, with no atomics: G
+    # is exactly symmetric and the same from run to run
+    G3, g3 = ops.tile_gram(tb, rows, K, w0, s0)
+    check(torch.equal(G, G.T), "tile_gram: G is not symmetric")
+    check(torch.equal(G, G3) and torch.equal(g, g3),
+          "tile_gram: G differs from run to run")
+    del G3, g3
     e3 = max(errs(G, G2)[0], errs(g, g2)[0])
     k3_ms = time_ms(torch, lambda: tile_gram_k.launch(tb, rows, K, w0, s0),
                     20)
@@ -608,13 +646,15 @@ def main() -> None:
     k3_lib = time_ms(torch, lambda: torch.einsum("kit,ki,kiu->tu", tb, wk,
                                                  tb), 5)
     # G is symmetric, so the least work is its T (T + 1) / 2 unique
-    # entries (one FMA a row each), the w scaling and g's FMAs
-    k3_flops = 1.0 * K * rb * T * (T + 1) + 3.0 * K * rb * T
+    # entries (one FMA a row each), beside the w scaling and g's FMAs
     k3_bytes = K * rb * T * 4 + K * 4 + 2 * K * rb * 4 + (T * T + T) * 4
-    b_ms, b_by = bound_ms(k3_bytes, k3_flops)
-    report["tile_gram"] = dict(ms=k3_ms, plain_ms=k3_plain, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=k3_lib,
-                               max_abs_err=e3, K=K)
+    bn, slab = gram_tc.band(T), gram_tc.SLAB
+    streamed = K * -(-rb // slab) * slab
+    bounds = gram_bounds(k3_bytes, 1.0 * K * rb * T * (T + 1),
+                         3.0 * K * rb * T,
+                         6.0 * gram_tc.n_pairs(T) * bn * bn * streamed, k3_ms)
+    report["tile_gram"] = dict(ms=k3_ms, plain_ms=k3_plain, **bounds,
+                               library_ms=k3_lib, max_abs_err=e3, K=K)
 
     # K2 on that tile's Gram block
     h = torch.diagonal(G).contiguous()
@@ -812,8 +852,11 @@ def main() -> None:
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            **({"plain_note": rep["plain_note"]} if "plain_note" in rep
-               else {})})
+            **{k: rep[k] for k in ("bound_fma_ms", "bound_fma_by",
+                                   "share_of_tensor_core_bound",
+                                   "share_of_fma_bound", "tflops_needed",
+                                   "tf32_tflops_executed", "plain_note")
+               if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

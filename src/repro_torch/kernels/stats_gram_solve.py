@@ -1,8 +1,10 @@
 """K5 stats_gram_solve: fused launch 1 of the Jacobi superstep (dense).
 
 The CUDA kernel is ``csrc/stats_gram_solve.cu``; it replaces
-``repro/kernels/superstep_tile.py::stats_gram_solve_pallas``.  ``plain`` is
-its plain PyTorch version (``kernels/ref.py``).  One logical launch is three
+``repro/kernels/superstep_tile.py::stats_gram_solve_pallas``; its Gram
+products run on the tensor cores with the 3xTF32 split of
+``csrc/gram_tc.cuh``.  ``plain`` is its plain PyTorch version
+(``kernels/ref.py``).  One logical launch is three
 CUDA launches: the partial Gram with the stats inline, a fixed-order
 reduction, and the tile solves.
 """
@@ -12,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, gram_tc, ref
 from repro_torch.kernels.glm_stats import FAMILY_CODES
 
 _P = ctypes.c_void_p
@@ -20,12 +22,9 @@ _I = ctypes.c_int
 KERNEL = build.CudaKernel(
     "stats_gram_solve", "repro_stats_gram_solve",
     [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-     _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+     _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 
-SUB = 64              # G sub-tile edge; T must be a multiple of it
-ROWS = 32             # rows staged per step; a row range is a multiple
-MAX_SPLITS = 32       # row ranges per (tile, sub-tile pair)
-MIN_ROWS = 4096       # fewest rows worth a range of their own
+SUB = 64              # T must be a multiple of it (the least block edge)
 
 plain = ref.stats_gram_solve
 
@@ -56,15 +55,21 @@ def launch(X, y, xb, weights, offset, beta, penf, params, order, n_live: int,
             f"stats_gram_solve: bad shapes X {tuple(X.shape)}, T {T}, order "
             f"{tuple(order.shape)}, n_live {n_live} (T a multiple of {SUB}, "
             "at most 1024)")
-    splits = max(1, min(MAX_SPLITS, n // MIN_ROWS))
+    if X.data_ptr() % 16:
+        raise ValueError("stats_gram_solve: X must be 16-byte aligned")
+    # row ranges of whole slabs: at most MAX_RANGE_ROWS rows, and enough
+    # blocks (live tiles x upper blocks x ranges) for every SM
+    bn, npairs = gram_tc.band(T), gram_tc.n_pairs(T)
+    splits = gram_tc.ranges(max(n, 1), max(n_live, 1) * npairs,
+                            gram_tc.MAX_RANGE_ROWS,
+                            gram_tc.sm_count(X.device))
     per = -(-max(n, 1) // splits)
-    per = -(-per // ROWS) * ROWS
-    nsub = T // SUB
-    npairs = nsub * (nsub + 1) // 2
+    per = -(-per // gram_tc.SLAB) * gram_tc.SLAB
+    splits = -(-max(n, 1) // per)
     slots = splits * max(n_live, 1)
     dev = X.device
     f32 = dict(dtype=torch.float32, device=dev)
-    Gp = torch.empty(slots * npairs * SUB * SUB, **f32)
+    Gp = torch.empty(slots * npairs * bn * bn, **f32)
     gp = torch.empty(slots * T, **f32)
     loss, s, w = (torch.empty(n, **f32) for _ in range(3))
     G = torch.empty((nt, T, T), **f32)
@@ -73,7 +78,7 @@ def launch(X, y, xb, weights, offset, beta, penf, params, order, n_live: int,
     KERNEL(build.ptr(X), n, p, T, build.ptr(y), build.ptr(xb),
            build.ptr(weights), build.ptr(offset), build.ptr(beta),
            build.ptr(penf), build.ptr(params), build.ptr(order), n_live,
-           splits, per, build.ptr(Gp), build.ptr(gp), build.ptr(loss),
+           splits, per, bn, build.ptr(Gp), build.ptr(gp), build.ptr(loss),
            build.ptr(s), build.ptr(w), build.ptr(G), build.ptr(g),
            build.ptr(dbeta), FAMILY_CODES[family], build.stream_of(X))
     return loss, s, w, G, g, dbeta

@@ -9,9 +9,11 @@ tests).  On the card:
 Tolerances: K2 is rounded step by step like its plain version and is held
 bit for bit; K1 at 1e-5 (probit 3e-4: erfc against log_ndtr); K3 and K4
 are float32 sums in another order, held at 1e-5 relative to the largest
-entry.  K5 holds its stats like K1 and G, g like K3; its step runs the K2
-chain on a G summed in another order, so it is held at 1e-4 of the largest
-step.  K6 and K7 are float32 sums in another order (1e-5).
+entry (K3's and K5's products are 3xTF32 on the tensor cores, which keep
+about 22 bits a product; their G must also come out exactly symmetric and
+within 1e-5 of float64 sums).  K5 holds its stats like K1 and G, g like
+K3; its step runs the K2 chain on a G summed in another order, so it is
+held at 1e-4 of the largest step.  K6 and K7 are float32 sums in another order (1e-5).
 """
 import numpy as np
 import pytest
@@ -115,6 +117,47 @@ def test_tile_gram_kernel(cuda, K, n_valid):
     for a, b in ((G, G2), (g, g2)):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-5 * max(float(b.abs().max()), 1))
+    assert torch.equal(G, G.T)
+
+
+def _rel64(G, G64):
+    """max |G - G64| over max |G64| (1 for an all-zero G64)."""
+    return float((G.double() - G64).abs().max()) / max(
+        float(G64.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("T,rb,K,n_valid", [
+    (64, 256, 9, 9),        # T = 64: one 64-wide block, one warpgroup
+    (128, 100, 40, 3),      # rb not a multiple of the 32-row slab
+    (256, 256, 300, 250),   # the sparse fit's tiling, many splits
+    (512, 64, 30, 1),       # n_valid below the split count
+    (256, 40, 6, 0),        # no live brick
+])
+def test_tile_gram_kernel_edges(cuda, T, rb, K, n_valid):
+    """K3 at the tensor-core tiling's ragged edges: G exactly symmetric and
+    within 1e-5 of float64 sums (an intercept column, w spread over 1e-6
+    to 0.25) as well as of the plain version."""
+    rng = np.random.default_rng(T + rb + K + n_valid)
+    n_rb = 50
+    b_np = rng.normal(size=(K, rb, T)).astype(np.float32)
+    b_np[:, :, 0] = 1.0
+    rows_np = rng.integers(0, n_rb, K).astype(np.int32)
+    w_np = rng.uniform(1e-6, 0.25, n_rb * rb).astype(np.float32)
+    r_np = rng.normal(size=n_rb * rb).astype(np.float32)
+    bricks = torch.from_numpy(b_np).to(cuda)
+    rows = torch.from_numpy(rows_np).to(cuda)
+    w, r = torch.from_numpy(w_np).to(cuda), torch.from_numpy(r_np).to(cuda)
+    G, g = ops.tile_gram(bricks, rows, n_valid, w, r)
+    G2, g2 = ref.tile_gram(bricks, rows, n_valid, w.reshape(n_rb, rb),
+                           r.reshape(n_rb, rb))
+    assert torch.equal(G, G.T)
+    for a, b in ((G, G2), (g, g2)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * max(float(b.abs().max()), 1))
+    wk = w_np.reshape(n_rb, rb)[rows_np[:n_valid]].astype(np.float64)
+    bk = b_np[:n_valid].astype(np.float64)
+    G64 = np.einsum("kit,ki,kiu->tu", bk, wk, bk)
+    assert _rel64(G.cpu(), torch.from_numpy(G64)) <= 1e-5
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -177,10 +220,56 @@ def test_stats_gram_solve_kernel(cuda, family, T):
         assert _rel(a, b) <= tol
     assert _rel(got[4], want[3]) <= tol and _rel(got[5], want[4]) <= tol
     assert not got[4][1].any() and not got[5][1].any()
+    assert torch.equal(got[4], got[4].transpose(1, 2))
     d, dw = got[3], want[5]
     assert float((d - dw).abs().max()) <= 1e-4 * max(
         float(dw.abs().max()), 1e-3)
     assert not d[T:2 * T].any() and d.abs().max() > 0
+
+
+@pytest.mark.parametrize("T,n,live", [
+    (64, 4_097, [True, False, True, True]),   # T = 64, one dead tile
+    (128, 50, [False, True]),                 # n under one slab
+    (256, 33_333, [True, False, False]),      # n_live < nt, ragged ranges
+    (512, 9_001, [True, True]),               # T = 512
+])
+def test_stats_gram_solve_kernel_edges(cuda, T, n, live):
+    """K5 at the tensor-core tiling's ragged edges: n not a multiple of the
+    slab or of the row range, dead tiles, every band edge; G exactly
+    symmetric, within 1e-5 of float64 sums with an intercept column, and
+    the stats, G, g and step held as in test_stats_gram_solve_kernel."""
+    rng = np.random.default_rng(T + n)
+    nt = len(live)
+    X = (0.3 * rng.normal(size=(n, nt * T))).astype(np.float32)
+    X[:, 0] = 1.0
+    design, _ = tdesign.dense_design(X, T, device=cuda)
+    y = _labels(rng, "logistic", n, cuda)
+    beta = _vec(rng, nt * T, cuda, 0.1)
+    xb, off = design.matvec(beta), _vec(rng, n, cuda, 0.1)
+    wt = torch.rand(n, device=cuda)
+    penf = torch.rand(nt * T, device=cuda) + 0.5
+    live = np.array(live)
+    kw = dict(mu=torch.tensor(1.5, device=cuda), nu=1e-6, lam1=0.02,
+              lam2=0.01)
+    got = ops.fused_stats_sweep(design, y, xb, beta, "logistic", weights=wt,
+                                offset=off, penf=penf, tile_live=live, **kw)
+    want = ref.stats_gram_solve(design.tiles3(), y, xb, wt, beta, "logistic",
+                                offset=off, penf=penf, tile_live=live, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert _rel(a, b) <= 1e-5
+    assert _rel(got[4], want[3]) <= 1e-5 and _rel(got[5], want[4]) <= 1e-5
+    assert torch.equal(got[4], got[4].transpose(1, 2))
+    w64 = got[2].double().cpu()
+    for t in range(nt):
+        if not live[t]:
+            assert not got[4][t].any() and not got[5][t].any()
+            assert not got[3][t * T:(t + 1) * T].any()
+            continue
+        Xt = torch.from_numpy(X[:, t * T:(t + 1) * T]).double()
+        assert _rel64(got[4][t].cpu(), (Xt * w64[:, None]).T @ Xt) <= 1e-5
+    d, dw = got[3], want[5]
+    assert float((d - dw).abs().max()) <= 1e-4 * max(
+        float(dw.abs().max()), 1e-3)
 
 
 @pytest.mark.parametrize("family", FAMS)
