@@ -27,7 +27,12 @@ drives each path through the entry points a user calls and checks it:
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
-TF32 TFLOP/s executed, and checks that G is exactly symmetric.
+TF32 TFLOP/s executed, and checks that G is exactly symmetric.  K2, a
+dependent chain, is held bit for bit at T = 256 and 512 and in its batched
+launch; beside its bytes bound the report gives its dependency floor, T
+times the time of the step's 13 dependent rounded operations run alone,
+and the time of one step of the kernel's own panel loop (both measured by
+the probes of tools/chain_floor.cu, built here with nvcc).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the counts must equal the path's exact needs.  Small fits
@@ -136,6 +141,77 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def chain_floor(torch, G, g, beta_t, penf, mu, nu, lam1, lam2) -> dict:
+    """K2's dependency floor and its design's step latency, from the
+    probes of tools/chain_floor.cu (built here with nvcc): SM cycles and
+    nanoseconds a step, each pair from one timed loop, so the clock is the
+    one the probe ran at.  The minimal probe runs the step's 13 dependent
+    rounded operations on the first 16 coordinates of the tile (entering
+    step 0, as K2 is timed); the design probe, the kernel's own panel loop
+    on the first 32.  Neither counts as a launch of K2."""
+    import ctypes
+
+    from repro_torch.kernels import build, ops
+
+    src = REPO / "tools" / "chain_floor.cu"
+    with tempfile.TemporaryDirectory(prefix="chain_floor-") as tmp:
+        lib_path = pathlib.Path(tmp) / "libchain_floor.so"
+        out = subprocess.run(
+            [build.nvcc_path(), *build.ARCH, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-shared", "-I", str(build.CSRC),
+             str(src), "-o", str(lib_path)], capture_output=True, text=True,
+            timeout=600)
+        check(out.returncode == 0,
+              f"{src.name} did not build:\n{out.stdout}{out.stderr}")
+        lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.chain_floor_minimal.argtypes = [P, I, P, P, P]
+    lib.chain_floor_design.argtypes = [P, P, P, P, I, I, P, P, P]
+    n = 16
+    h = torch.diagonal(G)[:n]
+    bk, pk = beta_t[:n], penf[:n]
+    muh = mu * h
+    den = muh + nu + lam2 * pk
+    div = torch.where(den > 0, den.clamp(min=1e-30), torch.ones_like(den))
+    consts = torch.cat([muh * bk, nu * bk, lam1 * pk, div, 1.0 / div, bk,
+                        torch.zeros_like(bk),
+                        torch.diagonal(G[1:n + 1, :n]),
+                        torch.stack([mu.reshape(()).float(), g[0]])]) \
+        .float().contiguous()
+    params = ops.solve_params(mu, nu, lam1, lam2, g)
+    res = torch.zeros(2, dtype=torch.int64, device=g.device)
+    sink = torch.empty(32, device=g.device)
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    T = g.shape[0]
+    runs = {
+        "floor": (lambda reps: lib.chain_floor_minimal(
+            consts.data_ptr(), reps, res.data_ptr(), sink.data_ptr(),
+            stream), 8192, n),
+        "design": (lambda reps: lib.chain_floor_design(
+            G.data_ptr(), g.data_ptr(), beta_t.data_ptr(), params.data_ptr(),
+            T, reps, res.data_ptr(), sink.data_ptr(), stream), 2000, 32)}
+    rep = {}
+    for who, (run, reps, steps) in runs.items():
+        for _ in range(2):          # the second run is the one kept
+            check(run(reps) == 0, f"chain_floor {who}: launch failed")
+            torch.cuda.synchronize()
+        cycles, ns = (int(v) for v in res.tolist())
+        check(cycles > 0 and ns > 0, f"chain_floor {who}: no time taken")
+        rep[f"{who}_step_cycles"] = cycles / (reps * steps)
+        rep[f"{who}_step_ns"] = ns / (reps * steps)
+        rep[f"{who}_probe_clock_mhz"] = cycles / ns * 1e3
+    return rep
+
+
+def k2_bound(T: int):
+    """K2's bound at tile width T: it reads only G's entries on and below
+    the diagonal (T (T + 1) / 2), g, h, beta, the entering step and penf,
+    the 4 params, and writes T steps; it makes T (T - 1) / 2 updates of 3
+    operations each and about 12 operations a step."""
+    return bound_ms((T * (T + 1) / 2 + 6 * T + 4) * 4,
+                    3.0 * T * (T - 1) / 2 + 12 * T)
+
+
 def errs(got, want):
     """(max |got - want|, that over max(max |want|, 1))."""
     err = float((got - want).abs().max())
@@ -188,8 +264,10 @@ def cuda_launches(torch, solver, lam1, prefixes, steps: int = 2):
 
 def fused_parity(np, torch, solver, dev, report, parity):
     """K5 and K6 against their plain versions on the full-size dense
-    design (one tile marked dead), timed beside a library yardstick."""
+    design (one tile marked dead), timed beside a library yardstick; K2's
+    batched launch (the Jacobi sweep's solves) on K5's G and g."""
     from repro_torch.core import linesearch
+    from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
     from repro_torch.kernels import margin_ls as margin_ls_k
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import gram_tc
@@ -214,6 +292,7 @@ def fused_parity(np, torch, solver, dev, report, parity):
                                nu=1e-6, lam1=0.0, lam2=0.0, weights=wobs,
                                offset=off, penf=penf, tile_live=live)[5]
     kw = dict(mu=mu, nu=1e-6, lam1=0.05 * float(g0.abs().max()), lam2=0.0)
+    params = ops.solve_params(**kw, like=y)
     # tolerances on max |kernel - plain| / max(max |plain|, 1): the stats,
     # G and g as K1 and K3 (probit 3e-4: its w comes from erfc, the plain
     # version's from log_ndtr); the step is the K2 chain, exact in itself,
@@ -250,6 +329,17 @@ def fused_parity(np, torch, solver, dev, report, parity):
         if fam == "logistic":
             dbeta = got[3]
             check(bool(dbeta.abs().max() > 0), "stats_gram_solve: no step")
+            # K5's solve pass and K2's batched launch are the same chain:
+            # on K5's own G and g both give the plain chain's bits
+            chain = ref.jacobi_tile_solves(got[4], got[5], beta, penf=penf,
+                                           tile_live=live, **kw)
+            k2b = ops.jacobi_tile_solves(got[4], got[5], beta, params,
+                                         penf=penf, tile_live=live)
+            check(torch.equal(dbeta, chain),
+                  "stats_gram_solve: step differs from the plain chain")
+            check(torch.equal(k2b, chain),
+                  "cd_tile_solve (batched): not bit-exact")
+            G_all, g_all = got[4], got[5]
             # both against float64 sums of the live tiles' G
             f64 = {"kernel": 0.0, "plain": 0.0}
             for t in np.flatnonzero(live):
@@ -264,9 +354,12 @@ def fused_parity(np, torch, solver, dev, report, parity):
             check(f64["kernel"] <= 1e-5,
                   f"stats_gram_solve: G {f64['kernel']} off float64 sums")
     # timed at the path's shape: the dense Jacobi fit has every tile live
-    params = torch.stack([mu, mu.new_full((), kw["nu"]),
-                          mu.new_full((), kw["lam1"]), mu.new_full((), 0.0)])
     order, n_all = ops.tile_order(None, nt, dev)
+    report["cd_tile_solve"]["batched_ms"] = time_ms(
+        torch, lambda: cd_tile_solve_k.launch_tiles(
+            G_all, g_all, beta, params, order, n_all, penf), 100)
+    report["cd_tile_solve"]["batched_tiles"] = n_all
+    del G_all, g_all
     k5_ms = time_ms(torch, lambda: sgs_k.launch(
         X, y, xb, wobs, off, beta, penf, params, order, n_all, T,
         "logistic"), 10)
@@ -565,6 +658,7 @@ def main() -> None:
     # with the same formulas (1e-5; probit 3e-4, erfc against log_ndtr);
     # K3 and K4 are the same float32 sums in another order (1e-5); K2 is
     # rounded step by step like its plain version and must match exactly
+    # (torch.equal)
     tol = {"glm_stats": 1e-5, "glm_stats_probit": 3e-4,
            "alpha_search": 1e-5, "cd_tile_solve": 0.0, "tile_gram": 1e-5}
     parity = {}
@@ -656,35 +750,62 @@ def main() -> None:
     report["tile_gram"] = dict(ms=k3_ms, plain_ms=k3_plain, **bounds,
                                library_ms=k3_lib, max_abs_err=e3, K=K)
 
-    # K2 on that tile's Gram block
-    h = torch.diagonal(G).contiguous()
+    # K2 on that tile's Gram block (T = 256, h the strided diagonal view)
+    # and on a T = 512 block, held bit for bit against the plain version;
+    # T times the minimal step of tools/chain_floor.cu is its dependency
+    # floor
     beta_t = torch.from_numpy((rng.normal(size=T) * 0.1).astype(np.float32)) \
         .to(dev)
     zeros = torch.zeros_like(beta_t)
     penf = solver._penf[tid * T:(tid + 1) * T].contiguous()
     mu = torch.full((), 1.0, device=dev)
     lam1 = 0.05 * float(g.abs().max())
-    got = ops.cd_tile_solve(G, g, h, beta_t, zeros, mu, 1e-6, lam1, 0.0,
-                            penf=penf)
+    params = ops.solve_params(mu, 1e-6, lam1, 0.0, g)
+    h = torch.diagonal(G)
+    got = ops.cd_tile_solve(G, g, h, beta_t, zeros, params, penf=penf)
     want = ref.cd_tile_solve(G, g, h, beta_t, zeros, mu, 1e-6, lam1, 0.0,
                              penf=penf)
+    check(torch.equal(got, want), "cd_tile_solve T=256: not bit-exact")
     e2 = float((got - want).abs().max())
     parity["cd_tile_solve"] = e2
-    check(e2 <= tol["cd_tile_solve"], f"cd_tile_solve: error {e2}")
-    params = torch.stack([mu, mu.new_full((), 1e-6), mu.new_full((), lam1),
-                          mu.new_full((), 0.0)])
     k2_ms = time_ms(torch, lambda: cd_tile_solve_k.launch(
         G, g, h, beta_t, zeros, params, penf), 200)
     k2_plain = time_ms(torch, lambda: ref.cd_tile_solve(
         G, g, h, beta_t, zeros, mu, 1e-6, lam1, 0.0, penf=penf), 3, 1)
-    b_ms, b_by = bound_ms((T * T + 7 * T + 4) * 4, 3.0 * T * T + 12 * T)
-    report["cd_tile_solve"] = dict(ms=k2_ms, plain_ms=k2_plain,
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   library_ms=None, max_abs_err=e2)
+    b_ms, b_by = k2_bound(T)
+    steps = chain_floor(torch, G, g, beta_t, penf, mu, 1e-6, lam1, 0.0)
+    T2 = 2 * T
+    X2 = rng.normal(size=(4 * T2, T2)).astype(np.float32)
+    w2 = rng.uniform(0.01, 0.25, 4 * T2).astype(np.float32)
+    G2b = torch.from_numpy((X2.T * w2) @ X2).to(dev)
+    g2b = torch.from_numpy(X2.T @ rng.normal(size=4 * T2)
+                           .astype(np.float32)).to(dev)
+    beta2 = torch.from_numpy((rng.normal(size=T2) * 0.1).astype(np.float32)) \
+        .to(dev)
+    zeros2 = torch.zeros_like(beta2)
+    lam1_2 = 0.05 * float(g2b.abs().max())
+    params2 = ops.solve_params(mu, 1e-6, lam1_2, 0.0, g2b)
+    got2 = ops.cd_tile_solve(G2b, g2b, torch.diagonal(G2b), beta2, zeros2,
+                             params2)
+    want2 = ref.cd_tile_solve(G2b, g2b, torch.diagonal(G2b), beta2, zeros2,
+                              mu, 1e-6, lam1_2, 0.0)
+    check(torch.equal(got2, want2), "cd_tile_solve T=512: not bit-exact")
+    k2_ms_512 = time_ms(torch, lambda: cd_tile_solve_k.launch(
+        G2b, g2b, torch.diagonal(G2b), beta2, zeros2, params2, None), 200)
+    del X2, G2b, g2b
+    floor = T * steps["floor_step_ns"] * 1e-6
+    floor_512 = T2 * steps["floor_step_ns"] * 1e-6
+    report["cd_tile_solve"] = dict(
+        ms=k2_ms, plain_ms=k2_plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, max_abs_err=e2, T=T, ms_T512=k2_ms_512,
+        bound_ms_T512=k2_bound(T2)[0], dependency_floor_ms=floor,
+        share_of_dependency_floor=floor / k2_ms,
+        dependency_floor_ms_T512=floor_512,
+        share_of_dependency_floor_T512=floor_512 / k2_ms_512, **steps)
     emit({"phase": "kernel_parity", "max_rel_err": parity,
           "tolerance": tol, "n": n, "T": T, "row_block": rb, "K": K,
           "alpha_counts": [int(alphas0.shape[0]), int(bt.shape[0])]})
-    del G, g, G2, g2, xb, xdb, wk
+    del G, g, G2, g2, xb, xdb, wk, h
 
     # ------------------------------- small fits: the card against the CPU
     ref_fit = {}
@@ -786,7 +907,7 @@ def main() -> None:
     sparse_counts = run_fit("sparse", solver, ds.test.X, ds.test.y,
                             {"glm_stats": 1, "cd_tile_solve": nt,
                              "tile_gram": nt, "alpha_search": 2})
-    del design, tb, rows, h, y, wobs, off, s0, w0, penf
+    del design, tb, rows, y, wobs, off, s0, w0, penf
     serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity)
     del solver, ds
     torch.cuda.empty_cache()
@@ -819,12 +940,13 @@ def main() -> None:
     del jsolver
     torch.cuda.empty_cache()
     # the unfused Jacobi superstep on the same data: a cuBLAS Gram per
-    # tile, K2 per tile, one matvec and the two-launch line search (K4)
+    # tile, one K2 launch for every tile (as the reference's vmap is one
+    # program), one matvec and the two-launch line search (K4)
     usolver = full_size_solver(GLMSolver, dd, dev,
                                DGLMNETConfig(coupling="jacobi",
                                              fuse_superstep=False))
     run_fit("dense_jacobi_unfused", usolver, dd.test.X, dd.test.y,
-            {"glm_stats": 1, "cd_tile_solve": dnt, "alpha_search": 2})
+            {"glm_stats": 1, "cd_tile_solve": 1, "alpha_search": 2})
     del usolver
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
 
@@ -855,7 +977,17 @@ def main() -> None:
             **{k: rep[k] for k in ("bound_fma_ms", "bound_fma_by",
                                    "share_of_tensor_core_bound",
                                    "share_of_fma_bound", "tflops_needed",
-                                   "tf32_tflops_executed", "plain_note")
+                                   "tf32_tflops_executed", "plain_note",
+                                   "dependency_floor_ms",
+                                   "share_of_dependency_floor", "ms_T512",
+                                   "bound_ms_T512",
+                                   "dependency_floor_ms_T512",
+                                   "share_of_dependency_floor_T512",
+                                   "floor_step_cycles", "floor_step_ns",
+                                   "floor_probe_clock_mhz",
+                                   "design_step_cycles", "design_step_ns",
+                                   "design_probe_clock_mhz", "batched_ms",
+                                   "batched_tiles")
                if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)

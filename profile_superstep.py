@@ -11,8 +11,9 @@ Jacobi: the same data through the fused superstep, and through the unfused
 Jacobi one) it runs one untimed superstep, then N profiled ones, and
 prints one JSON line with the host seconds per superstep, the device time
 per superstep summed over kernels and copies, the device's idle share
-(1 - device time / host time; one stream, so kernels do not overlap), and
-the kernels by device time.
+(1 - device time / host time; one stream, so kernels do not overlap), the
+CUDA kernel launches and the copies and fills per superstep, and the
+kernels by device time.
 The Chrome traces go to DIR when given.
 """
 from __future__ import annotations
@@ -50,14 +51,20 @@ def profile_fit(torch, solver, steps, out, tag):
         wall = time.perf_counter() - t0
     n = res.n_iter
     rows = []
+    launches = copies = 0
     for evt in prof.key_averages():
         # device-side events only (kernels, copies, fills): the host ops
         # that launched them carry the same time again
         if evt.device_type != DeviceType.CUDA:
             continue
+        name = chip_smoke.short_name(evt.key)
+        if name.startswith(("Memcpy", "Memset")):
+            copies += evt.count
+        else:
+            launches += evt.count
         us = device_us(evt)
         if us > 0:
-            rows.append((chip_smoke.short_name(evt.key), us, evt.count))
+            rows.append((name, us, evt.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     if out is not None:
@@ -69,6 +76,8 @@ def profile_fit(torch, solver, steps, out, tag):
         "host_ms_per_superstep": wall_ms / n,
         "device_ms_per_superstep": busy_ms / n if rows else None,
         "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
+        "cuda_launches_per_superstep": launches / n,
+        "copies_per_superstep": copies / n,
         "kernels": [{"name": name, "ms_per_superstep": us / 1e3 / n,
                      "launches_per_superstep": cnt / n,
                      "share_of_device": us / 1e3 / busy_ms}

@@ -51,6 +51,7 @@ def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
     nt = design.n_tiles
     tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
     dbeta = dbeta.clone()
+    params = ops.solve_params(mu, nu, lam1, lam2, s)   # mu is fixed a sweep
     for t in range(tiles_done):
         tid = (start_tile + t) % nt
         if tile_active is not None and not tile_active[tid]:
@@ -59,9 +60,8 @@ def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
         dt = dbeta[sl]
         r = s - mu * (w * xdb)
         G, g = design.tile_gram(tid, w, r)
-        h = torch.diagonal(G).contiguous()
-        dt_new = ops.cd_tile_solve(G, g, h, beta[sl], dt, mu, nu, lam1,
-                                   lam2, penf=None if penf is None
+        dt_new = ops.cd_tile_solve(G, g, torch.diagonal(G), beta[sl], dt,
+                                   params, penf=None if penf is None
                                    else penf[sl])
         if active is not None:
             dt_new = torch.where(active[sl] > 0, dt_new, dt)
@@ -86,7 +86,8 @@ def sweep_jacobi(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1, lam2,
     if tile_active is not None:
         live = live & np.asarray(tile_active, bool)
     G_all, g_all = design.all_tile_grams(w, s, live)
-    d = ops.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+    d = ops.jacobi_tile_solves(G_all, g_all, beta,
+                               ops.solve_params(mu, nu, lam1, lam2, s),
                                penf=penf, tile_live=live)
     if active is not None:
         d = torch.where(active > 0, d, torch.zeros_like(d))

@@ -1,5 +1,5 @@
 // K2 cd_tile_solve: the exact sequential coordinate-descent chain over the
-// T coordinates of one feature tile.
+// T coordinates of a feature tile, one tile or many tiles a launch.
 //
 // Replaces src/repro/kernels/cd_tile_solve.py::cd_tile_solve_pallas (TPU
 // Pallas).  For j = 0 .. T-1 in order:
@@ -8,47 +8,60 @@
 //   u   = beta_j where den_j <= 0          (dead column: step stays 0)
 //   delta = (u - beta_j) - d_j;  d_j = u - beta_j;  g -= mu delta G[:, j]
 //
-// Bound on the card: latency.  The work is T^2 multiply-adds (65,536 at
-// T = 256) and one read of G (256 KiB), microseconds for the card's rates,
-// but every step depends on the one before it.  The fp32 G of one tile does
-// not fit in the 227 KB of shared memory a block may hold, so it stays in
-// global memory.  Design: one block of T threads running the chain of
-// cd_chain.cuh (thread k owns g_k and d_k in registers, one barrier per
-// step, rounded step by step so it matches the plain version bit for bit).
-// Gauss-Seidel couples the tiles through the margins, so there is one launch
-// per tile.
+// Bound on the card: the dependency chain.  The work is T (T - 1) / 2
+// multiply-adds and one read of G (256 KiB at T = 256), microseconds for
+// the card's rates, but each step needs the one before it, so a tile takes
+// at least T times the latency of one step's dependent instructions.  The
+// TPU kernel pinned G in VMEM and ran a scalar loop; here the chain runs
+// in warp-wide panels of 32 coordinates with deferred, in-order updates
+// between panels (cd_chain.cuh), bit-exact with the plain version.
+// chip_smoke.py measures that floor with tools/chain_floor.cu.
+//
+// One block per tile.  Gauss-Seidel couples the tiles through the margins,
+// so it launches one tile at a time; a Jacobi sweep launches every tile at
+// once (one block per live tile, dead tiles write 0).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "cd_chain.cuh"
 
 namespace {
 
-__global__ void cd_tile_solve_kernel(const float* __restrict__ G,
-                                     const float* __restrict__ g,
-                                     const float* __restrict__ h,
-                                     const float* __restrict__ beta,
-                                     const float* __restrict__ dbeta,
-                                     const float* __restrict__ penf,
-                                     const float* __restrict__ params,
-                                     float* __restrict__ out, int T) {
-  extern __shared__ float delta_s[];
-  const int k = threadIdx.x;
-  out[k] = repro::cd_chain(G, g[k], h[k], beta[k], dbeta[k], penf[k],
-                           params[0], params[1], params[2], params[3],
-                           delta_s, T, k);
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+    cd_tile_solve_kernel(const float* __restrict__ G,
+                         const float* __restrict__ g,
+                         const float* __restrict__ h, long long hs,
+                         const float* __restrict__ beta,
+                         const float* __restrict__ dbeta,
+                         const float* __restrict__ penf,
+                         const float* __restrict__ params,
+                         const int* __restrict__ order, int n_live, int T,
+                         bool vec, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  repro::cd_chain_tiles(G, g, h, hs, beta, dbeta, penf, params, order,
+                        n_live, T, vec, out, smem);
 }
 
 }  // namespace
 
-// params: device (4,) f32 [mu, nu, lam1, lam2].  T <= 1024.
+// G (nt, T, T), g, beta, penf, out (nt * T), T <= 1024; params: device
+// (4,) f32 [mu, nu, lam1, lam2].  Block z solves tile order[z] (tile z when
+// order is null); blocks z >= n_live write a zero step.  h: null (read
+// from G's diagonal) or, when nt == 1, any (T,) vector with element stride
+// hs; dbeta: the entering step, null for zero; penf: null for all ones.
 extern "C" int repro_cd_tile_solve(const float* G, const float* g,
-                                   const float* h, const float* beta,
-                                   const float* dbeta, const float* penf,
-                                   const float* params, float* out, int T,
-                                   void* stream) {
-  if (T <= 0 || T > 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cd_tile_solve_kernel<<<1, T, T * sizeof(float), st>>>(G, g, h, beta, dbeta,
-                                                        penf, params, out, T);
-  return (int)cudaGetLastError();
+                                   const float* h, long long hs,
+                                   const float* beta, const float* dbeta,
+                                   const float* penf, const float* params,
+                                   const int* order, int n_live, int nt,
+                                   int T, float* out, void* stream) {
+  if (T <= 0 || T > repro::chain::kMaxT || nt <= 0 || n_live < 0 ||
+      n_live > nt || (h != nullptr && nt != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(G) % 16 == 0;
+  return (int)repro::launch_chain(
+      cd_tile_solve_kernel<512>, cd_tile_solve_kernel<1024>, nt, T,
+      static_cast<cudaStream_t>(stream), G, g, h, hs, beta, dbeta, penf,
+      params, order, n_live, T, vec, out);
 }

@@ -35,8 +35,9 @@
 //      order (no atomics: the same sums every run), mirrors the upper
 //      blocks (entry (i, j), i > j, is read from (j, i), so G is exactly
 //      symmetric) and writes dead tiles' G and g as zeros.
-//   3. sgs_solve: one block of T threads per tile runs the chain on the
-//      tile's G (h = diag G) from a zero step; dead tiles write 0.
+//   3. sgs_solve: one block of T threads per tile runs the panel chain of
+//      cd_chain.cuh (K2's) on the tile's G (h = diag G) from a zero step;
+//      dead tiles write 0.
 // ``order`` is the tile remap of the TPU kernel's scalar prefetch: live
 // tiles first, then dead ones; blocks past n_live do no Gram or solve work.
 #include <cuda_runtime.h>
@@ -182,26 +183,17 @@ __global__ void sgs_reduce(const float* __restrict__ Gp,
   }
 }
 
-__global__ void sgs_solve(const float* __restrict__ G,
-                          const float* __restrict__ g,
-                          const float* __restrict__ beta,
-                          const float* __restrict__ penf,
-                          const float* __restrict__ params,
-                          const int* __restrict__ order, int n_live, int T,
-                          float* __restrict__ dbeta) {
-  extern __shared__ float delta_s[];
-  const int z = blockIdx.x;
-  const long long tile = order[z];
-  const int k = threadIdx.x;
-  const long long c = tile * T + k;
-  if (z >= n_live) {
-    dbeta[c] = 0.f;
-    return;
-  }
-  const float* Gt = G + tile * T * T;
-  dbeta[c] = repro::cd_chain(Gt, g[c], Gt[(long long)k * T + k], beta[c],
-                             0.f, penf[c], params[0], params[1], params[2],
-                             params[3], delta_s, T, k);
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+    sgs_solve(const float* __restrict__ G, const float* __restrict__ g,
+              const float* __restrict__ beta, const float* __restrict__ penf,
+              const float* __restrict__ params,
+              const int* __restrict__ order, int n_live, int T,
+              float* __restrict__ dbeta) {
+  extern __shared__ __align__(16) float smem[];
+  // G is the (nt, T, T) output of sgs_reduce: aligned, T % 64 == 0
+  repro::cd_chain_tiles(G, g, nullptr, 0, beta, nullptr, penf, params, order,
+                        n_live, T, true, dbeta, smem);
 }
 
 template <int F, int BN>
@@ -297,7 +289,7 @@ extern "C" int repro_stats_gram_solve(
                                           T, band, G, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sgs_solve<<<nt, T, T * sizeof(float), st>>>(G, g, beta, penf, params,
-                                               order, n_live, T, dbeta);
-  return (int)cudaGetLastError();
+  return (int)repro::launch_chain(sgs_solve<512>, sgs_solve<1024>, nt, T, st,
+                                  G, g, beta, penf, params, order, n_live, T,
+                                  dbeta);
 }

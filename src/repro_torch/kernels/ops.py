@@ -4,7 +4,9 @@ A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
 runs the plain PyTorch version of ``kernels/ref.py``.  There is no backend
 switch and no fallback between the two.  Each CUDA kernel counts its
 launches (``launch_counts``), so a run can show that its main path went
-through the kernels.
+through the kernels.  The two entries of the tile chain (K2),
+``cd_tile_solve`` and ``jacobi_tile_solves``, take its constants as one
+tensor made by ``solve_params``, built once a sweep.
 """
 from __future__ import annotations
 
@@ -51,20 +53,28 @@ def _on_card(t) -> bool:
     return False
 
 
-def cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1, lam2, *,
-                  penf=None):
+def solve_params(mu, nu, lam1, lam2, like):
+    """[mu, nu, lam1, lam2] as a (4,) f32 tensor on ``like``'s device, the
+    constants of the tile chain (K2), built once a sweep.  ``mu`` may be a
+    float or a 0-d tensor.  On the card it is built by fill kernels: a copy
+    from pageable host memory would make the host wait for the card."""
+    mu = mu.to(torch.float32).reshape(()) if torch.is_tensor(mu) \
+        else like.new_full((), mu)
+    return torch.stack([mu, like.new_full((), nu), like.new_full((), lam1),
+                        like.new_full((), lam2)])
+
+
+def cd_tile_solve(G, g, h, beta_t, dbeta_t, params, *, penf=None):
     """Exact sequential tile solve (K2); see kernels/cd_tile_solve.py.
 
-    ``mu`` may be a float or a 0-d tensor on g's device; ``penf`` optional
-    (T,) penalty factors (0 = unpenalized).
+    ``params`` the (4,) [mu, nu, lam1, lam2] of ``solve_params`` on g's
+    device; ``h`` = diag(G), a view will do; ``penf`` optional (T,) penalty
+    factors (0 = unpenalized).
     """
     if not _on_card(g):
-        return ref.cd_tile_solve(G, g, h, beta_t, dbeta_t, mu, nu, lam1,
-                                 lam2, penf=penf)
-    if penf is None:
-        penf = torch.ones_like(g)
-    return cd_tile_solve_k.launch(G, g, h, beta_t, dbeta_t,
-                                  _params(mu, nu, lam1, lam2, g), penf)
+        return ref.cd_tile_solve(G, g, h, beta_t, dbeta_t, *params.unbind(),
+                                 penf=penf)
+    return cd_tile_solve_k.launch(G, g, h, beta_t, dbeta_t, params, penf)
 
 
 def tile_gram(bricks, rows, n_valid, w, r):
@@ -106,35 +116,17 @@ def alpha_search(y, xb, xdb, alphas, family, *, weights=None, offset=None):
                                  offset=offset)
 
 
-def _params(mu, nu, lam1, lam2, like):
-    """[mu, nu, lam1, lam2] as a device (4,) f32 tensor, built by fill
-    kernels: a copy from pageable host memory would make the host wait for
-    the card."""
-    mu = mu.to(torch.float32).reshape(()) if torch.is_tensor(mu) \
-        else like.new_full((), mu)
-    return torch.stack([mu, like.new_full((), nu), like.new_full((), lam1),
-                        like.new_full((), lam2)])
-
-
-def jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2, *, penf=None,
+def jacobi_tile_solves(G_all, g_all, beta, params, *, penf=None,
                        tile_live=None):
-    """The (p,) Jacobi step: each live tile's chain from a zero step (K2 per
-    live tile on the card); dead tiles (host ``tile_live`` False) get 0."""
+    """The (p,) Jacobi step: each live tile's chain from a zero step (one
+    K2 launch for all tiles on the card); dead tiles (host ``tile_live``
+    False) get 0.  ``params`` as for ``cd_tile_solve``."""
     if not _on_card(g_all):
-        return ref.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+        return ref.jacobi_tile_solves(G_all, g_all, beta, *params.unbind(),
                                       penf=penf, tile_live=tile_live)
-    nt, T = g_all.shape
-    dbeta = torch.zeros_like(beta)
-    zeros = torch.zeros_like(g_all[0])
-    for t in range(nt):
-        if tile_live is not None and not tile_live[t]:
-            continue
-        sl = slice(t * T, (t + 1) * T)
-        dbeta[sl] = cd_tile_solve(
-            G_all[t], g_all[t], torch.diagonal(G_all[t]).contiguous(),
-            beta[sl], zeros, mu, nu, lam1, lam2,
-            penf=None if penf is None else penf[sl])
-    return dbeta
+    order, n_live = tile_order(tile_live, g_all.shape[0], g_all.device)
+    return cd_tile_solve_k.launch_tiles(G_all, g_all, beta, params, order,
+                                        n_live, penf)
 
 
 def tile_order(tile_live, nt: int, device):
@@ -178,18 +170,19 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
         dbeta = ref.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1,
                                        lam2, penf=penf, tile_live=tile_live)
         return loss_i, s, w, dbeta, G_all, g_all
-    if penf is None:
-        penf = torch.ones_like(beta)
     if dense:
+        if penf is None:
+            penf = torch.ones_like(beta)
         order, n_live = tile_order(tile_live, design.n_tiles, y.device)
         loss_i, s, w, G_all, g_all, dbeta = stats_gram_solve_k.launch(
             design.data, y, xb, weights, offset, beta, penf,
-            _params(mu, nu, lam1, lam2, y), order, n_live, design.tile_size,
-            fam.name)
+            solve_params(mu, nu, lam1, lam2, y), order, n_live,
+            design.tile_size, fam.name)
         return loss_i, s, w, dbeta, G_all, g_all
     loss_i, s, w = glm_stats(y, xb, fam, weights=weights, offset=offset)
     G_all, g_all = design.all_tile_grams(w, s, tile_live)
-    dbeta = jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2,
+    dbeta = jacobi_tile_solves(G_all, g_all, beta,
+                               solve_params(mu, nu, lam1, lam2, y),
                                penf=penf, tile_live=tile_live)
     return loss_i, s, w, dbeta, G_all, g_all
 

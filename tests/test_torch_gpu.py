@@ -7,7 +7,8 @@ tests).  On the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: K2 is rounded step by step like its plain version and is held
-bit for bit; K1 at 1e-5 (probit 3e-4: erfc against log_ndtr); K3 and K4
+bit for bit (so is K5's solve pass, the same chain, on K5's own G and g);
+K1 at 1e-5 (probit 3e-4: erfc against log_ndtr); K3 and K4
 are float32 sums in another order, held at 1e-5 relative to the largest
 entry (K3's and K5's products are 3xTF32 on the tensor cores, which keep
 about 22 bits a product; their G must also come out exactly symmetric and
@@ -79,27 +80,96 @@ def test_alpha_search_kernel(cuda, family, K):
                                atol=tol * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("T", [64, 256])
-def test_cd_tile_solve_kernel_is_bit_exact(cuda, T):
-    rng = np.random.default_rng(T)
-    X = rng.normal(size=(500, T)).astype(np.float32)
+def _chain_tile(rng, T, dev, n=500):
+    X = rng.normal(size=(n, T)).astype(np.float32)
     X[:, 3] = 0.0
-    w = rng.uniform(0.01, 0.25, 500).astype(np.float32)
-    G = torch.from_numpy((X.T * w) @ X).to(cuda)
-    g = torch.from_numpy(X.T @ rng.normal(size=500).astype(np.float32)) \
-        .to(cuda)
-    h = torch.diagonal(G).contiguous()
+    w = rng.uniform(0.01, 0.25, n).astype(np.float32)
+    G = torch.from_numpy((X.T * w) @ X).to(dev)
+    g = torch.from_numpy(X.T @ rng.normal(size=n).astype(np.float32)) \
+        .to(dev)
+    return G, g
+
+
+@pytest.mark.parametrize("T", [64, 100, 256, 512, 1024])
+def test_cd_tile_solve_kernel_is_bit_exact(cuda, T):
+    """K2's panel chain gives the plain version's bits, at a ragged last
+    panel (T = 100) and up to 32 panels; h contiguous or the strided
+    diagonal view of G; an entering step as Gauss-Seidel has."""
+    rng = np.random.default_rng(T)
+    G, g = _chain_tile(rng, T, cuda)
     beta = _vec(rng, T, cuda, 0.3)
     beta[3] = 0.0
     penf = torch.ones(T, device=cuda)
     penf[0] = 0.0
     mu = torch.tensor(2.0, device=cuda)
-    got = ops.cd_tile_solve(G, g, h, beta, torch.zeros_like(beta), mu, 1e-6,
-                            0.3, 0.1, penf=penf)
-    want = ref.cd_tile_solve(G, g, h, beta, torch.zeros_like(beta), mu, 1e-6,
-                             0.3, 0.1, penf=penf)
+    params = ops.solve_params(mu, 1e-6, 0.3, 0.1, g)
+    for dbeta in (torch.zeros_like(beta), _vec(rng, T, cuda, 0.05)):
+        dbeta[3] = 0.0
+        want = ref.cd_tile_solve(G, g, torch.diagonal(G).contiguous(), beta,
+                                 dbeta, mu, 1e-6, 0.3, 0.1, penf=penf)
+        for h in (torch.diagonal(G).contiguous(), torch.diagonal(G)):
+            before = ops.launch_counts()["cd_tile_solve"]
+            got = ops.cd_tile_solve(G, g, h, beta, dbeta, params, penf=penf)
+            assert ops.launch_counts()["cd_tile_solve"] == before + 1
+            assert torch.equal(got, want)
+            assert float(got[3]) == 0.0
+    # penf None is all ones
+    got = ops.cd_tile_solve(G, g, torch.diagonal(G), beta, dbeta, params)
+    want = ref.cd_tile_solve(G, g, torch.diagonal(G), beta, dbeta, mu, 1e-6,
+                             0.3, 0.1)
     assert torch.equal(got, want)
-    assert float(got[3]) == 0.0
+
+
+@pytest.mark.parametrize("nu", [0.0, 1e-6])
+def test_cd_tile_solve_kernel_slow_division(cuda, nu):
+    """Columns scaled by 2^31 and 2^-40 put their divisors outside the
+    range of the chain's fast division: their panels run again with
+    __fdiv_rn, and the step keeps the plain version's bits."""
+    rng = np.random.default_rng(5)
+    T, n = 96, 400
+    X = rng.normal(size=(n, T)).astype(np.float32)
+    X[:, 5] *= np.float32(2.0 ** 31)
+    X[:, 40] *= np.float32(2.0 ** -40)
+    w = rng.uniform(0.01, 0.25, n).astype(np.float32)
+    G = torch.from_numpy((X.T * w) @ X).to(cuda)
+    g = torch.from_numpy(X.T @ rng.normal(size=n).astype(np.float32)) \
+        .to(cuda)
+    beta = _vec(rng, T, cuda, 0.3)
+    dbeta = torch.zeros_like(beta)
+    params = ops.solve_params(1.0, nu, 0.0, 0.0, g)
+    got = ops.cd_tile_solve(G, g, torch.diagonal(G), beta, dbeta, params)
+    want = ref.cd_tile_solve(G, g, torch.diagonal(G), beta, dbeta, 1.0, nu,
+                             0.0, 0.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T,live", [(256, [True] * 3 + [False] + [True] * 4),
+                                    (100, [False, True, True]),
+                                    (1024, [True, False])])
+def test_cd_tile_solve_batched_launch(cuda, T, live):
+    """The Jacobi sweep's solves in one K2 launch: each live tile equal to
+    the plain chain from a zero step, dead tiles exactly 0."""
+    rng = np.random.default_rng(T + len(live))
+    nt = len(live)
+    tiles = [_chain_tile(rng, T, cuda) for _ in range(nt)]
+    G_all = torch.stack([t[0] for t in tiles])
+    g_all = torch.stack([t[1] for t in tiles])
+    beta = _vec(rng, nt * T, cuda, 0.3)
+    penf = torch.rand(nt * T, device=cuda) + 0.5
+    mu = torch.tensor(1.5, device=cuda)
+    lam1 = 0.05 * float(g_all.abs().max())
+    before = ops.launch_counts()["cd_tile_solve"]
+    got = ops.jacobi_tile_solves(
+        G_all, g_all, beta, ops.solve_params(mu, 1e-6, lam1, 0.01, g_all),
+        penf=penf, tile_live=np.array(live))
+    assert ops.launch_counts()["cd_tile_solve"] == before + 1
+    want = ref.jacobi_tile_solves(G_all, g_all, beta, mu, 1e-6, lam1, 0.01,
+                                  penf=penf, tile_live=np.array(live))
+    assert torch.equal(got, want)
+    for t in range(nt):
+        if not live[t]:
+            assert not got[t * T:(t + 1) * T].any()
+    assert got.abs().max() > 0
 
 
 @pytest.mark.parametrize("K,n_valid", [(40, 40), (40, 7), (5, 0)])
@@ -225,6 +295,11 @@ def test_stats_gram_solve_kernel(cuda, family, T):
     assert float((d - dw).abs().max()) <= 1e-4 * max(
         float(dw.abs().max()), 1e-3)
     assert not d[T:2 * T].any() and d.abs().max() > 0
+    # K5's solve pass is K2's chain: on K5's own G and g, the plain chain
+    # gives its bits
+    chain = ref.jacobi_tile_solves(got[4], got[5], beta, penf=penf,
+                                   tile_live=live, **kw)
+    assert torch.equal(d, chain)
 
 
 @pytest.mark.parametrize("T,n,live", [

@@ -135,7 +135,7 @@ def test_cd_tile_solve_matches_jax(backend, T, mu, lam1, lam2):
     nu = 1e-6 if lam2 else 0.0          # nu = lam2 = 0: dead den = 0
     for pf in (None, penf):
         ours = ops.cd_tile_solve(_t(G), _t(g), _t(h), _t(beta), _t(dbeta),
-                                 mu, nu, lam1, lam2,
+                                 ops.solve_params(mu, nu, lam1, lam2, _t(g)),
                                  penf=None if pf is None else _t(pf)).numpy()
         theirs = np.asarray(jops.cd_tile_solve(
             jnp.asarray(G), jnp.asarray(g), jnp.asarray(h),
@@ -171,8 +171,8 @@ def test_tile_gram_matches_jax(backend, K, rb, T, n_rb):
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     ops.reset_launch_counts()
     G, g, h, beta, dbeta, _ = _tile(0, 50, 16)
-    ops.cd_tile_solve(_t(G), _t(g), _t(h), _t(beta), _t(dbeta), 1.0, 1e-6,
-                      0.1, 0.1)
+    ops.cd_tile_solve(_t(G), _t(g), _t(h), _t(beta), _t(dbeta),
+                      ops.solve_params(1.0, 1e-6, 0.1, 0.1, _t(g)))
     ops.glm_stats(_t(beta), _t(dbeta), "logistic")
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     assert glm_stats_k.plain is ref.glm_stats
