@@ -32,7 +32,11 @@ dependent chain, is held bit for bit at T = 256 and 512 and in its batched
 launch; beside its bytes bound the report gives its dependency floor, T
 times the time of the step's 13 dependent rounded operations run alone,
 and the time of one step of the kernel's own panel loop (both measured by
-the probes of tools/chain_floor.cu, built here with nvcc).
+the probes of tools/chain_floor.cu, built here with nvcc).  K6 must give
+the same bits on two runs and is timed beside torch.mv on the same X.  K7
+is held and timed at 4,096 rows (bulk scoring) and at 64 (the batcher's
+largest bucket); beside K1, K4 and K7 stands their launch floor, an empty
+kernel on the same grid timed the same way (tools/launch_floor.cu).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the counts must equal the path's exact needs.  Small fits
@@ -141,6 +145,51 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def build_tool(name: str):
+    """A probe of ``tools/`` (on no path of the package), built here with
+    nvcc into a temporary directory and loaded with ctypes."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = REPO / "tools" / f"{name}.cu"
+    with tempfile.TemporaryDirectory(prefix=f"{name}-") as tmp:
+        lib_path = pathlib.Path(tmp) / f"lib{name}.so"
+        out = subprocess.run(
+            [build.nvcc_path(), *build.ARCH, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-shared", "-I", str(build.CSRC),
+             str(src), "-o", str(lib_path)], capture_output=True, text=True,
+            timeout=600)
+        check(out.returncode == 0,
+              f"{src.name} did not build:\n{out.stdout}{out.stderr}")
+        return ctypes.CDLL(str(lib_path))
+
+
+def floor_tool():
+    """tools/launch_floor.cu, built and bound: ``launch_floor_empty(gx, gy,
+    threads, stream)`` launches one empty kernel."""
+    import ctypes
+
+    lib = build_tool("launch_floor")
+    lib.launch_floor_empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+def launch_floor(torch, lib, grids, reps: int) -> float:
+    """The launch floor of a kernel: ms per call of one empty kernel on each
+    of its CUDA launches' grids ((gx, gy, threads) each), launched through
+    ctypes and timed by ``time_ms`` as the kernel itself is."""
+    fn = lib.launch_floor_empty
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        for gx, gy, threads in grids:
+            check(fn(gx, gy, threads, stream) == 0,
+                  f"launch_floor: launch {gx}x{gy}x{threads} failed")
+
+    return time_ms(torch, run, reps)
+
+
 def chain_floor(torch, G, g, beta_t, penf, mu, nu, lam1, lam2) -> dict:
     """K2's dependency floor and its design's step latency, from the
     probes of tools/chain_floor.cu (built here with nvcc): SM cycles and
@@ -151,19 +200,9 @@ def chain_floor(torch, G, g, beta_t, penf, mu, nu, lam1, lam2) -> dict:
     on the first 32.  Neither counts as a launch of K2."""
     import ctypes
 
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
 
-    src = REPO / "tools" / "chain_floor.cu"
-    with tempfile.TemporaryDirectory(prefix="chain_floor-") as tmp:
-        lib_path = pathlib.Path(tmp) / "libchain_floor.so"
-        out = subprocess.run(
-            [build.nvcc_path(), *build.ARCH, "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-I", str(build.CSRC),
-             str(src), "-o", str(lib_path)], capture_output=True, text=True,
-            timeout=600)
-        check(out.returncode == 0,
-              f"{src.name} did not build:\n{out.stdout}{out.stderr}")
-        lib = ctypes.CDLL(str(lib_path))
+    lib = build_tool("chain_floor")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.chain_floor_minimal.argtypes = [P, I, P, P, P]
     lib.chain_floor_design.argtypes = [P, P, P, P, I, I, P, P, P]
@@ -399,18 +438,32 @@ def fused_parity(np, torch, solver, dev, report, parity):
         parity[f"margin_ls/{fam}"] = e
         check(e <= tol["margin_ls"], f"margin_ls {fam}: error {e}")
         err6 = max(err6, max(errs(a, b)[0] for a, b in zip(got, want)))
+    # fixed row ranges and fixed-order sums, no atomics: the same bits on
+    # every run
+    runs = [margin_ls_k.launch(X, dbeta, y, xb, wobs, cand, "logistic",
+                               offset=off) for _ in range(2)]
+    check(torch.equal(runs[0][0], runs[1][0])
+          and torch.equal(runs[0][1], runs[1][1]),
+          "margin_ls: two runs differ")
+    del runs
+    # torch.mv before and after the kernel; the faster of the two is kept
+    k6_lib = time_ms(torch, lambda: torch.mv(X, dbeta), 10)
     k6_ms = time_ms(torch, lambda: margin_ls_k.launch(
         X, dbeta, y, xb, wobs, cand, "logistic", offset=off), 10)
+    k6_lib2 = time_ms(torch, lambda: torch.mv(X, dbeta), 10)
     k6_plain = time_ms(torch, lambda: ref.fused_ls_dense(
         design.tiles3(), y, xb, dbeta, wobs, cand, "logistic", offset=off),
         3, 1)
-    k6_lib = time_ms(torch, lambda: torch.mv(X, dbeta), 10)
     k6_bytes = (n * p + 5 * n + p + 2 * K) * 4.0
     b_ms, b_by = bound_ms(k6_bytes, 2.0 * n * p + 12.0 * n * K)
+    k6_lib = min(k6_lib, k6_lib2)
     report["margin_ls"] = dict(
         ms=k6_ms, plain_ms=k6_plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=k6_lib, library_covers="xdb only (torch.mv)",
-        max_abs_err=err6, K=K)
+        share_of_bound=b_ms / k6_ms, library_share_of_bound=b_ms / k6_lib,
+        max_abs_err=err6, K=K, bit_identical_runs=True,
+        grid_blocks=margin_ls_k.grid(n, p),
+        sm_count=torch.cuda.get_device_properties(dev).multi_processor_count)
     emit({"phase": "fused_kernel_parity", "n": n, "p_pad": p, "T": T,
           "n_tiles": nt, "n_live_parity": n_live, "K": K, "tolerance": tol,
           "max_rel_err": {k: v for k, v in parity.items()
@@ -420,7 +473,7 @@ def fused_parity(np, torch, solver, dev, report, parity):
           "margin_ls": report["margin_ls"]})
 
 
-def serve_phase(np, torch, solver, ds, dev, report, parity):
+def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
     """Serving on the sparse model: a 4-column artifact from warm-started
     fits, saved and loaded; K7 against its plain version; the test split
     through ``score_coo`` and ``GLMSolver.predict``; closed-loop traffic
@@ -457,37 +510,53 @@ def serve_phase(np, torch, solver, ds, dev, report, parity):
     Xte, yte = ds.test.X, ds.test.y
     reqs = coo_to_requests(Xte)
 
-    # K7 at the serving shapes: 4096 test rows in the J = 64 bucket, L = 4
-    B, J = 4096, 64
-    fit_rows = [r for r in reqs if len(r[0]) <= J][:B]
-    check(len(fit_rows) == B, "serve: too few test rows for the J bucket")
-    slots_h, vals_h = eng.pack_requests(fit_rows, nnz_pad=J)
-    slots = torch.from_numpy(slots_h).to(dev)
-    vals = torch.from_numpy(vals_h).to(dev)
+    # K7 at the serving shapes: 4096 test rows (bulk scoring) and 64 (the
+    # batcher's largest bucket) in the J = 64 bucket, L = 4; beside each,
+    # its launch floor, an empty kernel on its grid timed the same way
+    J = 64
     table, b0 = eng._table, eng._b0
+    A1, L = table.shape
+    fit_rows = [r for r in reqs if len(r[0]) <= J]
     err7 = 0.0
-    for fam in ("logistic", "squared", "probit", "poisson"):
-        for kind_ in ("link", "response"):
-            got = ops.predict_tile(slots, vals, table, b0, fam, kind=kind_)
-            want = ref.predict_tile(slots, vals, table, b0, fam, kind=kind_)
-            ea, e = errs(got, want)
-            parity[f"predict_tile/{fam}/{kind_}"] = e
-            check(e <= 1e-5, f"predict_tile {fam} {kind_}: error {e}")
-            err7 = max(err7, ea)
-    k7_ms = time_ms(torch, lambda: predict_tile_k.launch(
-        slots, vals, table, b0, "logistic", "response"), 200)
+    by_b = {}
+    for B in (4096, 64):
+        check(len(fit_rows) >= B, "serve: too few test rows for the J bucket")
+        slots_h, vals_h = eng.pack_requests(fit_rows[:B], nnz_pad=J)
+        slots = torch.from_numpy(slots_h).to(dev)
+        vals = torch.from_numpy(vals_h).to(dev)
+        for fam in ("logistic", "squared", "probit", "poisson"):
+            for kind_ in ("link", "response"):
+                got = ops.predict_tile(slots, vals, table, b0, fam,
+                                       kind=kind_)
+                want = ref.predict_tile(slots, vals, table, b0, fam,
+                                        kind=kind_)
+                ea, e = errs(got, want)
+                parity[f"predict_tile/B={B}/{fam}/{kind_}"] = e
+                check(e <= 1e-5, f"predict_tile B={B} {fam} {kind_}: "
+                                 f"error {e}")
+                err7 = max(err7, ea)
+        k7_ms = time_ms(torch, lambda: predict_tile_k.launch(
+            slots, vals, table, b0, "logistic", "response"), 200)
+        blocks, threads = predict_tile_k.grid(B, J)
+        floor = launch_floor(torch, floor_lib, [(blocks, 1, threads)], 200)
+        b_ms, b_by = bound_ms((B * J * 2 + A1 * L + L + B * L) * 4.0,
+                              2.0 * B * J * L + 4.0 * B * L)
+        by_b[B] = dict(ms=k7_ms, launch_floor_ms=floor,
+                       share_of_launch_floor=floor / k7_ms, bound_ms=b_ms,
+                       bound_by=b_by, slots=slots, vals=vals)
+    big = by_b[4096]
+    slots, vals = big.pop("slots"), big.pop("vals")
     k7_plain = time_ms(torch, lambda: ref.predict_tile(
         slots, vals, table, b0, "logistic", kind="response"), 50)
     k7_lib = time_ms(torch, lambda: F.embedding_bag(
         slots, table, per_sample_weights=vals, mode="sum"), 200)
-    A1, L = table.shape
-    b_ms, b_by = bound_ms((B * J * 2 + A1 * L + L + B * L) * 4.0,
-                          2.0 * B * J * L + 4.0 * B * L)
+    small = {k: v for k, v in by_b[64].items() if k not in ("slots", "vals")}
     report["predict_tile"] = dict(
-        ms=k7_ms, plain_ms=k7_plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=k7_lib,
+        **big, plain_ms=k7_plain, library_ms=k7_lib,
         library_covers="margins only (F.embedding_bag, mode sum)",
-        max_abs_err=err7, B=B, J=J, L=L, A1=A1)
+        max_abs_err=err7, B=4096, J=J, L=L, A1=A1,
+        **{f"{k}_B64": v for k, v in small.items()})
+    del by_b, slots, vals
 
     # the path: the counts at 0, then score_coo, predict and traffic
     calls = [0]
@@ -684,9 +753,15 @@ def main() -> None:
                                                     offset=off), 50)
     k1_bytes = n * 4 * (4 + 3)          # y, xb, weights, offset in; 3 out
     b_ms, b_by = bound_ms(k1_bytes, n * 20)
+    # its grid as csrc/glm_stats.cu launches it: 256 threads a block, a
+    # block per 256 rows, at most 16 an SM
+    floor_lib = floor_tool()
+    k1_floor = launch_floor(torch, floor_lib,
+                            [(min(-(-n // 256), 132 * 16), 1, 256)], 200)
     report["glm_stats"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None,
-                               max_abs_err=err_k1)
+                               max_abs_err=err_k1, launch_floor_ms=k1_floor,
+                               share_of_launch_floor=k1_floor / k1_ms)
 
     alphas0 = linesearch.candidate_alphas(1e-3, 13, dev)
     bt = linesearch.backtrack_chains(alphas0[5:6], 0.5, 20)[0]
@@ -707,9 +782,17 @@ def main() -> None:
         y, xb, xdb, wobs, bt, "logistic", offset=off), 50)
     K4 = bt.shape[0]
     b_ms, b_by = bound_ms(n * 4 * 5 + K4 * 8, n * K4 * 12)
+    # its two CUDA launches as kernels/alpha_search.py sizes them
+    k4_grids = [(max(1, min(-(-n // alpha_search_k.THREADS),
+                            alpha_search_k.MAX_BLOCKS)),
+                 -(-K4 // alpha_search_k.K_GROUP), alpha_search_k.THREADS),
+                (-(-K4 // 128), 1, 128)]
+    k4_floor = launch_floor(torch, floor_lib, k4_grids, 200)
     report["alpha_search"] = dict(ms=k4_ms, plain_ms=k4_plain,
                                   bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=None, max_abs_err=err_k4)
+                                  library_ms=None, max_abs_err=err_k4,
+                                  launch_floor_ms=k4_floor,
+                                  share_of_launch_floor=k4_floor / k4_ms)
 
     # K3 on the real bricks of the fullest tile, at the first superstep's w, r
     _, s0, w0 = ops.glm_stats(y, torch.zeros_like(y), "logistic",
@@ -908,7 +991,8 @@ def main() -> None:
                             {"glm_stats": 1, "cd_tile_solve": nt,
                              "tile_gram": nt, "alpha_search": 2})
     del design, tb, rows, y, wobs, off, s0, w0, penf
-    serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity)
+    serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity,
+                               floor_lib)
     del solver, ds
     torch.cuda.empty_cache()
 
@@ -987,7 +1071,12 @@ def main() -> None:
                                    "floor_probe_clock_mhz",
                                    "design_step_cycles", "design_step_ns",
                                    "design_probe_clock_mhz", "batched_ms",
-                                   "batched_tiles")
+                                   "batched_tiles", "launch_floor_ms",
+                                   "share_of_launch_floor", "share_of_bound",
+                                   "library_share_of_bound", "grid_blocks",
+                                   "sm_count", "ms_B64", "launch_floor_ms_B64",
+                                   "share_of_launch_floor_B64",
+                                   "bound_ms_B64")
                if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)

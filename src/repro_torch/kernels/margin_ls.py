@@ -3,7 +3,8 @@
 The CUDA kernel is ``csrc/margin_ls.cu``; it replaces
 ``repro/kernels/superstep_tile.py::margin_ls_pallas``.  ``plain`` is its
 plain PyTorch version (``kernels/ref.py``).  One logical launch is two CUDA
-launches: the per-block pass and the fixed-order finishing sum.
+launches: the streamed pass (fixed row ranges, one block an SM at a time)
+and the fixed-order finishing sum over its blocks.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ KERNEL = build.CudaKernel(
     [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
      _P])
 
-ROWS_PER_BLOCK = 1024     # kRowsPerBlock in the source
+ROWS_PER_BLOCK = 1024     # kRowsPerBlock in the source: least rows a block
 
 plain = ref.fused_ls_dense
 
@@ -34,16 +35,17 @@ def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None):
     build.check_cuda("margin_ls", torch.float32, X, dbeta, y, xb, weights,
                      alphas, offset)
     n, p = X.shape
-    if p % 4 or X.data_ptr() % 16 or dbeta.shape != (p,) or n == 0 or any(
+    if p % 4 or X.data_ptr() % 16 or dbeta.data_ptr() % 16 \
+            or dbeta.shape != (p,) or n == 0 or any(
             t is not None and t.shape != (n,)
             for t in (y, xb, weights, offset)) \
             or alphas.dim() != 1 or alphas.shape[0] == 0:
         raise ValueError(
-            f"margin_ls: bad shapes X {tuple(X.shape)} (p a multiple of 4, "
-            f"16-byte aligned), dbeta {tuple(dbeta.shape)}, alphas "
+            f"margin_ls: bad shapes X {tuple(X.shape)} (p a multiple of 4; X "
+            f"and dbeta 16-byte aligned), dbeta {tuple(dbeta.shape)}, alphas "
             f"{tuple(alphas.shape)}")
     K = alphas.shape[0]
-    nblocks = -(-n // ROWS_PER_BLOCK)
+    nblocks = -(-n // ROWS_PER_BLOCK)       # at least the pass's grid
     f32 = dict(dtype=torch.float32, device=X.device)
     xdb = torch.empty(n, **f32)
     partials = torch.empty(nblocks * K, **f32)
@@ -53,3 +55,16 @@ def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None):
            build.ptr(xdb), build.ptr(partials), build.ptr(losses),
            FAMILY_CODES[family], build.stream_of(X))
     return xdb, losses
+
+
+def grid(n: int, p: int) -> int:
+    """The blocks of the pass ``launch`` runs for n rows of p columns on the
+    current card: four times the SM count times the blocks an SM holds, at
+    most one per ``ROWS_PER_BLOCK`` rows."""
+    fn = build.library().repro_margin_ls_grid
+    fn.argtypes = [ctypes.c_longlong, _I]
+    fn.restype = _I
+    nb = fn(n, p)
+    if nb < 1:
+        raise RuntimeError(f"margin_ls: no grid for n {n}, p {p}")
+    return nb

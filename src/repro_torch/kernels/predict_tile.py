@@ -22,7 +22,25 @@ KERNEL = build.CudaKernel(
     "predict_tile", "repro_predict_tile",
     [_P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P])
 
+THREADS = 128            # kThreads in the source
+SMALL_BATCH = 256        # kSmallBatch
+
 plain = ref.predict_tile
+
+
+def lanes_per_row(B: int, J: int) -> int:
+    """The lanes of a row's group as the source picks them: one 4-pair
+    vector a lane up to ``SMALL_BATCH`` rows, two above, in groups of 8, 16
+    or 32."""
+    vectors = -(-J // 4)
+    per_lane = 1 if B <= SMALL_BATCH else 2
+    return 8 if vectors <= 8 * per_lane else \
+        16 if vectors <= 16 * per_lane else 32
+
+
+def grid(B: int, J: int) -> tuple[int, int]:
+    """(blocks, threads) of the kernel's launch for B rows of J pairs."""
+    return -(-B * lanes_per_row(B, J) // THREADS), THREADS
 
 
 def launch(slots, vals, table, b0, family: str, kind: str = "link"):

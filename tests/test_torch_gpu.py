@@ -14,7 +14,8 @@ entry (K3's and K5's products are 3xTF32 on the tensor cores, which keep
 about 22 bits a product; their G must also come out exactly symmetric and
 within 1e-5 of float64 sums).  K5 holds its stats like K1 and G, g like
 K3; its step runs the K2 chain on a G summed in another order, so it is
-held at 1e-4 of the largest step.  K6 and K7 are float32 sums in another order (1e-5).
+held at 1e-4 of the largest step.  K6 and K7 are float32 sums in another
+order (1e-5); two K6 runs must give the same bits (fixed-order sums).
 """
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from repro_torch.core.dglmnet import DGLMNETConfig
 from repro_torch.core.solver import GLMSolver
 from repro_torch.data import design as tdesign
 from repro_torch.data import synthetic
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import margin_ls, ops, ref
 
 pytestmark = pytest.mark.gpu
 FAMS = ["logistic", "squared", "probit", "poisson"]
@@ -347,37 +348,100 @@ def test_stats_gram_solve_kernel_edges(cuda, T, n, live):
         float(dw.abs().max()), 1e-3)
 
 
+# (n, p, K, offset, weights): the fused fit's shape at a small n, rows of
+# one 16-byte vector and rows over several 1,024-column copies (4 x 1,024
+# + 8), one row and one block's worth less one, no offset, zero weights
+# (all and every other row), one candidate and more than the lanes hold
+# (320)
+MARGIN_LS_CASES = {
+    "fit": (70_001, 384, 294, True, "rand"),
+    "p4": (5_000, 4, 294, True, "rand"),
+    "p4104": (3_000, 4_104, 294, True, "rand"),
+    "n1": (1, 384, 294, True, "rand"),
+    "n1023": (1_023, 384, 294, True, "rand"),
+    "no_offset": (20_000, 256, 294, False, "rand"),
+    "zero_weights": (20_000, 256, 294, True, "zero"),
+    "half_zero_weights": (20_000, 256, 294, True, "half"),
+    "K1": (20_000, 256, 1, True, "rand"),
+    "K400": (20_000, 256, 400, True, "rand"),
+}
+
+
+def _margin_ls_inputs(rng, n, p, K, offset, weights, family, dev):
+    X = torch.from_numpy((0.1 * rng.normal(size=(n, p))).astype(np.float32)) \
+        .to(dev)
+    y = _labels(rng, family, n, dev)
+    xb, dbeta = _vec(rng, n, dev), _vec(rng, p, dev, 0.3)
+    off = _vec(rng, n, dev, 0.1) if offset else None
+    wt = torch.rand(n, device=dev)
+    if weights == "zero":
+        wt.zero_()
+    elif weights == "half":
+        wt[::2] = 0.0
+    if K == 294:
+        cand = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=dev)
+    else:
+        cand = torch.from_numpy(rng.uniform(0.0, 1.5, K).astype(np.float32)) \
+            .to(dev)
+    return X, dbeta, y, xb, wt, cand, off
+
+
 @pytest.mark.parametrize("family", FAMS)
-def test_margin_ls_kernel(cuda, family):
+@pytest.mark.parametrize("case", list(MARGIN_LS_CASES))
+def test_margin_ls_kernel(cuda, family, case):
     rng = np.random.default_rng(7)
-    n, p = 70_001, 384
-    X = (0.1 * rng.normal(size=(n, p))).astype(np.float32)
-    design, _ = tdesign.dense_design(X, 128, device=cuda)
-    y = _labels(rng, family, n, cuda)
-    xb, off, dbeta = _vec(rng, n, cuda), _vec(rng, n, cuda, 0.1), \
-        _vec(rng, p, cuda, 0.3)
-    wt = torch.rand(n, device=cuda)
-    cand = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=cuda)
-    xdb, losses = ops.fused_ls(design, y, xb, dbeta, cand, family,
-                               weights=wt, offset=off)
-    xdb2, losses2 = ref.fused_ls_dense(design.tiles3(), y, xb, dbeta, wt,
-                                       cand, family, offset=off)
+    n, p, K, offset, weights = MARGIN_LS_CASES[case]
+    X, dbeta, y, xb, wt, cand, off = _margin_ls_inputs(
+        rng, n, p, K, offset, weights, family, cuda)
+    assert cand.shape == (K,)
+    xdb, losses = margin_ls.launch(X, dbeta, y, xb, wt, cand, family,
+                                   offset=off)
+    xdb2, losses2 = margin_ls.plain(X.view(n, 1, p).transpose(0, 1), y, xb,
+                                    dbeta, wt, cand, family, offset=off)
     assert _rel(xdb, xdb2) <= 1e-5 and _rel(losses, losses2) <= 1e-5
+    if weights == "zero":
+        assert not losses.any()
+
+
+@pytest.mark.parametrize("case", ["fit", "p4104", "K400"])
+def test_margin_ls_kernel_is_deterministic(cuda, case):
+    """Fixed row ranges and fixed-order sums: two runs give the same bits."""
+    rng = np.random.default_rng(11)
+    n, p, K, offset, weights = MARGIN_LS_CASES[case]
+    X, dbeta, y, xb, wt, cand, off = _margin_ls_inputs(
+        rng, n, p, K, offset, weights, "logistic", cuda)
+    runs = [margin_ls.launch(X, dbeta, y, xb, wt, cand, "logistic",
+                             offset=off) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+# (B, J, L): the serving shapes (one request, the batcher's largest bucket
+# and a bulk-scoring chunk, over its three nnz buckets, 4 model columns)
+# and a ragged case (J not a multiple of 4, L over one pass of 4 outputs)
+PREDICT_TILE_SHAPES = [(3001, 45, 11)] + [
+    (B, J, 4) for B in (1, 64, 4096) for J in (32, 64, 128)]
 
 
 @pytest.mark.parametrize("family", FAMS)
 @pytest.mark.parametrize("kind", ["link", "response"])
-def test_predict_tile_kernel(cuda, family, kind):
+@pytest.mark.parametrize("B,J,L", PREDICT_TILE_SHAPES)
+def test_predict_tile_kernel(cuda, family, kind, B, J, L):
     rng = np.random.default_rng(3)
-    A, L, B, J = 1000, 11, 3001, 45
+    A = 1000
     table = np.zeros((A + 1, L), np.float32)
     table[:-1] = 0.2 * rng.normal(size=(A, L))
-    slots = torch.from_numpy(rng.integers(0, A + 1, size=(B, J))
-                             .astype(np.int32)).to(cuda)
+    slots_h = rng.integers(0, A + 1, size=(B, J)).astype(np.int32)
+    # a malformed request: slots outside the table read the zero row
+    bad = rng.random((B, J)) < 0.05
+    slots_h[bad] = rng.choice([-7, A + 1, A + 50], size=int(bad.sum()))
+    in_table = np.where(bad, A, slots_h).astype(np.int32)
+    slots = torch.from_numpy(slots_h).to(cuda)
     vals, b0 = _vec(rng, B * J, cuda).reshape(B, J), _vec(rng, L, cuda)
     table = torch.from_numpy(table).to(cuda)
     got = ops.predict_tile(slots, vals, table, b0, family, kind=kind)
-    want = ref.predict_tile(slots, vals, table, b0, family, kind=kind)
+    want = ref.predict_tile(torch.from_numpy(in_table).to(cuda), vals, table,
+                            b0, family, kind=kind)
     assert _rel(got, want) <= 1e-5
 
 
