@@ -23,7 +23,14 @@ drives each path through the entry points a user calls and checks it:
   * dense Jacobi fit: the same data with ``coupling="jacobi"``, the fused
     superstep (stats_gram_solve, margin_ls), then a short profiled fit that
     counts the CUDA launches behind each of its logical launches; the
-    unfused Jacobi superstep on the same data follows for comparison.
+    unfused Jacobi superstep on the same data follows for comparison;
+  * precision="bf16": the dense Jacobi fit again through the bf16 modes of
+    stats_gram_solve and margin_ls, and Jacobi fits of the sparse data in
+    fp32 and bf16 (glm_stats, tile_gram or its bf16 mode, the batched
+    cd_tile_solve, a matvec and alpha_search); each bf16 fit is held
+    against its fp32 twin by the reference's own bar (tests/test_fused.py:
+    alpha equal on at least 80% of supersteps, beta within 0.05 max(max
+    |beta_fp32|, 1)).
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -37,6 +44,12 @@ the same bits on two runs and is timed beside torch.mv on the same X.  K7
 is held and timed at 4,096 rows (bulk scoring) and at 64 (the batcher's
 largest bucket); beside K1, K4 and K7 stands their launch floor, an empty
 kernel on the same grid timed the same way (tools/launch_floor.cu).
+The bf16 modes of K3, K5 and K6 are held against their plain bf16 versions
+(the same roundings, summed in float64 or float32) at 1e-5 relative to the
+largest entry; K5's G and g in that mode against the plain bf16 Gram at
+the kernel's own w and s (see ``bf16_fused_parity``).  Their bound is the
+larger of bytes over the memory rate and all of G's flops at the dense bf16
+tensor-core rate (K6: its operations on the fp32 pipes).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the counts must equal the path's exact needs.  Small fits
@@ -60,6 +73,7 @@ SEED = 0
 REPO = pathlib.Path(__file__).resolve().parent
 H100_FP32_FLOPS = 67e12     # dense fp32 outside the tensor cores (SXM, 700 W)
 H100_TF32_FLOPS = 495e12    # dense TF32 on the tensor cores (SXM, 700 W)
+H100_BF16_FLOPS = 989e12    # dense bf16 on the tensor cores (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 
 
@@ -96,10 +110,56 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound_ms(bytes_moved: float, flops: float):
+def bound_ms(bytes_moved: float, flops: float,
+             peak_flops: float = H100_FP32_FLOPS):
+    """The larger of the bytes over the memory rate and the flops over
+    ``peak_flops`` (a bf16 Gram's: all of G at the dense bf16 rate)."""
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_bf16_ms(torch, a, b, reps: int):
+    """(ms, what was timed) of one PyTorch product of bf16 operands with a
+    float32 result: ``torch.mm`` (2-D) or ``torch.bmm`` (3-D) with
+    ``out_dtype=torch.float32``; where this torch lacks that, a float32
+    product of the same rounded operands."""
+    mm = torch.bmm if a.dim() == 3 else torch.mm
+    name = "bmm" if a.dim() == 3 else "mm"
+    try:
+        mm(a, b, out_dtype=torch.float32)
+        return (time_ms(torch, lambda: mm(a, b, out_dtype=torch.float32),
+                        reps),
+                f"torch.{name}(bf16, bf16, out_dtype=torch.float32)")
+    except (TypeError, RuntimeError, NotImplementedError):
+        a32, b32 = a.float(), b.float()
+        return (time_ms(torch, lambda: mm(a32, b32), reps),
+                f"torch.{name} in float32 of the bf16-rounded operands "
+                "(no out_dtype in this torch)")
+
+
+def bf16_tracks_fp32(np, tag: str, r32, r16) -> dict:
+    """The reference's bar for a bf16 fit (tests/test_fused.py,
+    test_bf16_tracks_fp32_alpha_sequence): alpha equal to the fp32 fit's
+    on at least 80% of the supersteps both ran, beta within 0.05 max(max
+    |beta_fp32|, 1); and the two differ (the mode did round)."""
+    a32 = np.asarray(r32.history["alpha"])
+    a16 = np.asarray(r16.history["alpha"])
+    k = min(len(a32), len(a16))
+    match = float(np.mean(np.isclose(a32[:k], a16[:k], rtol=1e-6)))
+    err = float(np.abs(r16.beta - r32.beta).max())
+    scale = float(np.abs(r32.beta).max())
+    check(k > 0 and match >= 0.8,
+          f"{tag}: alpha matches the fp32 fit on {match} of {k} supersteps")
+    check(err <= 0.05 * max(scale, 1.0),
+          f"{tag}: beta {err} off the fp32 fit (scale {scale})")
+    check(err > 0, f"{tag}: beta equals the fp32 fit's bit for bit")
+    return {"phase": f"{tag}_vs_fp32", "supersteps": k,
+            "alpha_match": match, "alpha_fp32": a32[:k].tolist(),
+            "alpha_bf16": a16[:k].tolist(), "beta_max_abs_diff": err,
+            "beta_scale": scale, "f_fp32": r32.history["f"],
+            "f_bf16": r16.history["f"],
+            "bar": {"alpha_match": 0.8, "beta": 0.05 * max(scale, 1.0)}}
 
 
 def gram_bounds(bytes_moved: float, gram_flops: float, other_flops: float,
@@ -273,23 +333,47 @@ def short_name(key: str) -> str:
     return key[:60]
 
 
-def cuda_launches(torch, solver, lam1, prefixes, steps: int = 2):
-    """The CUDA launches behind each logical launch, counted by
-    torch.profiler over a ``steps``-superstep fit.  ``prefixes`` maps a
-    kernel to the name prefix of its CUDA functions; returns ({kernel:
-    {CUDA function: launches}}, the logical launch counts, supersteps)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# host idle time at each edge of a profiled fit's recording window
+PROFILE_EDGE_S = 0.1
+
+
+def profiled_fit(torch, solver, lam1, steps: int):
+    """A ``steps``-superstep fit under torch.profiler: (the profiler, the
+    fit's result, its host seconds, the logical launch counts of the fit,
+    set to 0 just before it).  The profiler's first cycle is a warm-up, a
+    one-superstep fit traced and thrown away; the measured fit is its
+    second and last cycle.  The profiler keeps only the device records
+    whose times, moved onto the host's clock, fall inside the recording
+    window, and on the H100 those times were seen running up to about 2
+    ms early: a fit launched at the window's edge lost its first kernels
+    (tools/profile_records.py).  So the host idles PROFILE_EDGE_S at both
+    edges, outside the timed fit."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels import ops
 
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        solver.fit(lam1=lam1, max_outer=1)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_EDGE_S)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
         res = solver.fit(lam1=lam1, max_outer=steps, tol=0.0)
         torch.cuda.synchronize()
-    logical = ops.launch_counts()
+        wall = time.perf_counter() - t0
+        logical = ops.launch_counts()
+        time.sleep(PROFILE_EDGE_S)
+    return prof, res, wall, logical
+
+
+def cuda_function_counts(torch, prof, prefixes) -> dict:
+    """{kernel: {CUDA function: device records}} of a profile, for the
+    kernels of ``prefixes`` (kernel: name prefix of its CUDA functions)."""
+    from torch.autograd import DeviceType
+
     found = {k: {} for k in prefixes}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -298,7 +382,16 @@ def cuda_launches(torch, solver, lam1, prefixes, steps: int = 2):
         for k, pre in prefixes.items():
             if name.startswith(pre):
                 found[k][name] = found[k].get(name, 0) + evt.count
-    return found, logical, res.n_iter
+    return found
+
+
+def cuda_launches(torch, solver, lam1, prefixes, steps: int = 2):
+    """The CUDA launches behind each logical launch, counted by
+    torch.profiler over a ``steps``-superstep fit.  ``prefixes`` maps a
+    kernel to the name prefix of its CUDA functions; returns ({kernel:
+    {CUDA function: launches}}, the logical launch counts, supersteps)."""
+    prof, res, _, logical = profiled_fit(torch, solver, lam1, steps)
+    return cuda_function_counts(torch, prof, prefixes), logical, res.n_iter
 
 
 def fused_parity(np, torch, solver, dev, report, parity):
@@ -471,6 +564,132 @@ def fused_parity(np, torch, solver, dev, report, parity):
                                                  "margin_ls")},
           "stats_gram_solve": report["stats_gram_solve"],
           "margin_ls": report["margin_ls"]})
+
+    # ---- the bf16 modes (precision="bf16") on the same inputs.  K5's
+    # stats are held like fp32's; its G and g against the plain bf16 Gram
+    # at the kernel's own w and s: a float32 s one ulp off the plain
+    # version's crosses a bf16 rounding boundary now and then, and such a
+    # term moves by 2^-8 of itself, which a cancelling sum such as g can
+    # show above the tolerance though the Gram's arithmetic is right.  Its
+    # step is the chain on its own G and g (bit for bit) and within 1e-4
+    # of the plain version's whole function.
+    tolb = {"stats_gram_solve_bf16": 1e-5, "stats_gram_solve_bf16_probit":
+            3e-4, "stats_gram_solve_bf16_dbeta": 1e-4,
+            "margin_ls_bf16": 1e-5}
+    err5b = 0.0
+    for fam in ("logistic", "squared", "probit", "poisson"):
+        yy = labels_for(np, torch, rng, fam, y)
+        got = ops.fused_stats_sweep(design, yy, xb, beta, fam, weights=wobs,
+                                    offset=off, penf=penf, tile_live=live,
+                                    precision="bf16", **kw)
+        want = ref.stats_gram_solve(design.tiles3(), yy, xb, wobs, beta, fam,
+                                    offset=off, penf=penf, tile_live=live,
+                                    precision="bf16", **kw)
+        e_st = max(errs(a, b)[1] for a, b in zip(got[:3], want[:3]))
+        check(e_st <= tolb["stats_gram_solve_bf16_probit" if fam == "probit"
+                           else "stats_gram_solve_bf16"],
+              f"stats_gram_solve bf16 {fam}: stats error {e_st}")
+        G_own, g_own = ref.shaped_tile_grams(
+            nt, lambda ids: ref.gram_dense_tiles(
+                design.tiles3()[ids], got[2], got[1], "bf16"), live)
+        e_g = max(errs(got[4], G_own)[1], errs(got[5], g_own)[1])
+        check(e_g <= tolb["stats_gram_solve_bf16"],
+              f"stats_gram_solve bf16 {fam}: G, g error {e_g}")
+        parity[f"stats_gram_solve_bf16/{fam}"] = max(e_st, e_g)
+        parity[f"stats_gram_solve_bf16/{fam}/G_g_vs_plain_stats"] = max(
+            errs(got[4], want[3])[1], errs(got[5], want[4])[1])
+        check(not bool(got[4][3].any()) and not bool(got[3][3 * T:4 * T]
+                                                     .any()),
+              f"stats_gram_solve bf16 {fam}: the dead tile was touched")
+        # (squared's w is the observation weight, 1 on every row here, and
+        # bf16(1 x) = bf16(x) leaves its G symmetric)
+        check(fam == "squared" or all(not torch.equal(got[4][t], got[4][t].T)
+                                      for t in np.flatnonzero(live)),
+              f"stats_gram_solve bf16 {fam}: a live tile's G is symmetric")
+        asym = errs(got[4] - got[4].transpose(1, 2),
+                    G_own - G_own.transpose(1, 2))[0] / float(
+                        G_own.abs().max())
+        check(asym <= tolb["stats_gram_solve_bf16"],
+              f"stats_gram_solve bf16 {fam}: asymmetry off by {asym}")
+        ed = float((got[3] - want[5]).abs().max()) / max(
+            float(want[5].abs().max()), 1e-3)
+        parity[f"stats_gram_solve_bf16/{fam}/dbeta"] = ed
+        check(ed <= tolb["stats_gram_solve_bf16_dbeta"],
+              f"stats_gram_solve bf16 {fam}: step error {ed}")
+        chain = ref.jacobi_tile_solves(got[4], got[5], beta, penf=penf,
+                                       tile_live=live, **kw)
+        check(torch.equal(got[3], chain),
+              f"stats_gram_solve bf16 {fam}: step differs from the chain")
+        err5b = max(err5b, max(errs(a, b)[0] for a, b in
+                               zip(got[:3], want[:3])),
+                    errs(got[4], G_own)[0], errs(got[5], g_own)[0])
+        del got, want, G_own, g_own
+    k5b = lambda: sgs_k.launch(X, y, xb, wobs, off, beta, penf, params,
+                               order, n_all, T, "logistic",
+                               precision="bf16")
+    runs = [k5b() for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "stats_gram_solve bf16: two runs differ")
+    del runs
+    k5b_ms = time_ms(torch, k5b, 10)
+    k5b_plain = time_ms(torch, lambda: ref.stats_gram_solve(
+        design.tiles3(), y, xb, wobs, beta, "logistic", offset=off,
+        penf=penf, precision="bf16", **kw), 2, 1)
+    X3 = X.view(n, nt, T)
+    A16 = (X3 * w_[:, None, None]).to(torch.bfloat16).permute(1, 2, 0) \
+        .contiguous()
+    B16 = X3.to(torch.bfloat16).permute(1, 0, 2).contiguous()
+    k5b_lib, k5b_what = library_bf16_ms(torch, A16, B16, 5)
+    del A16, B16
+    b_ms, b_by = bound_ms(k5_bytes, 2.0 * n * T * T * n_all,
+                          H100_BF16_FLOPS)
+    report["stats_gram_solve_bf16"] = dict(
+        ms=k5b_ms, plain_ms=k5b_plain, bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / k5b_ms, library_ms=k5b_lib,
+        library_covers=f"G only, operands rounded beforehand: {k5b_what}",
+        max_abs_err=err5b, n_live=n_all, bit_identical_runs=True)
+
+    err6b = 0.0
+    for fam in ("logistic", "squared", "probit", "poisson"):
+        yy = labels_for(np, torch, rng, fam, y)
+        got = ops.fused_ls(design, yy, xb, dbeta, cand, fam, weights=wobs,
+                           offset=off, precision="bf16")
+        want = ref.fused_ls_dense(design.tiles3(), yy, xb, dbeta, wobs, cand,
+                                  fam, offset=off, precision="bf16")
+        e = max(errs(a, b)[1] for a, b in zip(got, want))
+        parity[f"margin_ls_bf16/{fam}"] = e
+        check(e <= tolb["margin_ls_bf16"], f"margin_ls bf16 {fam}: {e}")
+        err6b = max(err6b, max(errs(a, b)[0] for a, b in zip(got, want)))
+    k6b = lambda: margin_ls_k.launch(X, dbeta, y, xb, wobs, cand, "logistic",
+                                     offset=off, precision="bf16")
+    runs = [k6b() for _ in range(2)]
+    check(torch.equal(runs[0][0], runs[1][0])
+          and torch.equal(runs[0][1], runs[1][1]),
+          "margin_ls bf16: two runs differ")
+    del runs
+    k6b_ms = time_ms(torch, k6b, 10)
+    k6b_plain = time_ms(torch, lambda: ref.fused_ls_dense(
+        design.tiles3(), y, xb, dbeta, wobs, cand, "logistic", offset=off,
+        precision="bf16"), 3, 1)
+    X16 = X.to(torch.bfloat16)
+    k6b_lib, k6b_what = library_bf16_ms(
+        torch, X16, dbeta.to(torch.bfloat16)[:, None], 10)
+    del X16
+    # the products run on the fp32 pipes: the bound of the fp32 mode
+    b_ms, b_by = bound_ms(k6_bytes, 2.0 * n * p + 12.0 * n * K)
+    report["margin_ls_bf16"] = dict(
+        ms=k6b_ms, plain_ms=k6b_plain, bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / k6b_ms, library_ms=k6b_lib,
+        library_covers=f"xdb only, from a bf16 copy of X (half the bytes): "
+                       f"{k6b_what}",
+        max_abs_err=err6b, K=K, bit_identical_runs=True)
+    emit({"phase": "bf16_kernel_parity", "n": n, "p_pad": p, "T": T,
+          "n_live_parity": n_live, "tolerance": tolb,
+          "max_rel_err": {k: v for k, v in parity.items()
+                          if k.split("/")[0].endswith("_bf16")},
+          "stats_gram_solve_bf16": report["stats_gram_solve_bf16"],
+          "margin_ls_bf16": report["margin_ls_bf16"],
+          "tile_gram_bf16": report["tile_gram_bf16"]})
 
 
 def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
@@ -727,9 +946,11 @@ def main() -> None:
     # with the same formulas (1e-5; probit 3e-4, erfc against log_ndtr);
     # K3 and K4 are the same float32 sums in another order (1e-5); K2 is
     # rounded step by step like its plain version and must match exactly
-    # (torch.equal)
+    # (torch.equal); K3's bf16 mode 1e-6, below bf16's own effect on the
+    # smoke's G (its fault controls show the margin)
     tol = {"glm_stats": 1e-5, "glm_stats_probit": 3e-4,
-           "alpha_search": 1e-5, "cd_tile_solve": 0.0, "tile_gram": 1e-5}
+           "alpha_search": 1e-5, "cd_tile_solve": 0.0, "tile_gram": 1e-5,
+           "tile_gram_bf16": 1e-6}
     parity = {}
 
     xb = torch.from_numpy((rng.normal(size=n) * 1.5).astype(np.float32)) \
@@ -833,6 +1054,76 @@ def main() -> None:
     report["tile_gram"] = dict(ms=k3_ms, plain_ms=k3_plain, **bounds,
                                library_ms=k3_lib, max_abs_err=e3, K=K)
 
+    # K3's bf16 mode (precision="bf16" of the fused Jacobi superstep on
+    # bricks) on the same tile: every block pair computed, none mirrored,
+    # so G is not symmetric; its asymmetry must be the plain version's.
+    # Its w and r are a later superstep's, at the random margins xb: the
+    # first superstep's w is 1/4 on every row, and bf16(x / 4) = bf16(x) / 4
+    # leaves that G exactly symmetric.
+    _, s1, w1 = ops.glm_stats(y, xb, "logistic", weights=wobs, offset=off)
+    Gb, gb = ops.tile_gram(tb, rows, K, w1, s1, precision="bf16")
+    Gb2, gb2 = ref.tile_gram(tb, rows, K, w1.reshape(-1, rb),
+                             s1.reshape(-1, rb), precision="bf16")
+    scale = float(Gb2.abs().max())
+
+    def k3b_off(Gx):
+        """(G's error, its asymmetry's error) off the plain bf16 G,
+        over the plain G's largest entry."""
+        return (float((Gx - Gb2).abs().max()) / scale,
+                errs(Gx - Gx.T, Gb2 - Gb2.T)[0] / scale)
+
+    e3b_G, asym = k3b_off(Gb)
+    e3b = max(e3b_G, errs(gb, gb2)[1])
+    parity["tile_gram_bf16"] = e3b
+    check(e3b <= tol["tile_gram_bf16"], f"tile_gram bf16: error {e3b}")
+    check(not torch.equal(Gb, Gb.T) and asym <= tol["tile_gram_bf16"],
+          f"tile_gram bf16: asymmetry {asym} off the plain version's")
+    # Over 131,072 rows bf16 moves this G by only a few 1e-6 of its
+    # largest entry, so the tolerance sits below that: the G of a kernel
+    # that skipped a rounding, or mirrored its upper blocks, formed plainly
+    # on the same inputs, must fail the same two checks
+    A = tb * w1.reshape(-1, rb)[rows.long()][:, :, None]
+    A32, A16 = A.double(), A.to(torch.bfloat16).double()
+    B32, B16 = tb.double(), tb.to(torch.bfloat16).double()
+    gram = lambda a, b: torch.einsum("kit,kiu->tu", a, b).float()
+    upper = torch.triu(torch.ones(T, T, dtype=torch.bool, device=dev))
+    faults = {"no_rounding": gram(A32, B32), "A_not_rounded": gram(A32, B16),
+              "B_not_rounded": gram(A16, B32),
+              "mirrored": torch.where(upper, Gb2, Gb2.T)}
+    del A, A32, A16, B16, B32
+    k3b_faults = {}
+    for name, Gx in faults.items():
+        ef, af = k3b_off(Gx)
+        k3b_faults[name] = {"G_err": ef, "asymmetry_err": af}
+        check(max(ef, af) > tol["tile_gram_bf16"],
+              f"tile_gram bf16: the check passes a kernel with fault "
+              f"{name} (G {ef}, asymmetry {af})")
+    del faults
+    Gb3, gb3 = ops.tile_gram(tb, rows, K, w1, s1, precision="bf16")
+    check(torch.equal(Gb, Gb3) and torch.equal(gb, gb3),
+          "tile_gram bf16: G differs from run to run")
+    e3b = max(errs(Gb, Gb2)[0], errs(gb, gb2)[0])
+    del Gb2, gb2, Gb3, gb3
+    k3b_ms = time_ms(torch, lambda: tile_gram_k.launch(
+        tb, rows, K, w1, s1, precision="bf16"), 20)
+    k3b_plain = time_ms(torch, lambda: ref.tile_gram(
+        tb, rows, K, w1.reshape(-1, rb), s1.reshape(-1, rb),
+        precision="bf16"), 5)
+    wk1 = w1.reshape(-1, rb)[rows.long()]
+    A16 = (tb * wk1[:, :, None]).reshape(-1, T).to(torch.bfloat16)
+    B16 = tb.reshape(-1, T).to(torch.bfloat16)
+    k3b_lib, k3b_lib_what = library_bf16_ms(torch, A16.T, B16, 20)
+    del A16, B16, wk1
+    b_ms, b_by = bound_ms(k3_bytes, 2.0 * K * rb * T * T, H100_BF16_FLOPS)
+    report["tile_gram_bf16"] = dict(
+        ms=k3b_ms, plain_ms=k3b_plain, bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / k3b_ms, library_ms=k3b_lib,
+        library_covers=f"G only, operands rounded beforehand: {k3b_lib_what}",
+        max_abs_err=e3b, K=K, asymmetry_vs_plain=asym,
+        G_asymmetry=float((Gb - Gb.T).abs().max() / Gb.abs().max()),
+        fault_controls=k3b_faults)
+    del Gb, gb, s1, w1
+
     # K2 on that tile's Gram block (T = 256, h the strided diagonal view)
     # and on a T = 512 block, held bit for bit against the plain version;
     # T times the minimal step of tools/chain_floor.cu is its dependency
@@ -928,13 +1219,14 @@ def main() -> None:
           **ref_fit})
 
     # --------------------------------------------------------- the fits
-    def run_fit(tag, solver, X_test, y_test, want_per_step, prefixes=None):
-        """Fit at LAM1_FRACTION * lambda_max for 5 supersteps with the
-        launch counts set to 0 just before; ``want_per_step`` the exact
+    def run_fit(tag, solver, X_test, y_test, want_per_step, prefixes=None,
+                steps=5):
+        """Fit at LAM1_FRACTION * lambda_max for ``steps`` supersteps with
+        the launch counts set to 0 just before; ``want_per_step`` the exact
         launches of one superstep.  With ``prefixes`` (kernel: name prefix
         of its CUDA functions) a profiled fit then counts the CUDA launches
         behind each logical one: every CUDA function of the kernel must run
-        once per logical launch."""
+        once per logical launch.  Returns (the counts, the fit's result)."""
         t0 = time.perf_counter()
         lmax = solver.lambda_max()
         torch.cuda.synchronize()
@@ -942,7 +1234,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = solver.fit(lam1=LAM1_FRACTION * lmax, max_outer=5)
+        res = solver.fit(lam1=LAM1_FRACTION * lmax, max_outer=steps)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -985,16 +1277,36 @@ def main() -> None:
               "launches_per_superstep": {k: v / it for k, v in
                                          counts.items()},
               **extra, "peak_mem_gb": peak_gb, "test_accuracy": acc})
-        return counts
+        return counts, res
 
-    sparse_counts = run_fit("sparse", solver, ds.test.X, ds.test.y,
-                            {"glm_stats": 1, "cd_tile_solve": nt,
-                             "tile_gram": nt, "alpha_search": 2})
+    sparse_counts, _ = run_fit("sparse", solver, ds.test.X, ds.test.y,
+                               {"glm_stats": 1, "cd_tile_solve": nt,
+                                "tile_gram": nt, "alpha_search": 2})
     del design, tb, rows, y, wobs, off, s0, w0, penf
     serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity,
                                floor_lib)
-    del solver, ds
+    del solver
     torch.cuda.empty_cache()
+    # the fused Jacobi superstep on bricks, in fp32 and in bf16: K1, K3 (or
+    # its bf16 mode) for every tile, K2 once for all of them (batched), a
+    # float32 matvec and K4 over all 294 candidates; a profiled fit holds
+    # each kernel's CUDA functions to its logical launches
+    sparse_jacobi = {}
+    for prec, k3 in (("fp32", "tile_gram"), ("bf16", "tile_gram_bf16")):
+        sj = full_size_solver(GLMSolver, ds, dev, DGLMNETConfig(
+            coupling="jacobi", precision=prec))
+        tag = "sparse_jacobi" + ("_bf16" if prec == "bf16" else "")
+        sparse_jacobi[prec] = run_fit(
+            tag, sj, ds.test.X, ds.test.y,
+            {"glm_stats": 1, k3: nt, "cd_tile_solve": 1, "alpha_search": 1},
+            {"glm_stats": "glm_stats_", k3: "tile_gram_",
+             "cd_tile_solve": "cd_tile_solve_",
+             "alpha_search": "alpha_search_"}, steps=3)
+        del sj
+        torch.cuda.empty_cache()
+    emit(bf16_tracks_fp32(np, "sparse_jacobi_bf16", sparse_jacobi["fp32"][1],
+                          sparse_jacobi["bf16"][1]))
+    del ds
 
     t0 = time.perf_counter()
     dd = full_size_data(synthetic, "dense")
@@ -1008,20 +1320,31 @@ def main() -> None:
           "n_tiles": dnt,
           "design_gb": dsolver.design.data.numel() * 4 / 1e9,
           "generate_s": gen_s, "place_s": time.perf_counter() - t0})
-    dense_counts = run_fit("dense", dsolver, dd.test.X, dd.test.y,
-                           {"glm_stats": 1, "cd_tile_solve": dnt,
-                            "alpha_search": 2})
+    dense_counts, _ = run_fit("dense", dsolver, dd.test.X, dd.test.y,
+                              {"glm_stats": 1, "cd_tile_solve": dnt,
+                               "alpha_search": 2})
     del dsolver
     torch.cuda.empty_cache()
 
     jsolver = full_size_solver(GLMSolver, dd, dev,
                                DGLMNETConfig(coupling="jacobi"))
     fused_parity(np, torch, jsolver, dev, report, parity)
-    jacobi_counts = run_fit("dense_jacobi", jsolver, dd.test.X, dd.test.y,
-                            {"stats_gram_solve": 1, "margin_ls": 1},
-                            {"stats_gram_solve": "sgs_",
-                             "margin_ls": "margin_ls_"})
+    jacobi_counts, jres = run_fit(
+        "dense_jacobi", jsolver, dd.test.X, dd.test.y,
+        {"stats_gram_solve": 1, "margin_ls": 1},
+        {"stats_gram_solve": "sgs_", "margin_ls": "margin_ls_"})
     del jsolver
+    torch.cuda.empty_cache()
+    # the same fit in bf16: the bf16 modes of K5 and K6, held against the
+    # fp32 fit above
+    bsolver = full_size_solver(GLMSolver, dd, dev, DGLMNETConfig(
+        coupling="jacobi", precision="bf16"))
+    bf16_counts, bres = run_fit(
+        "dense_jacobi_bf16", bsolver, dd.test.X, dd.test.y,
+        {"stats_gram_solve_bf16": 1, "margin_ls_bf16": 1},
+        {"stats_gram_solve_bf16": "sgs_", "margin_ls_bf16": "margin_ls_"})
+    emit(bf16_tracks_fp32(np, "dense_jacobi_bf16", jres, bres))
+    del bsolver, jres, bres
     torch.cuda.empty_cache()
     # the unfused Jacobi superstep on the same data: a cuBLAS Gram per
     # tile, one K2 launch for every tile (as the reference's vmap is one
@@ -1035,24 +1358,33 @@ def main() -> None:
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
 
     # ------------------------------------------------------------- report
+    # the bf16 modes replace the bf16 branches of the TPU kernels' bodies;
+    # the reference forms the brick route's bf16 Gram in ref.py
     src = {"glm_stats": "src/repro/kernels/glm_stats.py:72",
            "cd_tile_solve": "src/repro/kernels/cd_tile_solve.py:74",
            "tile_gram": "src/repro/kernels/tile_gram.py:59",
            "alpha_search": "src/repro/kernels/alpha_search.py:48",
            "stats_gram_solve": "src/repro/kernels/superstep_tile.py:152",
            "margin_ls": "src/repro/kernels/superstep_tile.py:251",
-           "predict_tile": "src/repro/kernels/predict_tile.py:68"}
+           "predict_tile": "src/repro/kernels/predict_tile.py:68",
+           "stats_gram_solve_bf16": "src/repro/kernels/superstep_tile.py:123",
+           "margin_ls_bf16": "src/repro/kernels/superstep_tile.py:217",
+           "tile_gram_bf16": "src/repro/kernels/ref.py:161"}
     # each kernel's launches come from the run of its own path
     main_path = {"glm_stats": sparse_counts, "cd_tile_solve": sparse_counts,
                  "tile_gram": sparse_counts, "alpha_search": sparse_counts,
                  "stats_gram_solve": jacobi_counts,
-                 "margin_ls": jacobi_counts, "predict_tile": serve_counts}
+                 "margin_ls": jacobi_counts, "predict_tile": serve_counts,
+                 "stats_gram_solve_bf16": bf16_counts,
+                 "margin_ls_bf16": bf16_counts,
+                 "tile_gram_bf16": sparse_jacobi["bf16"][0]}
     kernels = []
     for name in src:
         rep = report[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{name.removesuffix('_bf16')}.cu",
             "replaces": src[name], "launches": main_path[name][name],
             "launches_dense": dense_counts[name],
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
@@ -1076,7 +1408,9 @@ def main() -> None:
                                    "library_share_of_bound", "grid_blocks",
                                    "sm_count", "ms_B64", "launch_floor_ms_B64",
                                    "share_of_launch_floor_B64",
-                                   "bound_ms_B64")
+                                   "bound_ms_B64", "library_covers",
+                                   "asymmetry_vs_plain", "G_asymmetry",
+                                   "fault_controls")
                if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
 """Where a superstep's time goes on the card: torch.profiler over a few
-supersteps of the four fits that ``chip_smoke.py`` runs, built by its
+supersteps of the fits that ``chip_smoke.py`` runs, built by its
 ``full_size_data`` and ``full_size_solver``.
 
     python3 profile_superstep.py [--out DIR] [--steps N]
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use).  For each
 fit (sparse: the 131072 x 16384 brick layout; dense: 400000 x 2000; dense
-Jacobi: the same data through the fused superstep, and through the unfused
-Jacobi one) it runs one untimed superstep, then N profiled ones, and
-prints one JSON line with the host seconds per superstep, the device time
-per superstep summed over kernels and copies, the device's idle share
-(1 - device time / host time; one stream, so kernels do not overlap), the
-CUDA kernel launches and the copies and fills per superstep, and the
-kernels by device time.
+Jacobi: the same data through the fused superstep, in fp32 and with
+precision="bf16", and through the unfused Jacobi one) it profiles a
+one-superstep warm-up fit and throws it away, then N supersteps
+(``chip_smoke.profiled_fit``), and prints one JSON line with the host
+seconds per superstep, the device time per superstep summed over kernels
+and copies, the device's idle share (1 - device time / host time; one
+stream, so kernels do not overlap), the CUDA kernel launches and the
+copies and fills per superstep, and the kernels by device time.
 The Chrome traces go to DIR when given.
+
+The device records are held against the kernels' own launch counts
+(``ops.launch_counts``) over the same supersteps: each CUDA function of K1
+to K6 must have one record for every logical launch of its kernel (either
+mode), and the device must have one kernel record for every launch call
+the host made.  A cell whose records fall short or run over is reported
+(``launch_check``) and the script exits non-zero after the last cell: a
+profile that lost device records would understate the device time.
+(``tools/profile_records.py`` showed where records went: see
+``chip_smoke.profiled_fit``.)
 """
 from __future__ import annotations
 
@@ -36,19 +47,60 @@ def device_us(evt) -> float:
     return 0.0
 
 
+# the CUDA functions behind one logical launch of each training kernel
+# (both modes of K3, K5 and K6 are instances of the same functions), each
+# run once a launch
+CUDA_FUNCTIONS = {
+    "glm_stats": ("glm_stats_kernel",),
+    "alpha_search": ("alpha_search_partial", "alpha_search_finish"),
+    "cd_tile_solve": ("cd_tile_solve_kernel",),
+    "tile_gram": ("tile_gram_partial", "tile_gram_reduce"),
+    "stats_gram_solve": ("sgs_partial", "sgs_reduce", "sgs_solve"),
+    "margin_ls": ("margin_ls_stream", "margin_ls_finish"),
+}
+
+
+def launch_records(prof):
+    """(the host's kernel launch calls, the device's kernel records) of a
+    profile, each a time-sorted list of (start us, short name); copies,
+    fills and the schedule's step ranges are not kernels."""
+    from torch.autograd import DeviceType
+
+    host, dev = [], []
+    for e in prof.events():
+        name = chip_smoke.short_name(e.name)
+        if e.device_type == DeviceType.CUDA:
+            if not name.startswith(("Memcpy", "Memset", "ProfilerStep")):
+                dev.append((e.time_range.start, name))
+        elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            host.append((e.time_range.start, name))
+    return sorted(host), sorted(dev)
+
+
+def launch_check(torch, prof, logical) -> dict:
+    """{CUDA function: [device records, logical launches]} for the
+    functions of CUDA_FUNCTIONS whose two counts differ, and under "all
+    kernels" [device kernel records, host launch calls] if those differ
+    (empty: all agree)."""
+    found = chip_smoke.cuda_function_counts(torch, prof, {"all": ""})["all"]
+    host, dev = launch_records(prof)
+    bad = {} if len(dev) == len(host) else {"all kernels":
+                                             [len(dev), len(host)]}
+    for kernel, fns in CUDA_FUNCTIONS.items():
+        want = logical[kernel] + logical.get(kernel + "_bf16", 0)
+        for fn in fns:
+            got = found.get(fn, 0)
+            if got != want:
+                bad[fn] = [got, want]
+    return bad
+
+
 def profile_fit(torch, solver, steps, out, tag):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     lam1 = chip_smoke.LAM1_FRACTION * solver.lambda_max()
-    solver.fit(lam1=lam1, max_outer=1)          # warm: allocator, library
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = solver.fit(lam1=lam1, max_outer=steps, tol=0.0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, res, wall, logical = chip_smoke.profiled_fit(torch, solver, lam1,
+                                                       steps)
     n = res.n_iter
     rows = []
     launches = copies = 0
@@ -58,6 +110,8 @@ def profile_fit(torch, solver, steps, out, tag):
         if evt.device_type != DeviceType.CUDA:
             continue
         name = chip_smoke.short_name(evt.key)
+        if name.startswith("ProfilerStep"):
+            continue      # the schedule's step ranges, not device work
         if name.startswith(("Memcpy", "Memset")):
             copies += evt.count
         else:
@@ -73,6 +127,8 @@ def profile_fit(torch, solver, steps, out, tag):
     wall_ms = wall * 1e3
     return {
         "cell": tag, "supersteps": n,
+        "launch_check": launch_check(torch, prof, logical),
+        "logical_launches": {k: v for k, v in logical.items() if v},
         "host_ms_per_superstep": wall_ms / n,
         "device_ms_per_superstep": busy_ms / n if rows else None,
         "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
@@ -103,18 +159,26 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     cells = (("sparse", "sparse", None), ("dense", "dense", None),
              ("dense_jacobi", "dense", DGLMNETConfig(coupling="jacobi")),
+             ("dense_jacobi_bf16", "dense",
+              DGLMNETConfig(coupling="jacobi", precision="bf16")),
              ("dense_jacobi_unfused", "dense",
               DGLMNETConfig(coupling="jacobi", fuse_superstep=False)))
     ds, ds_kind = None, None
+    failed = []
     for tag, kind, config in cells:
-        if kind != ds_kind:        # the dense data serves two cells
+        if kind != ds_kind:        # the dense data serves four cells
             ds = None              # free the old data before making the new
             ds, ds_kind = chip_smoke.full_size_data(synthetic, kind), kind
         solver = chip_smoke.full_size_solver(GLMSolver, ds, dev, config)
-        print(json.dumps(profile_fit(torch, solver, args.steps, args.out,
-                                     tag)), flush=True)
+        rec = profile_fit(torch, solver, args.steps, args.out, tag)
+        print(json.dumps(rec), flush=True)
+        if rec["launch_check"]:
+            failed.append(tag)
         del solver
         torch.cuda.empty_cache()
+    if failed:
+        sys.exit(f"profile_superstep: device records differ from the "
+                 f"launch counts in {failed}")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@ coupling, as in the reference) steps 1-3 take two fused launches instead:
 margin delta and the losses of all ``full_candidates``; ``margin_ls``),
 then ``select_precomputed`` picks alpha.  That one-pass line search is the
 route the reference takes on its accelerator; it runs on both devices here.
+``precision="bf16"`` gives those two launches bfloat16 product inputs (the
+bf16 modes of stats_gram_solve, margin_ls and, on bricks, tile_gram).
 
 The superstep queues its work on the device and returns tensors; the
 caller reads the metrics once per superstep.
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.core import cd as cd_lib
 from repro_torch.core import linesearch
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +62,9 @@ class DGLMNETConfig:
     coupling: str = "gauss-seidel"          # or "jacobi"
     # the fused Jacobi superstep (two launches); inert for gauss-seidel
     fuse_superstep: bool = True
-    # "fp32"; "bf16" Gram/margin inputs are not ported yet
+    # "fp32" | "bf16": input precision of the fused superstep's Gram and
+    # margin products (their sums, the stats, the solves and the Armijo
+    # sums stay float32); inert for gauss-seidel and unfused jacobi
     precision: str = "fp32"
     # outer loop
     max_outer: int = 100
@@ -98,12 +102,7 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
     per-tile summary on the host).  It returns (new state, metrics), the
     metrics being 0-d device tensors keyed by ``METRIC_KEYS``.
     """
-    if config.precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (bf16 Gram and margin inputs of the fused "
-            "kernels) is not ported yet; use precision='fp32'")
-    if config.precision != "fp32":
-        raise ValueError(f"unknown precision {config.precision!r}")
+    ref.is_bf16(config.precision)     # an unknown precision raises
     if config.coupling not in cd_lib.SWEEPS:
         raise ValueError(f"unknown coupling {config.coupling!r}; have "
                          f"{sorted(cd_lib.SWEEPS)}")
@@ -182,7 +181,7 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
         loss_i, s, w, dbeta, _, _ = ops.fused_stats_sweep(
             design, y, xb, beta, fam, mu=mu, nu=config.nu, lam1=lam1,
             lam2=lam2, weights=weights, offset=offset, penf=penf,
-            tile_live=tile_active)
+            tile_live=tile_active, precision=config.precision)
         if active is not None:
             dbeta = torch.where(active > 0, dbeta, torch.zeros_like(dbeta))
         L = torch.sum(loss_i)
@@ -191,7 +190,8 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
         # (3) fused launch: the margin delta and every candidate's loss;
         # Algorithm 3 then picks from them
         xdb, losses = ops.fused_ls(design, y, xb, dbeta, cand, fam,
-                                   weights=weights, offset=offset)
+                                   weights=weights, offset=offset,
+                                   precision=config.precision)
         grad_dot_dir = -torch.sum(s * xdb)
         quad_form = (mu * torch.sum(w * xdb * xdb)
                      + config.nu * torch.sum(dbeta * dbeta))

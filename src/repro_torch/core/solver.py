@@ -19,13 +19,13 @@ sum_i c_i l_i; padded rows weigh 0), margin ``offset``, an unpenalized
 penalized coordinate at zero, taken at the null model (intercept fitted).
 
 ``coupling="jacobi"`` runs the fused Jacobi superstep (two fused launches,
-``fuse_superstep=True``, the default) or its unfused form.  ``predict`` on a
-SparseCOO goes through the serving engine (``serve/engine.py``) and its
-fused gather-dot-link kernel; ``save`` writes a serving artifact.
+``fuse_superstep=True``, the default) or its unfused form; the fused one
+takes ``precision="bf16"`` (bfloat16 Gram and margin inputs).  ``predict``
+on a SparseCOO goes through the serving engine (``serve/engine.py``) and
+its fused gather-dot-link kernel; ``save`` writes a serving artifact.
 
 Not ported yet (each raises NotImplementedError): a mesh, streaming and
-file inputs, ``standardize``, checkpoints, ``fit_path``, ``fit_cv`` and
-``precision="bf16"``.
+file inputs, ``standardize``, checkpoints, ``fit_path`` and ``fit_cv``.
 """
 from __future__ import annotations
 

@@ -64,16 +64,17 @@ class DesignMatrix:
     def tile_gram(self, tid: int, w, r):
         raise NotImplementedError
 
-    def all_tile_grams(self, w, r, tile_live=None):
+    def all_tile_grams(self, w, r, tile_live=None, **kw):
         """(G_all (n_tiles, T, T), g_all (n_tiles, T)) from ``tile_gram``
         of each live tile; ``tile_live`` is an optional host (n_tiles,) bool
-        mask, and a dead tile costs nothing and gets G = g = 0."""
+        mask, and a dead tile costs nothing and gets G = g = 0.  ``kw`` goes
+        to ``tile_gram`` (a brick design's ``precision``)."""
         nt, T = self.n_tiles, self.tile_size
         G_all = torch.zeros((nt, T, T), dtype=w.dtype, device=w.device)
         g_all = torch.zeros((nt, T), dtype=w.dtype, device=w.device)
         for tid in range(nt):
             if tile_live is None or tile_live[tid]:
-                G_all[tid], g_all[tid] = self.tile_gram(tid, w, r)
+                G_all[tid], g_all[tid] = self.tile_gram(tid, w, r, **kw)
         return G_all, g_all
 
     def tile_matvec(self, tid: int, v_t):
@@ -183,9 +184,10 @@ class BlockSparseDesign(DesignMatrix):
         stop = int(self.tile_ptr[tid + 1])
         return self.bricks[start:stop], self.brick_row[start:stop]
 
-    def tile_gram(self, tid: int, w, r):
+    def tile_gram(self, tid: int, w, r, precision="fp32"):
         tb, rows = self.tile_bricks(tid)
-        return ops.tile_gram(tb, rows, tb.shape[0], w, r)
+        return ops.tile_gram(tb, rows, tb.shape[0], w, r,
+                             precision=precision)
 
     def gather_all_tiles(self):
         """Every tile's bricks as one batched layout: (bricks3 (nt, K, rb,

@@ -1,8 +1,17 @@
 // The weighted-Gram core shared by K3 (tile_gram.cu) and K5
-// (stats_gram_solve.cu): one upper-triangle block of
+// (stats_gram_solve.cu): one block of
 //   G = X^T diag(w) X   and, on diagonal blocks,   g = X^T s
 // over a stream of 32-row slabs of a (rows x T) operand, on Hopper's tensor
-// cores with the 3xTF32 split.
+// cores, in one of two product precisions (the template parameter P):
+//   * kTF32, the 3xTF32 split below, which keeps fp32's accuracy;
+//   * kBF16, the reference's precision="bf16": one bf16 product a k step
+//     of 16 rows, G_ij = sum_k bf16(w_k x_ki) bf16(x_kj) with w x formed in
+//     fp32 and each operand rounded to nearest even, g = sum bf16(s) bf16(x)
+//     on the FMA pipes, all sums in fp32.  A product of two bf16 values is
+//     exact in fp32, so the sums differ from the plain version's only in
+//     their order.  That G is not symmetric (the weight is rounded into one
+//     side only), so under kBF16 every BN x BN block pair is computed, and
+//     none is mirrored.
 //
 // Why 3xTF32.  G is bound by arithmetic (about T / 4 flops per byte read),
 // so the lever is the tensor cores: 495 TFLOP/s of TF32 against 67 of fp32
@@ -15,8 +24,9 @@
 // 165 TFLOP/s at peak.
 //
 // Design, for a band edge BN (128, or 64 when T is not a multiple of 128).
-// A block owns one BN x BN block (bi <= bj) of G; only blocks on and above
-// the diagonal exist, and the caller's reduce pass mirrors them.  Its
+// A block owns one BN x BN block (bi, bj) of G: under kTF32 only blocks on
+// and above the diagonal (bi <= bj) exist, and the caller's reduce pass
+// mirrors them; under kBF16 all of them.  Its
 // warpgroups are specialized and hand slabs over through named barriers
 // (with one group doing everything in turn, the tensor cores sat idle most
 // of each slab):
@@ -30,14 +40,21 @@
 //     rows contiguous per feature, into the K-major layout wgmma reads
 //     from shared memory (TF32 operands there must be K-major and X is
 //     row-major), in the 128-byte swizzle: feature f's 32 rows are 128
-//     bytes, 16-byte chunk c at c ^ (f % 8).  The staged B is
-//     double-buffered, so slab s + 1 is staged while slab s's products run;
+//     bytes, 16-byte chunk c at c ^ (f % 8).  Under kBF16 it rounds B to
+//     bf16 instead and stages it in the same K-major, 128-byte-swizzled
+//     rows, of which a slab's 32 bf16 values fill the first 64 bytes (8
+//     rows a 16-byte chunk): a k step of 16 bf16 rows then starts 32 bytes
+//     into the rows, as a TF32 step of 8 does, so both read B through the
+//     same descriptors.  The staged B is double-buffered, so slab s + 1 is
+//     staged while slab s's products run;
 //   * BN / 64 consumers, each for 64 rows of the block: every thread reads
 //     its A fragment (w times the i columns) from the raw slab, splits it
 //     and hands it to wgmma m64nBNk8 in registers, a k step of 8 rows at a
-//     time, two steps in flight.  Shared memory, not the tensor cores, runs
-//     out first (a TF32 wgmma reads a byte of B for every 32 flops, and the
-//     staging adds as much again), so A does not pass through it.  The
+//     time, two steps in flight (kBF16: rounds it and hands it to wgmma
+//     m64nBNk16.bf16, a k step of 16 rows).  Shared memory, not the
+//     tensor cores, runs out first (a TF32 wgmma reads a byte of B for
+//     every 32 flops, and the staging adds as much again), so A does not
+//     pass through it.  The
 //     accumulators stay in registers; diagonal blocks also form g for
 //     their BN columns on the FMA pipes (T x rows work beside T^2 x rows).
 // Rows past the tensor's end are zero-filled, and rows past the stream's
@@ -60,6 +77,7 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,22 +90,45 @@ constexpr int kSlab = 32;    // rows per slab
 constexpr int kStages = 3;   // raw slabs in the ring
 constexpr int kDrain = 4;    // slabs per accumulator chunk
 
+// product precision (the template parameter P)
+constexpr int kTF32 = 0;     // 3xTF32: fp32 accuracy
+constexpr int kBF16 = 1;     // one bf16 product (precision="bf16")
+
 template <int BN>
 __host__ __device__ constexpr int threads() {
   return 128 * (BN / 64 + 1);   // BN / 64 consumer warpgroups, 1 producer
 }
 
-template <int BN>
+// floats of one slab's staged B: hi and lo under kTF32, one bf16 copy
+// (in rows of the same width) under kBF16
+template <int BN, int P>
+__host__ __device__ constexpr int staged_floats() {
+  return (P == kBF16 ? 1 : 2) * BN * kSlab;
+}
+
+template <int BN, int P>
 __host__ __device__ constexpr size_t smem_bytes() {
   return 1024                                         // for alignment
-         + sizeof(float) * (2 * 2 * BN * kSlab          // staged B hi / lo
+         + sizeof(float) * (2 * staged_floats<BN, P>()  // staged B, x2
                             + kStages * 2 * kSlab * BN  // raw ring
                             + BN * BN                   // second-level sums
                             + 2 * 2 * kSlab);           // w and s per slab
 }
 
-// (bi, bj), bi <= bj, of upper-triangle block pair ``pair`` (row-major)
+// block pairs of a tile of nb x nb blocks: the upper triangle, or all
+template <int P>
+__host__ __device__ constexpr int n_pairs(int nb) {
+  return P == kBF16 ? nb * nb : nb * (nb + 1) / 2;
+}
+
+// (bi, bj) of block pair ``pair`` (row-major; bi <= bj under kTF32)
+template <int P>
 __device__ inline void pair_coords(int pair, int nb, int& bi, int& bj) {
+  if (P == kBF16) {
+    bi = pair / nb;
+    bj = pair % nb;
+    return;
+  }
   bi = 0;
   while (pair >= nb - bi) {
     pair -= nb - bi;
@@ -96,8 +137,21 @@ __device__ inline void pair_coords(int pair, int nb, int& bi, int& bj) {
   bj = bi + pair;
 }
 
-__device__ inline int pair_index(int bi, int bj, int nb) {
-  return bi * nb - bi * (bi - 1) / 2 + (bj - bi);
+// where the reduce pass finds entry (i, j) of a (T x T) G: the offset in
+// the partial of one range (n_pairs blocks of BN x BN, row-major).  The
+// upper triangle mirrors the lower one under kTF32 (so G is exactly
+// symmetric); under kBF16 each entry is its own.
+__device__ inline long long entry_offset(int i, int j, int nb, int BN,
+                                         bool full) {
+  if (!full && i > j) {
+    const int t = i;
+    i = j;
+    j = t;
+  }
+  const int bi = i / BN, bj = j / BN;
+  const int pair =
+      full ? bi * nb + bj : bi * nb - bi * (bi - 1) / 2 + (bj - bi);
+  return (long long)pair * BN * BN + (long long)(i % BN) * BN + j % BN;
 }
 
 // fp32 -> TF32 rounded to nearest, ties away from zero, on the low 13
@@ -105,6 +159,18 @@ __device__ inline int pair_index(int bi, int bj, int nb) {
 // integer instructions (the conversion instruction was slower)
 __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// fp32 -> bf16 -> fp32, to nearest even (cvt.rn.bf16.f32)
+__device__ __forceinline__ float to_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// two values rounded to bf16, ``lo`` in the low half (the lower k or
+// feature index of a wgmma operand pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
 // one 32 x 32 box of the map at (column x, row y) into shared memory
@@ -223,19 +289,82 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
 }
 
+// m64n64k16 bf16 x bf16 -> f32, A from registers (4 registers of two bf16,
+// the m64k16 fragment), B K-major from shared memory (no transpose), 32
+// accumulators a thread; d = a b + (keep ? d : 0)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+// m64n128k16 bf16 x bf16 -> f32 as above, 64 accumulators a thread
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
 // Accumulates the block (bi, bj) -- columns [ci, ci + BN) x [cj, cj + BN)
 // of the tile -- over ``nslab`` slabs of ``src`` and writes it row-major to
 // Gout (BN x BN); a diagonal block also writes g of its columns to gout.
-// Called by all threads<BN>() threads of a block, with smem_bytes<BN>() of
-// dynamic shared memory.
-template <int BN, class Src>
+// Called by all threads<BN>() threads of a block, with smem_bytes<BN, P>()
+// of dynamic shared memory.
+template <int BN, int P, class Src>
 __device__ void band(const Src& src, const CUtensorMap* map, int col0,
                      int nslab, int ci, int cj, bool diag,
                      float* __restrict__ Gout, float* __restrict__ gout) {
+  constexpr bool kB16 = P == kBF16;
   constexpr int kThreads = threads<BN>();
   constexpr int kCons = 2 * BN;                // consumer threads
   constexpr int kAcc = BN / 2;                 // accumulators a thread
   constexpr int kStaged = BN * kSlab;          // floats of one hi or lo
+  constexpr int kStagedSlab = staged_floats<BN, P>();
+  constexpr int kStep = kB16 ? 16 : 8;         // rows of a k step
   constexpr int kBox = 32 * 32;                // floats of one TMA box
   constexpr int kBoxes = BN / 32;              // boxes across a range
   // named barrier ids: slab parity b is staged (kFull + b) / consumed
@@ -246,8 +375,8 @@ __device__ void band(const Src& src, const CUtensorMap* map, int col0,
   // the swizzled boxes want 1024-byte alignment
   float* smem = reinterpret_cast<float*>(
       smem_ + ((1024 - (smem_addr(smem_) & 1023)) & 1023));
-  float* staged = smem;                          // [2][B hi, B lo]
-  float* raw = staged + 2 * 2 * kStaged;  // [kStages][2][kBoxes][32][32]
+  float* staged = smem;                   // [2][B hi, B lo] or [2][B]
+  float* raw = staged + 2 * kStagedSlab;  // [kStages][2][kBoxes][32][32]
   float* tot = raw + kStages * 2 * kSlab * BN;   // [kAcc][kCons]
   float* ws = tot + kAcc * kCons;                // [2][kSlab]
   float* ss = ws + 2 * kSlab;                    // [2][kSlab]
@@ -307,24 +436,42 @@ __device__ void band(const Src& src, const CUtensorMap* map, int col0,
       mbar_wait(&full[s % kStages], (s / kStages) & 1);
       const float* rB =
           raw + (s % kStages) * 2 * kSlab * BN + (diag ? 0 : kSlab * BN);
-      float* st = staged + b * 2 * kStaged;
-      // B: split, transposed into the K-major layout
+      float* st = staged + b * kStagedSlab;
+      if constexpr (kB16) {
+        // B: rounded to bf16, transposed into the K-major layout, rows
+        // 8 kq .. 8 kq + 7 of feature f in 16-byte chunk kq of its row
 #pragma unroll 4
-      for (int u = pt; u < BN * (kSlab / 4); u += kProducers) {
-        const int f = u % BN;
-        const int kq = u / BN;
-        float hi[4], lo[4];
+        for (int u = pt; u < BN * (kSlab / 8); u += kProducers) {
+          const int f = u % BN;
+          const int kq = u / BN;
+          uint32_t v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float x = rB[at(4 * kq + q, f)];
-          hi[q] = to_tf32(x);
-          lo[q] = to_tf32(x - hi[q]);
+          for (int q = 0; q < 4; ++q)
+            v[q] = pack_bf16(rB[at(8 * kq + 2 * q, f)],
+                             rB[at(8 * kq + 2 * q + 1, f)]);
+          *reinterpret_cast<uint4*>(st + f * kSlab +
+                                    ((kq ^ (f & 7)) << 2)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
         }
-        float* dh = st + f * kSlab + ((kq ^ (f & 7)) << 2);
-        *reinterpret_cast<float4*>(dh) =
-            make_float4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<float4*>(dh + kStaged) =
-            make_float4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+        // B: split, transposed into the K-major layout
+#pragma unroll 4
+        for (int u = pt; u < BN * (kSlab / 4); u += kProducers) {
+          const int f = u % BN;
+          const int kq = u / BN;
+          float hi[4], lo[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float x = rB[at(4 * kq + q, f)];
+            hi[q] = to_tf32(x);
+            lo[q] = to_tf32(x - hi[q]);
+          }
+          float* dh = st + f * kSlab + ((kq ^ (f & 7)) << 2);
+          *reinterpret_cast<float4*>(dh) =
+              make_float4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<float4*>(dh + kStaged) =
+              make_float4(lo[0], lo[1], lo[2], lo[3]);
+        }
       }
       fence_proxy_async();
       bar_arrive(kFull + b, kThreads);
@@ -347,6 +494,10 @@ __device__ void band(const Src& src, const CUtensorMap* map, int col0,
   // for q = 1, 3) and k = 8 step + lane % 4 (+ 4 for q = 2, 3), the
   // warpgroup's m64k8 layout.  Each k step's three products are one wgmma
   // group; a slot is refilled once the group two steps back is done.
+  // Under kBF16 a k step is 16 rows and [slot][0] holds its m64k16
+  // fragment: register q holds rows (k, k + 1), the lower k in the low
+  // half, with k = 16 step + 2 (lane % 4) (+ 8 for q = 2, 3) and feature
+  // m (+ 8 for q = 1, 3); each step is one product, one wgmma group.
   uint32_t afr[2][2][4];
   const int m = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   float gtot = 0.f;
@@ -362,38 +513,60 @@ __device__ void band(const Src& src, const CUtensorMap* map, int col0,
       mbar_wait(&full[s % kStages], (s / kStages) & 1);
       const float* rA = raw + (s % kStages) * 2 * kSlab * BN;
       const float* wsl = ws + b * kSlab;
-      const float* st = staged + b * 2 * kStaged;
+      const float* st = staged + b * kStagedSlab;
       if (diag && tid < BN) {   // g of column tid on the FMA pipes
         const float* ssl = ss + b * kSlab;
         float gs = 0.f;
 #pragma unroll 8
-        for (int r = 0; r < kSlab; ++r) gs += rA[at(r, tid)] * ssl[r];
+        for (int r = 0; r < kSlab; ++r)
+          gs += kB16 ? to_bf16(rA[at(r, tid)]) * to_bf16(ssl[r])
+                     : rA[at(r, tid)] * ssl[r];
         gtot += gs;
       }
 #pragma unroll
-      for (int ks = 0; ks < kSlab / 8; ++ks) {
+      for (int ks = 0; ks < kSlab / kStep; ++ks) {
         const int slot = ks & 1;
         wgmma_wait<1>();
         // every group of slab s - 1 is done: its buffers go back
         if (ks == 1 && s >= 1) bar_arrive(kEmpty + (b ^ 1), kThreads);
-        // A: w times the raw slab, split, into this thread's fragment
-        const int k = 8 * ks + lane % 4;
-        const float w0 = wsl[k], w1 = wsl[k + 4];
-        const float x[4] = {rA[at(k, m)] * w0, rA[at(k, m + 8)] * w0,
-                            rA[at(k + 4, m)] * w1,
-                            rA[at(k + 4, m + 8)] * w1};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float hi = to_tf32(x[q]);
-          afr[slot][0][q] = __float_as_uint(hi);
-          afr[slot][1][q] = __float_as_uint(to_tf32(x[q] - hi));
-        }
-        wgmma_fence();
+        // a k step of either precision starts 32 bytes further into the
+        // staged rows of B
         const uint64_t b_hi = make_desc(st + ks * 8);
-        const uint64_t b_lo = make_desc(st + kStaged + ks * 8);
-        wgmma_tf32(acc, afr[slot][1], b_hi, s > c0 || ks > 0);
-        wgmma_tf32(acc, afr[slot][0], b_lo, 1);
-        wgmma_tf32(acc, afr[slot][0], b_hi, 1);
+        const int keep = s > c0 || ks > 0;
+        if constexpr (kB16) {
+          // A: w times the raw slab in fp32, rounded into the fragment
+          const int k = 16 * ks + 2 * (lane % 4);
+          const float w0 = wsl[k], w1 = wsl[k + 1];
+          const float w2 = wsl[k + 8], w3 = wsl[k + 9];
+          afr[slot][0][0] = pack_bf16(rA[at(k, m)] * w0,
+                                      rA[at(k + 1, m)] * w1);
+          afr[slot][0][1] = pack_bf16(rA[at(k, m + 8)] * w0,
+                                      rA[at(k + 1, m + 8)] * w1);
+          afr[slot][0][2] = pack_bf16(rA[at(k + 8, m)] * w2,
+                                      rA[at(k + 9, m)] * w3);
+          afr[slot][0][3] = pack_bf16(rA[at(k + 8, m + 8)] * w2,
+                                      rA[at(k + 9, m + 8)] * w3);
+          wgmma_fence();
+          wgmma_bf16(acc, afr[slot][0], b_hi, keep);
+        } else {
+          // A: w times the raw slab, split, into this thread's fragment
+          const int k = 8 * ks + lane % 4;
+          const float w0 = wsl[k], w1 = wsl[k + 4];
+          const float x[4] = {rA[at(k, m)] * w0, rA[at(k, m + 8)] * w0,
+                              rA[at(k + 4, m)] * w1,
+                              rA[at(k + 4, m + 8)] * w1};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float hi = to_tf32(x[q]);
+            afr[slot][0][q] = __float_as_uint(hi);
+            afr[slot][1][q] = __float_as_uint(to_tf32(x[q] - hi));
+          }
+          wgmma_fence();
+          const uint64_t b_lo = make_desc(st + kStaged + ks * 8);
+          wgmma_tf32(acc, afr[slot][1], b_hi, keep);
+          wgmma_tf32(acc, afr[slot][0], b_lo, 1);
+          wgmma_tf32(acc, afr[slot][0], b_hi, 1);
+        }
         wgmma_commit();
       }
     }

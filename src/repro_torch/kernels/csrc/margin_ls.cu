@@ -51,6 +51,13 @@
 //    No atomics: the same bits every run.
 //  * The margin at candidate k is rounded as the plain version rounds it:
 //    the product alpha_k xdb_i, then its sum with b_i, then loss times c_i.
+//  * The bf16 mode (precision="bf16", the bf16 branch of the TPU kernel,
+//    superstep_tile.py:217-222) rounds each X element to bf16 as the dot
+//    product reads it from the stage, and dbeta as it is staged (or, past
+//    kDbetaShared columns, where it is read from global memory, as it is
+//    read); the products of bf16 values are exact in fp32, the dot
+//    product's sums and the losses are fp32, and the stream is unchanged.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,12 +125,24 @@ struct LossSums {
   }
 };
 
-// lane's four partial sums of row . dbeta over columns 4 lane + 128 q < cw
+// fp32 -> bf16 -> fp32, to nearest even, of each element
+__device__ __forceinline__ float4 to_bf16(float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+// lane's four partial sums of row . dbeta over columns 4 lane + 128 q < cw;
+// RX, RD: round the row's and dbeta's elements to bf16 first
+template <bool RX, bool RD>
 __device__ __forceinline__ void dot_part(const float* row, const float* dv,
                                          int cw, int lane, float4& s) {
   for (int c = lane * 4; c < cw; c += 128) {
-    const float4 x = *reinterpret_cast<const float4*>(row + c);
-    const float4 d = *reinterpret_cast<const float4*>(dv + c);
+    float4 x = *reinterpret_cast<const float4*>(row + c);
+    float4 d = *reinterpret_cast<const float4*>(dv + c);
+    if (RX) x = to_bf16(x);
+    if (RD) d = to_bf16(d);
     s.x = fmaf(x.x, d.x, s.x);
     s.y = fmaf(x.y, d.y, s.y);
     s.z = fmaf(x.z, d.z, s.z);
@@ -150,7 +169,7 @@ __device__ __forceinline__ void store_partials(float (*red)[kGroup], int kc,
   }
 }
 
-template <int F>
+template <int F, bool B16>
 __global__ void __launch_bounds__(kThreads, 1)
     margin_ls_stream(const float* __restrict__ X, long long n, int p,
                      const float* __restrict__ dbeta,
@@ -198,7 +217,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const bool d_shared = p <= kDbetaShared;
   if (d_shared)
-    for (int c = tid; c < p; c += kThreads) d_s[c] = dbeta[c];
+    for (int c = tid; c < p; c += kThreads)
+      d_s[c] = B16 ? __bfloat162float(__float2bfloat16_rn(dbeta[c]))
+                   : dbeta[c];
   const float* dv = d_shared ? d_s : dbeta;
   __syncthreads();
   if (lane == 0)
@@ -229,8 +250,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (chunks > 1 || (g0 == 0 && r == 0))
             repro::mbar_wait(&bar[j % kDepth], (j / kDepth) & 1);
           const int c0 = ch * kStage;
-          dot_part(st + (chunks > 1 ? 0 : (g0 + r) * p), dv + c0,
-                   min(kStage, p - c0), lane, s);
+          const float* row = st + (chunks > 1 ? 0 : (g0 + r) * p);
+          const int cw = min(kStage, p - c0);
+          if (!B16 || d_shared)   // dbeta staged as it is to be read
+            dot_part<B16, false>(row, dv + c0, cw, lane, s);
+          else
+            dot_part<true, true>(row, dv + c0, cw, lane, s);
           // the stage is read: refill it while the losses are summed
           if (chunks > 1 || g0 + r == nr - 1) {
             __syncwarp();
@@ -291,12 +316,12 @@ __global__ void margin_ls_finish(const float* __restrict__ partials,
   if (lane == 0) losses[k] = tot;
 }
 
-template <int F>
+template <int F, bool B16>
 cudaError_t grid_of(long long n, int p, int& nblocks, size_t& smem) {
   smem = sizeof(float) *
          (kWarps * kDepth * kStage + (p <= kDbetaShared ? p : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      margin_ls_stream<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      margin_ls_stream<F, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -305,7 +330,8 @@ cudaError_t grid_of(long long n, int p, int& nblocks, size_t& smem) {
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, margin_ls_stream<F>, kThreads, smem)) != cudaSuccess)
+           &per_sm, margin_ls_stream<F, B16>, kThreads, smem)) !=
+      cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long cap = (n + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -313,17 +339,17 @@ cudaError_t grid_of(long long n, int p, int& nblocks, size_t& smem) {
   return cudaSuccess;
 }
 
-template <int F>
-cudaError_t launch(const float* X, long long n, int p, const float* dbeta,
-                   const float* y, const float* xb, const float* weights,
-                   const float* offset, const float* alphas, int K,
-                   float* xdb, float* partials, float* losses,
-                   cudaStream_t st) {
+template <int F, bool B16>
+cudaError_t launch_mode(const float* X, long long n, int p,
+                        const float* dbeta, const float* y, const float* xb,
+                        const float* weights, const float* offset,
+                        const float* alphas, int K, float* xdb,
+                        float* partials, float* losses, cudaStream_t st) {
   int nblocks = 0;
   size_t smem = 0;
-  cudaError_t err = grid_of<F>(n, p, nblocks, smem);
+  cudaError_t err = grid_of<F, B16>(n, p, nblocks, smem);
   if (err != cudaSuccess) return err;
-  margin_ls_stream<F><<<nblocks, kThreads, smem, st>>>(
+  margin_ls_stream<F, B16><<<nblocks, kThreads, smem, st>>>(
       X, n, p, dbeta, y, xb, weights, offset, alphas, K, xdb, partials);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   margin_ls_finish<<<(K + kFinishWarps - 1) / kFinishWarps,
@@ -332,39 +358,53 @@ cudaError_t launch(const float* X, long long n, int p, const float* dbeta,
   return cudaGetLastError();
 }
 
+template <int F>
+cudaError_t launch(bool bf16, const float* X, long long n, int p,
+                   const float* dbeta, const float* y, const float* xb,
+                   const float* weights, const float* offset,
+                   const float* alphas, int K, float* xdb, float* partials,
+                   float* losses, cudaStream_t st) {
+  auto* fn = bf16 ? &launch_mode<F, true> : &launch_mode<F, false>;
+  return fn(X, n, p, dbeta, y, xb, weights, offset, alphas, K, xdb,
+            partials, losses, st);
+}
+
 }  // namespace
 
 // X: (n, p) row-major, p a multiple of 4 (16-byte rows); dbeta (p,), 16-byte
 // aligned; y, xb, weights, offset (may be null), xdb: (n,); alphas, losses:
-// (K,).  Scratch partials (ceil(n / 1024) * K) from the caller.
+// (K,).  Scratch partials (ceil(n / 1024) * K) from the caller.  bf16: 1
+// for the bf16 mode, 0 for fp32.
 extern "C" int repro_margin_ls(const float* X, long long n, int p,
                                const float* dbeta, const float* y,
                                const float* xb, const float* weights,
                                const float* offset, const float* alphas,
                                int K, float* xdb, float* partials,
-                               float* losses, int family, void* stream) {
+                               float* losses, int family, int bf16,
+                               void* stream) {
   if (n <= 0 || p <= 0 || p % 4 != 0 || K <= 0 ||
       reinterpret_cast<uintptr_t>(X) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dbeta) % 16 != 0)
+      reinterpret_cast<uintptr_t>(dbeta) % 16 != 0 ||
+      (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (family) {
     case repro::kLogistic:
-      return (int)launch<repro::kLogistic>(X, n, p, dbeta, y, xb, weights,
-                                           offset, alphas, K, xdb, partials,
-                                           losses, st);
+      return (int)launch<repro::kLogistic>(bf16, X, n, p, dbeta, y, xb,
+                                           weights, offset, alphas, K, xdb,
+                                           partials, losses, st);
     case repro::kSquared:
-      return (int)launch<repro::kSquared>(X, n, p, dbeta, y, xb, weights,
-                                          offset, alphas, K, xdb, partials,
-                                          losses, st);
+      return (int)launch<repro::kSquared>(bf16, X, n, p, dbeta, y, xb,
+                                          weights, offset, alphas, K, xdb,
+                                          partials, losses, st);
     case repro::kProbit:
-      return (int)launch<repro::kProbit>(X, n, p, dbeta, y, xb, weights,
-                                         offset, alphas, K, xdb, partials,
-                                         losses, st);
+      return (int)launch<repro::kProbit>(bf16, X, n, p, dbeta, y, xb,
+                                         weights, offset, alphas, K, xdb,
+                                         partials, losses, st);
     case repro::kPoisson:
-      return (int)launch<repro::kPoisson>(X, n, p, dbeta, y, xb, weights,
-                                          offset, alphas, K, xdb, partials,
-                                          losses, st);
+      return (int)launch<repro::kPoisson>(bf16, X, n, p, dbeta, y, xb,
+                                          weights, offset, alphas, K, xdb,
+                                          partials, losses, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -378,7 +418,8 @@ extern "C" int repro_margin_ls_grid(long long n, int p) {
   int nblocks = 0;
   size_t smem = 0;
   if (n <= 0 || p <= 0) return -1;
-  return grid_of<repro::kLogistic>(n, p, nblocks, smem) == cudaSuccess
+  return grid_of<repro::kLogistic, false>(n, p, nblocks, smem) ==
+                 cudaSuccess
              ? nblocks
              : -1;
 }

@@ -21,7 +21,8 @@
 // the row-major array (tile t of row i is 1 KiB contiguous at T = 256), and
 // the work is cut three ways so a handful of tiles still fills 132 SMs:
 // live tile x upper-triangle BN x BN block of G (3 of 4 at T = 256, BN =
-// 128) x range of rows.  Three CUDA launches make one logical launch:
+// 128; all 4 in the bf16 mode) x range of rows.  Three CUDA launches make
+// one logical launch:
 //   1. sgs_partial: each block streams 32-row slabs of its one or two
 //      column ranges through the 3xTF32 tensor-core core of gram_tc.cuh
 //      (why 3xTF32, the staging and the sums' levels are explained there),
@@ -34,12 +35,20 @@
 //   2. sgs_reduce: adds the partials of each G and g entry in row-range
 //      order (no atomics: the same sums every run), mirrors the upper
 //      blocks (entry (i, j), i > j, is read from (j, i), so G is exactly
-//      symmetric) and writes dead tiles' G and g as zeros.
+//      symmetric; not in the bf16 mode, whose G is not) and writes dead
+//      tiles' G and g as zeros.
 //   3. sgs_solve: one block of T threads per tile runs the panel chain of
 //      cd_chain.cuh (K2's) on the tile's G (h = diag G) from a zero step;
 //      dead tiles write 0.
 // ``order`` is the tile remap of the TPU kernel's scalar prefetch: live
 // tiles first, then dead ones; blocks past n_live do no Gram or solve work.
+//
+// The bf16 mode (precision="bf16", the bf16 branch of the TPU kernel's
+// body, superstep_tile.py:123-131) forms G and g from bf16 inputs as
+// gram_tc.cuh's kBF16 describes: one bf16 wgmma a 16-row k step in place
+// of three TF32 ones.  Its bound is then bytes: X is read once (0.98 ms at
+// 400,000 x 2,048 and 3.35 TB/s), against 0.42 ms for all of G at 989
+// TFLOP/s of bf16.  The stats, the reduce's sums and the solves stay fp32.
 #include <cuda_runtime.h>
 
 #include "cd_chain.cuh"
@@ -101,7 +110,7 @@ struct TileRows {
   }
 };
 
-template <int F, int BN>
+template <int F, int BN, int P>
 __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
     sgs_partial(const __grid_constant__ CUtensorMap X, long long n, int T,
                 const float* __restrict__ y, const float* __restrict__ xb,
@@ -112,7 +121,7 @@ __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
                 float* __restrict__ loss, float* __restrict__ s_out,
                 float* __restrict__ w_out) {
   const int nb = T / BN;
-  const int npairs = nb * (nb + 1) / 2;
+  const int npairs = repro::gram::n_pairs<P>(nb);
   const int z = blockIdx.z;
   const bool live = z < n_live;
   // one block per row range writes the stats out
@@ -130,24 +139,25 @@ __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
     return;
   }
   int bi, bj;
-  repro::gram::pair_coords(blockIdx.x, nb, bi, bj);
+  repro::gram::pair_coords<P>(blockIdx.x, nb, bi, bj);
   const long long slot = (long long)split * n_live + z;
   const long long rows = r_end > r_begin ? r_end - r_begin : 0;
-  repro::gram::band<BN>(src, &X, order[z] * T,
+  repro::gram::band<BN, P>(src, &X, order[z] * T,
                         (int)((rows + kSlab - 1) / kSlab), bi * BN, bj * BN,
                         bi == bj,
                         Gp + (slot * npairs + blockIdx.x) * BN * BN,
                         gp + slot * T + bi * BN);
 }
 
+// full: every block pair was computed (the bf16 mode), none is mirrored
 __global__ void sgs_reduce(const float* __restrict__ Gp,
                            const float* __restrict__ gp,
                            const int* __restrict__ order, int n_live, int nt,
-                           int splits, int T, int BN, float* __restrict__ G,
-                           float* __restrict__ g) {
+                           int splits, int T, int BN, bool full,
+                           float* __restrict__ G, float* __restrict__ g) {
   const int nb = T / BN;
   const long long block = (long long)BN * BN;
-  const long long npairs = nb * (nb + 1) / 2;
+  const long long npairs = full ? nb * nb : nb * (nb + 1) / 2;
   const long long per_tile = (long long)T * T + T;
   const long long total = per_tile * nt;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -160,15 +170,8 @@ __global__ void sgs_reduce(const float* __restrict__ Gp,
     float tot = 0.f;
     if (rem < (long long)T * T) {
       if (live) {
-        int i = (int)(rem / T), j = (int)(rem % T);
-        if (i > j) {   // the lower triangle mirrors the upper one
-          const int t = i;
-          i = j;
-          j = t;
-        }
-        const long long off =
-            repro::gram::pair_index(i / BN, j / BN, nb) * block +
-            (i % BN) * BN + j % BN;
+        const long long off = repro::gram::entry_offset(
+            (int)(rem / T), (int)(rem % T), nb, BN, full);
         for (int s = 0; s < splits; ++s)
           tot += Gp[((long long)s * n_live + z) * npairs * block + off];
       }
@@ -196,39 +199,42 @@ __global__ void __launch_bounds__(kBlock)
                         n_live, T, true, dbeta, smem);
 }
 
-template <int F, int BN>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* X,
-                           long long n, int p, int T, const float* y,
-                           const float* xb, const float* weights,
-                           const float* offset, const int* order, int n_live,
-                           int per, float* Gp, float* gp, float* loss,
-                           float* s, float* w) {
-  constexpr size_t smem = repro::gram::smem_bytes<BN>();
-  cudaError_t err = repro::gram::allow_smem(sgs_partial<F, BN>, smem);
+template <int F, int BN, int P>
+cudaError_t launch_partial(int splits, int n_live, cudaStream_t st,
+                           const float* X, long long n, int p, int T,
+                           const float* y, const float* xb,
+                           const float* weights, const float* offset,
+                           const int* order, int per, float* Gp, float* gp,
+                           float* loss, float* s, float* w) {
+  constexpr size_t smem = repro::gram::smem_bytes<BN, P>();
+  cudaError_t err = repro::gram::allow_smem(sgs_partial<F, BN, P>, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
   err = repro::gram::make_map(&map, X, n, p, p);
   if (err != cudaSuccess) return err;
-  sgs_partial<F, BN><<<grid, repro::gram::threads<BN>(), smem, st>>>(
+  const dim3 grid(repro::gram::n_pairs<P>(T / BN), splits,
+                  n_live > 0 ? n_live : 1);
+  sgs_partial<F, BN, P><<<grid, repro::gram::threads<BN>(), smem, st>>>(
       map, n, T, y, xb, weights, offset, order, n_live, per, Gp, gp, loss,
       s, w);
   return cudaGetLastError();
 }
 
 template <int F>
-cudaError_t launch_family(int band, dim3 grid, cudaStream_t st,
-                          const float* X, long long n, int p, int T,
-                          const float* y, const float* xb,
+cudaError_t launch_family(int band, bool bf16, int splits, int n_live,
+                          cudaStream_t st, const float* X, long long n,
+                          int p, int T, const float* y, const float* xb,
                           const float* weights, const float* offset,
-                          const int* order, int n_live, int per, float* Gp,
-                          float* gp, float* loss, float* s, float* w) {
-  return band == 128
-             ? launch_partial<F, 128>(grid, st, X, n, p, T, y, xb, weights,
-                                      offset, order, n_live, per, Gp, gp,
-                                      loss, s, w)
-             : launch_partial<F, 64>(grid, st, X, n, p, T, y, xb, weights,
-                                     offset, order, n_live, per, Gp, gp,
-                                     loss, s, w);
+                          const int* order, int per, float* Gp, float* gp,
+                          float* loss, float* s, float* w) {
+  using repro::gram::kBF16;
+  using repro::gram::kTF32;
+  auto* fn = band == 128 ? (bf16 ? &launch_partial<F, 128, kBF16>
+                                 : &launch_partial<F, 128, kTF32>)
+                         : (bf16 ? &launch_partial<F, 64, kBF16>
+                                 : &launch_partial<F, 64, kTF32>);
+  return fn(splits, n_live, st, X, n, p, T, y, xb, weights, offset, order,
+            per, Gp, gp, loss, s, w);
 }
 
 }  // namespace
@@ -238,45 +244,48 @@ cudaError_t launch_family(int band, dim3 grid, cudaStream_t st,
 // params: device (4,) [mu, nu, lam1, lam2]; order: (nt,) live tiles
 // first; G (nt, T, T), g (nt, T).
 // band: the block edge BN (128, or 64; T a multiple of it, at most 1024).
+// bf16: 1 for the bf16 mode, 0 for 3xTF32.
 // Scratch Gp (splits * max(n_live, 1) * npairs * BN * BN, npairs = nb (nb
-// + 1) / 2 with nb = T / BN) and gp (splits * max(n_live, 1) * T) from the
-// caller; rows [s * per, (s + 1) * per) go to range s, per a multiple of 32.
+// + 1) / 2, or nb^2 in the bf16 mode, with nb = T / BN) and gp (splits *
+// max(n_live, 1) * T) from the caller; rows [s * per, (s + 1) * per) go to
+// range s, per a multiple of 32.
 extern "C" int repro_stats_gram_solve(
     const float* X, long long n, int p, int T, const float* y,
     const float* xb, const float* weights, const float* offset,
     const float* beta, const float* penf, const float* params,
-    const int* order, int n_live, int splits, int per, int band, float* Gp,
-    float* gp, float* loss, float* s, float* w, float* G, float* g,
-    float* dbeta, int family, void* stream) {
+    const int* order, int n_live, int splits, int per, int band, int bf16,
+    float* Gp, float* gp, float* loss, float* s, float* w, float* G,
+    float* g, float* dbeta, int family, void* stream) {
   if (T <= 0 || (band != 64 && band != 128) || T % band != 0 || T > 1024 ||
       p % T != 0 || splits <= 0 || per <= 0 || per % kSlab != 0 ||
-      n_live < 0 || n_live > p / T)
+      n_live < 0 || n_live > p / T || (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = p / T;
-  const int nb = T / band;
-  dim3 grid(nb * (nb + 1) / 2, splits, n_live > 0 ? n_live : 1);
   cudaError_t err;
   switch (family) {
     case repro::kLogistic:
-      err = launch_family<repro::kLogistic>(band, grid, st, X, n, p, T, y,
-                                            xb, weights, offset, order,
-                                            n_live, per, Gp, gp, loss, s, w);
+      err = launch_family<repro::kLogistic>(band, bf16, splits, n_live, st,
+                                            X, n, p, T, y, xb, weights,
+                                            offset, order, per, Gp, gp,
+                                            loss, s, w);
       break;
     case repro::kSquared:
-      err = launch_family<repro::kSquared>(band, grid, st, X, n, p, T, y, xb,
-                                           weights, offset, order, n_live,
-                                           per, Gp, gp, loss, s, w);
+      err = launch_family<repro::kSquared>(band, bf16, splits, n_live, st,
+                                           X, n, p, T, y, xb, weights,
+                                           offset, order, per, Gp, gp, loss,
+                                           s, w);
       break;
     case repro::kProbit:
-      err = launch_family<repro::kProbit>(band, grid, st, X, n, p, T, y, xb,
-                                          weights, offset, order, n_live,
-                                          per, Gp, gp, loss, s, w);
+      err = launch_family<repro::kProbit>(band, bf16, splits, n_live, st, X,
+                                          n, p, T, y, xb, weights, offset,
+                                          order, per, Gp, gp, loss, s, w);
       break;
     case repro::kPoisson:
-      err = launch_family<repro::kPoisson>(band, grid, st, X, n, p, T, y, xb,
-                                           weights, offset, order, n_live,
-                                           per, Gp, gp, loss, s, w);
+      err = launch_family<repro::kPoisson>(band, bf16, splits, n_live, st,
+                                           X, n, p, T, y, xb, weights,
+                                           offset, order, per, Gp, gp, loss,
+                                           s, w);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -286,7 +295,7 @@ extern "C" int repro_stats_gram_solve(
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
   sgs_reduce<<<(int)blocks, 256, 0, st>>>(Gp, gp, order, n_live, nt, splits,
-                                          T, band, G, g);
+                                          T, band, bf16 != 0, G, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)repro::launch_chain(sgs_solve<512>, sgs_solve<1024>, nt, T, st,

@@ -15,7 +15,8 @@
 // Design: the TPU kernel walked the bricks on a sequential grid and carried
 // G in VMEM between steps; blocks on the card run in parallel and carry
 // nothing.  So the work is cut two ways: the upper-triangle BN x BN blocks
-// of G (3 of 4 at T = 256, BN = 128) and `splits` contiguous ranges of
+// of G (3 of 4 at T = 256, BN = 128; all 4 in the bf16 mode) and `splits`
+// contiguous ranges of
 // the bricks' 32-row slabs, enough blocks to fill every SM.  Each block
 // streams its bricks' rows in place from the tile's slice of the brick
 // array (a TMA map over it, no gather copy), w and r gathered through
@@ -25,6 +26,14 @@
 // second pass adds the partials in split order and mirrors the upper blocks
 // (entry (i, j), i > j, is read from (j, i)), so G is exactly symmetric.
 // No atomics, so G and g are the same from run to run.
+//
+// The bf16 mode (precision="bf16" of the fused Jacobi superstep on bricks;
+// the reference forms it in ref.py::gram_brick_tiles) rounds the product
+// inputs to bf16 as gram_tc.cuh's kBF16 describes: the brick times its
+// gathered weight is formed in fp32 and then rounded (the weight itself is
+// not), and so are the brick and r for g.  Its G is not symmetric: every
+// block pair is computed, and the reduce mirrors none.  Its bound is bytes
+// (one bf16 product a k step in place of three TF32 ones, at 989 TFLOP/s).
 #include <cuda_runtime.h>
 
 #include "gram_tc.cuh"
@@ -65,7 +74,7 @@ struct BrickRows {
   }
 };
 
-template <int BN>
+template <int BN, int P>
 __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
     tile_gram_partial(const __grid_constant__ CUtensorMap bricks,
                       const int* __restrict__ rows, int n_valid, int per,
@@ -74,9 +83,9 @@ __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
                       float* __restrict__ Gp, float* __restrict__ gp) {
   __shared__ int rows_s[kMaxBricks];
   const int nb = T / BN;
-  const int npairs = nb * (nb + 1) / 2;
+  const int npairs = repro::gram::n_pairs<P>(nb);
   int bi, bj;
-  repro::gram::pair_coords(blockIdx.x, nb, bi, bj);
+  repro::gram::pair_coords<P>(blockIdx.x, nb, bi, bj);
   const int split = blockIdx.y;
   const int spb = (rb + kSlab - 1) / kSlab;
   const int s0 = split * per;
@@ -87,19 +96,21 @@ __global__ void __launch_bounds__(repro::gram::threads<BN>(), 1)
     rows_s[k - k_first] = rows[k];
   __syncthreads();
   const BrickRows src{rows_s, w, r, rb, s0, spb, k_first};
-  repro::gram::band<BN>(
+  repro::gram::band<BN, P>(
       src, &bricks, 0, max(s1 - s0, 0), bi * BN, bj * BN, bi == bj,
       Gp + ((long long)split * npairs + blockIdx.x) * BN * BN,
       gp + (long long)split * T + bi * BN);
 }
 
+// full: every block pair was computed (the bf16 mode), none is mirrored
 __global__ void tile_gram_reduce(const float* __restrict__ Gp,
                                  const float* __restrict__ gp, int splits,
-                                 int T, int BN, float* __restrict__ G,
+                                 int T, int BN, bool full,
+                                 float* __restrict__ G,
                                  float* __restrict__ g) {
   const int nb = T / BN;
   const long long block = (long long)BN * BN;
-  const long long slot = block * (nb * (nb + 1) / 2);
+  const long long slot = block * (full ? nb * nb : nb * (nb + 1) / 2);
   const long long TT = (long long)T * T;
   const long long total = TT + T;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -107,15 +118,8 @@ __global__ void tile_gram_reduce(const float* __restrict__ Gp,
        idx < total; idx += stride) {
     float tot = 0.f;
     if (idx < TT) {
-      int i = (int)(idx / T), j = (int)(idx % T);
-      if (i > j) {   // the lower triangle mirrors the upper one
-        const int t = i;
-        i = j;
-        j = t;
-      }
-      const long long off =
-          repro::gram::pair_index(i / BN, j / BN, nb) * block +
-          (i % BN) * BN + j % BN;
+      const long long off = repro::gram::entry_offset(
+          (int)(idx / T), (int)(idx % T), nb, BN, full);
       for (int s = 0; s < splits; ++s) tot += Gp[s * slot + off];
       G[idx] = tot;
     } else {
@@ -126,18 +130,19 @@ __global__ void tile_gram_reduce(const float* __restrict__ Gp,
   }
 }
 
-template <int BN>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* bricks,
+template <int BN, int P>
+cudaError_t launch_partial(int splits, cudaStream_t st, const float* bricks,
                            int slots, const int* rows, int n_valid, int per,
                            const float* w, const float* r, int rb, int T,
                            float* Gp, float* gp) {
-  constexpr size_t smem = repro::gram::smem_bytes<BN>();
-  cudaError_t err = repro::gram::allow_smem(tile_gram_partial<BN>, smem);
+  constexpr size_t smem = repro::gram::smem_bytes<BN, P>();
+  cudaError_t err = repro::gram::allow_smem(tile_gram_partial<BN, P>, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
   err = repro::gram::make_map(&map, bricks, (long long)slots * rb, T, T);
   if (err != cudaSuccess) return err;
-  tile_gram_partial<BN><<<grid, repro::gram::threads<BN>(), smem, st>>>(
+  const dim3 grid(repro::gram::n_pairs<P>(T / BN), splits);
+  tile_gram_partial<BN, P><<<grid, repro::gram::threads<BN>(), smem, st>>>(
       map, rows, n_valid, per, w, r, rb, T, Gp, gp);
   return cudaGetLastError();
 }
@@ -147,36 +152,38 @@ cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* bricks,
 // bricks: the tile's bricks, (slots >= n_valid, rb, T) contiguous and
 // 16-byte aligned; rows: their
 // row-block ids; w, r: (n_rows,) vectors.  band: the block edge BN (128, or
-// 64; T a multiple of it).  Scratch Gp (splits, npairs, BN, BN) and gp
-// (splits, T) come from the caller, npairs = nb (nb + 1) / 2 with nb =
+// 64; T a multiple of it); bf16: 1 for the bf16 mode, 0 for 3xTF32.
+// Scratch Gp (splits, npairs, BN, BN) and gp (splits, T) come from the
+// caller, npairs = nb (nb + 1) / 2, or nb^2 in the bf16 mode, with nb =
 // T / BN.  The live bricks' rows are one stream of 32-row slabs
 // (ceil(rb / 32) a brick); slabs [s*per, (s+1)*per) go to split s.
 extern "C" int repro_tile_gram(const float* bricks, int slots,
                                const int* rows, int n_valid, int splits,
                                int per,
                                const float* w, const float* r, int rb, int T,
-                               int band, float* Gp, float* gp, float* G,
-                               float* g, void* stream) {
+                               int band, int bf16, float* Gp, float* gp,
+                               float* G, float* g, void* stream) {
   // a block's slabs span at most per / spb + 2 bricks
   if (T <= 0 || (band != 64 && band != 128) || T % band != 0 ||
       splits <= 0 || rb <= 0 || n_valid < 0 || n_valid > slots ||
       per < 0 ||
-      per / ((rb + kSlab - 1) / kSlab) + 2 > kMaxBricks)
+      per / ((rb + kSlab - 1) / kSlab) + 2 > kMaxBricks ||
+      (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = T / band;
-  dim3 grid(nb * (nb + 1) / 2, splits);
+  using repro::gram::kBF16;
+  using repro::gram::kTF32;
+  auto* fn = band == 128 ? (bf16 ? &launch_partial<128, kBF16>
+                                 : &launch_partial<128, kTF32>)
+                         : (bf16 ? &launch_partial<64, kBF16>
+                                 : &launch_partial<64, kTF32>);
   cudaError_t err =
-      band == 128
-          ? launch_partial<128>(grid, st, bricks, slots, rows, n_valid, per,
-                                w, r, rb, T, Gp, gp)
-          : launch_partial<64>(grid, st, bricks, slots, rows, n_valid, per,
-                               w, r, rb, T, Gp, gp);
+      fn(splits, st, bricks, slots, rows, n_valid, per, w, r, rb, T, Gp, gp);
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)T * T + T;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  tile_gram_reduce<<<(int)blocks, 256, 0, st>>>(Gp, gp, splits, T, band, G,
-                                                g);
+  tile_gram_reduce<<<(int)blocks, 256, 0, st>>>(Gp, gp, splits, T, band,
+                                                bf16 != 0, G, g);
   return (int)cudaGetLastError();
 }

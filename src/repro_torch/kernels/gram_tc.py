@@ -1,6 +1,7 @@
 """Host side of the weighted-Gram core ``csrc/gram_tc.cuh``, shared by K3
 (``tile_gram``) and K5 (``stats_gram_solve``): the block edge for a tile
-width, and how many ranges the rows are cut into.
+width, the block pairs each precision computes, and how many ranges the
+rows are cut into.
 """
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ def band(T: int) -> int:
     return 128 if T % 128 == 0 else 64
 
 
-def n_pairs(T: int) -> int:
-    """Upper-triangle blocks (bi <= bj) of a T x T Gram block."""
+def n_pairs(T: int, bf16: bool = False) -> int:
+    """Blocks of a T x T Gram block that the core computes: the upper
+    triangle (bi <= bj), or all of them in the bf16 mode (whose G is not
+    symmetric)."""
     nb = T // band(T)
-    return nb * (nb + 1) // 2
+    return nb * nb if bf16 else nb * (nb + 1) // 2
 
 
 def sm_count(device) -> int:

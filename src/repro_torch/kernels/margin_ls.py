@@ -4,7 +4,10 @@ The CUDA kernel is ``csrc/margin_ls.cu``; it replaces
 ``repro/kernels/superstep_tile.py::margin_ls_pallas``.  ``plain`` is its
 plain PyTorch version (``kernels/ref.py``).  One logical launch is two CUDA
 launches: the streamed pass (fixed row ranges, one block an SM at a time)
-and the fixed-order finishing sum over its blocks.
+and the fixed-order finishing sum over its blocks.  The bf16 mode
+(``precision="bf16"``, the Pallas body's bf16 branch) rounds X and dbeta
+to bfloat16 inside the pass; it counts its launches apart
+(``KERNEL_BF16``).
 """
 from __future__ import annotations
 
@@ -17,19 +20,22 @@ from repro_torch.kernels.glm_stats import FAMILY_CODES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = build.CudaKernel(
-    "margin_ls", "repro_margin_ls",
-    [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-     _P])
+_ARGS = [_P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+         _I, _I, _P]
+KERNEL = build.CudaKernel("margin_ls", "repro_margin_ls", _ARGS)
+KERNEL_BF16 = build.CudaKernel("margin_ls_bf16", "repro_margin_ls", _ARGS)
 
 ROWS_PER_BLOCK = 1024     # kRowsPerBlock in the source: least rows a block
 
 plain = ref.fused_ls_dense
 
 
-def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None):
+def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None, *,
+           precision: str = "fp32"):
     """(xdb (n,), losses (K,)) from the CUDA kernel; X (n, p) row-major with
-    p a multiple of 4, read in place."""
+    p a multiple of 4, read in place; ``precision`` "bf16" runs the bf16
+    mode."""
+    bf16 = ref.is_bf16(precision)
     if family not in FAMILY_CODES:
         raise ValueError(f"margin_ls has no CUDA body for family {family!r}")
     build.check_cuda("margin_ls", torch.float32, X, dbeta, y, xb, weights,
@@ -50,10 +56,11 @@ def launch(X, dbeta, y, xb, weights, alphas, family: str, offset=None):
     xdb = torch.empty(n, **f32)
     partials = torch.empty(nblocks * K, **f32)
     losses = torch.empty(K, **f32)
-    KERNEL(build.ptr(X), n, p, build.ptr(dbeta), build.ptr(y), build.ptr(xb),
-           build.ptr(weights), build.ptr(offset), build.ptr(alphas), K,
-           build.ptr(xdb), build.ptr(partials), build.ptr(losses),
-           FAMILY_CODES[family], build.stream_of(X))
+    (KERNEL_BF16 if bf16 else KERNEL)(
+        build.ptr(X), n, p, build.ptr(dbeta), build.ptr(y), build.ptr(xb),
+        build.ptr(weights), build.ptr(offset), build.ptr(alphas), K,
+        build.ptr(xdb), build.ptr(partials), build.ptr(losses),
+        FAMILY_CODES[family], int(bf16), build.stream_of(X))
     return xdb, losses
 
 

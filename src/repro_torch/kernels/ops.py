@@ -23,6 +23,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import stats_gram_solve as stats_gram_solve_k
 from repro_torch.kernels import tile_gram as tile_gram_k
 
+# the bf16 modes of K3, K5 and K6 (``precision="bf16"``) count apart, so a
+# run shows which mode its path went through
 KERNELS = {
     "glm_stats": glm_stats_k.KERNEL,
     "cd_tile_solve": cd_tile_solve_k.KERNEL,
@@ -31,6 +33,9 @@ KERNELS = {
     "stats_gram_solve": stats_gram_solve_k.KERNEL,
     "margin_ls": margin_ls_k.KERNEL,
     "predict_tile": predict_tile_k.KERNEL,
+    "tile_gram_bf16": tile_gram_k.KERNEL_BF16,
+    "stats_gram_solve_bf16": stats_gram_solve_k.KERNEL_BF16,
+    "margin_ls_bf16": margin_ls_k.KERNEL_BF16,
 }
 
 
@@ -77,17 +82,19 @@ def cd_tile_solve(G, g, h, beta_t, dbeta_t, params, *, penf=None):
     return cd_tile_solve_k.launch(G, g, h, beta_t, dbeta_t, params, penf)
 
 
-def tile_gram(bricks, rows, n_valid, w, r):
+def tile_gram(bricks, rows, n_valid, w, r, *, precision="fp32"):
     """Brick Gram/gradient of one feature tile (K3); see kernels/tile_gram.py.
 
     bricks (K, rb, T), rows (K,) int32, n_valid a host int; w, r flat
-    (n_rows,) vectors.  Slots k >= n_valid are skipped.
+    (n_rows,) vectors.  Slots k >= n_valid are skipped.  ``precision``
+    "bf16" rounds the product inputs to bfloat16 (``ref.tile_gram``).
     """
     if not _on_card(bricks):
         rb = bricks.shape[1]
         return ref.tile_gram(bricks, rows, n_valid, w.reshape(-1, rb),
-                             r.reshape(-1, rb))
-    return tile_gram_k.launch(bricks, rows, n_valid, w, r)
+                             r.reshape(-1, rb), precision=precision)
+    return tile_gram_k.launch(bricks, rows, n_valid, w, r,
+                              precision=precision)
 
 
 def glm_stats(y, xb, family, *, weights=None, offset=None):
@@ -141,7 +148,8 @@ def tile_order(tile_live, nt: int, device):
 
 
 def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
-                      weights=None, offset=None, penf=None, tile_live=None):
+                      weights=None, offset=None, penf=None, tile_live=None,
+                      precision="fp32"):
     """Fused launch 1 of the Jacobi superstep: link stats, every live tile's
     Gram and gradient, and each live tile's chain from a zero step.
 
@@ -151,6 +159,8 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
     on the card runs K5 (``stats_gram_solve``) over the row-major data in
     place; a brick design on the card composes K1, then K3 and K2 for each
     live tile (the reference has no fused brick kernel either).
+    ``precision="bf16"`` forms G and g from bfloat16 inputs (K5's and
+    K3's bf16 modes); the stats and the solves stay float32.
     """
     fam = glm_lib.resolve_family(family)
     if weights is None:
@@ -161,12 +171,12 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
             loss_i, s, w, G_all, g_all, dbeta = ref.stats_gram_solve(
                 design.tiles3(), y, xb, weights, beta, fam, mu=mu, nu=nu,
                 lam1=lam1, lam2=lam2, offset=offset, penf=penf,
-                tile_live=tile_live)
+                tile_live=tile_live, precision=precision)
             return loss_i, s, w, dbeta, G_all, g_all
         b3, rows, valid = design.gather_all_tiles()
         loss_i, s, w, G_all, g_all = ref.fused_stats_gram_bricks(
             b3, rows, valid, y, xb, weights, fam, offset=offset,
-            tile_live=tile_live)
+            tile_live=tile_live, precision=precision)
         dbeta = ref.jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1,
                                        lam2, penf=penf, tile_live=tile_live)
         return loss_i, s, w, dbeta, G_all, g_all
@@ -177,10 +187,11 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
         loss_i, s, w, G_all, g_all, dbeta = stats_gram_solve_k.launch(
             design.data, y, xb, weights, offset, beta, penf,
             solve_params(mu, nu, lam1, lam2, y), order, n_live,
-            design.tile_size, fam.name)
+            design.tile_size, fam.name, precision=precision)
         return loss_i, s, w, dbeta, G_all, g_all
     loss_i, s, w = glm_stats(y, xb, fam, weights=weights, offset=offset)
-    G_all, g_all = design.all_tile_grams(w, s, tile_live)
+    G_all, g_all = design.all_tile_grams(w, s, tile_live,
+                                         precision=precision)
     dbeta = jacobi_tile_solves(G_all, g_all, beta,
                                solve_params(mu, nu, lam1, lam2, y),
                                penf=penf, tile_live=tile_live)
@@ -188,20 +199,25 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
 
 
 def fused_ls(design, y, xb, dbeta, alphas, family, *, weights=None,
-             offset=None):
+             offset=None, precision="fp32"):
     """Fused launch 2 of the Jacobi superstep: the margin delta xdb = X dbeta
     and every candidate step's loss, (xdb (n,), losses (K,)).  A dense
-    design on the card runs K6 (``margin_ls``); a brick design forms xdb
-    with ``design.matvec`` and the losses with K4 over all candidates."""
+    design on the card runs K6 (``margin_ls``; under ``precision="bf16"``
+    from bfloat16 X and dbeta); a brick design forms xdb with
+    ``design.matvec`` and the losses with K4 over all candidates, in
+    float32 at either precision, as the reference does."""
+    ref.is_bf16(precision)      # the brick route reads it nowhere else
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
     if hasattr(design, "tiles3"):
         if not _on_card(y):
             return ref.fused_ls_dense(design.tiles3(), y, xb, dbeta, weights,
-                                      alphas, fam, offset=offset)
+                                      alphas, fam, offset=offset,
+                                      precision=precision)
         return margin_ls_k.launch(design.data, dbeta, y, xb, weights, alphas,
-                                  fam.name, offset=offset)
+                                  fam.name, offset=offset,
+                                  precision=precision)
     xdb = design.matvec(dbeta)
     return xdb, alpha_search(y, xb, xdb, alphas, fam, weights=weights,
                              offset=offset)

@@ -68,11 +68,13 @@ def jacobi_tile_solves(G_all, g_all, beta, mu, nu, lam1, lam2, penf=None,
     return d.reshape(-1)
 
 
-def tile_gram(bricks, rows, n_valid, w2, r2):
+def tile_gram(bricks, rows, n_valid, w2, r2, precision="fp32"):
     """G = sum_k b_k^T diag(w[rows[k]]) b_k,  g = sum_k b_k^T r[rows[k]].
 
     bricks (K, rb, T) the bricks of one feature tile (slots k >= n_valid are
     ignored); rows (K,) their row-block ids; w2, r2 (n_row_blocks, rb).
+    ``precision="bf16"`` rounds b w (formed in float32), b and r to
+    bfloat16 and sums in float64, as ``gram_brick_tiles`` (below) does.
     """
     K = bricks.shape[0]
     mask = (torch.arange(K, device=bricks.device) < int(n_valid)) \
@@ -80,6 +82,11 @@ def tile_gram(bricks, rows, n_valid, w2, r2):
     b = bricks * mask[:, None, None]
     wk = w2[rows.long()]
     rk = r2[rows.long()]
+    if is_bf16(precision):
+        B = _bf16(b)
+        G = torch.einsum("kit,kiu->tu", _bf16(b * wk[:, :, None]), B)
+        g = torch.einsum("kit,ki->t", B, _bf16(rk))
+        return G.float(), g.float()
     G = torch.einsum("kit,kiu->tu", b * wk[:, :, None], b)
     g = torch.einsum("kit,ki->t", b, rk)
     return G, g
@@ -103,36 +110,78 @@ def alpha_search(y, xb, xdb, weights, alphas, family, offset=None):
 
 # ---------------------------------------------------------------------------
 # fused superstep (K5 stats_gram_solve, K6 margin_ls)
+#
+# ``precision`` is the reference's ``DGLMNETConfig.precision``: "fp32", or
+# "bf16" for bfloat16 inputs of the Gram and margin products (w x formed in
+# float32 and then rounded, x, s and dbeta rounded, to nearest even) with
+# the products summed in float32 or wider; the stats, the solves and the
+# candidate losses stay float32 either way.  A product of two bfloat16
+# values is exact in float32, so the sums below differ from the kernels'
+# only in their order.  Never ``torch.matmul`` on bfloat16 tensors: its
+# output would be rounded to bfloat16.
 # ---------------------------------------------------------------------------
 
+PRECISIONS = ("fp32", "bf16")
 
-def gram_dense_tiles(Xt3, w, r):
+
+def is_bf16(precision: str) -> bool:
+    """True for "bf16", False for "fp32"; anything else raises."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; have "
+                         f"{PRECISIONS}")
+    return precision == "bf16"
+
+
+def _bf16(x):
+    """x rounded to bfloat16 (to nearest, ties to even), as float64."""
+    return x.to(torch.bfloat16).double()
+
+
+def gram_dense_tiles(Xt3, w, r, precision="fp32"):
     """(G_all (nt, T, T), g_all (nt, T)) from the tile-major (nt, n, T)
     operand: G_t = X_t^T diag(w) X_t, g_t = X_t^T r, one batched product
     each, summed in float64 and rounded to float32.  A float32 product on
     the card may sum its n rows in one running sum, which drifts by up to
     n x 6e-8 of a sum of near-equal terms such as the intercept's diagonal
     entry, so the plain version would be the worse of the two it is held
-    against."""
-    X64 = Xt3.double()
-    G = torch.matmul((X64 * w.double()[None, :, None]).transpose(1, 2), X64)
-    g = torch.matmul(X64.transpose(1, 2), r.double()[None, :, None])[..., 0]
+    against.  Under "bf16", G_t[i, j] = sum_k bf16(w_k x_ki) bf16(x_kj),
+    which is not symmetric."""
+    if is_bf16(precision):
+        A = _bf16(Xt3 * w[None, :, None])
+        B = _bf16(Xt3)
+        rr = _bf16(r)
+    else:
+        B = Xt3.double()
+        A = B * w.double()[None, :, None]
+        rr = r.double()
+    G = torch.matmul(A.transpose(1, 2), B)
+    g = torch.matmul(B.transpose(1, 2), rr[None, :, None])[..., 0]
     return G.float(), g.float()
 
 
-def gram_brick_tiles(b3, rows, valid, w, r):
+def gram_brick_tiles(b3, rows, valid, w, r, precision="fp32"):
     """(G_all, g_all) from the batched brick layout of
     ``BlockSparseDesign.gather_all_tiles``: b3 (nt, K, rb, T), rows (nt, K)
     row-block ids, valid (nt, K) 0/1.  Each tile's K bricks are one
     (K rb, T) operand of a batched product, summed in float64 as in
-    ``gram_dense_tiles``."""
+    ``gram_dense_tiles``.  Under "bf16" the brick times its gathered
+    (weight times valid) is formed in float32 and then rounded; the weight
+    itself is not rounded."""
     nt, K, rb, T = b3.shape
-    b3f = b3.reshape(nt, K * rb, T).double()
+    b3f = b3.reshape(nt, K * rb, T)
     rows = rows.long()
     wk = (w.reshape(-1, rb)[rows] * valid[..., None]).reshape(nt, K * rb, 1)
     rk = (r.reshape(-1, rb)[rows] * valid[..., None]).reshape(nt, K * rb, 1)
-    G = torch.matmul((b3f * wk.double()).transpose(1, 2), b3f)
-    g = torch.matmul(b3f.transpose(1, 2), rk.double())[..., 0]
+    if is_bf16(precision):
+        A = _bf16(b3f * wk)
+        B = _bf16(b3f)
+        rr = _bf16(rk)
+    else:
+        B = b3f.double()
+        A = B * wk.double()
+        rr = rk.double()
+    G = torch.matmul(A.transpose(1, 2), B)
+    g = torch.matmul(B.transpose(1, 2), rr)[..., 0]
     return G.float(), g.float()
 
 
@@ -151,45 +200,54 @@ def shaped_tile_grams(n_tiles, gram_of_ids, tile_live):
 
 
 def fused_stats_gram_dense(Xt3, y, xb, weights, family, offset=None,
-                           tile_live=None):
+                           tile_live=None, precision="fp32"):
     """(loss_i, s, w, G_all, g_all): the link stats and every live tile's
     Gram and gradient (r = s: the step enters at zero) on the dense
     tile-major layout."""
     loss_i, s, w = glm_stats(y, xb, weights, family, offset=offset)
     G, g = shaped_tile_grams(
-        Xt3.shape[0], lambda ids: gram_dense_tiles(Xt3[ids], w, s),
-        tile_live)
+        Xt3.shape[0],
+        lambda ids: gram_dense_tiles(Xt3[ids], w, s, precision), tile_live)
     return loss_i, s, w, G, g
 
 
 def fused_stats_gram_bricks(b3, rows, valid, y, xb, weights, family,
-                            offset=None, tile_live=None):
+                            offset=None, tile_live=None, precision="fp32"):
     """Brick-layout twin of ``fused_stats_gram_dense``."""
     loss_i, s, w = glm_stats(y, xb, weights, family, offset=offset)
     G, g = shaped_tile_grams(
         b3.shape[0],
-        lambda ids: gram_brick_tiles(b3[ids], rows[ids], valid[ids], w, s),
+        lambda ids: gram_brick_tiles(b3[ids], rows[ids], valid[ids], w, s,
+                                     precision),
         tile_live)
     return loss_i, s, w, G, g
 
 
 def stats_gram_solve(Xt3, y, xb, weights, beta, family, *, mu, nu, lam1,
-                     lam2, offset=None, penf=None, tile_live=None):
+                     lam2, offset=None, penf=None, tile_live=None,
+                     precision="fp32"):
     """K5's function: (loss_i, s, w, G_all, g_all, dbeta (p,)), the stats,
     every live tile's Gram and gradient, and each live tile's chain from a
     zero step; dead tiles get G = g = 0 and a zero step."""
     loss_i, s, w, G, g = fused_stats_gram_dense(
-        Xt3, y, xb, weights, family, offset=offset, tile_live=tile_live)
+        Xt3, y, xb, weights, family, offset=offset, tile_live=tile_live,
+        precision=precision)
     dbeta = jacobi_tile_solves(G, g, beta, mu, nu, lam1, lam2, penf=penf,
                                tile_live=tile_live)
     return loss_i, s, w, G, g, dbeta
 
 
-def fused_ls_dense(Xt3, y, xb, dbeta, weights, alphas, family, offset=None):
+def fused_ls_dense(Xt3, y, xb, dbeta, weights, alphas, family, offset=None,
+                   precision="fp32"):
     """K6's function: the margin delta xdb = X dbeta (summed over tiles)
-    and every candidate step's loss, (xdb (n,), losses (K,))."""
+    and every candidate step's loss, (xdb (n,), losses (K,)).  Under
+    "bf16", X and dbeta are rounded first (float32 products of the rounded
+    values are exact); the losses are float32 either way."""
     nt, _, T = Xt3.shape
     dr = dbeta.reshape(nt, T)
+    if is_bf16(precision):
+        Xt3 = Xt3.to(torch.bfloat16).float()
+        dr = dr.to(torch.bfloat16).float()
     xdb = torch.sum(torch.matmul(Xt3, dr[:, :, None])[..., 0], dim=0)
     losses = alpha_search(y, xb, xdb, weights, alphas, family,
                           offset=offset)

@@ -3,10 +3,12 @@
 The CUDA kernel is ``csrc/stats_gram_solve.cu``; it replaces
 ``repro/kernels/superstep_tile.py::stats_gram_solve_pallas``; its Gram
 products run on the tensor cores with the 3xTF32 split of
-``csrc/gram_tc.cuh``.  ``plain`` is its plain PyTorch version
-(``kernels/ref.py``).  One logical launch is three
-CUDA launches: the partial Gram with the stats inline, a fixed-order
-reduction, and the tile solves.
+``csrc/gram_tc.cuh``, or, in the bf16 mode (``precision="bf16"``, the
+Pallas body's bf16 branch), as one bf16 product.  ``plain`` is its plain
+PyTorch version (``kernels/ref.py``).  One logical launch is three CUDA
+launches: the partial Gram with the stats inline, a fixed-order
+reduction, and the tile solves.  The two modes count their launches apart
+(``KERNEL``, ``KERNEL_BF16``).
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ from repro_torch.kernels.glm_stats import FAMILY_CODES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = build.CudaKernel(
-    "stats_gram_solve", "repro_stats_gram_solve",
-    [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-     _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+_ARGS = [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+KERNEL = build.CudaKernel("stats_gram_solve", "repro_stats_gram_solve",
+                          _ARGS)
+KERNEL_BF16 = build.CudaKernel("stats_gram_solve_bf16",
+                               "repro_stats_gram_solve", _ARGS)
 
 SUB = 64              # T must be a multiple of it (the least block edge)
 
@@ -30,14 +34,16 @@ plain = ref.stats_gram_solve
 
 
 def launch(X, y, xb, weights, offset, beta, penf, params, order, n_live: int,
-           T: int, family: str):
+           T: int, family: str, *, precision: str = "fp32"):
     """(loss, s, w (n,), G_all (nt, T, T), g_all (nt, T), dbeta (p,)) from
     the CUDA kernel.
 
     X (n, p) row-major, p = nt * T, read in place; ``params`` the device
     (4,) f32 [mu, nu, lam1, lam2]; ``order`` (nt,) int32 on the card, the
-    live tiles first; ``n_live`` their count (a host int).
+    live tiles first; ``n_live`` their count (a host int).  ``precision``
+    "bf16" runs the bf16 mode (G is then not symmetric).
     """
+    bf16 = ref.is_bf16(precision)
     if family not in FAMILY_CODES:
         raise ValueError(
             f"stats_gram_solve has no CUDA body for family {family!r}")
@@ -59,7 +65,7 @@ def launch(X, y, xb, weights, offset, beta, penf, params, order, n_live: int,
         raise ValueError("stats_gram_solve: X must be 16-byte aligned")
     # row ranges of whole slabs: at most MAX_RANGE_ROWS rows, and enough
     # blocks (live tiles x upper blocks x ranges) for every SM
-    bn, npairs = gram_tc.band(T), gram_tc.n_pairs(T)
+    bn, npairs = gram_tc.band(T), gram_tc.n_pairs(T, bf16)
     splits = gram_tc.ranges(max(n, 1), max(n_live, 1) * npairs,
                             gram_tc.MAX_RANGE_ROWS,
                             gram_tc.sm_count(X.device))
@@ -75,10 +81,12 @@ def launch(X, y, xb, weights, offset, beta, penf, params, order, n_live: int,
     G = torch.empty((nt, T, T), **f32)
     g = torch.empty((nt, T), **f32)
     dbeta = torch.empty(p, **f32)
-    KERNEL(build.ptr(X), n, p, T, build.ptr(y), build.ptr(xb),
-           build.ptr(weights), build.ptr(offset), build.ptr(beta),
-           build.ptr(penf), build.ptr(params), build.ptr(order), n_live,
-           splits, per, bn, build.ptr(Gp), build.ptr(gp), build.ptr(loss),
-           build.ptr(s), build.ptr(w), build.ptr(G), build.ptr(g),
-           build.ptr(dbeta), FAMILY_CODES[family], build.stream_of(X))
+    (KERNEL_BF16 if bf16 else KERNEL)(
+        build.ptr(X), n, p, T, build.ptr(y), build.ptr(xb),
+        build.ptr(weights), build.ptr(offset), build.ptr(beta),
+        build.ptr(penf), build.ptr(params), build.ptr(order), n_live,
+        splits, per, bn, int(bf16), build.ptr(Gp), build.ptr(gp),
+        build.ptr(loss), build.ptr(s), build.ptr(w), build.ptr(G),
+        build.ptr(g), build.ptr(dbeta), FAMILY_CODES[family],
+        build.stream_of(X))
     return loss, s, w, G, g, dbeta

@@ -342,11 +342,14 @@ def test_fused_matches_unfused_jacobi(kind):
 
 
 def test_bf16_and_unknown_options_raise():
+    """precision="bf16" (ported) builds and fits; unknown options raise."""
     X = np.random.default_rng(0).normal(size=(40, 6)).astype(np.float32)
     y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        TSolver(X, y, device="cpu", config=TConfig(
-            tile_size=8, coupling="jacobi", precision="bf16"))
+    s = TSolver(X, y, device="cpu", config=TConfig(
+        tile_size=8, coupling="jacobi", precision="bf16"))
+    res = s.fit(lam1=0.1 * s.lambda_max(), max_outer=3, tol=0.0)
+    assert res.n_iter == 3 and np.isfinite(res.history["f"]).all()
+    assert np.abs(res.beta).max() > 0
     for bad in (dict(precision="fp8"), dict(coupling="red-black")):
         with pytest.raises(ValueError):
             TSolver(X, y, device="cpu", config=TConfig(tile_size=8, **bad))

@@ -16,6 +16,8 @@ within 1e-5 of float64 sums).  K5 holds its stats like K1 and G, g like
 K3; its step runs the K2 chain on a G summed in another order, so it is
 held at 1e-4 of the largest step.  K6 and K7 are float32 sums in another
 order (1e-5); two K6 runs must give the same bits (fixed-order sums).
+The bf16 modes of K3, K5 and K6 (``precision="bf16"``) are held against
+their plain bf16 versions the same way; their G is not symmetric.
 """
 import numpy as np
 import pytest
@@ -468,5 +470,152 @@ def test_jacobi_fit_on_the_card_matches_the_cpu(cuda, sparse, fused):
     assert (cg["stats_gram_solve"] > 0) == dense_fused
     assert (cg["margin_ls"] > 0) == dense_fused
     assert (cg["tile_gram"] > 0) == sparse
+    np.testing.assert_allclose(rg.history["f"], rc.history["f"], rtol=1e-4)
+    np.testing.assert_allclose(rg.beta, rc.beta, atol=1e-3)
+
+
+# ------------------------------------------------- precision="bf16" modes
+# K3, K5 and K6 with bf16 product inputs against their plain bf16 versions
+# (the same roundings, summed in float64 or float32): 1e-5 relative to the
+# largest entry, as in float32 (a product of two bf16 values is exact in
+# float32); K5's G and g at the kernel's own stats, its step at 1e-4 of
+# the largest step; G is not symmetric, and two runs give the same bits.
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("T,n,live", [
+    (256, 20_003, [True, False, True]),
+    (128, 33_333, [True, True]),
+    (64, 4_097, [True, False, True, True]),
+])
+def test_stats_gram_solve_kernel_bf16(cuda, family, T, n, live):
+    rng = np.random.default_rng(T + n)
+    nt = len(live)
+    X = (0.3 * rng.normal(size=(n, nt * T))).astype(np.float32)
+    X[:, 0] = 1.0
+    design, _ = tdesign.dense_design(X, T, device=cuda)
+    y = _labels(rng, family, n, cuda)
+    beta = _vec(rng, nt * T, cuda, 0.1)
+    xb, off = design.matvec(beta), _vec(rng, n, cuda, 0.1)
+    wt = torch.rand(n, device=cuda)
+    penf = torch.rand(nt * T, device=cuda) + 0.5
+    live = np.array(live)
+    kw = dict(mu=torch.tensor(1.5, device=cuda), nu=1e-6, lam1=0.02,
+              lam2=0.01)
+    before = ops.launch_counts()
+    got = ops.fused_stats_sweep(design, y, xb, beta, family, weights=wt,
+                                offset=off, penf=penf, tile_live=live,
+                                precision="bf16", **kw)
+    after = ops.launch_counts()
+    assert after["stats_gram_solve_bf16"] == \
+        before["stats_gram_solve_bf16"] + 1
+    assert after["stats_gram_solve"] == before["stats_gram_solve"]
+    want = ref.stats_gram_solve(design.tiles3(), y, xb, wt, beta, family,
+                                offset=off, penf=penf, tile_live=live,
+                                precision="bf16", **kw)
+    tol = 3e-4 if family == "probit" else 1e-5
+    for a, b in zip(got[:3], want[:3]):
+        assert _rel(a, b) <= tol
+    # G and g against the plain bf16 Gram at the kernel's own w and s: an
+    # s one ulp off the plain version's may round to another bf16 value
+    G_own, g_own = ref.shaped_tile_grams(
+        nt, lambda ids: ref.gram_dense_tiles(design.tiles3()[ids], got[2],
+                                             got[1], "bf16"), live)
+    assert _rel(got[4], G_own) <= 1e-5 and _rel(got[5], g_own) <= 1e-5
+    for t in range(nt):
+        if not live[t]:
+            assert not got[4][t].any() and not got[5][t].any()
+            assert not got[3][t * T:(t + 1) * T].any()
+        else:
+            assert not torch.equal(got[4][t], got[4][t].T)
+    d, dw = got[3], want[5]
+    assert float((d - dw).abs().max()) <= 1e-4 * max(
+        float(dw.abs().max()), 1e-3)
+    chain = ref.jacobi_tile_solves(got[4], got[5], beta, penf=penf,
+                                   tile_live=live, **kw)
+    assert torch.equal(d, chain)
+    again = ops.fused_stats_sweep(design, y, xb, beta, family, weights=wt,
+                                  offset=off, penf=penf, tile_live=live,
+                                  precision="bf16", **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,rb,K,n_valid", [
+    (256, 256, 40, 40), (256, 256, 300, 250), (64, 256, 9, 9),
+    (128, 100, 40, 3), (512, 64, 30, 1), (256, 40, 6, 0),
+])
+def test_tile_gram_kernel_bf16(cuda, T, rb, K, n_valid):
+    rng = np.random.default_rng(T + rb + K + n_valid)
+    n_rb = 50
+    b_np = rng.normal(size=(K, rb, T)).astype(np.float32)
+    b_np[:, :, 0] = 1.0
+    bricks = torch.from_numpy(b_np).to(cuda)
+    rows = torch.from_numpy(rng.integers(0, n_rb, K).astype(np.int32)) \
+        .to(cuda)
+    w = torch.from_numpy(rng.uniform(1e-6, 0.25, n_rb * rb)
+                         .astype(np.float32)).to(cuda)
+    r = _vec(rng, n_rb * rb, cuda)
+    before = ops.launch_counts()["tile_gram_bf16"]
+    G, g = ops.tile_gram(bricks, rows, n_valid, w, r, precision="bf16")
+    assert ops.launch_counts()["tile_gram_bf16"] == before + 1
+    G2, g2 = ref.tile_gram(bricks, rows, n_valid, w.reshape(n_rb, rb),
+                           r.reshape(n_rb, rb), precision="bf16")
+    for a, b in ((G, G2), (g, g2)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * max(float(b.abs().max()), 1))
+    if n_valid:
+        assert not torch.equal(G, G.T)
+    G3, g3 = ops.tile_gram(bricks, rows, n_valid, w, r, precision="bf16")
+    assert torch.equal(G, G3) and torch.equal(g, g3)
+
+
+# past 8,192 columns dbeta is read from global memory, not staged
+MARGIN_LS_BF16_CASES = dict(MARGIN_LS_CASES,
+                            p8704=(2_000, 8_704, 294, True, "rand"))
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("case", list(MARGIN_LS_BF16_CASES))
+def test_margin_ls_kernel_bf16(cuda, family, case):
+    rng = np.random.default_rng(7)
+    n, p, K, offset, weights = MARGIN_LS_BF16_CASES[case]
+    X, dbeta, y, xb, wt, cand, off = _margin_ls_inputs(
+        rng, n, p, K, offset, weights, family, cuda)
+    before = ops.launch_counts()["margin_ls_bf16"]
+    xdb, losses = margin_ls.launch(X, dbeta, y, xb, wt, cand, family,
+                                   offset=off, precision="bf16")
+    assert ops.launch_counts()["margin_ls_bf16"] == before + 1
+    xdb2, losses2 = margin_ls.plain(X.view(n, 1, p).transpose(0, 1), y, xb,
+                                    dbeta, wt, cand, family, offset=off,
+                                    precision="bf16")
+    assert _rel(xdb, xdb2) <= 1e-5 and _rel(losses, losses2) <= 1e-5
+    again = margin_ls.launch(X, dbeta, y, xb, wt, cand, family, offset=off,
+                             precision="bf16")
+    assert torch.equal(xdb, again[0]) and torch.equal(losses, again[1])
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_bf16_jacobi_fit_on_the_card_matches_the_cpu(cuda, sparse):
+    if sparse:
+        ds = synthetic.make_sparse(n=3000, p=600, avg_nnz=20, k_true=30,
+                                   seed=1)
+    else:
+        ds = synthetic.make_dense(n=3000, p=300, k_true=20, seed=1)
+    cfg = DGLMNETConfig(tile_size=128, coupling="jacobi", precision="bf16")
+    fits = []
+    for dev in ("cpu", cuda):
+        s = GLMSolver(ds.train.X, ds.train.y, config=cfg, device=dev,
+                      fit_intercept=True, row_block=256)
+        ops.reset_launch_counts()
+        res = s.fit(lam1=0.05 * s.lambda_max(), max_outer=6, tol=0.0)
+        fits.append((res, ops.launch_counts()))
+    (rc, cc), (rg, cg) = fits
+    assert sum(cc.values()) == 0
+    for k in ("stats_gram_solve", "margin_ls", "tile_gram"):
+        assert cg[k] == 0
+    assert (cg["stats_gram_solve_bf16"] > 0) == (not sparse)
+    assert (cg["margin_ls_bf16"] > 0) == (not sparse)
+    assert (cg["tile_gram_bf16"] > 0) == sparse
     np.testing.assert_allclose(rg.history["f"], rc.history["f"], rtol=1e-4)
     np.testing.assert_allclose(rg.beta, rc.beta, atol=1e-3)

@@ -207,18 +207,19 @@ def test_unported_options_raise():
     for bad in (dict(mesh=object()), dict(standardize=True)):
         with pytest.raises(NotImplementedError):
             TSolver(X, y, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TSolver(X, y, device="cpu", config=TConfig(
-            tile_size=8, coupling="jacobi", precision="bf16"))
     s = TSolver(X, y, **kw)
     s.fit(lam1=0.1, max_outer=3)
     for call in (s.fit_path, s.fit_cv,
                  lambda: s.fit(ckpt_manager=object())):
         with pytest.raises(NotImplementedError):
             call()
-    # ported since: the Jacobi coupling and predict on SparseCOO rows
+    # ported since: the Jacobi coupling, its precision="bf16" and predict
+    # on SparseCOO rows
     TSolver(X, y, device="cpu", config=TConfig(tile_size=8,
                                                coupling="jacobi"))
+    sb = TSolver(X, y, device="cpu", config=TConfig(
+        tile_size=8, coupling="jacobi", precision="bf16"))
+    assert np.isfinite(sb.fit(lam1=0.1, max_outer=3).history["f"]).all()
     out = s.predict(tsparse.SparseCOO(np.zeros(1, np.int64),
                                       np.zeros(1, np.int64),
                                       np.ones(1, np.float32), (1, 6)))

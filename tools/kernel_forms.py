@@ -47,8 +47,8 @@ DIRECT = [
      "            ;"),
     ("            if (lane == 0 && j + kDepth < copies) issue(j + kDepth);",
      "            ;"),
-    ("dot_part(st + (chunks > 1 ? 0 : (g0 + r) * p), dv + c0,",
-     "dot_part(X + (r0 + i0 + g0 + r) * p + c0, dv + c0,"),
+    ("const float* row = st + (chunks > 1 ? 0 : (g0 + r) * p);",
+     "const float* row = X + (r0 + i0 + g0 + r) * p + c0;"),
     ("float* d_s = smem + kWarps * kDepth * kStage;",
      "float* d_s = smem + kGroup * kWarps;"),
     ("(kWarps * kDepth * kStage + (p <= kDbetaShared ? p : 0));",
@@ -67,9 +67,11 @@ K6_FORMS = {
     "depth2": [("constexpr int kDepth = 3;", "constexpr int kDepth = 2;")],
     "direct": DIRECT,
     "copy_only": [
-        ("""          dot_part(st + (chunks > 1 ? 0 : (g0 + r) * p), dv + c0,
-                   min(kStage, p - c0), lane, s);""",
-         "          (void)st;\n          (void)c0;"),
+        ("""          if (!B16 || d_shared)   // dbeta staged as it is to be read
+            dot_part<B16, false>(row, dv + c0, cw, lane, s);
+          else
+            dot_part<true, true>(row, dv + c0, cw, lane, s);""",
+         "          (void)row;\n          (void)cw;"),
         ("""        ls.add(lane, __shfl_sync(0xffffffffu, yl, r),
                __shfl_sync(0xffffffffu, bl, r),
                __shfl_sync(0xffffffffu, cl, r), d);""", "        (void)d;")],
@@ -158,7 +160,8 @@ def main() -> None:
                         X.data_ptr(), n, p, dbeta.data_ptr(), y.data_ptr(),
                         xb.data_ptr(), w.data_ptr(), off.data_ptr(),
                         al.data_ptr(), K, xdb.data_ptr(), part.data_ptr(),
-                        los.data_ptr(), 0, stream) == 0, "k6 launch failed")
+                        los.data_ptr(), 0, 0, stream) == 0,
+                        "k6 launch failed")
                 call()
                 torch.cuda.synchronize()
                 e = max(chip_smoke.errs(xdb, want[0])[1],
