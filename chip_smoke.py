@@ -43,7 +43,17 @@ the probes of tools/chain_floor.cu, built here with nvcc).  K6 must give
 the same bits on two runs and is timed beside torch.mv on the same X.  K7
 is held and timed at 4,096 rows (bulk scoring) and at 64 (the batcher's
 largest bucket); beside K1, K4 and K7 stands their launch floor, an empty
-kernel on the same grid timed the same way (tools/launch_floor.cu).
+kernel on the same grid timed the same way (tools/launch_floor.cu).  K1
+and K4 are held for the four families at the sparse fit's n and at the
+dense fit's 400,000 rows (K1 also with every vector off a 16-byte
+boundary, its element path); K4 at 14, 20, 21, 294 and 321 candidates,
+and timed at the main path's shapes (14 and 20 for the Gauss-Seidel line
+search, 294 for the fused Jacobi superstep on bricks; 21 beside them).
+Their bound is the larger of their bytes and their per-example work at
+the rate that the probes of tools/loss_floor.cu (built here with nvcc)
+measure on the whole card: one candidate loss for K4, one row's
+statistics for K1.  K4 must give the same bits on two runs and leave its
+ticket counter at 0.
 The bf16 modes of K3, K5 and K6 are held against their plain bf16 versions
 (the same roundings, summed in float64 or float32) at 1e-5 relative to the
 largest entry; K5's G and g in that mode against the plain bf16 Gram at
@@ -78,6 +88,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 
 
 LAM1_FRACTION = 0.05        # lam1 of the full-size fits, over lambda_max
+N_DENSE = 400_000           # train rows of the dense fit (K1 and K4 run there)
 SERVE_FRACTIONS = (0.2, 0.1, 0.05, 0.02)   # the served model's columns
 
 
@@ -309,6 +320,182 @@ def k2_bound(T: int):
     operations each and about 12 operations a step."""
     return bound_ms((T * (T + 1) / 2 + 6 * T + 4) * 4,
                     3.0 * T * (T - 1) / 2 + 12 * T)
+
+
+def loss_floors(np, torch, codes) -> dict:
+    """{family: {"loss_ns", "stats_ns"}}: the nanoseconds the whole card
+    needs for one K4 candidate loss (m = b + alpha d, loss times c, summed)
+    and for one K1 row's statistics (Stats<F>::all, three outputs times
+    c), from the probes of tools/loss_floor.cu (built here with nvcc):
+    inputs in registers, one full wave, no memory traffic.  ``codes``:
+    family -> its code in the kernels."""
+    import ctypes
+
+    lib = build_tool("loss_floor")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.loss_floor_run.argtypes = [I, I, I, P, P, P, P, P]
+    props = torch.cuda.get_device_properties(0)
+    sink = torch.empty(props.multi_processor_count * 2048, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    threads, work = ctypes.c_int(0), ctypes.c_longlong(0)
+    out = {}
+    for fam, code in codes.items():
+        y = rng.poisson(2.0, 1024) if fam == "poisson" \
+            else rng.choice([-1.0, 1.0], 1024)
+        rows = np.stack([y, 1.5 * rng.normal(size=1024),
+                         rng.normal(size=1024), rng.random(1024)], axis=1)
+        inp = torch.from_numpy(rows.astype(np.float32).ravel()).cuda()
+        rec = {}
+        for mode, key in ((0, "loss_ns"), (1, "stats_ns")):
+            def run():
+                check(lib.loss_floor_run(
+                    code, mode, 1000, inp.data_ptr(), sink.data_ptr(),
+                    ctypes.byref(threads), ctypes.byref(work),
+                    torch.cuda.current_stream().cuda_stream) == 0,
+                    f"loss_floor {fam} mode {mode}: launch failed")
+            ms = time_ms(torch, run, 3, warmup=1)
+            rec[key] = ms * 1e6 / work.value
+        out[fam] = rec
+    return out
+
+
+def shifted(torch, v, m: int):
+    """The first m entries of v in a contiguous view one element into its
+    storage: 4 bytes past a 16-byte boundary (None stays None)."""
+    if v is None:
+        return None
+    return torch.cat([v.new_zeros(1), v[:m]])[1:]
+
+
+def timed_bound(n_vec: float, n_ops: float, op_ns: float):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms): the
+    larger of n_vec bytes over the memory rate and n_ops operations of
+    op_ns each on the whole card (a probe of tools/loss_floor.cu)."""
+    t_bytes = n_vec / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops * op_ns * 1e-6
+    return ((t_ops, "operations") if t_ops >= t_bytes else
+            (t_bytes, "bytes")) + (t_bytes, t_ops)
+
+
+def k1_report(np, torch, rng, sets, floors, floor_lib, tol, parity):
+    """K1 against its plain version at each n of ``sets`` ({n: (y, wobs,
+    off, xb, xdb)}) for the four families, and at n - 1 rows with every
+    vector one element off a 16-byte boundary (the element path and a
+    tail); timed at each n with its launch floor and its bound."""
+    from repro_torch.kernels import glm_stats as glm_stats_k
+    from repro_torch.kernels import ops, ref
+
+    err = 0.0
+    for n, (y, wobs, off, xb, _) in sets.items():
+        for fam in glm_stats_k.FAMILY_CODES:
+            yy = labels_for(np, torch, rng, fam, y)
+            cases = [("", (yy, xb, wobs, off)),
+                     ("/unaligned", tuple(shifted(torch, v, n - 1)
+                                          for v in (yy, xb, wobs, off)))]
+            for tag, (a_y, a_xb, a_w, a_off) in cases:
+                got = ops.glm_stats(a_y, a_xb, fam, weights=a_w,
+                                    offset=a_off)
+                want = ref.glm_stats(a_y, a_xb, a_w, fam, offset=a_off)
+                e = max(errs(a, b)[1] for a, b in zip(got, want))
+                parity[f"glm_stats/n={n}/{fam}{tag}"] = e
+                check(e <= tol["glm_stats_probit" if fam == "probit"
+                               else "glm_stats"],
+                      f"glm_stats n={n} {fam}{tag}: error {e}")
+                err = max(err, max(errs(a, b)[0] for a, b in zip(got, want)))
+    shapes = []
+    for n, (y, wobs, off, xb, _) in sets.items():
+        ms = time_ms(torch, lambda: glm_stats_k.launch(
+            y, xb, wobs, "logistic", offset=off), 200)
+        plain = time_ms(torch, lambda: ref.glm_stats(
+            y, xb, wobs, "logistic", offset=off), 50)
+        nb = glm_stats_k.grid(n)
+        floor = launch_floor(torch, floor_lib,
+                             [(nb, 1, glm_stats_k.THREADS)], 200)
+        # y, xb, weights and offset in, loss, s and w out
+        b_ms, b_by, t_bytes, t_ops = timed_bound(
+            n * 4.0 * (3 + (off is not None) + 3), n,
+            floors["logistic"]["stats_ns"])
+        shapes.append(dict(n=n, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by, bytes_bound_ms=t_bytes,
+                           stats_floor_ms=t_ops, share_of_bound=b_ms / ms,
+                           launch_floor_ms=floor,
+                           share_of_launch_floor=floor / ms, grid_blocks=nb))
+    main = shapes[0]
+    return dict(main, library_ms=None, max_abs_err=err, shapes=shapes,
+                stats_floor_ns=floors["logistic"]["stats_ns"])
+
+
+def k4_report(np, torch, rng, sets, floors, floor_lib, tol, parity):
+    """K4 against its plain version for the four families at each n of
+    ``sets`` and K = 14 (the Gauss-Seidel grid), 20 (its backtracking
+    chain), 21, 294 (every candidate of the fused Jacobi superstep) and 321
+    (past one 320-candidate pass); bit-identical over two calls, the
+    ticket counter back at 0; timed at the main path's shapes beside the
+    launch floor of its grid and its bound, the larger of its bytes and n
+    K candidate losses at the probe's rate.  Returns (the report, the
+    candidate counts)."""
+    from repro_torch.core import linesearch
+    from repro_torch.kernels import alpha_search as alpha_search_k
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid14 = linesearch.candidate_alphas(1e-3, 13, dev)
+    chain = lambda k: linesearch.backtrack_chains(grid14[5:6], 0.5, k)[0]
+    full = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=dev)
+    cand = {14: grid14, 20: chain(20), 21: chain(21), 294: full,
+            321: torch.cat([full, chain(27)])}
+    err = 0.0
+    n_small = min(sets)
+    for n, (y, wobs, off, xb, xdb) in sets.items():
+        for fam in ("logistic", "squared", "probit", "poisson"):
+            yy = labels_for(np, torch, rng, fam, y)
+            for K, al in cand.items():
+                got = ops.alpha_search(yy, xb, xdb, al, fam, weights=wobs,
+                                       offset=off)
+                want = ref.alpha_search(yy, xb, xdb, wobs, al, fam,
+                                        offset=off)
+                ea, e = errs(got, want)
+                parity[f"alpha_search/n={n}/{fam}/K={K}"] = e
+                check(e <= tol["alpha_search"],
+                      f"alpha_search n={n} {fam} K={K}: error {e}")
+                err = max(err, ea)
+        # fixed rows and fixed-order sums, no float atomics: two calls
+        # give the same bits; the last block leaves the ticket at 0
+        for K, al in cand.items():
+            runs = [alpha_search_k.launch(y, xb, xdb, wobs, al, "logistic",
+                                          offset=off) for _ in range(2)]
+            check(torch.equal(runs[0], runs[1]),
+                  f"alpha_search n={n} K={K}: two calls differ")
+        torch.cuda.synchronize()
+        check(int(alpha_search_k.ticket(dev).item()) == 0,
+              "alpha_search: the ticket counter is not back at 0")
+    shapes = []
+    for n, K in ((n_small, 14), (n_small, 20), (n_small, 21),
+                 (n_small, 294), (N_DENSE, 14), (N_DENSE, 20),
+                 (N_DENSE, 21)):
+        y, wobs, off, xb, xdb = sets[n]
+        al = cand[K]
+        ms = time_ms(torch, lambda: alpha_search_k.launch(
+            y, xb, xdb, wobs, al, "logistic", offset=off), 200)
+        plain = time_ms(torch, lambda: ref.alpha_search(
+            y, xb, xdb, wobs, al, "logistic", offset=off), 20)
+        nb, threads = alpha_search_k.grid(n, K)
+        floor = launch_floor(torch, floor_lib, [(nb, 1, threads)], 200)
+        b_ms, b_by, t_bytes, t_ops = timed_bound(
+            n * 4.0 * (4 + (off is not None)) + 8.0 * K, n * K,
+            floors["logistic"]["loss_ns"])
+        shapes.append(dict(n=n, K=K, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by, bytes_bound_ms=t_bytes,
+                           loss_floor_ms=t_ops, share_of_bound=b_ms / ms,
+                           at_half_of_bound=b_ms / ms >= 0.5,
+                           launch_floor_ms=floor,
+                           share_of_launch_floor=floor / ms, grid_blocks=nb,
+                           threads=threads))
+    # the line's numbers are the Gauss-Seidel chain's, at the sparse fit's n
+    main = shapes[1]
+    return (dict(main, library_ms=None, max_abs_err=err, shapes=shapes,
+                 loss_floor_ns=floors["logistic"]["loss_ns"]),
+            sorted(cand))
 
 
 def errs(got, want):
@@ -882,11 +1069,9 @@ def main() -> None:
     if torch.cuda.device_count() < 1:
         fail("no CUDA device is visible", code=3)
 
-    from repro_torch.core import linesearch
     from repro_torch.core.dglmnet import DGLMNETConfig
     from repro_torch.core.solver import GLMSolver
     from repro_torch.data import synthetic
-    from repro_torch.kernels import alpha_search as alpha_search_k
     from repro_torch.kernels import build
     from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
     from repro_torch.kernels import glm_stats as glm_stats_k
@@ -941,7 +1126,6 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     y, wobs, off = solver._ys, solver._wobs, solver._offsets
     n = n_rows
-    fams = ["logistic", "squared", "probit", "poisson"]
     # tolerances on max |kernel - plain| / max(max |plain|, 1): float32
     # with the same formulas (1e-5; probit 3e-4, erfc against log_ndtr);
     # K3 and K4 are the same float32 sums in another order (1e-5); K2 is
@@ -953,67 +1137,29 @@ def main() -> None:
            "tile_gram_bf16": 1e-6}
     parity = {}
 
+    # K1 and K4 at the sparse fit's n (its labels, weights and offsets) and
+    # at the dense fit's n = 400,000 (random, with random weights), against
+    # the throughput floor of their per-example work (tools/loss_floor.cu)
     xb = torch.from_numpy((rng.normal(size=n) * 1.5).astype(np.float32)) \
         .to(dev)
     xdb = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
-    err_k1 = 0.0
-    for fam in fams:
-        yy = labels_for(np, torch, rng, fam, y)
-        got = ops.glm_stats(yy, xb, fam, weights=wobs, offset=off)
-        want = ref.glm_stats(yy, xb, wobs, fam, offset=off)
-        ea = max(errs(a, b)[0] for a, b in zip(got, want))
-        e = max(errs(a, b)[1] for a, b in zip(got, want))
-        parity[f"glm_stats/{fam}"] = e
-        check(e <= tol["glm_stats_probit" if fam == "probit"
-                       else "glm_stats"], f"glm_stats {fam}: error {e}")
-        err_k1 = max(err_k1, ea)
-    fam = "logistic"
-    k1_ms = time_ms(torch, lambda: glm_stats_k.launch(y, xb, wobs, fam,
-                                                      offset=off), 200)
-    k1_plain = time_ms(torch, lambda: ref.glm_stats(y, xb, wobs, fam,
-                                                    offset=off), 50)
-    k1_bytes = n * 4 * (4 + 3)          # y, xb, weights, offset in; 3 out
-    b_ms, b_by = bound_ms(k1_bytes, n * 20)
-    # its grid as csrc/glm_stats.cu launches it: 256 threads a block, a
-    # block per 256 rows, at most 16 an SM
+    vec = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+    sets = {n: (y, wobs, off, xb, xdb),
+            N_DENSE: (vec(rng.choice([-1.0, 1.0], N_DENSE)),
+                      vec(rng.random(N_DENSE)),
+                      vec(0.1 * rng.normal(size=N_DENSE)),
+                      vec(1.5 * rng.normal(size=N_DENSE)),
+                      vec(rng.normal(size=N_DENSE)))}
+    floors = loss_floors(np, torch, glm_stats_k.FAMILY_CODES)
     floor_lib = floor_tool()
-    k1_floor = launch_floor(torch, floor_lib,
-                            [(min(-(-n // 256), 132 * 16), 1, 256)], 200)
-    report["glm_stats"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None,
-                               max_abs_err=err_k1, launch_floor_ms=k1_floor,
-                               share_of_launch_floor=k1_floor / k1_ms)
-
-    alphas0 = linesearch.candidate_alphas(1e-3, 13, dev)
-    bt = linesearch.backtrack_chains(alphas0[5:6], 0.5, 20)[0]
-    err_k4 = 0.0
-    for fam in fams:
-        yy = labels_for(np, torch, rng, fam, y)
-        for al in (alphas0, bt):
-            got = ops.alpha_search(yy, xb, xdb, al, fam, weights=wobs,
-                                   offset=off)
-            want = ref.alpha_search(yy, xb, xdb, wobs, al, fam, offset=off)
-            ea, e = errs(got, want)
-            parity[f"alpha_search/{fam}/K={al.shape[0]}"] = e
-            check(e <= tol["alpha_search"], f"alpha_search {fam}: {e}")
-            err_k4 = max(err_k4, ea)
-    k4_ms = time_ms(torch, lambda: alpha_search_k.launch(
-        y, xb, xdb, wobs, bt, "logistic", offset=off), 200)
-    k4_plain = time_ms(torch, lambda: ref.alpha_search(
-        y, xb, xdb, wobs, bt, "logistic", offset=off), 50)
-    K4 = bt.shape[0]
-    b_ms, b_by = bound_ms(n * 4 * 5 + K4 * 8, n * K4 * 12)
-    # its two CUDA launches as kernels/alpha_search.py sizes them
-    k4_grids = [(max(1, min(-(-n // alpha_search_k.THREADS),
-                            alpha_search_k.MAX_BLOCKS)),
-                 -(-K4 // alpha_search_k.K_GROUP), alpha_search_k.THREADS),
-                (-(-K4 // 128), 1, 128)]
-    k4_floor = launch_floor(torch, floor_lib, k4_grids, 200)
-    report["alpha_search"] = dict(ms=k4_ms, plain_ms=k4_plain,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=None, max_abs_err=err_k4,
-                                  launch_floor_ms=k4_floor,
-                                  share_of_launch_floor=k4_floor / k4_ms)
+    report["glm_stats"] = k1_report(np, torch, rng, sets, floors, floor_lib,
+                                    tol, parity)
+    report["alpha_search"], alpha_counts = k4_report(
+        np, torch, rng, sets, floors, floor_lib, tol, parity)
+    emit({"phase": "k1_k4", "card": card, "loss_floor_ns": floors,
+          "glm_stats": report["glm_stats"],
+          "alpha_search": report["alpha_search"]})
+    del sets
 
     # K3 on the real bricks of the fullest tile, at the first superstep's w, r
     _, s0, w0 = ops.glm_stats(y, torch.zeros_like(y), "logistic",
@@ -1178,7 +1324,7 @@ def main() -> None:
         share_of_dependency_floor_T512=floor_512 / k2_ms_512, **steps)
     emit({"phase": "kernel_parity", "max_rel_err": parity,
           "tolerance": tol, "n": n, "T": T, "row_block": rb, "K": K,
-          "alpha_counts": [int(alphas0.shape[0]), int(bt.shape[0])]})
+          "alpha_counts": alpha_counts})
     del G, g, G2, g2, xb, xdb, wk, h
 
     # ------------------------------- small fits: the card against the CPU
@@ -1409,6 +1555,10 @@ def main() -> None:
                                    "sm_count", "ms_B64", "launch_floor_ms_B64",
                                    "share_of_launch_floor_B64",
                                    "bound_ms_B64", "library_covers",
+                                   "shapes", "loss_floor_ns",
+                                   "stats_floor_ns", "bytes_bound_ms",
+                                   "loss_floor_ms", "stats_floor_ms",
+                                   "at_half_of_bound", "threads", "n", "K",
                                    "asymmetry_vs_plain", "G_asymmetry",
                                    "fault_controls")
                if k in rep}})

@@ -3,7 +3,8 @@
 supersteps of the fits that ``chip_smoke.py`` runs, built by its
 ``full_size_data`` and ``full_size_solver``.
 
-    python3 profile_superstep.py [--out DIR] [--steps N]
+    python3 profile_superstep.py [--out DIR] [--steps N] [--cells A,B]
+    python3 profile_superstep.py --unprofiled R [--checkout DIR] [--cells A,B]
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use).  For each
 fit (sparse: the 131072 x 16384 brick layout; dense: 400000 x 2000; dense
@@ -26,6 +27,15 @@ the host made.  A cell whose records fall short or run over is reported
 profile that lost device records would understate the device time.
 (``tools/profile_records.py`` showed where records went: see
 ``chip_smoke.profiled_fit``.)
+
+With ``--unprofiled R`` nothing is traced: each cell runs a
+one-superstep warm-up fit, then R fits of N supersteps, and its line
+gives each fit's host seconds a superstep (``history["step_s"]``), as
+``chip_smoke.py`` reports them.  ``--checkout DIR`` then imports
+``repro_torch`` from DIR/src, so that two checkouts are compared by
+running the script for each in turns (a, b, b, a) in one call.
+``--cells`` picks cells by name (sparse, dense, dense_jacobi,
+dense_jacobi_bf16, dense_jacobi_unfused).
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ def device_us(evt) -> float:
 # run once a launch
 CUDA_FUNCTIONS = {
     "glm_stats": ("glm_stats_kernel",),
-    "alpha_search": ("alpha_search_partial", "alpha_search_finish"),
+    "alpha_search": ("alpha_search_pass",),
     "cd_tile_solve": ("cd_tile_solve_kernel",),
     "tile_gram": ("tile_gram_partial", "tile_gram_reduce"),
     "stats_gram_solve": ("sgs_partial", "sgs_reduce", "sgs_solve"),
@@ -141,12 +151,30 @@ def profile_fit(torch, solver, steps, out, tag):
     }
 
 
+def unprofiled_fits(solver, steps, repeats, tag, checkout) -> dict:
+    """Host seconds a superstep of ``repeats`` fits, after a warm-up."""
+    lam1 = chip_smoke.LAM1_FRACTION * solver.lambda_max()
+    solver.fit(lam1=lam1, max_outer=1)
+    runs = [solver.fit(lam1=lam1, max_outer=steps, tol=0.0).history["step_s"]
+            for _ in range(repeats)]
+    flat = [t for r in runs for t in r]
+    return {"cell": tag, "checkout": checkout, "supersteps": steps,
+            "superstep_s": runs, "min_s": min(flat), "max_s": max(flat),
+            "median_s": sorted(flat)[len(flat) // 2]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=pathlib.Path, default=None)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--cells", default=None)
+    ap.add_argument("--unprofiled", type=int, default=0)
+    ap.add_argument("--checkout", type=pathlib.Path, default=None)
     args = ap.parse_args()
-    sys.path.insert(0, str(REPO / "src"))
+    if args.checkout is not None and not args.unprofiled:
+        sys.exit("profile_superstep: --checkout needs --unprofiled (the "
+                 "record check knows this checkout's CUDA functions only)")
+    sys.path.insert(0, str((args.checkout or REPO).resolve() / "src"))
     import torch
 
     if not torch.cuda.is_available():
@@ -163,6 +191,12 @@ def main() -> None:
               DGLMNETConfig(coupling="jacobi", precision="bf16")),
              ("dense_jacobi_unfused", "dense",
               DGLMNETConfig(coupling="jacobi", fuse_superstep=False)))
+    if args.cells is not None:
+        want = args.cells.split(",")
+        unknown = set(want) - {c[0] for c in cells}
+        if unknown:
+            sys.exit(f"profile_superstep: unknown cells {sorted(unknown)}")
+        cells = tuple(c for c in cells if c[0] in want)
     ds, ds_kind = None, None
     failed = []
     for tag, kind, config in cells:
@@ -170,9 +204,13 @@ def main() -> None:
             ds = None              # free the old data before making the new
             ds, ds_kind = chip_smoke.full_size_data(synthetic, kind), kind
         solver = chip_smoke.full_size_solver(GLMSolver, ds, dev, config)
-        rec = profile_fit(torch, solver, args.steps, args.out, tag)
+        if args.unprofiled:
+            rec = unprofiled_fits(solver, args.steps, args.unprofiled, tag,
+                                  str(args.checkout or REPO))
+        else:
+            rec = profile_fit(torch, solver, args.steps, args.out, tag)
         print(json.dumps(rec), flush=True)
-        if rec["launch_check"]:
+        if rec.get("launch_check"):
             failed.append(tag)
         del solver
         torch.cuda.empty_cache()

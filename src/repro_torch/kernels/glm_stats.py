@@ -2,7 +2,9 @@
 
 The CUDA kernel is ``csrc/glm_stats.cu``; it replaces
 ``repro/kernels/glm_stats.py::glm_stats_pallas``.  ``plain`` is its plain
-PyTorch version (``kernels/ref.py``).
+PyTorch version (``kernels/ref.py``).  The kernel moves 16 bytes a thread
+where every vector is 16-byte aligned, and element by element otherwise
+(a view that starts mid-vector), with the same results.
 """
 from __future__ import annotations
 
@@ -19,7 +21,22 @@ KERNEL = build.CudaKernel(
     "glm_stats", "repro_glm_stats",
     [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P])
 
+THREADS = 256           # kThreads in the source
+
 plain = ref.glm_stats
+
+
+def grid(n: int, family: str = "logistic") -> int:
+    """The blocks of the launch for n rows on the current card (THREADS
+    threads each): one wave (the occupancy API times the SM count), at most
+    one block per THREADS quads (4 rows) of rows: a quad a thread."""
+    fn = build.library().repro_glm_stats_grid
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    nb = fn(n, FAMILY_CODES[family])
+    if nb < 1:
+        raise RuntimeError(f"glm_stats: no grid for n {n}")
+    return nb
 
 
 def launch(y, xb, weights, family: str, offset=None):

@@ -15,7 +15,8 @@ about 22 bits a product; their G must also come out exactly symmetric and
 within 1e-5 of float64 sums).  K5 holds its stats like K1 and G, g like
 K3; its step runs the K2 chain on a G summed in another order, so it is
 held at 1e-4 of the largest step.  K6 and K7 are float32 sums in another
-order (1e-5); two K6 runs must give the same bits (fixed-order sums).
+order (1e-5); two K6 runs must give the same bits (fixed-order sums), and
+so must two K4 runs, which also leave K4's ticket counter at 0.
 The bf16 modes of K3, K5 and K6 (``precision="bf16"``) are held against
 their plain bf16 versions the same way; their G is not symmetric.
 """
@@ -28,7 +29,7 @@ from repro_torch.core.dglmnet import DGLMNETConfig
 from repro_torch.core.solver import GLMSolver
 from repro_torch.data import design as tdesign
 from repro_torch.data import synthetic
-from repro_torch.kernels import margin_ls, ops, ref
+from repro_torch.kernels import alpha_search, margin_ls, ops, ref
 
 pytestmark = pytest.mark.gpu
 FAMS = ["logistic", "squared", "probit", "poisson"]
@@ -81,6 +82,110 @@ def test_alpha_search_kernel(cuda, family, K):
     tol = 3e-4 if family == "probit" else 1e-5
     torch.testing.assert_close(got, want, rtol=0,
                                atol=tol * float(want.abs().max()))
+
+
+def _alpha_inputs(rng, family, n, dev):
+    y = torch.from_numpy((rng.poisson(2.0, n) if family == "poisson"
+                          else rng.choice([-1.0, 1.0], n))
+                         .astype(np.float32)).to(dev)
+    xb, xdb, off = (_vec(rng, n, dev) for _ in range(3))
+    return y, xb, xdb, torch.rand(n, device=dev), off
+
+
+def _candidates(K, dev):
+    """The fused superstep's 294 candidates, then more chains past them."""
+    full = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=dev)
+    extra = linesearch.backtrack_chains(full[:1], 0.5, max(K - 294, 1))[0]
+    return torch.cat([full, extra])[:K]
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("K", [294, 321])
+@pytest.mark.parametrize("n", [131_072, 70_003])
+def test_alpha_search_kernel_many_candidates(cuda, family, K, n):
+    """K4 with the candidates across lanes: every candidate of the fused
+    superstep, and past one pass of 320; n a multiple of the blocks' 256
+    rows, and n % 4 = 3."""
+    rng = np.random.default_rng(K + n)
+    y, xb, xdb, wt, off = _alpha_inputs(rng, family, n, cuda)
+    alphas = _candidates(K, cuda)
+    got = ops.alpha_search(y, xb, xdb, alphas, family, weights=wt,
+                           offset=off)
+    want = ref.alpha_search(y, xb, xdb, wt, alphas, family, offset=off)
+    tol = 3e-4 if family == "probit" else 1e-5
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("K", [14, 20, 294])
+def test_alpha_search_kernel_one_launch_same_bits(cuda, K):
+    """One logical launch is counted a call; two calls give the same bits
+    (fixed rows, fixed-order sums, no float atomics); the last block sets
+    the ticket counter back to 0."""
+    rng = np.random.default_rng(K)
+    y, xb, xdb, wt, off = _alpha_inputs(rng, "logistic", 400_000, cuda)
+    alphas = _candidates(K, cuda)
+    before = ops.launch_counts()["alpha_search"]
+    runs = [ops.alpha_search(y, xb, xdb, alphas, "logistic", weights=wt,
+                             offset=off) for _ in range(2)]
+    assert ops.launch_counts()["alpha_search"] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    torch.cuda.synchronize()
+    assert int(alpha_search.ticket(cuda).item()) == 0
+
+
+@pytest.mark.parametrize("K", [20, 294])
+def test_alpha_search_kernel_on_another_stream(cuda, K):
+    """A launch on a second stream takes that stream's own ticket counter
+    and scratch, gives the bits of a launch on the default stream, and
+    leaves both counters at 0."""
+    rng = np.random.default_rng(5)
+    y, xb, xdb, wt, off = _alpha_inputs(rng, "logistic", 100_001, cuda)
+    alphas = _candidates(K, cuda)
+    got = ops.alpha_search(y, xb, xdb, alphas, "logistic", weights=wt,
+                           offset=off)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        other = ops.alpha_search(y, xb, xdb, alphas, "logistic", weights=wt,
+                                 offset=off)
+        side_ticket = alpha_search.ticket(cuda)
+    torch.cuda.synchronize()
+    assert side_ticket.data_ptr() != alpha_search.ticket(cuda).data_ptr()
+    assert torch.equal(got, other)
+    assert int(side_ticket.item()) == 0
+    assert int(alpha_search.ticket(cuda).item()) == 0
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("n", [131_073, 400_002])
+def test_glm_stats_kernel_misaligned_offset(cuda, family, n):
+    """n % 4 != 0, and an offset view whose storage offset leaves it off a
+    16-byte boundary: the element path, still right (max error over the
+    largest entry, as chip_smoke.py holds K1), and the same bits as the
+    vector path on aligned copies."""
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy((rng.poisson(2.0, n) if family == "poisson"
+                          else rng.choice([-1.0, 1.0], n))
+                         .astype(np.float32)).to(cuda)
+    xb, wt = _vec(rng, n, cuda, 2.0), torch.rand(n, device=cuda)
+    off = _vec(rng, n + 3, cuda, 0.3)[3:]
+    assert off.data_ptr() % 16 != 0 and off.is_contiguous()
+    got = ops.glm_stats(y, xb, family, weights=wt, offset=off)
+    want = ref.glm_stats(y, xb, wt, family, offset=off)
+    if family == "probit":
+        # loss and s as K1 is held (3e-4: erfc against log_ndtr); w = r (r
+        # + t) cancels in float32 from terms of size t^2
+        # (test_torch_kernels.py::test_probit_left_tail), so past |t| of
+        # about 7 its error grows like t^4
+        assert max(_rel(a, b) for a, b in zip(got[:2], want[:2])) <= 3e-4
+        t = (y * (xb + off)).abs()
+        assert bool(((got[2] - want[2]).abs()
+                     <= 3e-4 + 2e-7 * t ** 4).all())
+    else:
+        assert max(_rel(a, b) for a, b in zip(got, want)) <= 1e-5
+    # aligned copies take the vector path and give the same bits
+    again = ops.glm_stats(y, xb, family, weights=wt, offset=off.clone())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _chain_tile(rng, T, dev, n=500):

@@ -1,12 +1,15 @@
 """The check ``profile_superstep.py`` makes of a profile's device records,
 on the CPU: a profile with no CUDA work agrees with zero launches, and a
 kernel whose logical launches have no device records is reported, in
-either mode, with each of its CUDA functions.  (On the card the same check
-also holds the device's kernel records to the host's launch calls.)"""
+either mode, with each of its CUDA functions; the functions it expects
+are exactly the ``__global__`` functions of each kernel's source (K4: one,
+``alpha_search_pass``).  (On the card the same check also holds the
+device's kernel records to the host's launch calls.)"""
 from __future__ import annotations
 
 import importlib.util
 import pathlib
+import re
 
 import pytest
 import torch
@@ -50,3 +53,14 @@ def test_missing_records_are_reported(kernel):
     want = 2 + (kernel + "_bf16" in logical)
     assert PS.launch_check(torch, prof, logical) == {
         fn: [0, want] for fn in PS.CUDA_FUNCTIONS[kernel]}
+
+
+GLOBAL = re.compile(r"__global__\s+void(?:\s+__launch_bounds__\("
+                    r"(?:[^()]|\([^()]*\))*\))?\s+(\w+)\(")
+
+
+@pytest.mark.parametrize("kernel", sorted(PS.CUDA_FUNCTIONS))
+def test_cuda_functions_are_the_sources_kernels(kernel):
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+           / f"{kernel}.cu").read_text()
+    assert set(GLOBAL.findall(src)) == set(PS.CUDA_FUNCTIONS[kernel])
