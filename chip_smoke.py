@@ -30,7 +30,21 @@ drives each path through the entry points a user calls and checks it:
     cd_tile_solve, a matvec and alpha_search); each bf16 fit is held
     against its fp32 twin by the reference's own bar (tests/test_fused.py:
     alpha equal on at least 80% of supersteps, beta within 0.05 max(max
-    |beta_fp32|, 1)).
+    |beta_fp32|, 1));
+  * sparse_path: ``GLMSolver.fit_path(n_lambdas=12, lam_ratio=0.05)`` on
+    the sparse solver, with strong-rule screening and KKT re-entry, then
+    unscreened on the same grid: every lambda converged, no frozen
+    coordinate failing the KKT test after a lambda's last round, the
+    screened f at most the unscreened f + 1e-5 max(1, |f|), screened tiles
+    skipped, K2 and K3 launched once a live tile, K4 twice a superstep, K1
+    once a superstep or a gradient check; one gradient check taken apart;
+  * path_reference: 6-lambda paths of small sparse and dense inputs
+    (Gauss-Seidel and fused Jacobi) and a 3-fold standardized ``fit_cv``
+    of the dense one, the card against the CPU;
+  * dense_cv: ``fit_cv(n_folds=3, n_lambdas=8)`` of the dense split,
+    standardized (centered, the intercept column left exact ones), fused
+    Jacobi: K5 and K6 once a superstep, K1 once a gradient check, and the
+    unscaled copy of the design freed after construction.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -101,10 +115,10 @@ def full_size_data(synthetic, kind: str):
     return synthetic.make_dense(n=500_000, p=2_000, k_true=200, seed=SEED)
 
 
-def full_size_solver(GLMSolver, ds, dev, config=None):
+def full_size_solver(GLMSolver, ds, dev, config=None, **kw):
     """The solver of a full-size fit: logistic with an intercept."""
     return GLMSolver(ds.train.X, ds.train.y, family="logistic",
-                     fit_intercept=True, device=dev, config=config)
+                     fit_intercept=True, device=dev, config=config, **kw)
 
 
 def emit(obj) -> None:
@@ -1056,6 +1070,347 @@ def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
     return counts
 
 
+# the lambda path at full width (sparse_path) and the CV (dense_cv): a grid
+# of PATH_LAMBDAS from lambda_max down to PATH_RATIO of it; tol stops each
+# lambda at 1e-6 of f (about a dozen float32 ulps of the sparse fit's f),
+# and the cap bounds a KKT round's supersteps
+PATH_LAMBDAS, PATH_RATIO = 12, 0.05
+PATH_TOL, PATH_MAX_OUTER = 1e-6, 40
+# dense_cv's cap: the standardized fused path takes 40 supersteps and more
+# at its two smallest lambdas (NVIDIA H100 80GB HBM3, 700 W)
+CV_MAX_OUTER = 200
+KKT_SLACK = 1e-4            # fit_path's default, the test it re-checks
+
+
+def path_probe(torch, solver):
+    """Log the path's events on this one solver: each ``_run`` (lam1,
+    active mask, supersteps, seconds, its ``step_s``), each gradient ``g``
+    (the screening and KKT gradients) with its seconds, and each whole path
+    (``_path_impl``: fit_cv runs one per fold after the full-data one) with
+    its seconds; the card is synchronized around each, so the seconds are
+    the host clock's for finished work.  ``release(solver)`` removes the
+    probe."""
+    events = []
+    impl, run, grad = solver._path_impl, solver._run, solver._grad_state
+
+    def timed(fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def probe_run(state, lam1, lam2, **kw):
+        out, sec = timed(run, state, lam1, lam2, **kw)
+        events.append({"run": lam1, "active": kw.get("active"),
+                       "supersteps": out[2], "s": sec,
+                       "step_s": out[1]["step_s"]})
+        return out
+
+    def probe_grad(state, weights=None):
+        g, sec = timed(grad, state, weights)
+        events.append({"grad": g, "s": sec})
+        return g
+
+    def probe_impl(*a, **k):
+        out, sec = timed(impl, *a, **k)
+        events.append({"path": sec})
+        return out
+
+    solver._path_impl = probe_impl
+    solver._run, solver._grad_state = probe_run, probe_grad
+    return events
+
+
+def release(solver):
+    del solver._path_impl, solver._run, solver._grad_state
+
+
+def kkt_rounds(np, events, pf, T):
+    """Per lambda of a screened path: (KKT rounds, live tiles of the last
+    round, frozen coordinates violating the KKT test after it).  Each run
+    is followed by its KKT gradient; a violation after a lambda's last
+    round means the eighth round still found one."""
+    out = {}
+    for i, ev in enumerate(events):
+        if "run" not in ev or ev["active"] is None:
+            continue
+        lam = ev["run"]
+        g = events[i + 1]["grad"]
+        act = ev["active"]
+        viol = (~act) & (np.abs(g) > pf * lam * (1.0 + KKT_SLACK) + 1e-7)
+        rounds = out.get(lam, (0,))[0] + 1
+        out[lam] = (rounds, int(act.reshape(-1, T).any(axis=1).sum()),
+                    int(viol.sum()))
+    return out
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host milliseconds per call of ``fn``, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sparse_path_phase(np, torch, solver):
+    """fit_path at full width, screened and then unscreened on the same
+    grid, each with the launch counts and ``launch_stats`` at 0 just
+    before; then one gradient check taken apart."""
+    from repro_torch.kernels import ops
+
+    nt, T = solver.design.n_tiles, solver.config.tile_size
+    runs = {}
+    grid = dict(n_lambdas=PATH_LAMBDAS, lam_ratio=PATH_RATIO)
+    for screen in (True, False):
+        events = path_probe(torch, solver)
+        solver.launch_stats.update(dict.fromkeys(solver.launch_stats, 0))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = solver.fit_path(**grid, screen=screen,
+                               max_outer=PATH_MAX_OUTER, tol=PATH_TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, st = ops.launch_counts(), dict(solver.launch_stats)
+        release(solver)
+        grid = dict(lambdas=path.lambdas)
+        n_grad = sum("grad" in ev for ev in events)
+        steps = [s for ev in events if "run" in ev for s in ev["step_s"]]
+        runs[screen] = dict(
+            path=path, counts=counts, stats=st, events=events,
+            wall_s=wall, n_grad=n_grad,
+            superstep_s=sum(ev["s"] for ev in events if "run" in ev),
+            gradient_s=sum(ev["s"] for ev in events if "grad" in ev),
+            mean_step_s=float(np.mean(steps)),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        tag = "sparse_path" + ("" if screen else " unscreened")
+        f = path.f
+        check(np.isfinite(f).all(), f"{tag}: non-finite f {f}")
+        check(bool(path.converged.all()),
+              f"{tag}: lambdas not converged {path.converged.tolist()} "
+              f"after {path.n_iters.tolist()} supersteps")
+        # the head: every feature at 0 (nnz counts the intercept besides)
+        check(np.count_nonzero(path.betas[0]) == 0 and path.nnz[0] == 1,
+              f"{tag}: head nnz {path.nnz[0]}")
+        check(st["sweep_tile_launches"] + st["sweep_tiles_skipped"]
+              == st["supersteps"] * nt, f"{tag}: tiles {st}")
+        want = {"tile_gram": st["sweep_tile_launches"],
+                "cd_tile_solve": st["sweep_tile_launches"],
+                "alpha_search": 2 * st["supersteps"],
+                "glm_stats": st["supersteps"] + n_grad}
+        got = {k: counts[k] for k in want}
+        check(got == want and sum(counts.values()) == sum(want.values()),
+              f"{tag}: launches {counts} != {want}")
+    scr, uns = runs[True], runs[False]
+    check(scr["stats"]["sweep_tiles_skipped"] > 0,
+          f"sparse_path: no tile skipped {scr['stats']}")
+    check(uns["stats"]["sweep_tiles_skipped"] == 0,
+          f"sparse_path unscreened: tiles skipped {uns['stats']}")
+    pf = solver._penf_host
+    lambdas = scr["path"].lambdas
+    kkt = kkt_rounds(np, scr["events"], pf, T)
+    bad = {lam: v for lam, v in kkt.items() if v[2]}
+    check(len(kkt) == len(lambdas) and not bad,
+          f"sparse_path: KKT violated after the last round at {bad}")
+    fs, fu = scr["path"].f, uns["path"].f
+    gap = fs - fu - 1e-5 * np.maximum(1.0, np.abs(fu))
+    check(bool((gap <= 0).all()),
+          f"sparse_path: screened f above unscreened {fs} {fu}")
+    # a gradient check at the path's last state, taken apart: K1, the
+    # brick X^T s (a host loop of 65 einsums) and the copy of g to the
+    # host; device ms from CUDA events (one call behind the sleep kernel),
+    # host ms synchronized
+    y, xb = solver._ys, solver._state.xb
+    w, o = solver._wobs, solver._offsets
+    _, s_i, _ = ops.glm_stats(y, xb, "logistic", weights=w, offset=o)
+    rmatvec = lambda: solver.design.rmatvec(s_i)
+    g = rmatvec()
+    split = {"glm_stats_ms": time_ms(torch, lambda: ops.glm_stats(
+                 y, xb, "logistic", weights=w, offset=o), 20),
+             "rmatvec_ms": time_ms(torch, rmatvec, 1),
+             "rmatvec_host_ms": host_ms(torch, rmatvec, 5),
+             "to_host_ms": host_ms(torch, lambda: g.cpu(), 5),
+             "check_host_ms": host_ms(torch, lambda: solver._grad_state(
+                 solver._state), 5)}
+    del g, s_i
+    # standardize=True's passes on these bricks (scale-only): the moments,
+    # tile by tile, and the new scaled copy, with the memory each adds above
+    # what is held
+    d = solver.design
+    scale = torch.ones(d.n_tiles * T, device=d.device)
+    std = {"bricks_gb": d.bricks.numel() * 4 / 1e9}
+    for name, fn in (("col_moments", lambda: d.col_moments(w)),
+                     ("scale_columns", lambda: d.scale_columns(scale))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        std[name + "_ms"] = host_ms(torch, fn, 1)
+        std[name + "_extra_gb"] = \
+            (torch.cuda.max_memory_allocated() - held) / 1e9
+    per_lambda = [{"lam1": float(lam), "n_iters": int(scr["path"].n_iters[k]),
+                   "kkt_rounds": kkt[lam][0], "live_tiles": kkt[lam][1],
+                   "nnz": int(scr["path"].nnz[k]),
+                   "f": float(fs[k]), "f_unscreened": float(fu[k]),
+                   "n_iters_unscreened": int(uns["path"].n_iters[k])}
+                  for k, lam in enumerate(map(float, lambdas))]
+    emit({"phase": "sparse_path", "n_lambdas": len(lambdas),
+          "lam_ratio": PATH_RATIO, "tol": PATH_TOL,
+          "max_outer": PATH_MAX_OUTER, "per_lambda": per_lambda,
+          **{("" if s else "unscreened_") + k: runs[s][k]
+             for s in (True, False)
+             for k in ("wall_s", "superstep_s", "gradient_s", "n_grad",
+                       "mean_step_s", "peak_mem_gb", "stats", "counts")},
+          "launches_per_superstep": {
+              k: v / scr["stats"]["supersteps"]
+              for k, v in scr["counts"].items() if v},
+          "gradient_check": split, "standardize": std,
+          "max_screened_minus_unscreened": float((fs - fu).max())})
+
+
+def path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev):
+    """Small paths and a small CV on the card against the same on the CPU
+    (the card takes the CPU's grid): per lambda f within 1e-4 relative,
+    beta within 1e-3 and nnz equal; the CV's dev_mean within 1e-4 relative
+    and the same best_index."""
+    out = {}
+    couplings = {"gauss-seidel": DGLMNETConfig(tile_size=256),
+                 "jacobi-fused": DGLMNETConfig(tile_size=256,
+                                               coupling="jacobi")}
+    small = {"sparse": synthetic.make_sparse(n=3000, p=700, avg_nnz=20,
+                                             k_true=30, seed=SEED + 1),
+             "dense": synthetic.make_dense(n=3000, p=300, k_true=20,
+                                           seed=SEED + 1)}
+    for kind, data in small.items():
+        for coupling, cfg in couplings.items():
+            paths = []
+            for d in ("cpu", dev):
+                s = GLMSolver(data.train.X, data.train.y, config=cfg,
+                              fit_intercept=True, device=d)
+                grid = dict(lambdas=paths[0].lambdas) if paths else \
+                    dict(n_lambdas=6, lam_ratio=0.05)
+                paths.append(s.fit_path(**grid, max_outer=30, tol=1e-4))
+            pc, pg = paths
+            f_err = float(np.max(np.abs(pg.f / pc.f - 1)))
+            b_err = float(np.max(np.abs(pg.betas - pc.betas)))
+            out[f"{kind}/{coupling}"] = {
+                "f_rel_err": f_err, "beta_abs_err": b_err,
+                "nnz_cpu": pc.nnz.tolist(), "nnz_gpu": pg.nnz.tolist(),
+                "n_iters_cpu": pc.n_iters.tolist(),
+                "n_iters_gpu": pg.n_iters.tolist()}
+            check(f_err <= 1e-4 and b_err <= 1e-3
+                  and np.array_equal(pc.nnz, pg.nnz),
+                  f"path_reference {kind} {coupling}: f {f_err} beta "
+                  f"{b_err} nnz {pc.nnz.tolist()} {pg.nnz.tolist()}")
+    cvs = []
+    for d in ("cpu", dev):
+        s = GLMSolver(small["dense"].train.X, small["dense"].train.y,
+                      config=couplings["jacobi-fused"], fit_intercept=True,
+                      standardize=True, device=d)
+        grid = dict(lambdas=cvs[0].lambdas) if cvs else \
+            dict(n_lambdas=6, lam_ratio=0.01)
+        cvs.append(s.fit_cv(n_folds=3, **grid, max_outer=30, tol=1e-4))
+    cc, cg = cvs
+    dev_err = float(np.max(np.abs(cg.dev_mean / cc.dev_mean - 1)))
+    out["dense_cv_standardized"] = {
+        "dev_mean_rel_err": dev_err, "best_index_cpu": cc.best_index,
+        "best_index_gpu": cg.best_index}
+    check(dev_err <= 1e-4 and cc.best_index == cg.best_index,
+          f"path_reference cv: dev_mean {dev_err}, best index "
+          f"{cc.best_index} {cg.best_index}")
+    emit({"phase": "path_reference",
+          "tolerance": {"f_rel": 1e-4, "beta_abs": 1e-3, "nnz": "equal",
+                        "dev_mean_rel": 1e-4}, **out})
+
+
+def dense_cv_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev):
+    """fit_cv at full width: the dense split standardized (centered, with
+    an intercept), fused Jacobi, 3 folds over an 8-lambda grid.  Every
+    lambda of every path must converge within CV_MAX_OUTER supersteps.  On
+    this split the validation deviance still falls at the grid's last
+    lambda, so the selection lands on the grid's end: the phase holds the
+    mechanics (folds, deviances, the refit at best_index), not an interior
+    minimum."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s = full_size_solver(GLMSolver, dd, dev, DGLMNETConfig(
+        coupling="jacobi"), standardize=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    data = s.design.data
+    design_gb = data.numel() * 4 / 1e9
+    setup_peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    held = (torch.cuda.memory_allocated() - mem0) / 1e9
+    # one copy is held after construction: the unscaled one was freed
+    check(held < 1.2 * design_gb,
+          f"dense_cv: {held} GB held after standardization for a "
+          f"{design_gb} GB design")
+    check(bool((data[:, s._icol()] == 1.0).all()),
+          "dense_cv: the intercept column is not exact ones")
+    # standardization's two device passes, timed again on the scaled
+    # design (the same shapes): the moments, and the new scaled copy
+    std_ms = {"col_moments_ms": host_ms(
+                  torch, lambda: s.design.col_moments(s._wobs), 1),
+              "scale_columns_ms": host_ms(
+                  torch, lambda: s.design.scale_columns(
+                      s._put(s._scale_packed), s._put(s._center_packed)), 1)}
+
+    events = path_probe(torch, s)
+    t0 = time.perf_counter()
+    lmax = s.lambda_max()
+    torch.cuda.synchronize()
+    lmax_s = time.perf_counter() - t0
+    s.launch_stats.update(dict.fromkeys(s.launch_stats, 0))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    n_before = len(events)
+    t0 = time.perf_counter()
+    cv = s.fit_cv(n_folds=3, n_lambdas=8, lam_ratio=1e-2,
+                  max_outer=CV_MAX_OUTER, tol=PATH_TOL)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    counts, st = ops.launch_counts(), dict(s.launch_stats)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    release(s)
+    events = events[n_before:]
+    n_grad = sum("grad" in ev for ev in events)
+    paths_s = [ev["path"] for ev in events if "path" in ev]
+    check(np.isfinite(cv.dev_mean).all(),
+          f"dense_cv: dev_mean {cv.dev_mean}")
+    check(len(paths_s) == 4 and bool(cv.path.converged.all()),
+          f"dense_cv: lambdas not converged {cv.path.converged.tolist()} "
+          f"after {cv.path.n_iters.tolist()} supersteps")
+    check(np.array_equal(cv.beta, cv.path.betas[cv.best_index]),
+          "dense_cv: beta is not the full-data path's at best_index")
+    want = {"stats_gram_solve": st["supersteps"],
+            "margin_ls": st["supersteps"], "glm_stats": n_grad}
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"dense_cv: launches {counts} != {want}")
+    check(st["sweep_tile_launches"] + st["sweep_tiles_skipped"]
+          == st["supersteps"] * s.design.n_tiles, f"dense_cv: tiles {st}")
+    emit({"phase": "dense_cv", "train_shape": list(dd.train.X.shape),
+          "design_gb": design_gb, "setup_s": setup_s,
+          "standardize": std_ms, "setup_peak_gb": setup_peak,
+          "held_after_setup_gb": held, "lambda_max": lmax,
+          "lambda_max_s": lmax_s, "cv_s": cv_s,
+          "full_path_s": paths_s[0], "fold_path_s": paths_s[1:],
+          "gradient_s": sum(ev["s"] for ev in events if "grad" in ev),
+          "n_grad": n_grad, "superstep_s_mean": float(np.mean(
+              [x for ev in events if "run" in ev for x in ev["step_s"]])),
+          "dev_mean": cv.dev_mean.tolist(), "dev_se": cv.dev_se.tolist(),
+          "best_index": cv.best_index, "lam_best": cv.lam_best,
+          "selection_at_grid_end": cv.best_index == len(cv.lambdas) - 1,
+          "max_outer": CV_MAX_OUTER,
+          "nnz": cv.path.nnz.tolist(), "n_iters": cv.path.n_iters.tolist(),
+          "converged": cv.path.converged.tolist(), "stats": st,
+          "launches": counts, "peak_mem_gb": peak})
+
+
 def main() -> None:
     if not (REPO / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py; run it from "
@@ -1431,6 +1786,8 @@ def main() -> None:
     del design, tb, rows, y, wobs, off, s0, w0, penf
     serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity,
                                floor_lib)
+    sparse_path_phase(np, torch, solver)
+    path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev)
     del solver
     torch.cuda.empty_cache()
     # the fused Jacobi superstep on bricks, in fp32 and in bf16: K1, K3 (or
@@ -1501,6 +1858,8 @@ def main() -> None:
     run_fit("dense_jacobi_unfused", usolver, dd.test.X, dd.test.y,
             {"glm_stats": 1, "cd_tile_solve": 1, "alpha_search": 2})
     del usolver
+    torch.cuda.empty_cache()
+    dense_cv_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev)
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
 
     # ------------------------------------------------------------- report

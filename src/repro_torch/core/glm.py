@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -38,6 +38,8 @@ class GLMFamily:
     formulas; ``stats`` adds offsets, the ``w_clip`` curvature clip and the
     observation weights.  ``curvature_bound`` is the paper's Appendix-B bound
     on d2l/dm2 (None when unbounded, as for poisson, which is then clipped).
+    ``saturated_loss(y)`` is the per-example loss of the saturated model
+    (an exact fit), which ``deviance`` subtracts; None means zero.
     """
 
     name: str
@@ -45,6 +47,7 @@ class GLMFamily:
     predict: Callable
     curvature_bound: float | None
     w_clip: float | None = None
+    saturated_loss: Optional[Callable] = None
 
     def stats(self, y, m, weights=None, offset=None):
         if offset is not None:
@@ -57,6 +60,16 @@ class GLMFamily:
             s = s * weights
             w = w * weights
         return loss, s, w
+
+    def deviance(self, y, m, weights=None, offset=None):
+        """Total (weighted) deviance 2 sum_i w_i (l_i - l_sat,i), a 0-d
+        tensor on the inputs' device."""
+        loss = self.stats(y, m, weights=weights, offset=offset)[0]
+        sat = torch.zeros_like(loss) if self.saturated_loss is None \
+            else self.saturated_loss(y)
+        if weights is not None:
+            sat = sat * weights
+        return 2.0 * torch.sum(loss - sat)
 
 
 def _logistic_stats(y, m):
@@ -87,12 +100,19 @@ def _poisson_stats(y, m):
     return mu - y * m, y - mu, mu
 
 
+def _poisson_saturated(y):
+    # l at the saturated fit m = log y: y - y log y (0 at y = 0)
+    return torch.where(y > 0, y - y * torch.log(torch.clamp(y, min=1e-30)),
+                       torch.zeros_like(y))
+
+
 LOGISTIC = GLMFamily("logistic", _logistic_stats, torch.sigmoid, 0.25)
 SQUARED = GLMFamily("squared", _squared_stats, lambda m: m, 1.0)
 PROBIT = GLMFamily("probit", _probit_stats,
                    lambda m: torch.exp(torch.special.log_ndtr(m)), 3.0)
 POISSON = GLMFamily("poisson", _poisson_stats, torch.exp, None,
-                    w_clip=POISSON_W_CLIP)
+                    w_clip=POISSON_W_CLIP,
+                    saturated_loss=_poisson_saturated)
 
 FAMILIES = {f.name: f for f in (LOGISTIC, SQUARED, PROBIT, POISSON)}
 

@@ -1,8 +1,11 @@
 """GLMSolver: a single-device fitting session (mirrors ``repro.core.solver``).
 
     solver = GLMSolver(X, y, family="logistic", sample_weight=w, offset=o,
-                       fit_intercept=True, penalty_factor=pf)
-    res = solver.fit(lam1=0.05 * solver.lambda_max())
+                       standardize=True, fit_intercept=True,
+                       penalty_factor=pf)
+    res  = solver.fit(lam1=0.05 * solver.lambda_max())   # one (lam1, lam2)
+    path = solver.fit_path(n_lambdas=100)                 # warm-started path
+    cv   = solver.fit_cv(n_folds=5)                       # mask-based K-fold
     yhat = solver.predict(X_test)
 
 Construction packs the design once (a dense array becomes a ``DenseDesign``,
@@ -14,25 +17,38 @@ products and cuDNN, since TF32 sums would miss the 1e-5 bar on beta.
 
 The observation model: per-example ``sample_weight`` (the loss becomes
 sum_i c_i l_i; padded rows weigh 0), margin ``offset``, an unpenalized
-``fit_intercept`` column (penalty factor 0) and per-feature
-``penalty_factor``.  ``lambda_max`` is the smallest lam1 with every
-penalized coordinate at zero, taken at the null model (intercept fitted).
+``fit_intercept`` column (penalty factor 0), per-feature
+``penalty_factor`` and ``standardize`` (weighted variance-1 columns from
+the design's ``col_moments``, centered too on a dense layout with an
+intercept; beta comes back on the original scale).  ``lambda_max`` is the
+smallest lam1 with every penalized coordinate at zero, taken at the null
+model (intercept fitted); the module-level ``lambda_max`` takes it at zero
+margins over raw inputs.
+
+``fit_path`` warm-starts each lambda of a decreasing grid from the last,
+freezes the coordinates the sequential strong rule screens out (a tile
+with none active is skipped: ``launch_stats``) and re-admits any that
+fail the KKT test on the full gradient X^T s.  ``fit_cv`` runs such paths
+on fold-masked observation weights over the full-data grid and selects
+lambda by mean validation deviance.
 
 ``coupling="jacobi"`` runs the fused Jacobi superstep (two fused launches,
 ``fuse_superstep=True``, the default) or its unfused form; the fused one
 takes ``precision="bf16"`` (bfloat16 Gram and margin inputs).  ``predict``
 on a SparseCOO goes through the serving engine (``serve/engine.py``) and
-its fused gather-dot-link kernel; ``save`` writes a serving artifact.
+its fused gather-dot-link kernel; ``save`` writes a serving artifact (one
+column, or one per lambda of a ``PathResult``).
 
 Not ported yet (each raises NotImplementedError): a mesh, streaming and
-file inputs, ``standardize``, checkpoints, ``fit_path`` and ``fit_cv``.
+file inputs, and checkpoints (``fit``'s and ``fit_path``'s
+``ckpt_manager``).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,12 +66,79 @@ from repro_torch.serve.engine import ScoringEngine
 
 _HISTORY_KEYS = ("f", "alpha", "mu", "nnz", "accepted_unit")
 _PF_EPS = 1e-12          # pf below this counts as "unpenalized"
+_SIGMA_EPS = 1e-7        # columns with weighted std below this are not scaled
 
 
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (a later slice of the "
         "port); use the JAX package repro for it")
+
+
+def _put(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def lambda_max(X, y, family="logistic", *, sample_weight=None, offset=None,
+               penalty_factor=None, device=None) -> float:
+    """Smallest lam1 for which beta = 0 solves the elastic-net GLM problem:
+    max_j |[X^T s(0)]_j| / pf_j over penalized j, with s(0) the (weighted)
+    negative margin gradient at zero margins plus offsets.  Over raw inputs
+    (a dense array or a SparseCOO), on ``device`` (None: the CUDA card);
+    sessions use ``GLMSolver.lambda_max``, taken at the null model."""
+    fam = glm.resolve_family(family)
+    dev = resolve_device(device)
+    y = np.asarray(y, np.float32)
+    n = y.shape[0]
+    w = None if sample_weight is None else _put(sample_weight, dev)
+    o = None if offset is None else _put(offset, dev)
+    _, s0, _ = fam.stats(_put(y, dev), torch.zeros((n,), device=dev),
+                         weights=w, offset=o)
+    if isinstance(X, SparseCOO):
+        # float32 products summed in float64, as SparseCOO.rmatvec does
+        rows = torch.from_numpy(np.asarray(X.rows, np.int64)).to(dev)
+        cols = torch.from_numpy(np.asarray(X.cols, np.int64)).to(dev)
+        prod = _put(X.vals, dev) * s0[rows]
+        g = torch.zeros((X.shape[1],), dtype=torch.float64, device=dev) \
+            .index_add_(0, cols, prod.double()).float()
+    else:
+        g = _put(X, dev).T @ s0
+    g = np.abs(g.cpu().numpy())
+    if penalty_factor is not None:
+        pf = np.asarray(penalty_factor, np.float32)
+        pen = pf > _PF_EPS
+        if not pen.any():
+            raise ValueError("lambda_max undefined: no penalized features")
+        g = g[pen] / pf[pen]
+    return float(g.max())
+
+
+class PathResult(NamedTuple):
+    lambdas: np.ndarray     # (K,) lam1 grid in fit order (decreasing)
+    lam2: float             # shared ridge weight
+    betas: np.ndarray       # (K, p) solutions, original feature order/scale
+    f: np.ndarray           # (K,) final objective per lambda
+    nnz: np.ndarray         # (K,) int: support size per lambda
+    n_iters: np.ndarray     # (K,) supersteps spent per lambda
+    converged: np.ndarray   # (K,) bool
+    intercepts: Optional[np.ndarray] = None   # (K,) when fit_intercept
+
+    def beta_at(self, lam1: float) -> np.ndarray:
+        """Solution at the grid point closest to ``lam1``."""
+        return self.betas[int(np.abs(self.lambdas - lam1).argmin())]
+
+
+class CVResult(NamedTuple):
+    lambdas: np.ndarray       # (K,) shared lam1 grid (decreasing)
+    lam2: float
+    dev_folds: np.ndarray     # (n_folds, K) mean validation deviance
+    dev_mean: np.ndarray      # (K,) across folds
+    dev_se: np.ndarray        # (K,) standard error across folds
+    best_index: int           # argmin of dev_mean
+    lam_best: float           # lambdas[best_index]
+    path: PathResult          # full-data path over the same grid (the refit)
+    beta: np.ndarray          # full-data solution at lam_best
+    intercept: float
 
 
 def _with_intercept_column(X, n: int):
@@ -88,8 +171,6 @@ class GLMSolver:
                  penalty_factor=None):
         if mesh is not None:
             raise _not_ported("a device mesh (multi-GPU fitting)")
-        if standardize:
-            raise _not_ported("standardize=True")
         if isinstance(X, (str, os.PathLike)) or y is None:
             raise _not_ported("streaming and file-backed designs")
         config = DGLMNETConfig() if config is None else config
@@ -101,14 +182,20 @@ class GLMSolver:
         self.config = config
         self.device = resolve_device(device)
         self.fit_intercept = bool(fit_intercept)
+        self.standardize = bool(standardize)
         self.beta_: Optional[np.ndarray] = None
         self.intercept_: float = 0.0
         self._state: Optional[FitState] = None
         self._lmax: Optional[float] = None
         self._serve_cache = None
+        # host bookkeeping of the sweeps: tiles swept, and tiles skipped
+        # because screening froze every coordinate of them
+        self.launch_stats = {"supersteps": 0, "sweep_tile_launches": 0,
+                             "sweep_tiles_skipped": 0}
 
         y = np.asarray(y, np.float32)
         n = y.shape[0]
+        self._n_user = n
         T = config.tile_size
         sw = np.ones((n,), np.float32) if sample_weight is None else \
             np.asarray(sample_weight, np.float32)
@@ -123,23 +210,20 @@ class GLMSolver:
         if self.fit_intercept:
             X = _with_intercept_column(X, n)
 
-        design, info = design_lib.as_design(
+        # no other reference to the design: standardization replaces it
+        self._Xs, self._info = design_lib.as_design(
             X, T, row_block=row_block, reorder=reorder, info=design_info,
             device=self.device)
-        self._Xs, self._info = design, info
-        n_rows, p_pad = design.shape
+        n_rows, p_pad = self._Xs.shape
         self._n_tot, self._p_tot = n_rows, p_pad
-        self._n_tiles = design.n_tiles
+        self._n_tiles = self._Xs.n_tiles
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
-                .to(self.device)
+        self._ys = self._put(np.pad(y, (0, n_rows - n), constant_values=1.0))
+        self._wobs_host = np.pad(sw, (0, n_rows - n))      # padding -> 0
+        self._wobs = self._put(self._wobs_host)
+        self._offsets = self._put(np.pad(off, (0, n_rows - n)))
 
-        self._ys = put(np.pad(y, (0, n_rows - n), constant_values=1.0))
-        self._wobs = put(np.pad(sw, (0, n_rows - n)))      # padding -> 0
-        self._offsets = put(np.pad(off, (0, n_rows - n)))
-
-        self._p_model = info.shape[1]            # columns incl. intercept
+        self._p_model = self._info.shape[1]      # columns incl. intercept
         self._p_user = self._p_model - (1 if self.fit_intercept else 0)
         pf = np.ones((self._p_user,), np.float32) if penalty_factor is None \
             else np.asarray(penalty_factor, np.float32)
@@ -151,10 +235,16 @@ class GLMSolver:
         if self.fit_intercept:
             pf = np.concatenate([pf, np.zeros((1,), np.float32)])
         # padding columns keep pf = 1 so they stay pinned at zero
-        self._penf_host = info.pack_cols(pf, p_pad, fill=1.0)
-        self._penf = put(self._penf_host)
+        self._penf_host = self._info.pack_cols(pf, p_pad, fill=1.0)
+        self._penf = self._put(self._penf_host)
         self._superstep = dglmnet.make_superstep(
             config, n_tiles=self._n_tiles, device=self.device)
+
+        # standardization: after packing, before anything reads the design
+        self._scale_packed: Optional[np.ndarray] = None
+        self._center_packed: Optional[np.ndarray] = None
+        if self.standardize:
+            self._apply_standardization()
 
     @property
     def info(self):
@@ -172,12 +262,48 @@ class GLMSolver:
             return self._p_user
         return int(self._info.col_of_feature[self._p_user])
 
-    def _unpack_user(self, beta_packed: np.ndarray):
-        """Packed beta -> (beta in feature order (p_user,), intercept)."""
-        unpacked = self._info.unpack_beta(
-            np.asarray(beta_packed, np.float32))
+    def _put(self, a) -> torch.Tensor:
+        return _put(a, self.device)
+
+    # ---------------------------------------------------- standardization
+
+    def _apply_standardization(self):
+        """Rescale (on a dense layout with an intercept, also center) the
+        design to weighted variance 1 per column; keep the packed (scale,
+        center) that maps fitted coefficients back to the original scale.
+        The intercept column stays the exact ones column."""
+        s1, s2 = (m.cpu().numpy() for m in self._Xs.col_moments(self._wobs))
+        wsum = float(self._wobs_host.sum())
+        if wsum <= 0:
+            raise ValueError("standardize=True needs positive total weight")
+        mu = s1 / wsum
+        var = np.maximum(s2 / wsum - mu * mu, 0.0)
+        sigma = np.sqrt(var)
+        scale = np.where(sigma > _SIGMA_EPS, 1.0 / np.maximum(sigma, 1e-30),
+                         1.0).astype(np.float32)
+        # brick layouts are scale-only: centering would fill every brick
+        centered = self.fit_intercept and \
+            isinstance(self._Xs, design_lib.DenseDesign)
+        center = mu.astype(np.float32) if centered else np.zeros_like(scale)
         if self.fit_intercept:
-            return unpacked[:self._p_user], float(unpacked[-1])
+            scale[self._icol()] = 1.0
+            center[self._icol()] = 0.0
+        self._Xs = self._Xs.scale_columns(
+            self._put(scale), self._put(center) if centered else None)
+        self._scale_packed = scale
+        self._center_packed = center
+
+    def _unpack_user(self, beta_packed: np.ndarray):
+        """Packed (standardized-scale) beta -> (original-scale beta in
+        feature order (p_user,), intercept).  Inverse of ``_pack_user``."""
+        b = np.asarray(beta_packed, np.float32)
+        corr = 0.0
+        if self._scale_packed is not None:
+            b = b * self._scale_packed
+            corr = float(np.dot(self._center_packed, b))
+        unpacked = self._info.unpack_beta(b)
+        if self.fit_intercept:
+            return unpacked[:self._p_user], float(unpacked[-1]) - corr
         return unpacked, 0.0
 
     def _pack_user(self, beta_user, intercept: float = 0.0) -> np.ndarray:
@@ -188,8 +314,12 @@ class GLMSolver:
         full = np.concatenate([beta_user, np.zeros((1,), np.float32)]) \
             if self.fit_intercept else beta_user
         packed = self._info.pack_beta(full, self._p_tot)
+        corr = 0.0
+        if self._scale_packed is not None:
+            corr = float(np.dot(self._center_packed, packed))
+            packed = packed / self._scale_packed
         if self.fit_intercept:
-            packed[self._icol()] = float(intercept)
+            packed[self._icol()] = float(intercept) + corr
         return packed
 
     # ---------------------------------------------------------- outer loop
@@ -207,32 +337,51 @@ class GLMSolver:
         return FitState(beta=beta, xb=xb, mu=mu, cursor=0, step=0)
 
     def _run(self, state: FitState, lam1: float, lam2: float, *,
-             active=None, max_outer=None, tol=None, verbose=False):
+             weights=None, active=None, max_outer=None, tol=None,
+             verbose=False):
         """Supersteps at fixed (lam1, lam2) until the objective plateaus.
 
-        ``active``: optional host (p_tot,) 0/1 mask in packed column order;
-        coordinates at 0 stay frozen and tiles without an active coordinate
-        are skipped.  Returns (state, history, n_iter, converged); the
-        history also records each superstep's host seconds (``step_s``),
-        taken after the one device-to-host read of its metrics.
+        ``weights``: a (n_tot,) row-weight tensor on the device (None: the
+        session's; CV folds pass fold-masked ones).  ``active``: optional
+        host (p_tot,) 0/1 mask in packed column order; coordinates at 0
+        stay frozen and tiles without an active coordinate are skipped.
+        Returns (state, history, n_iter, converged); the history also
+        records each superstep's host seconds (``step_s``), taken after the
+        one device-to-host read of its metrics.
         """
         cfg = self.config
         max_outer = cfg.max_outer if max_outer is None else int(max_outer)
         tol = cfg.tol if tol is None else float(tol)
+        weights = self._wobs if weights is None else weights
+        total_tiles = self._n_tiles
         active_dev = tile_active = None
+        live_tiles = total_tiles
         if active is not None:
             act = np.asarray(active, np.float32)
-            active_dev = torch.from_numpy(act).to(self.device)
-            tile_active = act.reshape(self._n_tiles, cfg.tile_size) \
+            active_dev = self._put(act)
+            tile_active = act.reshape(total_tiles, cfg.tile_size) \
                 .max(axis=1) > 0
+            live_tiles = int(tile_active.sum())
+        # counted as the reference counts: the Gauss-Seidel sweep and the
+        # fused Jacobi superstep skip dead tiles ("shaped"); the unfused
+        # Jacobi sweep is counted as sweeping every tile
+        shaped = active is not None and (
+            cfg.coupling == "gauss-seidel"
+            or (cfg.coupling == "jacobi" and cfg.fuse_superstep))
         history = {k: [] for k in _HISTORY_KEYS + ("step_s",)}
         f_prev, converged, it = np.inf, False, 0
         t_prev = time.perf_counter()
         for it in range(1, max_outer + 1):
             state, m = self._superstep(
-                self._Xs, self._ys, self._wobs, self._offsets, (lam1, lam2),
+                self._Xs, self._ys, weights, self._offsets, (lam1, lam2),
                 self._penf, state, active=active_dev,
                 tile_active=tile_active)
+            self.launch_stats["supersteps"] += 1
+            self.launch_stats["sweep_tile_launches"] += \
+                live_tiles if shaped else total_tiles
+            if shaped:
+                self.launch_stats["sweep_tiles_skipped"] += \
+                    total_tiles - live_tiles
             # one device-to-host read per superstep, all metrics together
             vals = torch.stack([m[k].to(torch.float64)
                                 for k in dglmnet.METRIC_KEYS]).cpu().numpy()
@@ -272,11 +421,55 @@ class GLMSolver:
             state.beta.cpu().numpy())
         return FitResult(self.beta_, history, n_iter, converged)
 
-    def _grad_state(self, state: FitState) -> np.ndarray:
-        """g = X^T s(beta) in packed column order, on the host."""
-        _, s, _ = ops.glm_stats(self._ys, state.xb, self.config.family,
-                                weights=self._wobs, offset=self._offsets)
+    def _grad_state(self, state: FitState, weights=None) -> np.ndarray:
+        """g = X^T s(beta) in packed column order, on the host: s is the
+        (weighted, offset) negative margin gradient at the state's margins,
+        so a zero coordinate is optimal iff |g_j| <= lam1 pf_j.
+        ``weights``: a row-weight tensor (None: the session's)."""
+        _, s, _ = ops.glm_stats(
+            self._ys, state.xb, self.config.family,
+            weights=self._wobs if weights is None else weights,
+            offset=self._offsets)
         return self._Xs.rmatvec(s).cpu().numpy()
+
+    def training_margins(self) -> np.ndarray:
+        """Host (n,) margins X beta over the training design at the current
+        fitted state: no offset; the intercept is included when fitted (it
+        is a design column)."""
+        if self._state is None:
+            raise ValueError("no fitted state; call fit or fit_path first")
+        return self._state.xb.cpu().numpy()[:self._n_user]
+
+    def set_observations(self, *, y=None, sample_weight=None, offset=None):
+        """Swap the observation model on the same session (y, weights and
+        offsets are superstep arguments, the design stays).  Each given
+        vector is (n,); padding is reapplied (y -> 1, weights -> 0,
+        offset -> 0).  The warm state and lambda_max are cleared, since
+        the objective changed under them."""
+        n = self._n_user
+        pad = self._n_tot - n
+        if y is not None:
+            y = np.asarray(y, np.float32)
+            if y.shape != (n,):
+                raise ValueError(f"y must be ({n},); got {y.shape}")
+            self._ys = self._put(np.pad(y, (0, pad), constant_values=1.0))
+        if sample_weight is not None:
+            sw = np.asarray(sample_weight, np.float32)
+            if sw.shape != (n,):
+                raise ValueError(
+                    f"sample_weight must be ({n},); got {sw.shape}")
+            if (sw < 0).any():
+                raise ValueError("sample_weight must be nonnegative")
+            self._wobs_host = np.pad(sw, (0, pad))
+            self._wobs = self._put(self._wobs_host)
+        if offset is not None:
+            off = np.asarray(offset, np.float32)
+            if off.shape != (n,):
+                raise ValueError(f"offset must be ({n},); got {off.shape}")
+            self._offsets = self._put(np.pad(off, (0, pad)))
+        self._state = None
+        self._lmax = None
+        return self
 
     def lambda_max(self) -> float:
         """Smallest lam1 with every PENALIZED coordinate zero: max_j |g_j| /
@@ -296,11 +489,202 @@ class GLMSolver:
             self._lmax = float((g[pen] / self._penf_host[pen]).max())
         return self._lmax
 
-    def fit_path(self, *args, **kwargs):
-        raise _not_ported("fit_path (warm-started lambda paths)")
+    # ------------------------------------------------------------- paths
 
-    def fit_cv(self, *args, **kwargs):
-        raise _not_ported("fit_cv (K-fold cross-validation)")
+    def _make_grid(self, lambdas, n_lambdas, lam_ratio):
+        if lambdas is None:
+            lmax = self.lambda_max()
+            lambdas = np.logspace(np.log10(lmax),
+                                  np.log10(lmax * lam_ratio), n_lambdas)
+        lambdas = np.asarray(lambdas, np.float64)
+        if len(lambdas) > 1 and not np.all(np.diff(lambdas) < 0):
+            raise ValueError("fit_path expects a strictly decreasing lam1 "
+                             "grid (warm starts go dense-ward)")
+        return lambdas
+
+    def _deviance(self, xb, weights) -> float:
+        """Total weighted deviance of the margins ``xb`` over the rows that
+        ``weights`` (a device tensor) selects; one scalar comes back."""
+        fam = glm.get_family(self.config.family)
+        return float(fam.deviance(self._ys, xb, weights=weights,
+                                  offset=self._offsets))
+
+    def _path_impl(self, lambdas: np.ndarray, lam2: float, *, weights=None,
+                   eval_weights=None, screen=True, kkt_slack=1e-4,
+                   max_outer=None, tol=None, verbose=False):
+        """Warm-started path over a fixed decreasing grid.
+
+        ``weights``: row weights on the device (None: the session's), the
+        CV fold mechanism.  ``eval_weights``: host row weights of a
+        held-out set; when given, the mean validation deviance is recorded
+        per lambda.  Returns (betas_packed, f, nnz, n_iters, converged,
+        val_dev, state).
+        """
+        cfg = self.config
+        K = len(lambdas)
+        pf = self._penf_host
+        unpen = pf <= _PF_EPS
+        if eval_weights is not None:
+            ew_dev = self._put(eval_weights)
+            ew_sum = float(np.asarray(eval_weights).sum())
+
+        state = self._init_state(None)
+        betas_packed = np.zeros((K, self._p_tot), np.float32)
+        f = np.full((K,), np.nan)
+        nnz = np.zeros((K,), np.int64)
+        n_iters = np.zeros((K,), np.int64)
+        converged = np.zeros((K,), bool)
+        val_dev = np.full((K,), np.nan) if eval_weights is not None else None
+
+        lam_prev = None
+        g_warm = None           # the gradient at the warm iterate, if known
+        for k in range(K):
+            lam1 = float(lambdas[k])
+            # a fresh trust region per lambda; warm beta and margins carry
+            state = state._replace(mu=torch.full_like(state.mu,
+                                                      cfg.mu_init), step=0)
+            if screen:
+                # sequential strong rule (Tibshirani et al. 2012):
+                # |g_j| >= pf_j (2 lam_k - lam_{k-1}), plus every active and
+                # every unpenalized coordinate; the previous lambda's last
+                # KKT gradient is the gradient at this warm iterate
+                g = self._grad_state(state, weights) if g_warm is None \
+                    else g_warm
+                thresh = 2.0 * lam1 - (lam_prev if lam_prev is not None
+                                       else lam1)
+                active = (np.abs(g) >= pf * thresh - 1e-12) | \
+                    (state.beta.cpu().numpy() != 0.0) | unpen
+                it_k = 0
+                for _ in range(8):
+                    state, hist, it_round, conv_k = self._run(
+                        state, lam1, lam2, weights=weights, active=active,
+                        max_outer=max_outer, tol=tol, verbose=verbose)
+                    it_k += it_round
+                    # KKT on the FULL gradient: a frozen coordinate (beta_j
+                    # = 0) is optimal iff |g_j| <= lam1 pf_j
+                    g = self._grad_state(state, weights)
+                    viol = (~active) & (np.abs(g) >
+                                        pf * lam1 * (1.0 + kkt_slack) + 1e-7)
+                    if not viol.any():
+                        break
+                    active |= viol
+                g_warm = g
+            else:
+                state, hist, it_k, conv_k = self._run(
+                    state, lam1, lam2, weights=weights, max_outer=max_outer,
+                    tol=tol, verbose=verbose)
+            betas_packed[k] = state.beta.cpu().numpy()
+            if hist["f"]:
+                f[k] = hist["f"][-1]
+                nnz[k] = int(hist["nnz"][-1])
+            n_iters[k] = it_k
+            converged[k] = conv_k
+            if val_dev is not None:
+                val_dev[k] = self._deviance(state.xb, ew_dev) / ew_sum \
+                    if ew_sum > 0 else np.nan
+            lam_prev = lam1
+            if verbose:
+                print(f"[path {k + 1}/{K}] lam1={lam1:.6g} f={f[k]:.8f} "
+                      f"nnz={nnz[k]} iters={it_k}")
+        return betas_packed, f, nnz, n_iters, converged, val_dev, state
+
+    def _path_result(self, lambdas, lam2, betas_packed, f, nnz, n_iters,
+                     converged) -> PathResult:
+        if len(lambdas):
+            pairs = [self._unpack_user(b) for b in betas_packed]
+            betas = np.stack([b for b, _ in pairs])
+            intercepts = np.asarray([b0 for _, b0 in pairs], np.float32)
+        else:
+            betas = np.zeros((0, self._p_user), np.float32)
+            intercepts = np.zeros((0,), np.float32)
+        return PathResult(lambdas, lam2, betas, f, nnz, n_iters, converged,
+                          intercepts if self.fit_intercept else None)
+
+    def fit_path(self, lambdas=None, *, n_lambdas: int = 100,
+                 lam_ratio: float = 1e-3, lam2: Optional[float] = None,
+                 screen: bool = True, kkt_slack: float = 1e-4,
+                 max_outer=None, tol=None, verbose=False,
+                 ckpt_manager=None) -> PathResult:
+        """Warm-started fit over a decreasing lam1 grid.
+
+        ``lambdas=None`` builds the GLMNET grid: ``n_lambdas`` log-spaced
+        points from ``lambda_max()`` down to lambda_max * ``lam_ratio``.
+        Each lambda starts from the previous solution (beta and the margins
+        X beta stay on the device); ``screen=True`` freezes the strong
+        rule's cold coordinates and re-fits with any KKT violators
+        unfrozen, so screening never changes the solution.
+        """
+        if ckpt_manager is not None:
+            raise _not_ported("path checkpointing")
+        lam2 = self.config.lam2 if lam2 is None else float(lam2)
+        lambdas = self._make_grid(lambdas, n_lambdas, lam_ratio)
+        betas_packed, f, nnz, n_iters, converged, _, state = self._path_impl(
+            lambdas, lam2, screen=screen, kkt_slack=kkt_slack,
+            max_outer=max_outer, tol=tol, verbose=verbose)
+        self._state = state
+        result = self._path_result(lambdas, lam2, betas_packed, f, nnz,
+                                   n_iters, converged)
+        if len(lambdas):
+            self.beta_ = result.betas[-1]
+            self.intercept_ = float(result.intercepts[-1]) \
+                if result.intercepts is not None else 0.0
+        return result
+
+    def fit_cv(self, n_folds: int = 5, *, lambdas=None,
+               n_lambdas: int = 100, lam_ratio: float = 1e-3,
+               lam2: Optional[float] = None, seed: int = 0,
+               screen: bool = True, max_outer=None, tol=None,
+               verbose=False) -> CVResult:
+        """Mask-based K-fold cross-validation over the lambda path.
+
+        Fold f trains with weights w [fold != f] and validates on w [fold
+        == f], on the one packed design (no data moves).  Every fold runs a
+        warm-started path over the full-data grid; lambda is selected by
+        mean validation deviance, and the coefficients returned are the
+        full-data path's at that lambda.  With ``standardize=True`` the
+        column scaling is the session's, from all rows (not re-standardized
+        per training fold as cv.glmnet does).
+        """
+        if n_folds < 2:
+            raise ValueError("fit_cv needs n_folds >= 2")
+        lam2 = self.config.lam2 if lam2 is None else float(lam2)
+        lambdas = self._make_grid(lambdas, n_lambdas, lam_ratio)
+        K = len(lambdas)
+        n = self._n_user
+
+        # the full-data path: the grid's anchor and the final refit
+        betas_packed, f, nnz, n_iters, converged, _, state = self._path_impl(
+            lambdas, lam2, screen=screen, max_outer=max_outer, tol=tol,
+            verbose=verbose)
+        full_path = self._path_result(lambdas, lam2, betas_packed, f, nnz,
+                                      n_iters, converged)
+
+        rng = np.random.default_rng(seed)
+        fold_of = np.full((self._n_tot,), -1, np.int64)   # padding: no fold
+        fold_of[:n] = rng.permuted(np.arange(n) % n_folds)
+
+        dev_folds = np.full((n_folds, K), np.nan)
+        for fold in range(n_folds):
+            w_tr = self._wobs_host * (fold_of != fold)
+            w_val = self._wobs_host * (fold_of == fold)
+            if verbose:
+                print(f"[cv fold {fold + 1}/{n_folds}] "
+                      f"train w={w_tr.sum():.0f} val w={w_val.sum():.0f}")
+            _, _, _, _, _, val_dev, _ = self._path_impl(
+                lambdas, lam2, weights=self._put(w_tr), eval_weights=w_val,
+                screen=screen, max_outer=max_outer, tol=tol, verbose=False)
+            dev_folds[fold] = val_dev
+
+        dev_mean = np.nanmean(dev_folds, axis=0)
+        dev_se = np.nanstd(dev_folds, axis=0, ddof=1) / np.sqrt(n_folds)
+        best = int(np.nanargmin(dev_mean))
+        self._state = state
+        self.beta_ = full_path.betas[best]
+        self.intercept_ = float(full_path.intercepts[best]) \
+            if full_path.intercepts is not None else 0.0
+        return CVResult(lambdas, lam2, dev_folds, dev_mean, dev_se, best,
+                        float(lambdas[best]), full_path, self.beta_,
+                        self.intercept_)
 
     # ------------------------------------------------------------ predict
 
@@ -318,11 +702,13 @@ class GLMSolver:
                                                     device=self.device))
         return self._serve_cache[1]
 
-    def save(self, path, *, quantize=None):
+    def save(self, path, *, quantize=None, path_result=None):
         """Export the fitted model as a versioned serving artifact
-        (``serve/artifact.py``); ``quantize="int8"`` writes the
-        shared-scale int8 table."""
-        return artifact.export(self, path, quantize=quantize)
+        (``serve/artifact.py``); ``path_result`` (a ``PathResult``) exports
+        the whole path, one column per lambda; ``quantize="int8"`` writes
+        the shared-scale int8 table."""
+        return artifact.export(self, path, quantize=quantize,
+                               path_result=path_result)
 
     def predict(self, X_new, *, beta=None, intercept=None, offset=None,
                 kind: str = "response"):
@@ -333,8 +719,8 @@ class GLMSolver:
         set; dense rows by a host product."""
         beta = self.beta_ if beta is None else np.asarray(beta, np.float32)
         if beta is None:
-            raise ValueError("no fitted coefficients; call fit first or "
-                             "pass beta=...")
+            raise ValueError("no fitted coefficients; call fit/fit_path "
+                             "first or pass beta=...")
         intercept = self.intercept_ if intercept is None else float(intercept)
         if kind not in ("link", "response"):
             raise ValueError(f"unknown kind {kind!r}; use 'link' or "

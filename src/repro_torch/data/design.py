@@ -8,7 +8,11 @@ the design matrix only through these operators:
   * ``all_tile_grams(w, r, tile_live)``: every live tile's (G, g) at once,
     (n_tiles, T, T) and (n_tiles, T), dead tiles zero (the Jacobi sweep);
   * ``tile_matvec(tid, v_t)``: X_t v_t over all rows;
-  * ``matvec(v)`` / ``rmatvec(r)``: X v and X^T r in packed column order.
+  * ``matvec(v)`` / ``rmatvec(r)``: X v and X^T r in packed column order;
+  * ``col_moments(w)``: the weighted column sums (sum_i w_i x_ij,
+    sum_i w_i x_ij^2) that ``standardize=True`` reads;
+  * ``scale_columns(scale, center)``: a new design with columns
+    (x_j - center_j) scale_j (centering on the dense layout only).
 
 Two layouts:
 
@@ -86,6 +90,18 @@ class DesignMatrix:
     def rmatvec(self, r):
         raise NotImplementedError
 
+    def col_moments(self, weights):
+        """(sum_i w_i x_ij, sum_i w_i x_ij^2), both (n_tiles * T,) in
+        packed column order."""
+        raise NotImplementedError
+
+    def scale_columns(self, scale, center=None):
+        """A NEW design whose packed column j holds (x_j - center_j) *
+        scale_j (center None = 0).  Only the dense layout centers (it would
+        fill every empty brick); padded rows pick up -center_j, inert since
+        every consumer weights rows by the observation weights (0 there)."""
+        raise NotImplementedError
+
     def to_dense(self):
         raise NotImplementedError
 
@@ -132,6 +148,16 @@ class DenseDesign(DesignMatrix):
 
     def rmatvec(self, r):
         return self.data.T @ r
+
+    def col_moments(self, weights):
+        return self.data.T @ weights, (self.data * self.data).T @ weights
+
+    def scale_columns(self, scale, center=None):
+        # one new (n, p_pad) tensor, formed in place: the caller drops the
+        # old design, so at most two copies live for a moment
+        data = self.data * scale[None, :] if center is None else \
+            (self.data - center[None, :]).mul_(scale[None, :])
+        return DenseDesign(data, self.tile_size)
 
     def to_dense(self):
         return self.data
@@ -227,6 +253,27 @@ class BlockSparseDesign(DesignMatrix):
             tb, rows = self.tile_bricks(tid)
             parts.append(torch.einsum("kit,ki->t", tb, r2[rows.long()]))
         return torch.cat(parts)
+
+    def col_moments(self, weights):
+        # tile by tile, as rmatvec: the squares of one tile's bricks live at
+        # a time, never a second copy of all of them
+        w2 = weights.reshape(self.n_row_blocks, self.row_block)
+        s1, s2 = [], []
+        for tid in range(self.n_tiles_):
+            tb, rows = self.tile_bricks(tid)
+            wk = w2[rows.long()]
+            s1.append(torch.einsum("kit,ki->t", tb, wk))
+            s2.append(torch.einsum("kit,ki->t", tb * tb, wk))
+        return torch.cat(s1), torch.cat(s2)
+
+    def scale_columns(self, scale, center=None):
+        if center is not None:
+            raise ValueError(
+                "BlockSparseDesign cannot center columns (centering fills "
+                "every empty brick); use scale-only standardization")
+        sb = scale.reshape(self.n_tiles_, self.tile_size)[
+            self.brick_tile.long()]                     # (B, T)
+        return dataclasses.replace(self, bricks=self.bricks * sb[:, None, :])
 
     def to_dense(self):
         rb, T = self.row_block, self.tile_size

@@ -171,9 +171,11 @@ def save_artifact(path, *, betas, intercepts=None, family,
     return path
 
 
-def export(model, path, *, quantize=None) -> pathlib.Path:
+def export(model, path, *, quantize=None, path_result=None) -> pathlib.Path:
     """Export a fitted ``GLMSolver`` session (``beta_``, ``intercept_``,
-    ``config.family``) as a one-column artifact.  The estimator frontend
+    ``config.family``, ``standardize``) as a one-column artifact, or with
+    ``path_result`` (a ``PathResult``) the whole lambda path, one column
+    per lambda with the grid in the manifest.  The estimator frontend
     (``coef_``) is not ported yet and raises."""
     if hasattr(model, "coef_"):
         raise NotImplementedError(
@@ -186,10 +188,22 @@ def export(model, path, *, quantize=None) -> pathlib.Path:
     if model.beta_ is None:
         raise ValueError("model is not fitted; nothing to export")
     lam2 = float(model.config.lam2)
-    return save_artifact(path, betas=model.beta_,
-                         intercepts=[float(model.intercept_)],
-                         family=model.config.family, lam2=lam2,
-                         penalty={"lam2": lam2}, quantize=quantize)
+    penalty = {"lam2": lam2}
+    lambdas = None
+    if path_result is not None:
+        betas = path_result.betas
+        intercepts = path_result.intercepts \
+            if path_result.intercepts is not None \
+            else np.zeros((len(path_result.lambdas),), np.float32)
+        lambdas, lam2 = path_result.lambdas, path_result.lam2
+    else:
+        betas, intercepts = model.beta_, [float(model.intercept_)]
+    return save_artifact(path, betas=betas, intercepts=intercepts,
+                         family=model.config.family, lambdas=lambdas,
+                         lam2=lam2, penalty=penalty,
+                         standardized=bool(getattr(model, "standardize",
+                                                   False)),
+                         quantize=quantize)
 
 
 def load_artifact(path) -> ServableModel:

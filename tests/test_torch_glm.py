@@ -52,6 +52,33 @@ def test_family_stats_match_jax(family):
         jglm.margin_score(family, y, m), rel=1e-5)
 
 
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("observed", [False, True])
+def test_family_deviance_matches_jax(family, observed):
+    """2 sum w (l - l_sat), with weights and an offset or without; poisson
+    subtracts its saturated loss (zero-count rows included)."""
+    y, m, w, o = _data(family, seed=2)
+    if family == "poisson":
+        y[:5] = 0.0
+    kt = dict(weights=torch.from_numpy(w), offset=torch.from_numpy(o)) \
+        if observed else {}
+    kj = dict(weights=jnp.asarray(w), offset=jnp.asarray(o)) \
+        if observed else {}
+    ours = tglm.get_family(family).deviance(torch.from_numpy(y),
+                                            torch.from_numpy(m), **kt)
+    theirs = jglm.get_family(family).deviance(jnp.asarray(y),
+                                              jnp.asarray(m), **kj)
+    assert ours.dim() == 0
+    tol = 3e-4 if family == "probit" else 1e-5
+    np.testing.assert_allclose(float(ours), float(theirs), rtol=tol)
+    if family == "poisson":
+        # the saturated fit m = log y has zero deviance
+        ys = np.maximum(y, 1.0)
+        sat = tglm.POISSON.deviance(torch.from_numpy(ys),
+                                    torch.from_numpy(np.log(ys)))
+        assert abs(float(sat)) < 1e-3
+
+
 def test_objective_pieces_match_jax():
     rng = np.random.default_rng(1)
     X = rng.normal(size=(50, 7)).astype(np.float32)

@@ -724,3 +724,43 @@ def test_bf16_jacobi_fit_on_the_card_matches_the_cpu(cuda, sparse):
     assert (cg["tile_gram_bf16"] > 0) == sparse
     np.testing.assert_allclose(rg.history["f"], rc.history["f"], rtol=1e-4)
     np.testing.assert_allclose(rg.beta, rc.beta, atol=1e-3)
+
+
+@pytest.mark.parametrize("sparse,coupling", [(True, "gauss-seidel"),
+                                             (False, "gauss-seidel"),
+                                             (True, "jacobi"),
+                                             (False, "jacobi")])
+def test_screened_path_on_the_card_matches_the_cpu(cuda, sparse, coupling):
+    """A screened fit_path on the card against the same path on the CPU,
+    with the bar of chip_smoke.py's path_reference phase: per lambda f
+    within 1e-4 relative, beta within 1e-3, nnz equal; the card's sweeps
+    skip the screened tiles and launch the tile kernels for the live ones
+    only.  ``tol=1e-4`` stops each lambda before its sums reach float32
+    resolution, so both devices take the same steps."""
+    if sparse:
+        ds = synthetic.make_sparse(n=3000, p=700, avg_nnz=20, k_true=30,
+                                   seed=1)
+    else:
+        ds = synthetic.make_dense(n=3000, p=300, k_true=20, seed=1)
+    cfg = DGLMNETConfig(tile_size=256, coupling=coupling)
+    paths = []
+    for dev in ("cpu", cuda):
+        s = GLMSolver(ds.train.X, ds.train.y, config=cfg, device=dev,
+                      fit_intercept=True)
+        grid = dict(lambdas=paths[0][0].lambdas) if paths else \
+            dict(n_lambdas=6, lam_ratio=0.05)
+        ops.reset_launch_counts()
+        path = s.fit_path(**grid, max_outer=30, tol=1e-4)
+        paths.append((path, ops.launch_counts(), dict(s.launch_stats)))
+    (pc, cc, _), (pg, cg, st) = paths
+    assert sum(cc.values()) == 0
+    np.testing.assert_allclose(pg.f, pc.f, rtol=1e-4)
+    np.testing.assert_allclose(pg.betas, pc.betas, atol=1e-3)
+    np.testing.assert_array_equal(pg.nnz, pc.nnz)
+    if coupling == "gauss-seidel":
+        assert st["sweep_tiles_skipped"] > 0
+        assert cg["cd_tile_solve"] == st["sweep_tile_launches"]
+        if sparse:
+            assert cg["tile_gram"] == st["sweep_tile_launches"]
+    elif not sparse:
+        assert cg["stats_gram_solve"] == cg["margin_ls"] == st["supersteps"]

@@ -204,17 +204,16 @@ def test_unported_options_raise():
     X = np.random.default_rng(0).normal(size=(40, 6)).astype(np.float32)
     y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
     kw = dict(device="cpu", config=TConfig(tile_size=8))
-    for bad in (dict(mesh=object()), dict(standardize=True)):
-        with pytest.raises(NotImplementedError):
-            TSolver(X, y, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        TSolver(X, y, **kw, mesh=object())
     s = TSolver(X, y, **kw)
     s.fit(lam1=0.1, max_outer=3)
-    for call in (s.fit_path, s.fit_cv,
-                 lambda: s.fit(ckpt_manager=object())):
+    for call in (lambda: s.fit(ckpt_manager=object()),
+                 lambda: s.fit_path(n_lambdas=3, ckpt_manager=object())):
         with pytest.raises(NotImplementedError):
             call()
-    # ported since: the Jacobi coupling, its precision="bf16" and predict
-    # on SparseCOO rows
+    # ported since: the Jacobi coupling, its precision="bf16", predict
+    # on SparseCOO rows, standardize=True, fit_path and fit_cv
     TSolver(X, y, device="cpu", config=TConfig(tile_size=8,
                                                coupling="jacobi"))
     sb = TSolver(X, y, device="cpu", config=TConfig(
@@ -224,11 +223,16 @@ def test_unported_options_raise():
                                       np.zeros(1, np.int64),
                                       np.ones(1, np.float32), (1, 6)))
     assert out.shape == (1,)
+    ss = TSolver(X, y, **kw, standardize=True)
+    assert np.isfinite(ss.fit_path(n_lambdas=3, max_outer=3).f).all()
+    assert np.isfinite(ss.fit_cv(n_folds=2, n_lambdas=3,
+                                 max_outer=3).dev_mean).all()
 
 
 def test_builders_default_to_the_card(monkeypatch):
     """Every public entry point that places tensors takes device=None as
     the card, and raises without one instead of running on the CPU."""
+    from repro_torch.core.solver import lambda_max
     from repro_torch.data import design as tdesign
     from repro_torch.serve import ScoringEngine, ServableModel
     X = np.ones((8, 4), np.float32)
@@ -239,6 +243,8 @@ def test_builders_default_to_the_card(monkeypatch):
         lambda: tdesign.dense_design(X, 4),
         lambda: tdesign.build_block_sparse(coo, 4, row_block=4),
         lambda: tdesign.as_design(X, 4),
+        lambda: lambda_max(X, np.ones(8, np.float32)),
+        lambda: lambda_max(coo, np.ones(8, np.float32)),
         lambda: convert.design_from_numpy(tile_size=4, data=X),
         lambda: convert.state_from_numpy(np.zeros(4), np.zeros(8), 1.0),
         lambda: tlinesearch.candidate_alphas(1e-3, 13),
