@@ -44,7 +44,24 @@ drives each path through the entry points a user calls and checks it:
   * dense_cv: ``fit_cv(n_folds=3, n_lambdas=8)`` of the dense split,
     standardized (centered, the intercept column left exact ones), fused
     Jacobi: K5 and K6 once a superstep, K1 once a gradient check, and the
-    unscaled copy of the design freed after construction.
+    unscaled copy of the design freed after construction;
+  * checkpoint: on the sparse solver, two fits run through show whether
+    the card gives the same bits; the fit cut at its last save before its
+    end (``ckpt_every=5``) and sparse_path's grid cut after 6 of its 12
+    lambdas (async saves), both resumed in a fresh session, are held to
+    those bits (else within 1e-6); each save's and the restore's ms and
+    the bytes on disk;
+  * multinomial: ``MultinomialGLM`` on the sparse train split, 4 classes,
+    3 cycles: K1-K4 launched exactly for the class visits' supersteps,
+    the standardized objective never rising, training accuracy at least
+    the majority share + 0.1, ``predict_proba`` rows summing to 1;
+  * estimator: ``LogisticRegressionCD`` fitted, saved (fp32 and int8) and
+    loaded, the loaded model's test-split margins (K7) equal to the
+    fitted one's and int8 within the manifest's bound,
+    ``repro_torch.launch.serve_glm.main`` over the artifact; a family
+    registered with the squared formulas fitted on the card only through
+    the plain route (``"<kernel>/plain"``), against the squared fit on
+    the CPU.  No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -1268,6 +1285,7 @@ def sparse_path_phase(np, torch, solver):
               for k, v in scr["counts"].items() if v},
           "gradient_check": split, "standardize": std,
           "max_screened_minus_unscreened": float((fs - fu).max())})
+    return scr["path"]
 
 
 def path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev):
@@ -1409,6 +1427,399 @@ def dense_cv_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev):
           "nnz": cv.path.nnz.tolist(), "n_iters": cv.path.n_iters.tolist(),
           "converged": cv.path.converged.tolist(), "stats": st,
           "launches": counts, "peak_mem_gb": peak})
+
+
+# checkpoint: the sparse fit cut at CKPT_CUT supersteps (a save every
+# CKPT_EVERY) and resumed in a fresh session, against the fit run through
+# (tol 0: a fit stops only where f repeats to the last bit, or at
+# CKPT_MAX_OUTER); the path cut after PATH_CUT of sparse_path's lambdas
+CKPT_EVERY, CKPT_CUT, CKPT_MAX_OUTER, PATH_CUT = 5, 10, 20, 6
+# multinomial: classes, nonzero rows of B a class, cycles
+MN_CLASSES, MN_SUPPORT, MN_CYCLES = 4, 50, 3
+
+
+def checkpoint_phase(np, torch, GLMSolver, solver, ds, dev, path):
+    """Checkpoints of the sparse solver (``fit(ckpt_manager=)`` saved
+    synchronously, ``fit_path(ckpt_manager=)`` asynchronously), each cut
+    and resumed in a fresh session.  Two fits run through first show
+    whether the card's fits give the same bits; if they do the resumed
+    beta, f and alpha are held to those bits, else within 1e-6.  ``path``
+    is sparse_path's screened path, the uninterrupted one."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        """Records each save's seconds: the call (what the fit waits for)
+        and until the checkpoint is durable (the writer joined)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.saves = []
+
+        def save(self, step, tree, *, metadata=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(step, tree, metadata=metadata)
+            call = time.perf_counter() - t0
+            self.wait()
+            self.saves.append({"step": step, "call_ms": call * 1e3,
+                               "durable_ms":
+                                   (time.perf_counter() - t0) * 1e3})
+
+    def on_disk(mgr):
+        d = mgr.dir / f"ckpt_{mgr.latest_step()}"
+        return sum(f.stat().st_size for f in d.iterdir())
+
+    fit = dict(lam1=LAM1_FRACTION * solver.lambda_max(), tol=0.0)
+    runs = [solver.fit(max_outer=CKPT_MAX_OUTER, **fit) for _ in range(2)]
+    full = runs[0]
+    same = np.array_equal(runs[0].beta, runs[1].beta) and all(
+        runs[0].history[k] == runs[1].history[k] for k in ("f", "alpha"))
+    twice_gap = float(np.abs(runs[0].beta - runs[1].beta).max())
+    check(full.n_iter > CKPT_EVERY, f"checkpoint: the fit stops after "
+          f"{full.n_iter} supersteps, before its first save")
+    cut = min(CKPT_CUT, CKPT_EVERY * ((full.n_iter - 1) // CKPT_EVERY))
+    pargs = dict(max_outer=PATH_MAX_OUTER, tol=PATH_TOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        fit_mgr = Timed(tmp / "fit")
+        solver.fit(max_outer=cut, ckpt_manager=fit_mgr,
+                   ckpt_every=CKPT_EVERY, **fit)
+        check(fit_mgr.latest_step() == cut,
+              f"checkpoint: last save {fit_mgr.latest_step()}, cut {cut}")
+        fit_bytes = on_disk(fit_mgr)
+        st = solver._state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back, _ = fit_mgr.restore({"beta": st.beta, "xb": st.xb,
+                                   "mu": st.mu})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(all(v.is_cuda for v in back.values()),
+              "checkpoint: restore left a tensor off the card")
+        del back, st
+        path_mgr = Timed(tmp / "path", async_save=True)
+        solver.fit_path(lambdas=path.lambdas[:PATH_CUT],
+                        ckpt_manager=path_mgr, **pargs)
+        path_bytes = on_disk(path_mgr)
+
+        t0 = time.perf_counter()
+        fresh = full_size_solver(GLMSolver, ds, dev)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = fresh.fit(max_outer=CKPT_MAX_OUTER, ckpt_every=CKPT_EVERY,
+                        ckpt_manager=CheckpointManager(tmp / "fit"), **fit)
+        resume_fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pres = fresh.fit_path(lambdas=path.lambdas, **pargs,
+                              ckpt_manager=CheckpointManager(tmp / "path"))
+        resume_path_s = time.perf_counter() - t0
+        del fresh
+    torch.cuda.empty_cache()
+
+    def held(a, b):
+        """The same bits on a deterministic card, else within 1e-6."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return np.array_equal(a, b) if same else \
+            bool(np.all(np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(b))))
+
+    gaps = {"fit_beta": float(np.abs(res.beta - full.beta).max()),
+            "path_prefix_beta": float(np.abs(
+                pres.betas[:PATH_CUT] - path.betas[:PATH_CUT]).max()),
+            "path_tail_beta": float(np.abs(
+                pres.betas[PATH_CUT:] - path.betas[PATH_CUT:]).max()),
+            "path_tail_f_rel": float(np.max(np.abs(
+                pres.f[PATH_CUT:] / path.f[PATH_CUT:] - 1)))}
+    check(res.n_iter == full.n_iter,
+          f"checkpoint: resumed n_iter {res.n_iter} != {full.n_iter}")
+    check(held(res.beta, full.beta) and all(
+        held(res.history[k], full.history[k][cut:]) for k in ("f", "alpha")),
+        f"checkpoint: the resumed fit parts from the uninterrupted one "
+        f"{gaps}")
+    check(np.array_equal(pres.betas[:PATH_CUT], path.betas[:PATH_CUT])
+          if same else held(pres.betas[:PATH_CUT], path.betas[:PATH_CUT]),
+          f"checkpoint: the path's completed prefix changed {gaps}")
+    check(np.array_equal(pres.nnz, path.nnz)
+          and np.array_equal(pres.n_iters, path.n_iters)
+          and held(pres.f, path.f) and held(pres.betas, path.betas),
+          f"checkpoint: the resumed path's tail parts {gaps} nnz "
+          f"{pres.nnz.tolist()} {path.nnz.tolist()} n_iters "
+          f"{pres.n_iters.tolist()} {path.n_iters.tolist()}")
+    emit({"phase": "checkpoint", "deterministic": bool(same),
+          "two_runs_beta_gap": twice_gap, "n_iter": full.n_iter, "cut": cut,
+          "ckpt_every": CKPT_EVERY, "path_cut": PATH_CUT,
+          "n_lambdas": len(path.lambdas), "fit_ckpt_bytes": fit_bytes,
+          "path_ckpt_bytes": path_bytes, "fit_saves_sync": fit_mgr.saves,
+          "path_saves_async": path_mgr.saves, "restore_ms": restore_ms,
+          "fresh_session_s": fresh_s, "resume_fit_s": resume_fit_s,
+          "resume_path_s": resume_path_s, "gaps": gaps,
+          "f_after_cut": res.history["f"],
+          "alpha_after_cut": res.history["alpha"]})
+
+
+def multinomial_phase(np, torch, GLMSolver, DGLMNETConfig, ds, dev):
+    """``MultinomialGLM`` on the sparse train split, 4 classes: labels the
+    argmax of X B + 0.3 noise (B seeded, 50 nonzero rows a class, on
+    frequent features, each class's margins scaled to std 2 as
+    make_sparse plants its signal); lam1 0.05 of class 0's one-vs-rest
+    logistic lambda_max on the session the estimator fits (standardized,
+    with an intercept).  Each class visit is a full-width logistic fit
+    through K1-K4.  The estimator's objective (the reference's) puts the
+    penalty on the original-scale coefficients while each visit minimizes
+    it on the standardized ones, so the objective held to never rise is
+    the latter: the same loss with the penalty on coef / scale."""
+    from repro_torch.glm import MultinomialGLM
+    from repro_torch.kernels import ops
+
+    X = ds.train.X
+    n, p = X.shape
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    M = np.zeros((n, MN_CLASSES))
+    for k in range(MN_CLASSES):
+        b = np.zeros(p)
+        b[rng.choice(min(p, 4000), MN_SUPPORT, replace=False)] = \
+            rng.normal(size=MN_SUPPORT)
+        m = np.bincount(X.rows, weights=X.vals * b[X.cols], minlength=n)
+        M[:, k] = m / max(m.std(), 1e-6) * 2.0
+    yk = np.argmax(M + 0.3 * rng.normal(size=M.shape), axis=1)
+    labels_s = time.perf_counter() - t0
+    del M
+    majority = max(float(np.mean(yk == k)) for k in range(MN_CLASSES))
+    cfg = DGLMNETConfig(tile_size=256, max_outer=50, tol=1e-6)
+    t0 = time.perf_counter()
+    s0 = GLMSolver(X, np.where(yk == 0, 1.0, -1.0), family="logistic",
+                   config=cfg, fit_intercept=True, standardize=True,
+                   device=dev)
+    lam1 = 0.05 * s0.lambda_max()
+    lmax_s = time.perf_counter() - t0
+    del s0
+    torch.cuda.empty_cache()
+
+    est = MultinomialGLM(lam1=lam1, tile_size=256, standardize=True,
+                         max_cycles=MN_CYCLES, max_outer=50, tol=1e-6,
+                         device=dev)
+    objs, std_objs, visits = [], [], []
+    objective = est._objective
+
+    def recorded(*a):
+        """The estimator's objective, and beside it the standardized one."""
+        f = objective(*a)
+        scale = est.solver_._info.unpack_beta(
+            est.solver_._scale_packed)[:est.coef_.shape[0]]
+        objs.append(f)
+        std_objs.append(f + lam1 * float(
+            np.abs(est.coef_ / scale[:, None]).sum()
+            - np.abs(est.coef_).sum()))
+        return f
+
+    est._objective = recorded
+    fit = GLMSolver.fit
+
+    def visit(self, *a, **k):
+        t = time.perf_counter()
+        r = fit(self, *a, **k)
+        visits.append((r.n_iter, time.perf_counter() - t))
+        return r
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    GLMSolver.fit = visit
+    try:
+        t0 = time.perf_counter()
+        est.fit(X, yk)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        GLMSolver.fit = fit
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    S = est.solver_.launch_stats["supersteps"]
+    nt = est.solver_.design.n_tiles
+    check(S == sum(v[0] for v in visits)
+          and len(visits) == MN_CLASSES * est.n_cycles_,
+          f"multinomial: {S} supersteps, visits {visits}")
+    want = {"glm_stats": S, "cd_tile_solve": nt * S, "tile_gram": nt * S,
+            "alpha_search": 2 * S}
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"multinomial: launches {counts} != {want}")
+    check(all(np.isfinite(std_objs)) and all(
+        b <= a + 1e-6 * abs(a) for a, b in zip(std_objs, std_objs[1:])),
+          f"multinomial: the objective rose {std_objs}")
+    ops.reset_launch_counts()
+    proba = est.predict_proba(X)
+    pred_counts = ops.launch_counts()
+    check(pred_counts["predict_tile"] > 0 and sum(pred_counts.values())
+          == pred_counts["predict_tile"],
+          f"multinomial: predict launches {pred_counts}")
+    row_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    acc = float(np.mean(est.classes_[np.argmax(proba, axis=1)] == yk))
+    check(proba.shape == (n, MN_CLASSES) and row_err <= 1e-5,
+          f"multinomial: predict_proba rows off 1 by {row_err}")
+    check(acc >= majority + 0.1,
+          f"multinomial: training accuracy {acc}, majority {majority}")
+    K = MN_CLASSES
+    cycle_s = [sum(v[1] for v in visits[c * K:(c + 1) * K])
+               for c in range(est.n_cycles_)]
+    emit({"phase": "multinomial", "classes": K, "n": n, "p": p,
+          "support_per_class": MN_SUPPORT, "labels_s": labels_s,
+          "lam1": lam1, "lambda_max_s": lmax_s, "n_cycles": est.n_cycles_,
+          "objective_per_cycle": objs,
+          "standardized_objective_per_cycle": std_objs, "fit_s": fit_s,
+          "cycle_s": cycle_s, "supersteps_per_visit": [v[0] for v in visits],
+          "visit_s": [v[1] for v in visits], "supersteps": S,
+          "superstep_ms_mean": 1e3 * sum(v[1] for v in visits) / S,
+          "peak_mem_gb": peak, "launches": counts,
+          "predict_launches": pred_counts, "train_accuracy": acc,
+          "majority_share": majority, "proba_row_sum_err": row_err,
+          "nnz_per_class": (est.coef_ != 0).sum(axis=0).tolist()})
+    del est
+    torch.cuda.empty_cache()
+    return counts
+
+
+def estimator_phase(np, torch, GLMSolver, DGLMNETConfig, synthetic, ds, dev,
+                    lam1):
+    """``LogisticRegressionCD`` on the sparse data ({0, 1} labels, the
+    sparse fit's lam1, unstandardized like that fit): saved in fp32 and
+    int8 and loaded; the loaded model's test-split predictions (SparseCOO,
+    K7) against the fitted estimator's, int8 margins within the manifest's
+    bound; ``serve_glm.main`` over the artifact; then a family registered
+    under a new name with the squared formulas, fitted on the card (it
+    must take the plain route) and held against the squared fit on the
+    CPU."""
+    import contextlib
+    import io
+
+    from repro_torch.core import glm
+    from repro_torch.glm import LogisticRegressionCD
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_glm
+    from repro_torch.serve import artifact_bytes, load_artifact
+
+    y01 = (ds.train.y > 0).astype(np.int64)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    est = LogisticRegressionCD(lam1=lam1, tile_size=256, standardize=False,
+                               max_outer=50, tol=1e-6, device=dev)
+    est.fit(ds.train.X, y01)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = ops.launch_counts()
+    S = est.solver_.launch_stats["supersteps"]
+    nt = est.solver_.design.n_tiles
+    want = {"glm_stats": S, "cd_tile_solve": nt * S, "tile_gram": nt * S,
+            "alpha_search": 2 * S}
+    check(fit_counts == {k: want.get(k, 0) for k in fit_counts},
+          f"estimator: fit launches {fit_counts} != {want}")
+    Xte = ds.test.X
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        est.save(tmp / "fp32")
+        est.save(tmp / "int8", quantize="int8")
+        save_s = time.perf_counter() - t0
+        sizes = {q: artifact_bytes(tmp / q) for q in ("fp32", "int8")}
+        ops.reset_launch_counts()
+        loaded = LogisticRegressionCD.load(tmp / "fp32")
+        quant = LogisticRegressionCD.load(tmp / "int8")
+        m_fit = est.decision_function(Xte)
+        m_load = loaded.decision_function(Xte)
+        m_q = quant.decision_function(Xte)
+        same_pred = bool(np.array_equal(est.predict(Xte),
+                                        loaded.predict(Xte)))
+        pred_counts = ops.launch_counts()
+        per_l1 = load_artifact(tmp / "int8").quant["bound_per_l1"]
+        row_l1 = np.bincount(Xte.rows, weights=np.abs(Xte.vals),
+                             minlength=Xte.shape[0])
+        q_over = float(np.max(np.abs(m_q - m_fit) - per_l1 * row_l1))
+        e_load = float(np.abs(m_load - m_fit).max())
+        check(same_pred and e_load <= 1e-6,
+              f"estimator: loaded predictions differ ({e_load})")
+        check(q_over <= 1e-5, f"estimator: int8 margins past their bound "
+                              f"by {q_over}")
+        check(pred_counts["predict_tile"] > 0 and sum(pred_counts.values())
+              == pred_counts["predict_tile"],
+              f"estimator: predict launches {pred_counts}")
+        ops.reset_launch_counts()
+        rec_path = tmp / "serve_glm.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = serve_glm.main(["--artifact", str(tmp / "fp32"),
+                                 "--requests", "2000",
+                                 "--json", str(rec_path)])
+        serve_counts = ops.launch_counts()
+        rec = json.loads(rec_path.read_text())
+    check(rc == 0 and all(rec.get(k) is not None
+                          for k in ("p50_ms", "p99_ms", "rows_per_s"))
+          and rec["n_requests"] == 2000
+          and rec["compiled_shapes"] <= rec["shape_bucket_bound"],
+          f"estimator: serve_glm rc {rc}, record {rec}")
+    check(serve_counts["predict_tile"] > 0 and sum(serve_counts.values())
+          == serve_counts["predict_tile"],
+          f"estimator: serve_glm launches {serve_counts}")
+    acc = float(np.mean(est.predict(Xte) == (ds.test.y > 0)))
+    out.update(fit_s=fit_s, supersteps=S, fit_launches=fit_counts,
+               save_s=save_s, artifact_bytes=sizes,
+               loaded_margin_err=e_load, int8_past_bound=q_over,
+               int8_bound_per_l1=per_l1, predict_launches=pred_counts,
+               test_accuracy=acc, serve_glm=rec,
+               serve_glm_launches=serve_counts)
+
+    # a registered family: the plain route on the card, counted apart
+    small = synthetic.make_dense(n=3000, p=300, k_true=20, seed=SEED + 1)
+    name = "squared_registered"
+    glm.register_family(glm.GLMFamily(name, glm.SQUARED.raw_stats,
+                                      glm.SQUARED.predict, 1.0))
+    registered = {}
+    try:
+        for coupling, cfg in (
+                ("gauss-seidel", DGLMNETConfig(tile_size=256)),
+                ("jacobi-fused", DGLMNETConfig(tile_size=256,
+                                               coupling="jacobi"))):
+            kw = dict(config=cfg, fit_intercept=True)
+            cpu = GLMSolver(small.train.X, small.train.y, family="squared",
+                            device="cpu", **kw)
+            lam = 0.05 * cpu.lambda_max()
+            rc_ = cpu.fit(lam1=lam, max_outer=8, tol=0.0)
+            card = GLMSolver(small.train.X, small.train.y, family=name,
+                             device=dev, **kw)
+            ops.reset_launch_counts()
+            rg = card.fit(lam1=lam, max_outer=8, tol=0.0)
+            counts = ops.launch_counts()
+            S = rg.n_iter
+            want = ({"glm_stats/plain": S, "alpha_search/plain": 2 * S,
+                     "cd_tile_solve": card.design.n_tiles * S}
+                    if coupling == "gauss-seidel" else
+                    {"stats_gram_solve/plain": S, "margin_ls/plain": S})
+            # tol 0 stops a fit where f repeats to the last bit, which
+            # sums in another order may reach a superstep apart: the f of
+            # the supersteps both ran are compared
+            k = min(rg.n_iter, rc_.n_iter)
+            f_err = float(np.max(np.abs(np.array(rg.history["f"][:k])
+                                        / np.array(rc_.history["f"][:k])
+                                        - 1)))
+            b_err = float(np.max(np.abs(rg.beta - rc_.beta)))
+            registered[coupling] = {"f_rel_err": f_err, "beta_abs_err": b_err,
+                                    "supersteps": S,
+                                    "supersteps_cpu": rc_.n_iter,
+                                    "launches": {k: v for k, v in
+                                                 counts.items() if v}}
+            check(counts == {k: want.get(k, 0) for k in counts},
+                  f"registered family {coupling}: launches {counts} != "
+                  f"{want}")
+            check(f_err <= 1e-4 and b_err <= 1e-3,
+                  f"registered family {coupling}: card vs CPU f {f_err} "
+                  f"beta {b_err}")
+    finally:
+        del glm.FAMILIES[name]
+    emit({"phase": "estimator", **out, "registered_family": registered,
+          "tolerance": {"loaded_margin_abs": 1e-6, "f_rel": 1e-4,
+                        "beta_abs": 1e-3}})
+    del est, loaded, quant
+    torch.cuda.empty_cache()
+    return fit_counts, pred_counts, serve_counts
 
 
 def main() -> None:
@@ -1786,10 +2197,16 @@ def main() -> None:
     del design, tb, rows, y, wobs, off, s0, w0, penf
     serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity,
                                floor_lib)
-    sparse_path_phase(np, torch, solver)
+    path = sparse_path_phase(np, torch, solver)
+    checkpoint_phase(np, torch, GLMSolver, solver, ds, dev, path)
     path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev)
-    del solver
+    lam1_sparse = LAM1_FRACTION * solver.lambda_max()
+    del solver, path
     torch.cuda.empty_cache()
+    multinomial_counts = multinomial_phase(np, torch, GLMSolver,
+                                           DGLMNETConfig, ds, dev)
+    estimator_counts = estimator_phase(np, torch, GLMSolver, DGLMNETConfig,
+                                       synthetic, ds, dev, lam1_sparse)
     # the fused Jacobi superstep on bricks, in fp32 and in bf16: K1, K3 (or
     # its bf16 mode) for every tile, K2 once for all of them (batched), a
     # float32 matvec and K4 over all 294 candidates; a profiled fit holds
@@ -1861,6 +2278,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense_cv_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev)
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
+    # the four built-in families never took a plain route on the card
+    built_in = {"sparse": sparse_counts, "serve": serve_counts,
+                "multinomial": multinomial_counts,
+                **{f"estimator_{i}": c
+                   for i, c in enumerate(estimator_counts)},
+                "sparse_jacobi": sparse_jacobi["fp32"][0],
+                "sparse_jacobi_bf16": sparse_jacobi["bf16"][0],
+                "dense": dense_counts, "dense_jacobi": jacobi_counts,
+                "dense_jacobi_bf16": bf16_counts}
+    plain = {tag: {k: v for k, v in c.items() if k.endswith("/plain") and v}
+             for tag, c in built_in.items()}
+    check(not any(plain.values()) and all(
+        f"{k}/plain" in c for c in built_in.values()
+        for k in ops.PLAIN_ROUTES),
+          f"built-in families took a plain route: {plain}")
+    emit({"phase": "plain_routes", "built_in_plain_calls": 0,
+          "runs_checked": sorted(built_in)})
 
     # ------------------------------------------------------------- report
     # the bf16 modes replace the bf16 branches of the TPU kernels' bodies;

@@ -2,10 +2,13 @@
 GLMs) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package imports nothing of
-it and never imports ``jax``.  Entry point: ``repro_torch.core.solver.
-GLMSolver``, which runs on the card unless the caller passes
-``device="cpu"``.
+it and never imports ``jax``.  Entry points: the estimators of
+``repro_torch.glm`` and the session ``repro_torch.core.solver.GLMSolver``
+beneath them, which run on the card unless the caller passes
+``device="cpu"``; ``python -m repro_torch.launch.serve_glm`` serves a saved
+model.
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
-__all__ = ["core", "data", "kernels", "serve", "convert", "device", "timing"]
+__all__ = ["core", "data", "kernels", "serve", "checkpoint", "glm", "launch",
+           "convert", "device", "timing"]

@@ -12,8 +12,10 @@ padding) and ``o_i`` a fixed margin offset.  ``GLMFamily.stats`` applies both
 and clips the poisson curvature at ``POISSON_W_CLIP``.
 
 Labels: logistic and probit take y in {-1, +1}; squared takes real y;
-poisson takes counts y >= 0 with the log link.  The multinomial family is
-not ported yet.
+poisson takes counts y >= 0 with the log link; multinomial takes integer
+class ids over (n, K) margins.  ``register_family`` adds a family by name.
+A family without a body in the kernels (multinomial, any registered one)
+runs the plain versions on every device (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -114,7 +116,53 @@ POISSON = GLMFamily("poisson", _poisson_stats, torch.exp, None,
                     w_clip=POISSON_W_CLIP,
                     saturated_loss=_poisson_saturated)
 
-FAMILIES = {f.name: f for f in (LOGISTIC, SQUARED, PROBIT, POISSON)}
+
+# ---------------------------------------------------------------------------
+# multinomial (softmax) over (n, K) margins; y holds class ids 0..K-1.
+#
+#   s = onehot(y) - softmax(M)     (n, K)  negative gradient per class
+#   w = p (1 - p)                  (n, K)  diagonal curvature, <= 1/4
+#
+# The class-cycling estimator (glm/estimators.py MultinomialGLM) fits class
+# k as a binary logistic problem at offset a_i = log sum_{j != k} exp(M_ij),
+# which has the same s_k and w_k, so the logistic superstep serves it; this
+# family is the K-column objective those fits are held to.
+# ---------------------------------------------------------------------------
+
+def _multinomial_stats(y, m):
+    k = m.shape[-1]
+    lse = torch.logsumexp(m, dim=-1)
+    p = torch.softmax(m, dim=-1)
+    onehot = torch.nn.functional.one_hot(y.long(), k).to(m.dtype)
+    loss = lse - torch.sum(onehot * m, dim=-1)
+    return loss, onehot - p, p * (1.0 - p)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultinomialFamily(GLMFamily):
+    """Softmax family over (n, K) margins: weights are (n,) while s and w
+    are (n, K), and offsets are (n, K) (per class) or (n,) (shared)."""
+
+    def stats(self, y, m, weights=None, offset=None):
+        if offset is not None:
+            if offset.dim() == m.dim() - 1:
+                offset = offset[..., None]
+            m = m + offset
+        loss, s, w = self.raw_stats(y, m)
+        if self.w_clip is not None:
+            w = torch.clamp(w, max=self.w_clip)
+        if weights is not None:
+            loss = loss * weights
+            s = s * weights[..., None]
+            w = w * weights[..., None]
+        return loss, s, w
+
+
+MULTINOMIAL = MultinomialFamily("multinomial", _multinomial_stats,
+                                lambda m: torch.softmax(m, dim=-1), 0.25)
+
+FAMILIES = {f.name: f
+            for f in (LOGISTIC, SQUARED, PROBIT, POISSON, MULTINOMIAL)}
 
 
 def get_family(name: str) -> GLMFamily:
@@ -123,6 +171,13 @@ def get_family(name: str) -> GLMFamily:
     except KeyError:
         raise ValueError(
             f"unknown GLM family {name!r}; have {sorted(FAMILIES)}") from None
+
+
+def register_family(family: GLMFamily) -> GLMFamily:
+    """Register a custom family so it resolves by name wherever a family
+    name travels (configs, artifacts, the kernels' routing)."""
+    FAMILIES[family.name] = family
+    return family
 
 
 def resolve_family(family) -> GLMFamily:
@@ -158,11 +213,14 @@ def soft_threshold(x, a):
 
 
 def margin_score(family, y, margins) -> float:
-    """Goodness of fit from raw margins: accuracy for the binary families
-    (y in {-1, +1}), R^2 for squared loss, mean negative loss otherwise."""
+    """Goodness of fit from raw margins: accuracy for multinomial (y class
+    ids, (n, K) margins) and the binary families (y in {-1, +1}), R^2 for
+    squared loss, mean negative loss otherwise."""
     fam = resolve_family(family)
     y = np.asarray(y, np.float32)
     m = np.asarray(margins, np.float32)
+    if fam.name == "multinomial":
+        return float((np.argmax(m, axis=-1) == y.astype(np.int64)).mean())
     if fam.name in ("logistic", "probit"):
         return float(((m > 0) == (y > 0)).mean())
     if fam.name == "squared":

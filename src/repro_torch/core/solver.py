@@ -32,6 +32,12 @@ fail the KKT test on the full gradient X^T s.  ``fit_cv`` runs such paths
 on fold-masked observation weights over the full-data grid and selects
 lambda by mean validation deviance.
 
+``fit(ckpt_manager=)`` saves (beta, X beta, mu) every ``ckpt_every``
+supersteps and ``fit_path(ckpt_manager=)`` the warm state and the results
+so far after every lambda (``repro_torch.checkpoint``, the JAX package's
+format); a later call with a manager that holds a checkpoint resumes from
+it, a brick layout only onto the same layout.
+
 ``coupling="jacobi"`` runs the fused Jacobi superstep (two fused launches,
 ``fuse_superstep=True``, the default) or its unfused form; the fused one
 takes ``precision="bf16"`` (bfloat16 Gram and margin inputs).  ``predict``
@@ -40,8 +46,7 @@ its fused gather-dot-link kernel; ``save`` writes a serving artifact (one
 column, or one per lambda of a ``PathResult``).
 
 Not ported yet (each raises NotImplementedError): a mesh, streaming and
-file inputs, and checkpoints (``fit``'s and ``fit_path``'s
-``ckpt_manager``).
+file inputs, and with them ``fit``'s ``ckpt_every_chunks``.
 """
 from __future__ import annotations
 
@@ -214,6 +219,12 @@ class GLMSolver:
         self._Xs, self._info = design_lib.as_design(
             X, T, row_block=row_block, reorder=reorder, info=design_info,
             device=self.device)
+        # what a checkpoint must match to resume here (the reference's
+        # keys; one device, so D = M = 1)
+        self._design_layout = None \
+            if isinstance(self._Xs, design_lib.DenseDesign) else {
+                "kind": "bricks", "D": 1, "M": 1, "tile": T,
+                "row_block": self._Xs.row_block, "reorder": bool(reorder)}
         n_rows, p_pad = self._Xs.shape
         self._n_tot, self._p_tot = n_rows, p_pad
         self._n_tiles = self._Xs.n_tiles
@@ -336,9 +347,44 @@ class GLMSolver:
                         device=dev)
         return FitState(beta=beta, xb=xb, mu=mu, cursor=0, step=0)
 
+    def _check_layout(self, md):
+        if md.get("design_layout") != self._design_layout:
+            raise ValueError(
+                f"checkpoint design layout {md.get('design_layout')} does "
+                f"not match this fit's {self._design_layout}; the brick "
+                "packing depends on the mesh/tiling, so blocked-sparse "
+                "checkpoints resume only onto the same "
+                "(D, M, tile, row_block) layout")
+
+    @staticmethod
+    def _adapt(a, width: int):
+        """A checkpointed vector (or stack of them) at this session's padded
+        ``width``: only a dense layout reaches here with another width (a
+        mesh pads it otherwise), and there real entries lead and padding
+        trails on both sides, so truncating or zero-extending is exact."""
+        if a.shape[-1] == width:
+            return a
+        out = a.new_zeros(a.shape[:-1] + (width,)) if torch.is_tensor(a) \
+            else np.zeros(a.shape[:-1] + (width,), np.float32)
+        m = min(a.shape[-1], width)
+        out[..., :m] = a[..., :m]
+        return out
+
+    def _restore_state(self, ckpt_manager, state: FitState, extra=None):
+        """(state with beta, X beta and mu from the latest checkpoint, the
+        restored tree); ``extra`` adds leaves to the template."""
+        like = {"beta": state.beta, "xb": state.xb, "mu": state.mu,
+                **(extra or {})}
+        saved, _ = ckpt_manager.restore(like)
+        state = state._replace(
+            beta=self._adapt(saved["beta"].float(), self._p_tot),
+            xb=self._adapt(saved["xb"].float(), self._n_tot),
+            mu=saved["mu"].float().reshape(()))
+        return state, saved
+
     def _run(self, state: FitState, lam1: float, lam2: float, *,
              weights=None, active=None, max_outer=None, tol=None,
-             verbose=False):
+             verbose=False, ckpt_manager=None, ckpt_every: int = 10):
         """Supersteps at fixed (lam1, lam2) until the objective plateaus.
 
         ``weights``: a (n_tot,) row-weight tensor on the device (None: the
@@ -347,7 +393,9 @@ class GLMSolver:
         stay frozen and tiles without an active coordinate are skipped.
         Returns (state, history, n_iter, converged); the history also
         records each superstep's host seconds (``step_s``), taken after the
-        one device-to-host read of its metrics.
+        one device-to-host read of its metrics.  ``ckpt_manager``: resume
+        from its latest checkpoint if it has one (the history then starts
+        at the resumed superstep), and save every ``ckpt_every``.
         """
         cfg = self.config
         max_outer = cfg.max_outer if max_outer is None else int(max_outer)
@@ -370,8 +418,20 @@ class GLMSolver:
             or (cfg.coupling == "jacobi" and cfg.fuse_superstep))
         history = {k: [] for k in _HISTORY_KEYS + ("step_s",)}
         f_prev, converged, it = np.inf, False, 0
+        start_it = 1
+        if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
+            md = ckpt_manager.read_metadata()
+            if "next_it" not in md:
+                raise ValueError(
+                    "checkpoint was written by fit_path (path state), not a "
+                    "single fit; resume it with fit_path(ckpt_manager=...)")
+            self._check_layout(md)
+            state, _ = self._restore_state(ckpt_manager, state)
+            state = state._replace(step=int(md["next_it"]) - 1)
+            f_prev = md.get("f_prev", np.inf)
+            start_it = int(md["next_it"])
         t_prev = time.perf_counter()
-        for it in range(1, max_outer + 1):
+        for it in range(start_it, max_outer + 1):
             state, m = self._superstep(
                 self._Xs, self._ys, weights, self._offsets, (lam1, lam2),
                 self._penf, state, active=active_dev,
@@ -396,26 +456,38 @@ class GLMSolver:
                 print(f"[repro_torch] it={it} f={f:.8f} "
                       f"alpha={mh['alpha']:.4f} mu={mh['mu']:.3f} "
                       f"nnz={int(mh['nnz'])}")
+            if ckpt_manager is not None and it % ckpt_every == 0:
+                ckpt_manager.save(it, {"beta": state.beta, "xb": state.xb,
+                                       "mu": state.mu},
+                                  metadata={"next_it": it + 1, "f_prev": f,
+                                            "design_layout":
+                                                self._design_layout})
             if np.isfinite(f_prev) and \
                     abs(f_prev - f) <= tol * max(1.0, abs(f)):
                 converged = True
                 break
             f_prev = f
+        if ckpt_manager is not None:
+            ckpt_manager.wait()
         return state, history, it, converged
 
     def fit(self, lam1: Optional[float] = None, lam2: Optional[float] = None,
             *, beta0=None, intercept0: float = 0.0, max_outer=None, tol=None,
-            verbose=False, ckpt_manager=None) -> FitResult:
+            verbose=False, ckpt_manager=None, ckpt_every: int = 10,
+            ckpt_every_chunks: Optional[int] = None) -> FitResult:
         """Fit one (lam1, lam2) point; defaults come from the config.
-        ``beta0`` (+ ``intercept0``) warm-starts from beta in feature order."""
-        if ckpt_manager is not None:
-            raise _not_ported("checkpointing")
+        ``beta0`` (+ ``intercept0``) warm-starts from beta in feature order.
+        ``ckpt_manager`` saves (beta, X beta, mu) every ``ckpt_every``
+        supersteps and resumes from its latest checkpoint, if any."""
+        if ckpt_every_chunks is not None:
+            raise _not_ported("streaming checkpoints (ckpt_every_chunks)")
         cfg = self.config
         lam1 = cfg.lam1 if lam1 is None else float(lam1)
         lam2 = cfg.lam2 if lam2 is None else float(lam2)
         state = self._init_state(beta0, intercept0)
         state, history, n_iter, converged = self._run(
-            state, lam1, lam2, max_outer=max_outer, tol=tol, verbose=verbose)
+            state, lam1, lam2, max_outer=max_outer, tol=tol, verbose=verbose,
+            ckpt_manager=ckpt_manager, ckpt_every=ckpt_every)
         self._state = state
         self.beta_, self.intercept_ = self._unpack_user(
             state.beta.cpu().numpy())
@@ -511,14 +583,16 @@ class GLMSolver:
 
     def _path_impl(self, lambdas: np.ndarray, lam2: float, *, weights=None,
                    eval_weights=None, screen=True, kkt_slack=1e-4,
-                   max_outer=None, tol=None, verbose=False):
+                   max_outer=None, tol=None, verbose=False,
+                   ckpt_manager=None):
         """Warm-started path over a fixed decreasing grid.
 
         ``weights``: row weights on the device (None: the session's), the
         CV fold mechanism.  ``eval_weights``: host row weights of a
         held-out set; when given, the mean validation deviance is recorded
-        per lambda.  Returns (betas_packed, f, nnz, n_iters, converged,
-        val_dev, state).
+        per lambda.  ``ckpt_manager``: resume mid-grid from its latest
+        checkpoint if it has one, and save after every lambda.  Returns
+        (betas_packed, f, nnz, n_iters, converged, val_dev, state).
         """
         cfg = self.config
         K = len(lambdas)
@@ -535,10 +609,36 @@ class GLMSolver:
         n_iters = np.zeros((K,), np.int64)
         converged = np.zeros((K,), bool)
         val_dev = np.full((K,), np.nan) if eval_weights is not None else None
+        start_k = 0
 
-        lam_prev = None
+        if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
+            md = ckpt_manager.read_metadata()
+            if "path" not in md:
+                raise ValueError(
+                    "checkpoint was written by a single fit, not fit_path; "
+                    "resume it with fit(ckpt_manager=...)")
+            self._check_layout(md)
+            pmd = md["path"]
+            start_k = int(pmd["next_k"])
+            saved_grid = np.asarray(pmd["lambdas"], np.float64)
+            # the completed prefix must be this grid's (a longer tail is
+            # the interrupted-mid-grid case)
+            if start_k > K or float(pmd["lam2"]) != lam2 or \
+                    not np.allclose(saved_grid[:start_k], lambdas[:start_k]):
+                raise ValueError(
+                    "path checkpoint was written for a different λ grid; "
+                    "pass the same lambdas/lam2 to resume")
+            state, saved = self._restore_state(
+                ckpt_manager, state, {"path_betas": betas_packed})
+            betas_packed[:start_k] = self._adapt(
+                saved["path_betas"], self._p_tot)[:start_k]
+            for name, arr in (("f", f), ("nnz", nnz),
+                              ("n_iters", n_iters), ("converged", converged)):
+                arr[:start_k] = np.asarray(pmd[name])[:start_k]
+
+        lam_prev = float(lambdas[start_k - 1]) if start_k else None
         g_warm = None           # the gradient at the warm iterate, if known
-        for k in range(K):
+        for k in range(start_k, K):
             lam1 = float(lambdas[k])
             # a fresh trust region per lambda; warm beta and margins carry
             state = state._replace(mu=torch.full_like(state.mu,
@@ -586,6 +686,22 @@ class GLMSolver:
             if verbose:
                 print(f"[path {k + 1}/{K}] lam1={lam1:.6g} f={f[k]:.8f} "
                       f"nnz={nnz[k]} iters={it_k}")
+            if ckpt_manager is not None:
+                ckpt_manager.save(
+                    k + 1,
+                    {"beta": state.beta, "xb": state.xb, "mu": state.mu,
+                     "path_betas": betas_packed},
+                    metadata={"design_layout": self._design_layout,
+                              "path": {"next_k": k + 1,
+                                       "lambdas": lambdas.tolist(),
+                                       "lam2": lam2,
+                                       "f": f[:k + 1].tolist(),
+                                       "nnz": nnz[:k + 1].tolist(),
+                                       "n_iters": n_iters[:k + 1].tolist(),
+                                       "converged":
+                                           converged[:k + 1].tolist()}})
+        if ckpt_manager is not None:
+            ckpt_manager.wait()
         return betas_packed, f, nnz, n_iters, converged, val_dev, state
 
     def _path_result(self, lambdas, lam2, betas_packed, f, nnz, n_iters,
@@ -613,14 +729,16 @@ class GLMSolver:
         X beta stay on the device); ``screen=True`` freezes the strong
         rule's cold coordinates and re-fits with any KKT violators
         unfrozen, so screening never changes the solution.
+        ``ckpt_manager`` saves the warm (beta, X beta, mu) and the results
+        so far after each lambda; a later call with the same grid resumes
+        after the last lambda saved.
         """
-        if ckpt_manager is not None:
-            raise _not_ported("path checkpointing")
         lam2 = self.config.lam2 if lam2 is None else float(lam2)
         lambdas = self._make_grid(lambdas, n_lambdas, lam_ratio)
         betas_packed, f, nnz, n_iters, converged, _, state = self._path_impl(
             lambdas, lam2, screen=screen, kkt_slack=kkt_slack,
-            max_outer=max_outer, tol=tol, verbose=verbose)
+            max_outer=max_outer, tol=tol, verbose=verbose,
+            ckpt_manager=ckpt_manager)
         self._state = state
         result = self._path_result(lambdas, lam2, betas_packed, f, nnz,
                                    n_iters, converged)

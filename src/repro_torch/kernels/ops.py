@@ -2,11 +2,17 @@
 
 A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
 runs the plain PyTorch version of ``kernels/ref.py``.  There is no backend
-switch and no fallback between the two.  Each CUDA kernel counts its
-launches (``launch_counts``), so a run can show that its main path went
-through the kernels.  The two entries of the tile chain (K2),
-``cd_tile_solve`` and ``jacobi_tile_solves``, take its constants as one
-tensor made by ``solve_params``, built once a sweep.
+switch and no fallback between the two.  A family whose name is outside a
+kernel's family set (``glm_stats.FAMILY_CODES``,
+``predict_tile.LINK_CODES``: a registered family, the multinomial one) has
+no body in that kernel and runs its plain version on either device, as the
+reference routes it to its jnp oracle; the name decides before any launch,
+and no launch error is ever caught.  Each CUDA kernel counts its launches
+(``launch_counts``), and the calls on the card that took the plain version
+for their family count apart (``"glm_stats/plain"``, ...), so a run can
+show that its main path went through the kernels.  The two entries of the
+tile chain (K2), ``cd_tile_solve`` and ``jacobi_tile_solves``, take its
+constants as one tensor made by ``solve_params``, built once a sweep.
 """
 from __future__ import annotations
 
@@ -39,14 +45,27 @@ KERNELS = {
 }
 
 
+# calls on the card that ran a kernel's plain version because the family
+# has no body in it, by kernel
+PLAIN_ROUTES = ("glm_stats", "alpha_search", "stats_gram_solve",
+                "margin_ls", "predict_tile")
+_plain_calls = dict.fromkeys(PLAIN_ROUTES, 0)
+
+
 def launch_counts() -> dict:
-    """Launches of each CUDA kernel since the last reset."""
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Launches of each CUDA kernel since the last reset, and under
+    ``"<kernel>/plain"`` the calls on the card that ran its plain version
+    for a family without a body in it."""
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    counts.update({f"{k}/plain": v for k, v in _plain_calls.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    for k in _plain_calls:
+        _plain_calls[k] = 0
 
 
 def _on_card(t) -> bool:
@@ -55,6 +74,18 @@ def _on_card(t) -> bool:
         return True
     if t.device.type != "cpu":
         raise ValueError(f"no kernel for tensors on {t.device}")
+    return False
+
+
+def _launches(t, kernel: str, family: str, codes) -> bool:
+    """True when the call launches ``kernel``: ``t`` lies on the card and
+    the family has a body there.  A family outside ``codes`` runs the
+    plain version on the card too, counted as ``"<kernel>/plain"``."""
+    if not _on_card(t):
+        return False
+    if family in codes:
+        return True
+    _plain_calls[kernel] += 1
     return False
 
 
@@ -106,7 +137,7 @@ def glm_stats(y, xb, family, *, weights=None, offset=None):
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
-    if not _on_card(y):
+    if not _launches(y, "glm_stats", fam.name, glm_stats_k.FAMILY_CODES):
         return ref.glm_stats(y, xb, weights, fam, offset=offset)
     return glm_stats_k.launch(y, xb, weights, fam.name, offset=offset)
 
@@ -116,7 +147,7 @@ def alpha_search(y, xb, xdb, alphas, family, *, weights=None, offset=None):
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
-    if not _on_card(y):
+    if not _launches(y, "alpha_search", fam.name, glm_stats_k.FAMILY_CODES):
         return ref.alpha_search(y, xb, xdb, weights, alphas, fam,
                                 offset=offset)
     return alpha_search_k.launch(y, xb, xdb, weights, alphas, fam.name,
@@ -160,13 +191,17 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
     place; a brick design on the card composes K1, then K3 and K2 for each
     live tile (the reference has no fused brick kernel either).
     ``precision="bf16"`` forms G and g from bfloat16 inputs (K5's and
-    K3's bf16 modes); the stats and the solves stay float32.
+    K3's bf16 modes); the stats and the solves stay float32.  A family
+    without a body in K5 takes the plain dense version on the card too;
+    on bricks only K1 depends on the family (``glm_stats`` routes it).
     """
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
     dense = hasattr(design, "tiles3")
-    if not _on_card(y):
+    on_card = _launches(y, "stats_gram_solve", fam.name,
+                        glm_stats_k.FAMILY_CODES) if dense else _on_card(y)
+    if not on_card:
         if dense:
             loss_i, s, w, G_all, g_all, dbeta = ref.stats_gram_solve(
                 design.tiles3(), y, xb, weights, beta, fam, mu=mu, nu=nu,
@@ -211,7 +246,7 @@ def fused_ls(design, y, xb, dbeta, alphas, family, *, weights=None,
     if weights is None:
         weights = torch.ones_like(y)
     if hasattr(design, "tiles3"):
-        if not _on_card(y):
+        if not _launches(y, "margin_ls", fam.name, glm_stats_k.FAMILY_CODES):
             return ref.fused_ls_dense(design.tiles3(), y, xb, dbeta, weights,
                                       alphas, fam, offset=offset,
                                       precision=precision)
@@ -228,15 +263,15 @@ def predict_tile(slots, vals, table, b0, family, *, kind="link"):
     table[slots[b, j], l] + b0[l]).
 
     slots (B, J) int32, vals (B, J) f32, table (A+1, L) f32 with an all-zero
-    last row (the padding target), b0 (L,).  A family without a link body
-    in the kernel raises on either device: there is no fall back.
+    last row (the padding target), b0 (L,).  A registered family without a
+    link body in the kernel (the multinomial one: a softmax over the L
+    columns) takes the plain version on either device; an unregistered
+    name raises.
     """
     fam = glm_lib.resolve_family(family)
     if kind not in ("link", "response"):
         raise ValueError(f"unknown kind {kind!r}; use 'link' or 'response'")
-    if fam.name not in predict_tile_k.LINK_CODES:
-        raise ValueError(
-            f"predict_tile has no link body for family {fam.name!r}")
-    if not _on_card(vals):
+    if not _launches(vals, "predict_tile", fam.name,
+                     predict_tile_k.LINK_CODES):
         return ref.predict_tile(slots, vals, table, b0, fam, kind=kind)
     return predict_tile_k.launch(slots, vals, table, b0, fam.name, kind)

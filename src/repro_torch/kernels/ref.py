@@ -98,6 +98,14 @@ def glm_stats(y, xb, weights, family, offset=None):
     return fam.stats(y, xb, weights=weights, offset=offset)
 
 
+def multinomial_stats(y, margins, weights=None, offset=None):
+    """The softmax family's statistics: margins (n, K), y integer class
+    ids; s and w come back (n, K), the loss (n,).  No kernel has a body
+    for it: the class-cycling estimator needs only the logistic one."""
+    fam = glm_lib.resolve_family("multinomial")
+    return fam.stats(y, margins, weights=weights, offset=offset)
+
+
 def alpha_search(y, xb, xdb, weights, alphas, family, offset=None):
     """losses[k] = sum_i weights_i * l(y_i, xb_i + o_i + alphas[k] * xdb_i)."""
     fam = glm_lib.resolve_family(family)

@@ -172,24 +172,43 @@ def save_artifact(path, *, betas, intercepts=None, family,
 
 
 def export(model, path, *, quantize=None, path_result=None) -> pathlib.Path:
-    """Export a fitted ``GLMSolver`` session (``beta_``, ``intercept_``,
-    ``config.family``, ``standardize``) as a one-column artifact, or with
-    ``path_result`` (a ``PathResult``) the whole lambda path, one column
-    per lambda with the grid in the manifest.  The estimator frontend
-    (``coef_``) is not ported yet and raises."""
-    if hasattr(model, "coef_"):
-        raise NotImplementedError(
-            "exporting a glm.estimators model is not ported to repro_torch "
-            "yet; export the GLMSolver session instead")
-    if not hasattr(model, "beta_"):
+    """Export a fitted ``GLMSolver`` session or ``glm.estimators`` model.
+
+    A session carries ``beta_``, ``intercept_`` and ``config.family``; an
+    estimator ``coef_``, ``intercept_`` and ``family`` (plus ``classes_``
+    for the binary families, kept in ``extra`` so a loaded classifier
+    predicts the original labels) and writes its ``lam1_`` / ``lam2`` /
+    ``penalty_factor`` provenance.  ``path_result`` (a ``PathResult``)
+    exports the whole lambda path, one column per lambda with the grid in
+    the manifest.
+    """
+    if hasattr(model, "coef_"):            # estimator frontend
+        family = glm_lib.resolve_family(model.family).name
+        beta, b0 = model.coef_, model.intercept_
+        lam1 = getattr(model, "lam1_", None)
+        pf = getattr(model, "penalty_factor", None)
+        lam2 = getattr(model, "lam2", None)
+        penalty = {"lam1": lam1, "lam2": lam2,
+                   "penalty_factor": None if pf is None
+                   else np.asarray(pf).tolist()}
+        lambdas = None if lam1 is None else [lam1]
+    elif hasattr(model, "beta_"):          # GLMSolver session
+        family = model.config.family
+        beta, b0 = model.beta_, model.intercept_
+        lam2 = float(model.config.lam2)
+        penalty = {"lam2": lam2}
+        lambdas = None
+    else:
         raise TypeError(
             f"cannot export {type(model).__name__}: expected a fitted "
-            "GLMSolver (beta_)")
-    if model.beta_ is None:
+            "GLMSolver (beta_) or estimator (coef_)")
+    if beta is None:
         raise ValueError("model is not fitted; nothing to export")
-    lam2 = float(model.config.lam2)
-    penalty = {"lam2": lam2}
-    lambdas = None
+
+    classes = getattr(model, "classes_", None)
+    extra = None if classes is None \
+        else {"classes": np.asarray(classes).tolist()}
+
     if path_result is not None:
         betas = path_result.betas
         intercepts = path_result.intercepts \
@@ -197,13 +216,13 @@ def export(model, path, *, quantize=None, path_result=None) -> pathlib.Path:
             else np.zeros((len(path_result.lambdas),), np.float32)
         lambdas, lam2 = path_result.lambdas, path_result.lam2
     else:
-        betas, intercepts = model.beta_, [float(model.intercept_)]
+        betas, intercepts = beta, [float(b0)]
     return save_artifact(path, betas=betas, intercepts=intercepts,
-                         family=model.config.family, lambdas=lambdas,
-                         lam2=lam2, penalty=penalty,
+                         family=family, lambdas=lambdas, lam2=lam2,
+                         penalty=penalty,
                          standardized=bool(getattr(model, "standardize",
                                                    False)),
-                         quantize=quantize)
+                         quantize=quantize, extra=extra)
 
 
 def load_artifact(path) -> ServableModel:

@@ -764,3 +764,38 @@ def test_screened_path_on_the_card_matches_the_cpu(cuda, sparse, coupling):
             assert cg["tile_gram"] == st["sweep_tile_launches"]
     elif not sparse:
         assert cg["stats_gram_solve"] == cg["margin_ls"] == st["supersteps"]
+
+
+@pytest.mark.parametrize("coupling", ["gauss-seidel", "jacobi"])
+def test_registered_family_takes_the_plain_route(cuda, coupling,
+                                                 monkeypatch):
+    """A family without a kernel body runs the plain versions on the card,
+    counted apart, and fits like its built-in twin; the built-in family
+    never takes that route."""
+    from repro_torch.core import glm as tglm
+    custom = tglm.GLMFamily("custom_squared", tglm.SQUARED.raw_stats,
+                            lambda m: m, 1.0)
+    monkeypatch.setitem(tglm.FAMILIES, custom.name, custom)
+    ds = synthetic.make_dense(n=2000, p=200, k_true=20, seed=3)
+    cfg = DGLMNETConfig(tile_size=128, coupling=coupling)
+    fits = {}
+    for fam in ("squared", custom.name):
+        s = GLMSolver(ds.train.X, ds.train.y, family=fam, config=cfg,
+                      device=cuda, fit_intercept=True)
+        ops.reset_launch_counts()
+        res = s.fit(lam1=5.0, max_outer=6, tol=0.0)
+        fits[fam] = (res, ops.launch_counts())
+    (rs, cs), (rc, cc) = fits["squared"], fits[custom.name]
+    assert sum(v for k, v in cs.items() if k.endswith("/plain")) == 0
+    steps = rc.n_iter
+    if coupling == "jacobi":
+        assert cs["stats_gram_solve"] == steps and cc["stats_gram_solve"] == 0
+        assert cc["stats_gram_solve/plain"] == cc["margin_ls/plain"] == steps
+    else:
+        assert cs["glm_stats"] == steps and cc["glm_stats"] == 0
+        assert cc["glm_stats/plain"] == steps
+        assert cc["alpha_search/plain"] == 2 * steps
+        assert cc["cd_tile_solve"] == cs["cd_tile_solve"] > 0
+    assert rc.n_iter == rs.n_iter
+    np.testing.assert_allclose(rc.history["f"], rs.history["f"], rtol=1e-4)
+    np.testing.assert_allclose(rc.beta, rs.beta, atol=1e-3)

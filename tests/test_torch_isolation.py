@@ -17,7 +17,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.data.design", "repro_torch.data.synthetic",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.timing", "repro_torch.kernels.stats_gram_solve",
-           "repro_torch.kernels.margin_ls", "repro_torch.kernels.predict_tile"]
+           "repro_torch.kernels.margin_ls", "repro_torch.kernels.predict_tile",
+           "repro_torch.checkpoint", "repro_torch.glm",
+           "repro_torch.launch.serve_glm"]
 
 
 def _port_files():

@@ -235,14 +235,18 @@ def test_path_warm_start_saves_iterations():
     assert path.n_iters.sum() < cold_iters
 
 
-def test_path_rejects_increasing_grid():
+def test_path_rejects_increasing_grid(tmp_path):
     ds = tsynth.make_dense(n=100, p=32, k_true=4, seed=10)
     s = TSolver(ds.train.X, ds.train.y, config=TConfig(tile_size=16),
                 device="cpu")
     with pytest.raises(ValueError, match="decreasing"):
         s.fit_path(lambdas=[0.1, 1.0, 10.0])
-    with pytest.raises(NotImplementedError):
-        s.fit_path(n_lambdas=3, ckpt_manager=object())
+    # the grid is checked before a checkpoint is read or written
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(tmp_path)
+    with pytest.raises(ValueError, match="decreasing"):
+        s.fit_path(lambdas=[0.1, 1.0, 10.0], ckpt_manager=mgr)
+    assert mgr.latest_step() is None
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])

@@ -4,8 +4,8 @@ the predict_tile kernel against JAX's, the micro-batcher's contracts, and
 ``GLMSolver.predict`` on SparseCOO rows through the engine.
 
 Tolerances: scores within 1e-5 (float32 sums in another order); int8
-margins within the manifest's bound (scale / 2) ||x||_1.  Estimator export
-and load are not ported yet (ROADMAP) and are left out.
+margins within the manifest's bound (scale / 2) ||x||_1.  The estimators'
+save and load are held against JAX's in ``tests/test_torch_estimators.py``.
 """
 import json
 
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import glm as jglm
 from repro.kernels import ref as jref
 from repro.serve import ScoringEngine as JEngine
 from repro.serve import load_artifact as jload
@@ -185,13 +186,26 @@ def test_int8_quantization_bounds(tmp_path):
 
 
 def test_export_takes_a_solver_only(tmp_path):
+    """A solver or an estimator (duck-typed, as in JAX: ``coef_``,
+    ``intercept_``, ``family``) exports; anything else raises."""
     class Estimator:
-        coef_ = np.ones(3, np.float32)
-        intercept_ = 0.0
+        coef_ = np.asarray([1.0, 0.0, -2.0], np.float32)
+        intercept_ = 0.5
         family = "logistic"
+        lam1_ = 0.25
+        lam2 = 0.1
+        classes_ = np.asarray([0, 1])
 
-    with pytest.raises(NotImplementedError, match="estimators"):
-        export(Estimator(), tmp_path / "e")
+    from repro.serve import export as jexport
+    export(Estimator(), tmp_path / "e")
+    jexport(Estimator(), tmp_path / "je")
+    got, want = jload(tmp_path / "e"), jload(tmp_path / "je")
+    np.testing.assert_array_equal(got.betas, want.betas)
+    np.testing.assert_array_equal(got.intercepts, want.intercepts)
+    assert (got.family, got.lam2, got.penalty, got.extra,
+            got.standardized) == (want.family, want.lam2, want.penalty,
+                                  want.extra, want.standardized)
+    np.testing.assert_array_equal(got.lambdas, want.lambdas)
     with pytest.raises(TypeError):
         export(object(), tmp_path / "o")
     X, y, _ = _problem("squared", n=40, p=8)
@@ -256,22 +270,51 @@ def test_predict_tile_plain_matches_jax_oracle(family, kind):
         torch.from_numpy(table), torch.from_numpy(b0), family, kind=kind))
 
 
-def test_predict_tile_unknown_family_raises():
-    """A family with no link body raises; the JAX package would fall back
-    to its oracle."""
+def test_predict_tile_unknown_family_raises(monkeypatch):
+    """The reference's contract (tests/test_serve.py
+    ``test_predict_tile_unknown_family_falls_back_to_oracle``): a family
+    with no link body in the kernel takes the plain version, and its
+    result is JAX's oracle's; an unregistered name raises.  The
+    multinomial engine scores as JAX's does (a softmax over the
+    outputs)."""
     slots = torch.tensor([[0, 1, 1]], dtype=torch.int32)
     vals = torch.ones((1, 3))
     table = torch.tensor([[2.0], [0.0]])
-    custom = tglm.GLMFamily("custom", tglm.SQUARED.raw_stats,
-                            lambda m: m, 1.0)
-    for fam in (custom, "no-such-family"):
-        with pytest.raises(ValueError):
-            ops.predict_tile(slots, vals, table, torch.zeros(1), fam)
-    with pytest.raises(ValueError):
-        ScoringEngine(artifact_lib.ServableModel(
-            betas=np.ones((1, 2), np.float32),
-            intercepts=np.zeros(1, np.float32), family="multinomial"),
-            device="cpu")
+    link = lambda m: 2.0 * m + 1.0
+    custom = tglm.GLMFamily("custom_serve", tglm.SQUARED.raw_stats, link,
+                            1.0)
+    monkeypatch.setitem(tglm.FAMILIES, custom.name, custom)   # undone after
+    assert tglm.register_family(custom) is custom
+    monkeypatch.setitem(jglm.FAMILIES, custom.name, jglm.GLMFamily(
+        custom.name, jglm.SQUARED.raw_stats, link, 1.0))
+    for kind in ("link", "response"):
+        want = jref.predict_tile(jnp.asarray(slots.numpy()),
+                                 jnp.asarray(vals.numpy()),
+                                 jnp.asarray(table.numpy()),
+                                 jnp.zeros((1, 1)), custom.name, kind=kind)
+        for fam in (custom, custom.name):
+            got = ops.predict_tile(slots, vals, table, torch.zeros(1), fam,
+                                   kind=kind)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        with pytest.raises(ValueError, match="unknown GLM family"):
+            ops.predict_tile(slots, vals, table, torch.zeros(1),
+                             "no-such-family", kind=kind)
+    betas, b0, rng = _model(K=3, p=20, seed=7)
+    model = artifact_lib.ServableModel(betas=betas, intercepts=b0,
+                                       family="multinomial")
+    reqs = [(rng.choice(20, 5, replace=False),
+             rng.normal(size=5).astype(np.float32)) for _ in range(6)]
+    X = rng.normal(size=(4, 20)).astype(np.float32)
+    eng, jeng = ScoringEngine(model, device="cpu"), JEngine(model)
+    for kind in ("link", "response"):
+        np.testing.assert_allclose(eng.score_sparse(reqs, kind=kind),
+                                   jeng.score_sparse(reqs, kind=kind),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(eng.score_dense(X, kind=kind),
+                                   jeng.score_dense(X, kind=kind),
+                                   rtol=1e-5, atol=1e-6)
+    probs = eng.score_sparse(reqs, kind="response")
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, rtol=1e-6)
 
 
 def test_active_set_compaction_equals_full_beta():

@@ -200,7 +200,7 @@ def test_no_card_no_silent_cpu(monkeypatch):
         TSolver(X, y, device="cuda")
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     X = np.random.default_rng(0).normal(size=(40, 6)).astype(np.float32)
     y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
     kw = dict(device="cpu", config=TConfig(tile_size=8))
@@ -208,12 +208,18 @@ def test_unported_options_raise():
         TSolver(X, y, **kw, mesh=object())
     s = TSolver(X, y, **kw)
     s.fit(lam1=0.1, max_outer=3)
-    for call in (lambda: s.fit(ckpt_manager=object()),
-                 lambda: s.fit_path(n_lambdas=3, ckpt_manager=object())):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        s.fit(lam1=0.1, ckpt_every_chunks=2)        # streaming checkpoints
     # ported since: the Jacobi coupling, its precision="bf16", predict
-    # on SparseCOO rows, standardize=True, fit_path and fit_cv
+    # on SparseCOO rows, standardize=True, fit_path and fit_cv, and the
+    # checkpoints of fit and fit_path
+    from repro_torch.checkpoint import CheckpointManager
+    s.fit(lam1=0.1, max_outer=3, ckpt_every=1,
+          ckpt_manager=CheckpointManager(tmp_path / "fit"))
+    assert CheckpointManager(tmp_path / "fit").latest_step() == 3
+    s.fit_path(n_lambdas=3, max_outer=3,
+               ckpt_manager=CheckpointManager(tmp_path / "path"))
+    assert CheckpointManager(tmp_path / "path").latest_step() == 3
     TSolver(X, y, device="cpu", config=TConfig(tile_size=8,
                                                coupling="jacobi"))
     sb = TSolver(X, y, device="cpu", config=TConfig(
