@@ -61,7 +61,27 @@ drives each path through the entry points a user calls and checks it:
     ``repro_torch.launch.serve_glm.main`` over the artifact; a family
     registered with the squared formulas fitted on the card only through
     the plain route (``"<kernel>/plain"``), against the squared fit on
-    the CPU.  No built-in family takes a plain route in any phase.
+    the CPU;
+  * stream (after dense_cv): the dense train split kept as a host array
+    and streamed by ``streaming_design`` in chunks of 8,192 rows (49, the
+    last 6,784; p_pad 2,048, 8 tiles): 5 Gauss-Seidel and 3 Jacobi
+    supersteps held against the in-memory fits of as many supersteps
+    (the same alpha at each, f within 1e-5 relative, beta within 1e-3),
+    K1 and K4 once a chunk and K2 once a swept tile (Jacobi: once a
+    superstep); every chunk and a superstep with prefetch off against on,
+    bit for bit, each superstep timed by part; the fit cut by its chunk
+    source mid-pass (chunk 25 of superstep 3, a chunk-cursor save every
+    16 chunks) and resumed in a fresh session; a screened 4-lambda path
+    with the KKT test held; the pinned copy rate, the idle share of one
+    profiled superstep, the checkpoint's bytes and save ms, K1, K2 and K4
+    at the chunk shapes;
+  * ingest: the sparse train split's first 65,536 rows written as libsvm
+    text, then ``repro_torch.launch.ingest_train.main`` in process
+    (hashed into 4,096 columns, chunks of 4,096 rows, 3 supersteps: f
+    never rising, K1 and K4 once a chunk) and its ``--smoke`` (file
+    against memory within 1e-5); write, scan and parse rates and one
+    profiled superstep.
+No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -1822,6 +1842,520 @@ def estimator_phase(np, torch, GLMSolver, DGLMNETConfig, synthetic, ds, dev,
     return fit_counts, pred_counts, serve_counts
 
 
+# stream: the dense train split as a host array streamed in chunks of
+# STREAM_ROWS rows (49 chunks, the last ragged) with tiles of STREAM_TILE;
+# the chunk-cursor checkpoint saves every STREAM_CKPT_CHUNKS chunks and the
+# fit is cut at chunk STREAM_CUT_CHUNK + 1 of superstep STREAM_CUT_STEP
+STREAM_ROWS, STREAM_TILE = 8192, 256
+STREAM_CKPT_CHUNKS, STREAM_CUT_STEP, STREAM_CUT_CHUNK = 16, 3, 24
+STREAM_PATH_LAMBDAS, STREAM_PATH_MAX_OUTER = 4, 8
+# ingest: the first INGEST_ROWS rows of the sparse train split as libsvm
+# text, fitted through the CLI (the whole split, 131,072 rows, ran past the
+# phase's 90 s in a trial: parsing is host Python)
+INGEST_ROWS = 65_536
+INGEST_ARGS = ["--hash-dim", "4096", "--chunk-rows", "4096", "--tile",
+               "256", "--steps", "3"]
+
+
+class _Cut(Exception):
+    """The chunk source's simulated crash."""
+
+
+class CutSource:
+    """A chunk source over a host array that raises when it is asked for
+    chunk ``chunk + 1`` in the first pass of superstep ``step`` (pass 2 s
+    - 1; it counts the passes by their chunk 0): a fit cut mid-pass, after
+    the chunk ``chunk`` was made."""
+
+    def __init__(self, X, rows: int, step: int, chunk: int):
+        self.X, self.rows, self.passes = X, rows, 0
+        self.cut_pass, self.cut_chunk = 2 * step - 1, chunk + 1
+
+    def __call__(self, i):
+        if i == 0:
+            self.passes += 1
+        if self.passes == self.cut_pass and i == self.cut_chunk:
+            raise _Cut(f"chunk {i} of pass {self.passes}")
+        return self.X[i * self.rows:(i + 1) * self.rows]
+
+
+def device_idle(torch, prof, wall_s: float) -> dict:
+    """The card's busy time in a profile as the union of its records'
+    intervals (the copy stream overlaps the compute stream, so their sum
+    would count that time twice), and the idle share of ``wall_s``."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep"))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_s = busy * 1e-6
+    return {"busy_s": busy_s, "wall_s": wall_s,
+            "idle_share": 1.0 - busy_s / wall_s, "device_records": len(spans)}
+
+
+def profiled_superstep(torch, solver, lam1) -> dict:
+    """One superstep of ``solver`` under torch.profiler (the host idles
+    PROFILE_EDGE_S at both edges of the window, outside the timed fit):
+    the card's busy time and idle share over the fit's host seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_EDGE_S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.fit(lam1=lam1, max_outer=1, tol=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_EDGE_S)
+    return device_idle(torch, prof, wall)
+
+
+def stream_phases(torch, solver, lam1, prefetch: bool):
+    """One streaming superstep from the solver's fitted state, the card
+    synchronized after each of its three parts: (host seconds of the
+    statistics pass, the sweep and the line-search pass, the new beta)."""
+    sd, fns = solver.design, solver._superstep
+    state = solver._state
+    p = sd.p_pad
+    sd.prefetch = prefetch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = (torch.zeros((p, p), device=sd.device),
+               torch.zeros(p, device=sd.device),
+               torch.zeros((), device=sd.device))
+        for _, Xc, yc, wc, oc in solver._iter_row_chunks():
+            acc = fns.stats_chunk(Xc, yc, wc, oc, state.beta, acc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prep = fns.prepare(acc, state.beta, state.mu, (lam1, 0.0),
+                           solver._penf, state.cursor)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses = torch.zeros(fns.n_candidates, device=sd.device)
+        for _, Xc, yc, wc, oc in solver._iter_row_chunks():
+            losses = fns.ls_chunk(Xc, yc, wc, oc, state.beta, prep["dbeta"],
+                                  losses)
+        new, _ = fns.finish(losses, prep, state, (lam1, 0.0), solver._penf)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        sd.prefetch = True
+    return ({"stats_s": t1 - t0, "sweep_s": t2 - t1, "line_search_s": t3 - t2,
+             "superstep_s": t3 - t0}, new.beta)
+
+
+def stream_kernel_report(np, torch, solver, floors, floor_lib, parity):
+    """K1 and K4 (over the 294 candidates of ``full_candidates``) at the
+    chunk shapes of the streaming passes (n = STREAM_ROWS and the ingest
+    phase's 4,096), against their plain versions, timed beside their
+    launch floor and bound as at the fit's shapes; K2 on a diagonal block
+    of the streaming solver's Gram (the Gauss-Seidel sweep's input)."""
+    from repro_torch.core import linesearch
+    from repro_torch.kernels import alpha_search as alpha_search_k
+    from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
+    from repro_torch.kernels import glm_stats as glm_stats_k
+    from repro_torch.kernels import ops, ref
+
+    dev = solver.device
+    rng = np.random.default_rng(SEED + 7)
+    cand = linesearch.full_candidates(1e-3, 13, 0.5, 20, device=dev)
+    K = int(cand.shape[0])
+    vec = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)
+    k1, k4 = [], []
+    for n in (STREAM_ROWS, 4096):
+        y = vec(rng.choice([-1.0, 1.0], n))
+        w, o = vec(rng.random(n)), vec(0.1 * rng.normal(size=n))
+        xb, xdb = vec(1.5 * rng.normal(size=n)), vec(rng.normal(size=n))
+        got = ops.glm_stats(y, xb, "logistic", weights=w, offset=o)
+        want = ref.glm_stats(y, xb, w, "logistic", offset=o)
+        e1 = max(errs(a, b)[1] for a, b in zip(got, want))
+        parity[f"glm_stats/n={n}/stream"] = e1
+        check(e1 <= 1e-5, f"glm_stats n={n}: error {e1}")
+        got = ops.alpha_search(y, xb, xdb, cand, "logistic", weights=w,
+                               offset=o)
+        e4 = errs(got, ref.alpha_search(y, xb, xdb, w, cand, "logistic",
+                                        offset=o))[1]
+        parity[f"alpha_search/n={n}/K={K}/stream"] = e4
+        check(e4 <= 1e-5, f"alpha_search n={n} K={K}: error {e4}")
+        ms = time_ms(torch, lambda: glm_stats_k.launch(
+            y, xb, w, "logistic", offset=o), 200)
+        floor = launch_floor(torch, floor_lib,
+                             [(glm_stats_k.grid(n), 1, glm_stats_k.THREADS)],
+                             200)
+        b_ms, b_by, _, _ = timed_bound(n * 4.0 * 7, n,
+                                       floors["logistic"]["stats_ns"])
+        k1.append(dict(n=n, ms=ms, plain_ms=time_ms(torch, lambda: ref.
+                                                    glm_stats(y, xb, w,
+                                                              "logistic",
+                                                              offset=o), 50),
+                       bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                       launch_floor_ms=floor, max_rel_err=e1))
+        ms = time_ms(torch, lambda: alpha_search_k.launch(
+            y, xb, xdb, w, cand, "logistic", offset=o), 200)
+        nb, threads = alpha_search_k.grid(n, K)
+        floor = launch_floor(torch, floor_lib, [(nb, 1, threads)], 200)
+        b_ms, b_by, _, _ = timed_bound(n * 4.0 * 5 + 8.0 * K, n * K,
+                                       floors["logistic"]["loss_ns"])
+        k4.append(dict(n=n, K=K, ms=ms, plain_ms=time_ms(
+            torch, lambda: ref.alpha_search(y, xb, xdb, w, cand, "logistic",
+                                            offset=o), 20),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            launch_floor_ms=floor, max_rel_err=e4))
+    # K2 on the Gram of the solver's last superstep state: its first tile
+    T = solver.config.tile_size
+    p = solver.design.p_pad
+    acc = (torch.zeros((p, p), device=dev), torch.zeros(p, device=dev),
+           torch.zeros((), device=dev))
+    beta = solver._state.beta
+    for i, Xc, yc, wc, oc in solver._iter_row_chunks():
+        acc = solver._superstep.stats_chunk(Xc, yc, wc, oc, beta, acc)
+        if i == 3:
+            break
+    G = acc[0][:T, :T].contiguous()
+    g = acc[1][:T].contiguous()
+    params = ops.solve_params(1.0, 1e-6, 0.05 * float(g.abs().max()), 0.0, g)
+    zeros = torch.zeros(T, device=dev)
+    got = ops.cd_tile_solve(G, g, torch.diagonal(G), beta[:T], zeros, params)
+    want = ref.cd_tile_solve(G, g, torch.diagonal(G), beta[:T], zeros,
+                             *params.unbind())
+    check(torch.equal(got, want), "cd_tile_solve on the stream Gram: not "
+          "bit-exact")
+    k2_ms = time_ms(torch, lambda: cd_tile_solve_k.launch(
+        G, g, torch.diagonal(G), beta[:T], zeros, params, None), 200)
+    return {"glm_stats": k1, "alpha_search": k4,
+            "cd_tile_solve": dict(T=T, ms=k2_ms, bound_ms=k2_bound(T)[0],
+                                  bit_exact=True)}
+
+
+def stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev, gs_ref,
+                 jacobi_ref, lmax, floors, floor_lib, parity, card):
+    """The out-of-core mode at full width: the dense train split stays a
+    host array and streams through ``streaming_design`` in chunks of
+    STREAM_ROWS rows.  Its Gauss-Seidel fit against the in-memory fit of
+    the same superstep count (``gs_ref`` = (lam1, result)), its Jacobi fit
+    against the unfused in-memory Jacobi fit (``jacobi_ref``): the same
+    alpha at every superstep, f within 1e-5 relative, beta within 1e-3;
+    K1 and K4 once a chunk, K2 once a swept tile or once a Jacobi
+    superstep.  Prefetch off against on: every chunk, and a superstep
+    from the same state, bit for bit; each timed by part.  A chunk-cursor
+    resume, a short screened path with the KKT test held, the copy rate,
+    the idle share of one profiled superstep and the kernels at the chunk
+    shapes."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.design import streaming_design
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    X, y = dd.train.X, dd.train.y
+    n, p_src = X.shape
+
+    def session(config=None, source=None):
+        sd, _ = streaming_design(X if source is None else source,
+                                 STREAM_TILE, chunk_rows=STREAM_ROWS,
+                                 n_rows=n, n_cols=p_src, device=dev)
+        return GLMSolver(sd, y, family="logistic", fit_intercept=True,
+                         device=dev, config=config)
+
+    def fit_counted(tag, s, lam1, steps, want_per_step, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = s.fit(lam1=lam1, max_outer=steps, tol=0.0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: res.n_iter * want_per_step.get(k, 0) for k in counts}
+        check(counts == want, f"{tag}: launches {counts} != {want}")
+        return res, counts, wall, torch.cuda.max_memory_allocated() / 1e9
+
+    def against(tag, res, ref):
+        f, fr = np.asarray(res.history["f"]), np.asarray(ref.history["f"])
+        f_err = float(np.max(np.abs(f / fr - 1))) if len(f) == len(fr) \
+            else np.inf
+        b_err = float(np.max(np.abs(res.beta - ref.beta)))
+        check(res.n_iter == ref.n_iter
+              and res.history["alpha"] == ref.history["alpha"]
+              and f_err <= 1e-5 and b_err <= 1e-3,
+              f"{tag}: against the in-memory fit: n_iter {res.n_iter} / "
+              f"{ref.n_iter}, alpha {res.history['alpha']} / "
+              f"{ref.history['alpha']}, f {f_err}, beta {b_err}")
+        return {"f_rel_err": f_err, "beta_abs_err": b_err,
+                "alpha": res.history["alpha"]}
+
+    t0 = time.perf_counter()
+    s = session()
+    setup_s = time.perf_counter() - t0
+    sd = s.design
+    nc, nt = sd.n_chunks, sd.n_tiles
+    last = sd.n_rows_data - (nc - 1) * STREAM_ROWS
+    check((nc, sd.p_pad, nt, last) == (49, 2048, 8, 6784),
+          f"stream: layout {(nc, sd.p_pad, nt, last)}")
+    lam1, gs_res = gs_ref
+    steps = gs_res.n_iter
+    res, gs_counts, gs_wall, peak = fit_counted(
+        "stream", s, lam1, steps,
+        {"glm_stats": nc, "alpha_search": nc, "cd_tile_solve": nt})
+    gs_vs = against("stream", res, gs_res)
+
+    # prefetch on against off: the chunks, then a superstep from the same
+    # state, timed by part (on, off, on)
+    same_chunks = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        sd.iter_chunks(prefetch=True), sd.iter_chunks(prefetch=False)))
+    check(same_chunks, "stream: double-buffered chunks differ from serial")
+    timing, betas = [], []
+    for prefetch in (True, False, True):
+        parts, beta = stream_phases(torch, s, lam1, prefetch)
+        timing.append(dict(prefetch=prefetch, **parts))
+        betas.append(beta)
+    check(all(torch.equal(b, betas[0]) for b in betas),
+          "stream: a superstep with prefetch off differs from on")
+    del betas
+    idle = profiled_superstep(torch, s, lam1)
+    kernels = stream_kernel_report(np, torch, s, floors, floor_lib, parity)
+
+    # the host-to-device copy of one chunk from pinned memory, and the
+    # bytes a superstep copies (two passes); the chunk Gram's float32 work
+    pinned = torch.zeros((STREAM_ROWS, sd.p_pad), pin_memory=True)
+    dst = torch.empty((STREAM_ROWS, sd.p_pad), device=dev)
+    copy_ms = time_ms(torch, lambda: dst.copy_(pinned, non_blocking=True),
+                      20)
+    chunk_bytes = STREAM_ROWS * sd.p_pad * 4
+    # the host's part of a chunk: its rows written into a pinned buffer
+    t0 = time.perf_counter()
+    for i in range(8):
+        sd._fill(pinned, i)
+    fill_ms = (time.perf_counter() - t0) / 8 * 1e3
+    del pinned, dst
+    bytes_step = 2 * nc * chunk_bytes
+    gram_flops = nc * 2.0 * STREAM_ROWS * sd.p_pad ** 2
+
+    # the Jacobi fit against the unfused in-memory one
+    lam1_j, j_res = jacobi_ref
+    sj = session(DGLMNETConfig(coupling="jacobi"))
+    jres, j_counts, j_wall, _ = fit_counted(
+        "stream_jacobi", sj, lam1_j, j_res.n_iter,
+        {"glm_stats": nc, "alpha_search": nc, "cd_tile_solve": 1})
+    j_vs = against("stream_jacobi", jres, j_res)
+    del sj
+
+    # chunk-cursor resume: two fits run through, then one cut mid-pass
+    # (saves every STREAM_CKPT_CHUNKS chunks) and resumed in a fresh session
+    ck_steps = STREAM_CUT_STEP + 1
+    through = [session().fit(lam1=lam1, max_outer=ck_steps, tol=0.0)
+               for _ in range(2)]
+    same_bits = np.array_equal(through[0].beta, through[1].beta) and \
+        through[0].history["f"] == through[1].history["f"]
+    with tempfile.TemporaryDirectory(prefix="stream-ckpt-") as td:
+        mgr = CheckpointManager(td)
+        save_ms = []
+        orig = mgr.save
+
+        def timed_save(step, tree, **kw):
+            t = time.perf_counter()
+            orig(step, tree, **kw)
+            save_ms.append((time.perf_counter() - t) * 1e3)
+
+        mgr.save = timed_save
+        cut = session(source=CutSource(X, STREAM_ROWS, STREAM_CUT_STEP,
+                                       STREAM_CUT_CHUNK))
+        try:
+            cut.fit(lam1=lam1, max_outer=ck_steps, tol=0.0, ckpt_manager=mgr,
+                    ckpt_every_chunks=STREAM_CKPT_CHUNKS)
+            fail("stream: the cut fit ran through")
+        except _Cut:
+            pass
+        del cut
+        md = mgr.read_metadata()
+        saved = STREAM_CUT_CHUNK // STREAM_CKPT_CHUNKS * STREAM_CKPT_CHUNKS
+        check(md.get("stream_chunk") == saved
+              and md.get("next_it") == STREAM_CUT_STEP,
+              f"stream: the last save before the cut is {md}")
+        ck_dir = pathlib.Path(td) / f"ckpt_{mgr.latest_step()}"
+        ck_bytes = sum(f.stat().st_size for f in ck_dir.iterdir())
+        p = sd.p_pad
+        like = {"beta": torch.zeros(p, device=dev),
+                "mu": torch.zeros((), device=dev),
+                "G": torch.zeros((p, p), device=dev),
+                "g0": torch.zeros(p, device=dev),
+                "L": torch.zeros((), device=dev)}
+        restore_ms = host_ms(torch, lambda: CheckpointManager(td).restore(
+            like), 1)
+        del like
+        resumed = session().fit(lam1=lam1, max_outer=ck_steps, tol=0.0,
+                                ckpt_manager=CheckpointManager(td),
+                                ckpt_every_chunks=STREAM_CKPT_CHUNKS)
+    want = through[0]
+    k = STREAM_CUT_STEP - 1
+    gap = float(np.max(np.abs(resumed.beta - want.beta)))
+    if same_bits:
+        check(np.array_equal(resumed.beta, want.beta)
+              and resumed.history["f"] == want.history["f"][k:]
+              and resumed.history["alpha"] == want.history["alpha"][k:],
+              f"stream resume: not the fit run through (beta gap {gap})")
+    else:
+        check(gap <= 1e-6 and resumed.history["alpha"]
+              == want.history["alpha"][k:],
+              f"stream resume: beta gap {gap}")
+    del through, resumed
+
+    # a short screened path below the in-memory lambda_max: gradient
+    # checks by chunk pass, the KKT test held after each lambda
+    sp = session()
+    lambdas = lmax * np.geomspace(0.5, LAM1_FRACTION * 2,
+                                  STREAM_PATH_LAMBDAS)
+    events = path_probe(torch, sp)
+    sp.launch_stats.update(dict.fromkeys(sp.launch_stats, 0))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = sp.fit_path(lambdas, max_outer=STREAM_PATH_MAX_OUTER,
+                       tol=PATH_TOL)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts, st = ops.launch_counts(), dict(sp.launch_stats)
+    release(sp)
+    n_grad = sum("grad" in ev for ev in events)
+    kkt = kkt_rounds(np, events, sp._penf_host, STREAM_TILE)
+    bad = {lam: v for lam, v in kkt.items() if v[2]}
+    check(np.isfinite(path.f).all() and len(kkt) == len(lambdas)
+          and not bad, f"stream path: f {path.f}, KKT violated at {bad}")
+    want_p = {"glm_stats": nc * (st["supersteps"] + n_grad),
+              "alpha_search": nc * st["supersteps"],
+              "cd_tile_solve": st["sweep_tile_launches"]}
+    check(counts == {k: want_p.get(k, 0) for k in counts},
+          f"stream path: launches {counts} != {want_p}")
+    del sp
+
+    emit({"phase": "stream", "card": card,
+          "phase_s": time.perf_counter() - t_phase,
+          "train_shape": [n, p_src], "chunk_rows": STREAM_ROWS,
+          "n_chunks": nc, "last_chunk_rows": last, "p_pad": sd.p_pad,
+          "n_tiles": nt, "session_setup_s": setup_s,
+          "gauss_seidel": dict(gs_vs, supersteps=steps, fit_s=gs_wall,
+                               superstep_s=res.history["step_s"],
+                               launches=gs_counts, peak_mem_gb=peak),
+          "jacobi": dict(j_vs, supersteps=jres.n_iter, fit_s=j_wall,
+                         superstep_s=jres.history["step_s"],
+                         launches=j_counts),
+          "prefetch_same_bits": True, "superstep_parts": timing,
+          "bytes_copied_per_superstep": bytes_step,
+          "chunk_copy_ms": copy_ms, "host_fill_ms_per_chunk": fill_ms,
+          "host_fill_s_per_superstep": 2 * nc * fill_ms / 1e3,
+          "host_threads": torch.get_num_threads(),
+          "pinned_copy_gb_per_s": chunk_bytes / copy_ms / 1e6,
+          "copy_bound_s_per_superstep": bytes_step / chunk_bytes * copy_ms
+          / 1e3,
+          "gram_flops_per_superstep": gram_flops,
+          "gram_fp32_bound_s": gram_flops / H100_FP32_FLOPS,
+          "profiled_superstep": idle,
+          "checkpoint": {"two_runs_same_bits": same_bits,
+                         "stream_chunk": md["stream_chunk"],
+                         "next_it": md["next_it"], "bytes": ck_bytes,
+                         "save_ms": save_ms, "restore_ms": restore_ms,
+                         "resumed_beta_gap": gap},
+          "path": {"lambdas": lambdas.tolist(), "f": path.f.tolist(),
+                   "nnz": path.nnz.tolist(),
+                   "n_iters": path.n_iters.tolist(), "wall_s": path_s,
+                   "n_grad": n_grad, "stats": st, "launches": counts,
+                   "kkt_rounds": {str(lam): v[0] for lam, v in kkt.items()}},
+          "kernels_at_chunk_shapes": kernels})
+    return {"counts": gs_counts, "jacobi_counts": j_counts,
+            "kernels": kernels}
+
+
+def ingest_phase(np, torch, coo, y, dev, card):
+    """The file path at the sparse fit's width: the first INGEST_ROWS rows
+    of its train split written once as plain libsvm text, then
+    ``repro_torch.launch.ingest_train.main`` in process (hashed into 4,096
+    columns, chunks of 4,096 rows, 3 supersteps on the card), then its
+    ``--smoke``.  Parsing is host Python: this phase measures the host."""
+    from repro_torch import io as io_lib
+    from repro_torch.core.solver import GLMSolver
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ingest_train
+
+    t_phase = time.perf_counter()
+    n = min(INGEST_ROWS, coo.shape[0])
+    coo, y = coo.take_rows(np.arange(n)), y[:n]
+    with tempfile.TemporaryDirectory(prefix="ingest-") as td:
+        path = pathlib.Path(td) / "train.libsvm"
+        t0 = time.perf_counter()
+        io_lib.write_libsvm(path, coo, y)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reader = io_lib.LibsvmReader(path, chunk_rows=4096)
+        scan_s = time.perf_counter() - t0
+        probe = min(8, reader.n_chunks)    # chunks parsed and hashed alone
+        t0 = time.perf_counter()
+        for i in range(probe):
+            reader.chunk(i)
+        parse_s = time.perf_counter() - t0
+        hasher = io_lib.FeatureHasher(4096, tile_size=256)
+        fn = reader.hashed_chunk_fn(hasher)
+        t0 = time.perf_counter()
+        for i in range(probe):
+            fn(i)
+        hashed_s = time.perf_counter() - t0
+        probe_rows = min(probe * 4096, n)
+        rec_path = pathlib.Path(td) / "record.json"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = ingest_train.main(["--data", str(path), *INGEST_ARGS,
+                                "--json", str(rec_path)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(rc == 0, f"ingest: ingest_train exited {rc}")
+        rec = json.loads(rec_path.read_text())
+        f = np.asarray(rec["f_history"])
+        check(np.isfinite(f).all() and bool(np.all(np.diff(f) <= 1e-6
+                                                   * np.abs(f[:-1]))),
+              f"ingest: f {f.tolist()}")
+        nc = rec["chunks"]
+        tiles = -(-(rec["design_cols"] + 1) // 256)     # the intercept too
+        want = {"glm_stats": nc * rec["n_iter"],
+                "alpha_search": nc * rec["n_iter"],
+                "cd_tile_solve": rec["n_iter"] * tiles}
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"ingest: launches {counts} != {want}")
+        # one superstep of the same design, profiled
+        design, labels, _ = io_lib.open_design(
+            str(path), tile_size=256, chunk_rows=4096, hasher=hasher,
+            prefetch_chunks=2, device=dev)
+        s = GLMSolver(design, labels, family="logistic", fit_intercept=True,
+                      device=dev)
+        idle = profiled_superstep(torch, s, 0.01)
+        del s, design
+        smoke_path = pathlib.Path(td) / "smoke.json"
+        rc = ingest_train.main(["--smoke", "--json", str(smoke_path)])
+        smoke = json.loads(smoke_path.read_text())
+        check(rc == 0 and smoke["beta_max_err"] <= 1e-5
+              and smoke["device"].startswith("cuda"),
+              f"ingest --smoke: rc {rc}, record {smoke}")
+        file_bytes = path.stat().st_size
+    emit({"phase": "ingest", "card": card,
+          "phase_s": time.perf_counter() - t_phase, "rows": n,
+          "features": coo.shape[1], "nnz": int(coo.nnz),
+          "file_bytes": file_bytes, "write_s": write_s,
+          "write_rows_per_s": n / write_s, "scan_s": scan_s,
+          "scan_rows_per_s": n / scan_s,
+          "parse_rows_per_s": probe_rows / parse_s,
+          "parse_and_hash_rows_per_s": probe_rows / hashed_s,
+          "cli_s": cli_s, "record": rec, "launches": counts,
+          "profiled_superstep": idle, "smoke": smoke})
+    return counts
+
+
 def main() -> None:
     if not (REPO / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py; run it from "
@@ -2226,6 +2760,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     emit(bf16_tracks_fp32(np, "sparse_jacobi_bf16", sparse_jacobi["fp32"][1],
                           sparse_jacobi["bf16"][1]))
+    ingest_data = (ds.train.X, ds.train.y)      # the ingest phase's rows
     del ds
 
     t0 = time.perf_counter()
@@ -2240,9 +2775,10 @@ def main() -> None:
           "n_tiles": dnt,
           "design_gb": dsolver.design.data.numel() * 4 / 1e9,
           "generate_s": gen_s, "place_s": time.perf_counter() - t0})
-    dense_counts, _ = run_fit("dense", dsolver, dd.test.X, dd.test.y,
-                              {"glm_stats": 1, "cd_tile_solve": dnt,
-                               "alpha_search": 2})
+    dense_counts, dense_res = run_fit("dense", dsolver, dd.test.X, dd.test.y,
+                                      {"glm_stats": 1, "cd_tile_solve": dnt,
+                                       "alpha_search": 2})
+    lmax_dense = dsolver.lambda_max()
     del dsolver
     torch.cuda.empty_cache()
 
@@ -2274,9 +2810,24 @@ def main() -> None:
                                              fuse_superstep=False))
     run_fit("dense_jacobi_unfused", usolver, dd.test.X, dd.test.y,
             {"glm_stats": 1, "cd_tile_solve": 1, "alpha_search": 2})
+    # the streaming Jacobi fit's reference: 3 unfused supersteps
+    lam1_unfused = LAM1_FRACTION * usolver.lambda_max()
+    unfused_res = usolver.fit(lam1=lam1_unfused, max_outer=3, tol=0.0)
     del usolver
     torch.cuda.empty_cache()
     dense_cv_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev)
+    torch.cuda.empty_cache()
+    stream = stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev,
+                          (LAM1_FRACTION * lmax_dense, dense_res),
+                          (lam1_unfused, unfused_res), lmax_dense, floors,
+                          floor_lib, parity, card)
+    del dd, dense_res, unfused_res
+    torch.cuda.empty_cache()
+    ingest_counts = ingest_phase(np, torch, *ingest_data, dev, card)
+    del ingest_data
+    for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
+        report[name]["chunk_shapes"] = stream["kernels"][name]
+        report[name]["launches_stream"] = stream["counts"][name]
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
     # the four built-in families never took a plain route on the card
     built_in = {"sparse": sparse_counts, "serve": serve_counts,
@@ -2286,7 +2837,9 @@ def main() -> None:
                 "sparse_jacobi": sparse_jacobi["fp32"][0],
                 "sparse_jacobi_bf16": sparse_jacobi["bf16"][0],
                 "dense": dense_counts, "dense_jacobi": jacobi_counts,
-                "dense_jacobi_bf16": bf16_counts}
+                "dense_jacobi_bf16": bf16_counts, "stream": stream["counts"],
+                "stream_jacobi": stream["jacobi_counts"],
+                "ingest": ingest_counts}
     plain = {tag: {k: v for k, v in c.items() if k.endswith("/plain") and v}
              for tag, c in built_in.items()}
     check(not any(plain.values()) and all(
@@ -2353,7 +2906,8 @@ def main() -> None:
                                    "loss_floor_ms", "stats_floor_ms",
                                    "at_half_of_bound", "threads", "n", "K",
                                    "asymmetry_vs_plain", "G_asymmetry",
-                                   "fault_controls")
+                                   "fault_controls", "launches_stream",
+                                   "chunk_shapes")
                if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -16,6 +16,14 @@ Mirrors ``repro.core.cd``:
 
 The tile loops are Python loops: the budget and the screening mask are
 known on the host, so a dead tile is skipped without asking the card.
+
+The Gram-mode sweeps (``GRAM_SWEEPS``) serve out-of-core designs, where
+one pass over the row chunks gives the full weighted Gram G_w = X^T W X and
+the gradient g0 = X^T s.  They are the row-space sweeps rewritten: at tile
+t the residual gradient X_t^T (s - mu W X dbeta) is g0_t - mu (G_w
+dbeta)_t, so they keep u = G_w dbeta (a (p, T) product a tile) instead of
+the (n,) margin delta, and return it for the line search's quadratic
+dbeta^T G_w dbeta = dbeta^T u.  Both start from dbeta = 0.
 """
 from __future__ import annotations
 
@@ -95,3 +103,60 @@ def sweep_jacobi(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1, lam2,
 
 
 SWEEPS = {"gauss-seidel": sweep_gauss_seidel, "jacobi": sweep_jacobi}
+
+
+def sweep_gauss_seidel_gram(G_full, g0, beta, *, mu, nu, lam1, lam2,
+                            tile_size: int, start_tile: int = 0,
+                            num_tiles=None, active=None, tile_active=None,
+                            penf=None):
+    """Cyclic tile sweep from the full Gram; returns (dbeta, u, tiles_done)
+    with u = G_full dbeta.  One K2 launch a swept tile; ``active``,
+    ``tile_active`` and ``penf`` as in ``sweep_gauss_seidel``."""
+    T = tile_size
+    nt = g0.shape[0] // T
+    tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
+    dbeta = torch.zeros_like(beta)
+    u = torch.zeros_like(beta)
+    params = ops.solve_params(mu, nu, lam1, lam2, g0)
+    for t in range(tiles_done):
+        tid = (start_tile + t) % nt
+        if tile_active is not None and not tile_active[tid]:
+            continue
+        sl = slice(tid * T, (tid + 1) * T)
+        G = G_full[sl, sl].contiguous()
+        dt = dbeta[sl]
+        g = g0[sl] - mu * u[sl]
+        dt_new = ops.cd_tile_solve(G, g, torch.diagonal(G), beta[sl], dt,
+                                   params, penf=None if penf is None
+                                   else penf[sl])
+        if active is not None:
+            dt_new = torch.where(active[sl] > 0, dt_new, dt)
+        u += G_full[:, sl] @ (dt_new - dt)
+        dbeta[sl] = dt_new
+    return dbeta, u, tiles_done
+
+
+def sweep_jacobi_gram(G_full, g0, beta, *, mu, nu, lam1, lam2,
+                      tile_size: int, start_tile: int = 0, num_tiles=None,
+                      active=None, tile_active=None, penf=None):
+    """Jacobi across tiles from the full Gram: every live tile's chain from
+    a zero step on its diagonal block, in one batched K2 launch; returns
+    (dbeta, u, tiles_done)."""
+    T = tile_size
+    nt = g0.shape[0] // T
+    tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
+    live = alb_live_mask(nt, start_tile, tiles_done)
+    if tile_active is not None:
+        live = live & np.asarray(tile_active, bool)
+    tids = torch.arange(nt, device=g0.device)
+    G_all = G_full.view(nt, T, nt, T)[tids, :, tids, :]     # diagonal blocks
+    d = ops.jacobi_tile_solves(G_all, g0.view(nt, T), beta,
+                               ops.solve_params(mu, nu, lam1, lam2, g0),
+                               penf=penf, tile_live=live)
+    if active is not None:
+        d = torch.where(active > 0, d, torch.zeros_like(d))
+    return d, G_full @ d, tiles_done
+
+
+GRAM_SWEEPS = {"gauss-seidel": sweep_gauss_seidel_gram,
+               "jacobi": sweep_jacobi_gram}

@@ -24,6 +24,11 @@ bf16 modes of stats_gram_solve, margin_ls and, on bricks, tile_gram).
 
 The superstep queues its work on the device and returns tensors; the
 caller reads the metrics once per superstep.
+
+``make_streaming_superstep`` cuts the same iteration at the chunk boundary
+for out-of-core designs (``StreamingDesign``): a pass over the chunks sums
+the statistics (G_w = X^T W X, g0 = X^T s, the loss), the Gram-mode sweep
+runs from them, and a second pass sums every line-search candidate's loss.
 """
 from __future__ import annotations
 
@@ -206,3 +211,109 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
     if config.coupling == "jacobi" and config.fuse_superstep:
         return superstep_fused
     return superstep
+
+
+# ---------------------------------------------------------------------------
+# streaming superstep (out-of-core row chunks)
+# ---------------------------------------------------------------------------
+
+
+class StreamingSuperstep(NamedTuple):
+    """The pieces of one out-of-core superstep (mirrors the reference's):
+
+      pass 1   ``stats_chunk`` a chunk: K1 on the chunk's margins X_c beta
+               (never kept), then G_w += X_c^T W_c X_c, g0 += X_c^T s_c and
+               L += sum loss_c;
+      sweep    ``prepare``: the Gram-mode sweep (``cd.GRAM_SWEEPS``) and the
+               line search's scalars;
+      pass 2   ``ls_chunk`` a chunk: the chunk's two margins, then K4 over
+               every candidate of ``full_candidates`` (the unit step, the
+               grid and each one's backtracking chain), summed;
+      finish   ``finish``: Algorithm 3 over the summed losses
+               (``select_precomputed``), the step, mu and the cursor, and
+               the in-memory superstep's metrics.
+    """
+    stats_chunk: object
+    prepare: object
+    ls_chunk: object
+    finish: object
+    n_candidates: int
+
+
+def make_streaming_superstep(config: DGLMNETConfig, *, n_tiles: int,
+                             device=None) -> StreamingSuperstep:
+    """The streaming superstep's pieces for ``n_tiles`` tiles on ``device``
+    (None: the CUDA card).  Their work is queued on the device; nothing
+    waits for it."""
+    if config.coupling not in cd_lib.GRAM_SWEEPS:
+        raise ValueError(f"unknown coupling {config.coupling!r}; have "
+                         f"{sorted(cd_lib.GRAM_SWEEPS)}")
+    fam = config.family
+    T = config.tile_size
+    sweep = cd_lib.GRAM_SWEEPS[config.coupling]
+    cand = linesearch.full_candidates(config.ls_delta, config.ls_grid_size,
+                                      config.backtrack_b,
+                                      config.max_backtracks, device)
+
+    def stats_chunk(Xc, yc, wc, oc, beta, acc):
+        """acc = (G, g0, L), summed into in place and returned."""
+        G, g0, L = acc
+        loss_i, s, w = ops.glm_stats(yc, Xc @ beta, fam, weights=wc,
+                                     offset=oc)
+        G.addmm_((Xc * w[:, None]).T, Xc)
+        g0 += Xc.T @ s
+        L += torch.sum(loss_i)
+        return acc
+
+    def prepare(acc, beta, mu, lams, penf, cursor, *, active=None,
+                tile_active=None):
+        G, g0, L = acc
+        lam1, lam2 = float(lams[0]), float(lams[1])
+        R0 = linesearch.penalty_terms(beta, torch.zeros_like(beta),
+                                      torch.zeros_like(cand[:1]), lam1, lam2,
+                                      penf)[0]
+        dbeta, u, tiles_done = sweep(
+            G, g0, beta, mu=mu, nu=config.nu, lam1=lam1, lam2=lam2,
+            tile_size=T, start_tile=cursor, active=active,
+            tile_active=tile_active, penf=penf)
+        return {"dbeta": dbeta, "loss": L, "f_cur": L + R0,
+                "grad_dot_dir": -torch.dot(g0, dbeta),
+                "quad_form": mu * torch.dot(dbeta, u)
+                + config.nu * torch.dot(dbeta, dbeta),
+                "tiles_done": tiles_done}
+
+    def ls_chunk(Xc, yc, wc, oc, beta, dbeta, losses):
+        """losses (K,) summed into in place and returned."""
+        losses += ops.alpha_search(yc, Xc @ beta, Xc @ dbeta, cand, fam,
+                                   weights=wc, offset=oc)
+        return losses
+
+    def finish(losses, prep, state: FitState, lams, penf):
+        beta, xb, mu, cursor, step = state
+        lam1, lam2 = float(lams[0]), float(lams[1])
+        dbeta = prep["dbeta"]
+        ls = linesearch.select_precomputed(
+            losses, cand, beta, dbeta, lam1, lam2, f_current=prep["f_cur"],
+            grad_dot_dir=prep["grad_dot_dir"], quad_form=prep["quad_form"],
+            sigma=config.sigma, gamma=config.gamma,
+            grid_size=config.ls_grid_size,
+            max_backtracks=config.max_backtracks, penf=penf)
+        beta_new = beta + ls.alpha * dbeta
+        if config.adaptive_mu:
+            mu_new = torch.where(ls.alpha < 1.0, config.eta1 * mu,
+                                 torch.clamp(mu / config.eta2, min=1.0))
+        else:
+            mu_new = mu
+        metrics = {
+            "f": ls.f_new, "f_before": prep["f_cur"], "loss": prep["loss"],
+            "alpha": ls.alpha, "mu": mu_new,
+            "nnz": torch.sum(beta_new != 0.0),
+            "accepted_unit": ls.accepted_unit.to(torch.int32),
+            "D": ls.D,
+        }
+        return FitState(beta_new, xb, mu_new,
+                        (cursor + prep["tiles_done"]) % n_tiles,
+                        step + 1), metrics
+
+    return StreamingSuperstep(stats_chunk, prepare, ls_chunk, finish,
+                              int(cand.shape[0]))

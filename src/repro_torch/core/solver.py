@@ -36,7 +36,19 @@ lambda by mean validation deviance.
 supersteps and ``fit_path(ckpt_manager=)`` the warm state and the results
 so far after every lambda (``repro_torch.checkpoint``, the JAX package's
 format); a later call with a manager that holds a checkpoint resumes from
-it, a brick layout only onto the same layout.
+it, a brick or streaming layout only onto the same layout.
+
+A ``StreamingDesign`` (``data/design.py``), a file path or a reader
+(``repro_torch.io``; ``GLMSolver("train.libsvm", None)`` takes the labels
+from the file) makes an out-of-core session: the rows stay on the host and
+each superstep is two double-buffered passes over fixed-size row chunks
+(``dglmnet.make_streaming_superstep``), with the Gram-mode sweep between
+them.  The margins X beta are never kept: every pass, gradient check and
+deviance makes them again chunk by chunk.  Its checkpoints hold (beta, mu)
+at a superstep's end and, with ``fit(ckpt_every_chunks=k)``, also the
+first pass's partial sums (G, g0, L) and the chunk to go on from every k
+chunks, so a fit cut mid-pass resumes at that chunk.  The whole
+observation model, ``fit_path`` and ``fit_cv`` run on it unchanged.
 
 ``coupling="jacobi"`` runs the fused Jacobi superstep (two fused launches,
 ``fuse_superstep=True``, the default) or its unfused form; the fused one
@@ -45,8 +57,7 @@ on a SparseCOO goes through the serving engine (``serve/engine.py``) and
 its fused gather-dot-link kernel; ``save`` writes a serving artifact (one
 column, or one per lambda of a ``PathResult``).
 
-Not ported yet (each raises NotImplementedError): a mesh, streaming and
-file inputs, and with them ``fit``'s ``ckpt_every_chunks``.
+Not ported yet (raises NotImplementedError): a mesh.
 """
 from __future__ import annotations
 
@@ -61,7 +72,7 @@ import torch
 from repro_torch.core import dglmnet, glm
 from repro_torch.core.dglmnet import DGLMNETConfig, FitResult, FitState
 from repro_torch.data import design as design_lib
-from repro_torch.data.design import DesignMatrix
+from repro_torch.data.design import DesignMatrix, StreamingDesign
 from repro_torch.data.sparse import SparseCOO
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -147,7 +158,10 @@ class CVResult(NamedTuple):
 
 
 def _with_intercept_column(X, n: int):
-    """Append the all-ones intercept column to a raw host input."""
+    """Append the all-ones intercept column to a raw host input (a
+    StreamingDesign makes its chunks on demand, so it takes one too)."""
+    if isinstance(X, StreamingDesign):
+        return X.with_ones_column()
     if isinstance(X, SparseCOO):
         p = X.shape[1]
         rows = np.concatenate([X.rows,
@@ -176,8 +190,6 @@ class GLMSolver:
                  penalty_factor=None):
         if mesh is not None:
             raise _not_ported("a device mesh (multi-GPU fitting)")
-        if isinstance(X, (str, os.PathLike)) or y is None:
-            raise _not_ported("streaming and file-backed designs")
         config = DGLMNETConfig() if config is None else config
         if family is not None:
             fam = glm.resolve_family(family)
@@ -197,6 +209,21 @@ class GLMSolver:
         # because screening froze every coordinate of them
         self.launch_stats = {"supersteps": 0, "sweep_tile_launches": 0,
                              "sweep_tiles_skipped": 0}
+
+        # a path or an open reader becomes a StreamingDesign, and y=None
+        # takes the labels from the same source
+        self._reader = None
+        if isinstance(X, (str, os.PathLike)) or (
+                not hasattr(X, "shape") and hasattr(X, "to_design")
+                and hasattr(X, "labels")):
+            from repro_torch import io as io_lib
+            X, labels, self._reader = io_lib.open_design(
+                X, tile_size=config.tile_size, device=self.device)
+            if y is None:
+                y = labels
+        if y is None:
+            raise ValueError("y=None needs a path or a reader that supplies "
+                             "its own labels")
 
         y = np.asarray(y, np.float32)
         n = y.shape[0]
@@ -221,8 +248,14 @@ class GLMSolver:
             device=self.device)
         # what a checkpoint must match to resume here (the reference's
         # keys; one device, so D = M = 1)
-        self._design_layout = None \
-            if isinstance(self._Xs, design_lib.DenseDesign) else {
+        self._streaming = isinstance(self._Xs, StreamingDesign)
+        if self._streaming:
+            self._design_layout = {"kind": "streaming", "tile": T,
+                                   "chunk_rows": self._Xs.chunk_rows}
+        elif isinstance(self._Xs, design_lib.DenseDesign):
+            self._design_layout = None
+        else:
+            self._design_layout = {
                 "kind": "bricks", "D": 1, "M": 1, "tile": T,
                 "row_block": self._Xs.row_block, "reorder": bool(reorder)}
         n_rows, p_pad = self._Xs.shape
@@ -248,8 +281,10 @@ class GLMSolver:
         # padding columns keep pf = 1 so they stay pinned at zero
         self._penf_host = self._info.pack_cols(pf, p_pad, fill=1.0)
         self._penf = self._put(self._penf_host)
-        self._superstep = dglmnet.make_superstep(
-            config, n_tiles=self._n_tiles, device=self.device)
+        make = dglmnet.make_streaming_superstep if self._streaming \
+            else dglmnet.make_superstep
+        self._superstep = make(config, n_tiles=self._n_tiles,
+                               device=self.device)
 
         # standardization: after packing, before anything reads the design
         self._scale_packed: Optional[np.ndarray] = None
@@ -293,8 +328,9 @@ class GLMSolver:
         scale = np.where(sigma > _SIGMA_EPS, 1.0 / np.maximum(sigma, 1e-30),
                          1.0).astype(np.float32)
         # brick layouts are scale-only: centering would fill every brick
-        centered = self.fit_intercept and \
-            isinstance(self._Xs, design_lib.DenseDesign)
+        # (a streaming design's chunks are dense)
+        centered = self.fit_intercept and isinstance(
+            self._Xs, (design_lib.DenseDesign, StreamingDesign))
         center = mu.astype(np.float32) if centered else np.zeros_like(scale)
         if self.fit_intercept:
             scale[self._icol()] = 1.0
@@ -337,7 +373,14 @@ class GLMSolver:
 
     def _init_state(self, beta0=None, intercept0: float = 0.0) -> FitState:
         dev = self.device
-        if beta0 is not None:
+        if self._streaming:
+            # the margins are made again chunk by chunk in every pass: the
+            # state's margin slot is an empty placeholder
+            packed = np.zeros(self._p_tot, np.float32) if beta0 is None \
+                else self._pack_user(beta0, intercept0)
+            beta = torch.from_numpy(packed).to(dev)
+            xb = torch.zeros(0, dtype=torch.float32, device=dev)
+        elif beta0 is not None:
             beta = torch.from_numpy(self._pack_user(beta0, intercept0)).to(dev)
             xb = self._Xs.matvec(beta)
         else:
@@ -378,13 +421,15 @@ class GLMSolver:
         saved, _ = ckpt_manager.restore(like)
         state = state._replace(
             beta=self._adapt(saved["beta"].float(), self._p_tot),
-            xb=self._adapt(saved["xb"].float(), self._n_tot),
+            xb=state.xb if self._streaming
+            else self._adapt(saved["xb"].float(), self._n_tot),
             mu=saved["mu"].float().reshape(()))
         return state, saved
 
     def _run(self, state: FitState, lam1: float, lam2: float, *,
              weights=None, active=None, max_outer=None, tol=None,
-             verbose=False, ckpt_manager=None, ckpt_every: int = 10):
+             verbose=False, ckpt_manager=None, ckpt_every: int = 10,
+             ckpt_every_chunks: Optional[int] = None):
         """Supersteps at fixed (lam1, lam2) until the objective plateaus.
 
         ``weights``: a (n_tot,) row-weight tensor on the device (None: the
@@ -395,7 +440,9 @@ class GLMSolver:
         records each superstep's host seconds (``step_s``), taken after the
         one device-to-host read of its metrics.  ``ckpt_manager``: resume
         from its latest checkpoint if it has one (the history then starts
-        at the resumed superstep), and save every ``ckpt_every``.
+        at the resumed superstep), and save every ``ckpt_every``; a
+        streaming session also saves its first pass's partial sums every
+        ``ckpt_every_chunks`` chunks.
         """
         cfg = self.config
         max_outer = cfg.max_outer if max_outer is None else int(max_outer)
@@ -412,13 +459,15 @@ class GLMSolver:
             live_tiles = int(tile_active.sum())
         # counted as the reference counts: the Gauss-Seidel sweep and the
         # fused Jacobi superstep skip dead tiles ("shaped"); the unfused
-        # Jacobi sweep is counted as sweeping every tile
+        # Jacobi sweep is counted as sweeping every tile.  Both Gram-mode
+        # sweeps of a streaming session skip them.
         shaped = active is not None and (
-            cfg.coupling == "gauss-seidel"
+            self._streaming or cfg.coupling == "gauss-seidel"
             or (cfg.coupling == "jacobi" and cfg.fuse_superstep))
         history = {k: [] for k in _HISTORY_KEYS + ("step_s",)}
         f_prev, converged, it = np.inf, False, 0
         start_it = 1
+        resume = None
         if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
             md = ckpt_manager.read_metadata()
             if "next_it" not in md:
@@ -426,16 +475,26 @@ class GLMSolver:
                     "checkpoint was written by fit_path (path state), not a "
                     "single fit; resume it with fit_path(ckpt_manager=...)")
             self._check_layout(md)
-            state, _ = self._restore_state(ckpt_manager, state)
+            if self._streaming:
+                state, resume = self._restore_stream(ckpt_manager, state, md)
+            else:
+                state, _ = self._restore_state(ckpt_manager, state)
             state = state._replace(step=int(md["next_it"]) - 1)
             f_prev = md.get("f_prev", np.inf)
             start_it = int(md["next_it"])
         t_prev = time.perf_counter()
         for it in range(start_it, max_outer + 1):
-            state, m = self._superstep(
-                self._Xs, self._ys, weights, self._offsets, (lam1, lam2),
-                self._penf, state, active=active_dev,
-                tile_active=tile_active)
+            if self._streaming:
+                state, m = self._stream_superstep(
+                    state, it, (lam1, lam2), weights, active_dev,
+                    tile_active, resume=resume, f_prev=f_prev,
+                    ckpt=(ckpt_manager, ckpt_every_chunks))
+                resume = None
+            else:
+                state, m = self._superstep(
+                    self._Xs, self._ys, weights, self._offsets, (lam1, lam2),
+                    self._penf, state, active=active_dev,
+                    tile_active=tile_active)
             self.launch_stats["supersteps"] += 1
             self.launch_stats["sweep_tile_launches"] += \
                 live_tiles if shaped else total_tiles
@@ -453,12 +512,16 @@ class GLMSolver:
             for k in _HISTORY_KEYS:
                 history[k].append(mh[k])
             if verbose:
-                print(f"[repro_torch] it={it} f={f:.8f} "
+                tag = f"repro_torch/stream x{self._Xs.n_chunks}" \
+                    if self._streaming else "repro_torch"
+                print(f"[{tag}] it={it} f={f:.8f} "
                       f"alpha={mh['alpha']:.4f} mu={mh['mu']:.3f} "
                       f"nnz={int(mh['nnz'])}")
             if ckpt_manager is not None and it % ckpt_every == 0:
-                ckpt_manager.save(it, {"beta": state.beta, "xb": state.xb,
-                                       "mu": state.mu},
+                tree = {"beta": state.beta, "mu": state.mu}
+                if not self._streaming:
+                    tree["xb"] = state.xb
+                ckpt_manager.save(it, tree,
                                   metadata={"next_it": it + 1, "f_prev": f,
                                             "design_layout":
                                                 self._design_layout})
@@ -471,6 +534,78 @@ class GLMSolver:
             ckpt_manager.wait()
         return state, history, it, converged
 
+    # ------------------------------------------------------------ streaming
+
+    def _iter_row_chunks(self, weights=None, start: int = 0):
+        """Yield ``(i, X_chunk, y, w, offset)``: the design's device chunks
+        with the matching slices of the session's row vectors (``weights``
+        None: the session's).  Every streaming pass (statistics, line
+        search, gradient, deviance, margins) goes through here."""
+        w = self._wobs if weights is None else weights
+        sd = self._Xs
+        for i, Xc in sd.iter_chunks(start=start):
+            sl = sd.row_slice(i)
+            yield i, Xc, self._ys[sl], w[sl], self._offsets[sl]
+
+    def _restore_stream(self, ckpt_manager, state: FitState, md):
+        """(state with beta and mu restored, the resume point (chunk,
+        (G, g0, L)) of a chunk-cursor checkpoint or None)."""
+        p = self._p_tot
+        like = {"beta": state.beta, "mu": state.mu}
+        cursor = md.get("stream_chunk")
+        if cursor is not None:
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                               device=self.device)
+            like.update(G=zeros(p, p), g0=zeros(p), L=zeros())
+        saved, _ = ckpt_manager.restore(like)
+        state = state._replace(beta=self._adapt(saved["beta"].float(), p),
+                               mu=saved["mu"].float().reshape(()))
+        if cursor is None:
+            return state, None
+        acc = (saved["G"].float(), saved["g0"].float(),
+               saved["L"].float().reshape(()))
+        return state, (int(cursor), acc)
+
+    def _stream_superstep(self, state: FitState, it: int, lams, weights,
+                          active_dev, tile_active, *, resume=None,
+                          f_prev=np.inf, ckpt=(None, None)):
+        """One streaming superstep: the statistics pass (from ``resume``'s
+        chunk and partial sums when given), the sweep, the line-search
+        pass; returns (state, metrics).  ``ckpt`` = (manager, k): save the
+        partial sums every k chunks of the first pass."""
+        fns = self._superstep
+        sd = self._Xs
+        mgr, every = ckpt
+        p = self._p_tot
+        if resume is None:
+            start = 0
+            acc = (torch.zeros((p, p), dtype=torch.float32,
+                               device=self.device),
+                   torch.zeros(p, dtype=torch.float32, device=self.device),
+                   torch.zeros((), dtype=torch.float32, device=self.device))
+        else:
+            start, acc = resume
+        for i, Xc, yc, wc, oc in self._iter_row_chunks(weights, start=start):
+            acc = fns.stats_chunk(Xc, yc, wc, oc, state.beta, acc)
+            if mgr is not None and every and (i + 1) % every == 0 \
+                    and i + 1 < sd.n_chunks:
+                G, g0, L = acc
+                mgr.save(it, {"beta": state.beta, "mu": state.mu, "G": G,
+                              "g0": g0, "L": L},
+                         metadata={"next_it": it, "stream_chunk": i + 1,
+                                   "f_prev": float(f_prev),
+                                   "design_layout": self._design_layout})
+        prep = fns.prepare(acc, state.beta, state.mu, lams, self._penf,
+                           state.cursor, active=active_dev,
+                           tile_active=tile_active)
+        del acc
+        losses = torch.zeros(fns.n_candidates, dtype=torch.float32,
+                             device=self.device)
+        for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
+            losses = fns.ls_chunk(Xc, yc, wc, oc, state.beta, prep["dbeta"],
+                                  losses)
+        return fns.finish(losses, prep, state, lams, self._penf)
+
     def fit(self, lam1: Optional[float] = None, lam2: Optional[float] = None,
             *, beta0=None, intercept0: float = 0.0, max_outer=None, tol=None,
             verbose=False, ckpt_manager=None, ckpt_every: int = 10,
@@ -478,16 +613,17 @@ class GLMSolver:
         """Fit one (lam1, lam2) point; defaults come from the config.
         ``beta0`` (+ ``intercept0``) warm-starts from beta in feature order.
         ``ckpt_manager`` saves (beta, X beta, mu) every ``ckpt_every``
-        supersteps and resumes from its latest checkpoint, if any."""
-        if ckpt_every_chunks is not None:
-            raise _not_ported("streaming checkpoints (ckpt_every_chunks)")
+        supersteps and resumes from its latest checkpoint, if any; a
+        streaming session saves (beta, mu) and, every ``ckpt_every_chunks``
+        chunks of a first pass, its partial sums with the chunk cursor."""
         cfg = self.config
         lam1 = cfg.lam1 if lam1 is None else float(lam1)
         lam2 = cfg.lam2 if lam2 is None else float(lam2)
         state = self._init_state(beta0, intercept0)
         state, history, n_iter, converged = self._run(
             state, lam1, lam2, max_outer=max_outer, tol=tol, verbose=verbose,
-            ckpt_manager=ckpt_manager, ckpt_every=ckpt_every)
+            ckpt_manager=ckpt_manager, ckpt_every=ckpt_every,
+            ckpt_every_chunks=ckpt_every_chunks)
         self._state = state
         self.beta_, self.intercept_ = self._unpack_user(
             state.beta.cpu().numpy())
@@ -497,7 +633,17 @@ class GLMSolver:
         """g = X^T s(beta) in packed column order, on the host: s is the
         (weighted, offset) negative margin gradient at the state's margins,
         so a zero coordinate is optimal iff |g_j| <= lam1 pf_j.
-        ``weights``: a row-weight tensor (None: the session's)."""
+        ``weights``: a row-weight tensor (None: the session's).  A
+        streaming session makes the margins again chunk by chunk."""
+        if self._streaming:
+            g = torch.zeros(self._p_tot, dtype=torch.float32,
+                            device=self.device)
+            for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
+                _, s, _ = ops.glm_stats(yc, Xc @ state.beta,
+                                        self.config.family, weights=wc,
+                                        offset=oc)
+                g += Xc.T @ s
+            return g.cpu().numpy()
         _, s, _ = ops.glm_stats(
             self._ys, state.xb, self.config.family,
             weights=self._wobs if weights is None else weights,
@@ -507,10 +653,13 @@ class GLMSolver:
     def training_margins(self) -> np.ndarray:
         """Host (n,) margins X beta over the training design at the current
         fitted state: no offset; the intercept is included when fitted (it
-        is a design column)."""
+        is a design column).  A streaming session makes them in one chunk
+        pass."""
         if self._state is None:
             raise ValueError("no fitted state; call fit or fit_path first")
-        return self._state.xb.cpu().numpy()[:self._n_user]
+        xb = self._Xs.matvec(self._state.beta) if self._streaming \
+            else self._state.xb
+        return xb.cpu().numpy()[:self._n_user]
 
     def set_observations(self, *, y=None, sample_weight=None, offset=None):
         """Swap the observation model on the same session (y, weights and
@@ -574,12 +723,18 @@ class GLMSolver:
                              "grid (warm starts go dense-ward)")
         return lambdas
 
-    def _deviance(self, xb, weights) -> float:
-        """Total weighted deviance of the margins ``xb`` over the rows that
-        ``weights`` (a device tensor) selects; one scalar comes back."""
+    def _deviance(self, state: FitState, weights) -> float:
+        """Total weighted deviance at a fit state over the rows that
+        ``weights`` (a device tensor) selects; one scalar comes back.  A
+        streaming session sums it over chunks."""
         fam = glm.get_family(self.config.family)
-        return float(fam.deviance(self._ys, xb, weights=weights,
-                                  offset=self._offsets))
+        if not self._streaming:
+            return float(fam.deviance(self._ys, state.xb, weights=weights,
+                                      offset=self._offsets))
+        d = torch.zeros((), dtype=torch.float32, device=self.device)
+        for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
+            d += fam.deviance(yc, Xc @ state.beta, weights=wc, offset=oc)
+        return float(d)
 
     def _path_impl(self, lambdas: np.ndarray, lam2: float, *, weights=None,
                    eval_weights=None, screen=True, kkt_slack=1e-4,
@@ -680,7 +835,7 @@ class GLMSolver:
             n_iters[k] = it_k
             converged[k] = conv_k
             if val_dev is not None:
-                val_dev[k] = self._deviance(state.xb, ew_dev) / ew_sum \
+                val_dev[k] = self._deviance(state, ew_dev) / ew_sum \
                     if ew_sum > 0 else np.nan
             lam_prev = lam1
             if verbose:

@@ -33,6 +33,12 @@ Two layouts:
 does (features sorted by frequency, so hot features share tiles), computing
 the layout's index arrays on the host and scattering the values straight
 into bricks on the target device; the dense (n, p) matrix is never formed.
+
+A third, out of core: ``StreamingDesign`` keeps its rows on the host (or
+makes them chunk by chunk with a pure callable) and puts one
+``(chunk_rows, p_pad)`` chunk at a time on the device.  Its operators are
+loops over chunks; ``iter_chunks`` double-buffers the host-to-device copy
+through two pinned staging buffers and a side copy stream.
 """
 from __future__ import annotations
 
@@ -285,6 +291,302 @@ class BlockSparseDesign(DesignMatrix):
 
 
 # ---------------------------------------------------------------------------
+# out of core: row chunks
+# ---------------------------------------------------------------------------
+
+
+def _host_f32(a) -> np.ndarray:
+    """A float32 numpy array of a tensor (any device) or array-like."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+class StreamingDesign(DesignMatrix):
+    """Out-of-core row-chunked design: the rows live on the host (or are
+    made on demand) and the device holds one ``(chunk_rows, p_pad)`` chunk
+    at a time.
+
+    ``chunk_fn(i)`` returns chunk ``i``'s raw rows, ``(rows_i, n_cols)``
+    with ``rows_i == chunk_rows`` except possibly for the last chunk (the
+    contract of ``data/pipeline.py``); it must be a pure function of ``i``,
+    so a resumed fit replays the same bytes.  A chunk on the device is the
+    raw rows, then the optional ones column (the intercept), then zero row
+    and column padding, then ``(x - center) * scale`` when the design was
+    scaled (``scale_columns``; padded rows too, inert since their
+    observation weights are 0).  The centering and scaling run on the
+    device after the copy: one float32 subtraction and one multiplication,
+    rounded as numpy rounds them, so the chunk's bits are the reference's.
+
+    ``iter_chunks`` on the card with ``prefetch`` (the default) fills one
+    of two pinned host staging buffers with chunk i + 1 and copies it on a
+    side stream while the caller's work on chunk i runs; the caller's
+    stream waits on the copy's event before it reads the chunk, and the
+    host waits for the last copy out of a staging buffer before it
+    refills it.  ``prefetch=False`` is the serial baseline: a fresh host
+    chunk and a blocking copy from pageable memory.  Every operator is a
+    sum over chunks (``full_gram`` is the one the streaming solver reads).
+    """
+
+    def __init__(self, chunk_fn, *, n_rows: int, n_cols: int, chunk_rows: int,
+                 tile_size: int, add_ones: bool = False, scale=None,
+                 center=None, prefetch: bool = True, device=None):
+        if chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
+        self._chunk_fn = chunk_fn
+        self.prefetch = bool(prefetch)
+        self.n_rows_data = int(n_rows)          # true (unpadded) row count
+        self.n_cols_src = int(n_cols)           # raw columns of chunk_fn
+        self.chunk_rows = int(chunk_rows)
+        self.tile_size = int(tile_size)
+        self.add_ones = bool(add_ones)
+        self.p_user = self.n_cols_src + (1 if add_ones else 0)
+        self.p_pad = self.p_user + ((-self.p_user) % tile_size)
+        self.n_chunks = -(-self.n_rows_data // self.chunk_rows)
+        self._device = resolve_device(device)
+        self._scale = None if scale is None else _host_f32(scale)
+        self._center = None if center is None else _host_f32(center)
+        self._cols = None            # (center, scale) on the device
+        self._staging = None         # two pinned (chunk_rows, p_pad) buffers
+        self._staged = [None, None]  # the last copy out of each, an event
+        self._copy_stream = None
+
+    @property
+    def shape(self):
+        return (self.n_chunks * self.chunk_rows, self.p_pad)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.p_pad // self.tile_size
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _derive(self, **kw) -> "StreamingDesign":
+        args = dict(n_rows=self.n_rows_data, n_cols=self.n_cols_src,
+                    chunk_rows=self.chunk_rows, tile_size=self.tile_size,
+                    add_ones=self.add_ones, prefetch=self.prefetch,
+                    device=self._device, scale=self._scale,
+                    center=self._center)
+        args.update(kw)
+        return StreamingDesign(self._chunk_fn, **args)
+
+    def with_ones_column(self) -> "StreamingDesign":
+        """A new design whose chunks carry an all-ones column (the
+        unpenalized intercept) before the tile padding."""
+        if self.add_ones:
+            raise ValueError("design already carries an intercept column")
+        if self._scale is not None or self._center is not None:
+            raise ValueError("append the intercept before scaling")
+        return self._derive(add_ones=True)
+
+    def scale_columns(self, scale, center=None):
+        scale = _host_f32(scale)
+        new_center = np.zeros((self.p_pad,), np.float32) if center is None \
+            else _host_f32(center)
+        old_scale = np.ones((self.p_pad,), np.float32) if self._scale is None \
+            else self._scale
+        old_center = np.zeros((self.p_pad,), np.float32) \
+            if self._center is None else self._center
+        # compose: ((x - c0) s0 - c1) s1 = (x - (c0 + c1 / s0)) (s0 s1)
+        safe = np.where(old_scale != 0, old_scale, 1.0)
+        return self._derive(scale=old_scale * scale,
+                            center=old_center + new_center / safe)
+
+    # -- chunk production ----------------------------------------------------
+
+    def _raw(self, i: int):
+        """(chunk ``i``'s raw rows as float32, its row count), checked
+        against the contract."""
+        lo = i * self.chunk_rows
+        rows = min(self.chunk_rows, self.n_rows_data - lo)
+        if rows <= 0:
+            raise IndexError(f"chunk {i} out of range ({self.n_chunks})")
+        raw = np.asarray(self._chunk_fn(i), np.float32)
+        if raw.shape != (rows, self.n_cols_src):
+            raise ValueError(
+                f"chunk_fn({i}) returned {raw.shape}; expected "
+                f"({rows}, {self.n_cols_src})")
+        if not (raw.flags.c_contiguous and raw.flags.writeable):
+            raw = np.array(raw)
+        return raw, rows
+
+    def _host_chunk(self, i: int):
+        """A fresh (chunk_rows, p_pad) float32 host tensor of chunk ``i``:
+        raw rows, the ones column, zero padding (not yet centered or
+        scaled)."""
+        buf = torch.zeros((self.chunk_rows, self.p_pad), dtype=torch.float32)
+        self._fill(buf, i)
+        return buf
+
+    def _fill(self, buf, i: int) -> None:
+        """Write host chunk ``i`` into ``buf``, whose padding columns are
+        zero (a pinned staging buffer's were zeroed once and are never
+        written)."""
+        raw, rows = self._raw(i)
+        buf[:rows, :self.n_cols_src].copy_(torch.from_numpy(raw))
+        if self.add_ones:
+            buf[:rows, self.n_cols_src] = 1.0
+        if rows < self.chunk_rows:
+            buf[rows:].zero_()
+
+    def _transform(self, Xc):
+        """``(Xc - center) * scale`` in place, on Xc's device."""
+        if self._center is None and self._scale is None:
+            return Xc
+        if self._cols is None:
+            put = lambda a: None if a is None else \
+                torch.from_numpy(a).to(self._device)
+            self._cols = (put(self._center), put(self._scale))
+        center, scale = self._cols
+        if center is not None:
+            Xc.sub_(center)
+        if scale is not None:
+            Xc.mul_(scale)
+        return Xc
+
+    def iter_chunks(self, start: int = 0, *, prefetch: Optional[bool] = None):
+        """Yield ``(i, device_chunk)`` for chunks ``[start, n_chunks)``.
+
+        ``prefetch`` (None: the design's attribute) double-buffers the copy
+        on the card; each yielded chunk is a tensor of its own, valid as
+        long as the caller holds it.
+        """
+        prefetch = self.prefetch if prefetch is None else prefetch
+        if start >= self.n_chunks:
+            return
+        dev = self._device
+        if dev.type != "cuda" or not prefetch:
+            for i in range(start, self.n_chunks):
+                yield i, self._transform(self._host_chunk(i).to(dev))
+            return
+        if self._staging is None:
+            self._staging = torch.zeros((2, self.chunk_rows, self.p_pad),
+                                        dtype=torch.float32, pin_memory=True)
+            self._copy_stream = torch.cuda.Stream(dev)
+        compute = torch.cuda.current_stream(dev)
+        copy = self._copy_stream
+
+        def issue(i):
+            b = i % 2
+            if self._staged[b] is not None:
+                # the copy out of this buffer must be done before the host
+                # rewrites it, or the copy reads a half-written chunk
+                self._staged[b].synchronize()
+            self._fill(self._staging[b], i)
+            with torch.cuda.stream(copy):
+                dst = torch.empty((self.chunk_rows, self.p_pad),
+                                  dtype=torch.float32, device=dev)
+                dst.copy_(self._staging[b], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy)
+            self._staged[b] = done
+            return dst, done
+
+        nxt = issue(start)
+        for i in range(start, self.n_chunks):
+            cur, done = nxt
+            if i + 1 < self.n_chunks:
+                nxt = issue(i + 1)
+            compute.wait_event(done)
+            # made on the copy stream, read on the caller's: its memory is
+            # not handed out again before the caller's work on it is done
+            cur.record_stream(compute)
+            yield i, self._transform(cur)
+
+    def row_slice(self, i: int) -> slice:
+        """Row range of chunk ``i`` in the padded (n_tot,) coordinates."""
+        return slice(i * self.chunk_rows, (i + 1) * self.chunk_rows)
+
+    # -- operators (sums over chunks) ----------------------------------------
+
+    def _row_chunks(self, *vecs):
+        """Zip chunks with the matching slices of row vectors, given in the
+        padded (``n_chunks * chunk_rows``) or the unpadded (``n_rows_data``)
+        coordinates; an unpadded vector is zero-extended, so the ragged
+        last chunk's padding rows get weight and residual 0."""
+        n_pad = self.n_chunks * self.chunk_rows
+        placed = []
+        for v in vecs:
+            a = v if torch.is_tensor(v) else torch.from_numpy(_host_f32(v))
+            a = a.to(self._device, torch.float32)
+            if a.shape[0] == self.n_rows_data and a.shape[0] != n_pad:
+                a = torch.cat([a, a.new_zeros(n_pad - a.shape[0])])
+            elif a.shape[0] != n_pad:
+                raise ValueError(
+                    f"row vector has length {a.shape[0]}; expected the "
+                    f"unpadded {self.n_rows_data} or padded {n_pad}")
+            placed.append(a)
+        for i, Xc in self.iter_chunks():
+            sl = self.row_slice(i)
+            yield Xc, tuple(a[sl] for a in placed)
+
+    def _zeros(self, *shape):
+        return torch.zeros(shape, dtype=torch.float32, device=self._device)
+
+    def tile_gram(self, tid: int, w, r):
+        T = self.tile_size
+        G, g = self._zeros(T, T), self._zeros(T)
+        c0 = int(tid) * T
+        for Xc, (wc, rc) in self._row_chunks(w, r):
+            Xt = Xc[:, c0:c0 + T]
+            G += (Xt * wc[:, None]).T @ Xt
+            g += Xt.T @ rc
+        return G, g
+
+    def all_tile_grams(self, w, r, tile_live=None, **kw):
+        nt, T = self.n_tiles, self.tile_size
+        G_all, g_all = self._zeros(nt, T, T), self._zeros(nt, T)
+        for Xc, (wc, rc) in self._row_chunks(w, r):
+            Xr = Xc.view(self.chunk_rows, nt, T)
+            G_all += torch.einsum("nti,ntj->tij", Xr * wc[:, None, None], Xr)
+            g_all += (Xc.T @ rc).view(nt, T)
+        if tile_live is not None:
+            dead = torch.from_numpy(~np.asarray(tile_live, bool)) \
+                .to(self._device)
+            G_all[dead] = 0.0
+            g_all[dead] = 0.0
+        return G_all, g_all
+
+    def full_gram(self, w, r):
+        """(X^T W X (p_pad, p_pad), X^T r (p_pad,)) summed over chunks: the
+        statistics the streaming sweeps read (p_pad^2 on the device)."""
+        p = self.p_pad
+        G, g = self._zeros(p, p), self._zeros(p)
+        for Xc, (wc, rc) in self._row_chunks(w, r):
+            G.addmm_((Xc * wc[:, None]).T, Xc)
+            g += Xc.T @ rc
+        return G, g
+
+    def tile_matvec(self, tid: int, v_t):
+        T = self.tile_size
+        c0 = int(tid) * T
+        return torch.cat([Xc[:, c0:c0 + T] @ v_t
+                          for _, Xc in self.iter_chunks()])
+
+    def matvec(self, v):
+        return torch.cat([Xc @ v for _, Xc in self.iter_chunks()])
+
+    def rmatvec(self, r):
+        out = self._zeros(self.p_pad)
+        for Xc, (rc,) in self._row_chunks(r):
+            out += Xc.T @ rc
+        return out
+
+    def col_moments(self, weights):
+        s1, s2 = self._zeros(self.p_pad), self._zeros(self.p_pad)
+        for Xc, (wc,) in self._row_chunks(weights):
+            s1 += Xc.T @ wc
+            s2 += (Xc * Xc).T @ wc
+        return s1, s2
+
+    def to_dense(self):
+        """Every chunk at once (tests and tiny data only)."""
+        return torch.cat([Xc for _, Xc in self.iter_chunks()])
+
+
+# ---------------------------------------------------------------------------
 # host-side builders
 # ---------------------------------------------------------------------------
 
@@ -421,14 +723,61 @@ def dense_design(X, tile_size: int, *, device=None):
     return DenseDesign(data, tile_size), DesignInfo(shape=(n, p))
 
 
+def streaming_design(X, tile_size: int, *, chunk_rows: int,
+                     n_rows: Optional[int] = None,
+                     n_cols: Optional[int] = None, device=None):
+    """(StreamingDesign, DesignInfo) from an (n, p) host array or a chunk
+    callable, for ``device`` (None: the CUDA card).
+
+    An array is sliced per chunk (no host copy beyond the staging buffer).
+    A callable ``X(i)`` returns chunk ``i``'s raw rows, a pure function of
+    ``i``, and needs ``n_rows`` and ``n_cols``.  The column layout is the
+    identity (tile padding trails), so beta needs no column map.
+    """
+    if isinstance(X, SparseCOO):
+        raise ValueError(
+            "StreamingDesign chunks are dense device buffers; stream a "
+            "sparse source by passing a callable that densifies chunk i")
+    if callable(X) and not hasattr(X, "shape"):
+        if n_rows is None or n_cols is None:
+            raise ValueError(
+                "callable chunk sources need explicit n_rows/n_cols")
+        design = StreamingDesign(X, n_rows=n_rows, n_cols=n_cols,
+                                 chunk_rows=chunk_rows, tile_size=tile_size,
+                                 device=device)
+        return design, DesignInfo(shape=(n_rows, n_cols))
+    Xh = np.asarray(X, np.float32)
+    n, p = Xh.shape
+    design = StreamingDesign(
+        lambda i, _X=Xh, _cr=chunk_rows: _X[i * _cr:(i + 1) * _cr],
+        n_rows=n, n_cols=p, chunk_rows=chunk_rows, tile_size=tile_size,
+        device=device)
+    return design, DesignInfo(shape=(n, p))
+
+
 def as_design(X, tile_size: int, *, row_block: int = 256,
               reorder: bool = True, info: Optional[DesignInfo] = None,
               device=None):
     """Coerce a dense array, a SparseCOO or a pre-built design into
     (DesignMatrix, DesignInfo) on ``device`` (None: the CUDA card).  A
     pre-built design must come with the DesignInfo of its builder, which
-    maps beta back to feature order."""
+    maps beta back to feature order; a StreamingDesign's info is rebuilt
+    from the design itself."""
     device = resolve_device(device)
+    if isinstance(X, StreamingDesign):
+        if X.tile_size != tile_size:
+            raise ValueError(
+                f"StreamingDesign was built with tile_size={X.tile_size} "
+                f"but the config says {tile_size}; the column padding is a "
+                "function of the tile size, so build the design with the "
+                "session's tile_size")
+        if X.device.type != device.type:
+            raise ValueError(f"design lives on {X.device}, not {device}")
+        # the identity layout makes the info canonical, so it is always
+        # rebuilt: a caller's info may predate with_ones_column (the
+        # intercept), and honoring its shape would take the last real
+        # feature for the intercept
+        return X, DesignInfo(shape=(X.n_rows_data, X.p_user))
     if isinstance(X, DesignMatrix):
         if info is None:
             raise ValueError(

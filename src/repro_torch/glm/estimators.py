@@ -24,8 +24,9 @@ is scored by the fused gather-dot-link kernel (K7).
   * ``MultinomialGLM``: softmax classifier by exact class cycling over one
     logistic session.
 
-Not ported yet (each raises NotImplementedError): ``fit(path_or_reader,
-y=None)`` (file inputs) and ``mesh=``.
+``fit(path_or_reader, y=None)`` trains out of core from a file
+(``repro_torch.io``) with the labels it holds; a ``StreamingDesign`` works
+as X too.  Not ported yet (raises NotImplementedError): ``mesh=``.
 """
 from __future__ import annotations
 
@@ -37,14 +38,23 @@ import torch
 
 from repro_torch.core import glm
 from repro_torch.core.dglmnet import DGLMNETConfig
-from repro_torch.core.solver import GLMSolver, _not_ported
+from repro_torch.core.solver import GLMSolver
 
 
-def _check_source(X, y):
-    """File inputs (a path or reader that brings its own labels) are not
-    ported; everything else needs ``y``."""
-    if y is None or isinstance(X, (str, os.PathLike)):
-        raise _not_ported("fitting from a path or reader (file inputs)")
+def _resolve_source(X, y):
+    """``fit(path_or_reader, y=None)``: the labels come from the data source
+    itself (``repro_torch.io``), and the opened reader goes on to the
+    solver, which streams from it without scanning the file again."""
+    if y is not None:
+        return X, y
+    from repro_torch import io as io_lib
+    if isinstance(X, (str, os.PathLike)):
+        X = io_lib.open_reader(X)
+    if not io_lib.is_reader(X):
+        raise ValueError(
+            "y=None is only valid when X is a path or a repro_torch.io "
+            "reader that can supply its own labels")
+    return X, X.labels()
 
 
 def _binary(fam) -> bool:
@@ -112,7 +122,7 @@ class ElasticNetGLM:
         return y
 
     def fit(self, X, y=None, *, sample_weight=None, offset=None):
-        _check_source(X, y)
+        X, y = _resolve_source(X, y)
         y_enc = self._encode_y(y)
         self.solver_ = GLMSolver(
             X, y_enc, family=self.family, config=self.config, mesh=self.mesh,
@@ -302,7 +312,7 @@ class MultinomialGLM:
         return loss + pen
 
     def fit(self, X, y=None, *, sample_weight=None):
-        _check_source(X, y)
+        X, y = _resolve_source(X, y)
         y = np.asarray(y)
         self.classes_ = np.unique(y)
         K = len(self.classes_)

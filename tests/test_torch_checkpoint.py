@@ -408,9 +408,12 @@ def test_checkpoint_contracts(tmp_path):
                     fit_intercept=True, row_block=2 * RB)
     with pytest.raises(ValueError, match="does not match"):
         moved.fit(lam1=lam, ckpt_manager=CheckpointManager(brick_dir))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        s.fit(lam1=lam, ckpt_manager=CheckpointManager(tmp_path / "c"),
-              ckpt_every_chunks=2)
+    # chunk-cursor saves belong to streaming sessions: an in-memory fit
+    # takes ckpt_every_chunks and ignores it, as the reference does
+    chunk_dir = tmp_path / "c"
+    s.fit(lam1=lam, ckpt_manager=CheckpointManager(chunk_dir),
+          ckpt_every_chunks=2, ckpt_every=1, max_outer=2)
+    assert "stream_chunk" not in CheckpointManager(chunk_dir).read_metadata()
     # the port's layout record is JAX's
     jx = _session("jax", "bricks", "gauss-seidel")
     assert jx._design_layout == other._design_layout

@@ -170,10 +170,11 @@ def test_family_pinning_and_unfitted_errors():
         est.predict(np.zeros((3, 2), np.float32))
     with pytest.raises(ValueError, match="not fitted"):
         MultinomialGLM(device="cpu").predict(np.zeros((3, 2), np.float32))
-    # file inputs and a mesh are later slices of the port
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # file inputs are ported (a missing file raises, and y=None needs a
+    # path or a reader); a mesh is a later slice of the port
+    with pytest.raises(FileNotFoundError):
         est.fit("data.svm")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="y=None"):
         MultinomialGLM(device="cpu").fit(np.zeros((4, 2), np.float32))
     with pytest.raises(NotImplementedError, match="not ported"):
         ElasticNetGLM(family="squared", lam1=0.1, mesh=object(),

@@ -799,3 +799,89 @@ def test_registered_family_takes_the_plain_route(cuda, coupling,
     assert rc.n_iter == rs.n_iter
     np.testing.assert_allclose(rc.history["f"], rs.history["f"], rtol=1e-4)
     np.testing.assert_allclose(rc.beta, rs.beta, atol=1e-3)
+
+
+# ---------------------------------------------------------------- streaming
+
+
+def test_streaming_double_buffer_gives_the_serial_bits(cuda):
+    """Two pinned staging buffers and a side copy stream give the chunks of
+    the serial pageable copy bit for bit (a staging buffer rewritten under
+    its copy would not), centered and scaled on the card, ragged last
+    chunk included; chunks held by the caller stay valid."""
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(1000, 70)).astype(np.float32)
+    sd, _ = tdesign.streaming_design(X, 32, chunk_rows=96, device=cuda)
+    sd = sd.with_ones_column().scale_columns(
+        rng.uniform(0.5, 2.0, 96).astype(np.float32),
+        rng.normal(size=96).astype(np.float32))
+    held = [c for _, c in sd.iter_chunks()]
+    serial = [c for _, c in sd.iter_chunks(prefetch=False)]
+    cpu = tdesign.StreamingDesign(
+        sd._chunk_fn, n_rows=1000, n_cols=70, chunk_rows=96, tile_size=32,
+        add_ones=True, scale=sd._scale, center=sd._center, device="cpu")
+    assert len(held) == sd.n_chunks == 11
+    for a, b, (_, c) in zip(held, serial, cpu.iter_chunks()):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("coupling", ["gauss-seidel", "jacobi"])
+def test_streaming_fit_card_vs_cpu(cuda, coupling):
+    """A streaming fit on the card against the same fit on the CPU; K1 and
+    K4 once a chunk, K2 once a swept tile (Gauss-Seidel) or once a
+    superstep (Jacobi)."""
+    ds = synthetic.make_dense(n=3000, p=300, k_true=20, seed=4)
+    cfg = DGLMNETConfig(tile_size=128, coupling=coupling)
+    res, counts = {}, None
+    for dev in ("cpu", cuda):
+        sd, _ = tdesign.streaming_design(ds.train.X, 128, chunk_rows=512,
+                                         device=dev)
+        s = GLMSolver(sd, ds.train.y, config=cfg, fit_intercept=True,
+                      device=dev)
+        ops.reset_launch_counts()
+        res[str(dev)] = s.fit(lam1=5.0, max_outer=5, tol=0.0)
+        counts = ops.launch_counts()
+    r_cpu, r_gpu = res["cpu"], res[str(cuda)]
+    chunks = sd.n_chunks
+    steps = r_gpu.n_iter
+    assert counts["glm_stats"] == counts["alpha_search"] == chunks * steps
+    assert counts["cd_tile_solve"] == steps * (
+        sd.n_tiles if coupling == "gauss-seidel" else 1)
+    assert sum(v for k, v in counts.items() if k.endswith("/plain")) == 0
+    np.testing.assert_allclose(r_gpu.history["f"], r_cpu.history["f"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(r_gpu.beta, r_cpu.beta, atol=1e-3)
+
+
+def test_streaming_resume_on_the_card(cuda, tmp_path):
+    """A chunk-cursor checkpoint written on the card resumes there to the
+    uninterrupted fit's bits."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    ds = synthetic.make_dense(n=2000, p=100, k_true=10, seed=5)
+    cfg = DGLMNETConfig(tile_size=64, max_outer=6, tol=0.0)
+
+    def fit(mgr=None):
+        sd, _ = tdesign.streaming_design(ds.train.X, 64, chunk_rows=256,
+                                         device=cuda)
+        return GLMSolver(sd, ds.train.y, config=cfg, device=cuda).fit(
+            lam1=2.0, ckpt_manager=mgr, ckpt_every_chunks=3)
+
+    full, again = fit(), fit()
+    mgr = CheckpointManager(tmp_path)
+    orig = mgr.save
+
+    def save(step, tree, **kw):
+        orig(step, tree, **kw)
+        if (kw["metadata"].get("stream_chunk"), step) == (6, 4):
+            raise KeyboardInterrupt
+
+    mgr.save = save
+    with pytest.raises(KeyboardInterrupt):
+        fit(mgr)
+    res = fit(CheckpointManager(tmp_path))
+    if np.array_equal(full.beta, again.beta):
+        np.testing.assert_array_equal(res.beta, full.beta)
+    np.testing.assert_allclose(res.beta, full.beta, atol=1e-6)
+    assert res.history["alpha"] == full.history["alpha"][3:]

@@ -19,7 +19,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.timing", "repro_torch.kernels.stats_gram_solve",
            "repro_torch.kernels.margin_ls", "repro_torch.kernels.predict_tile",
            "repro_torch.checkpoint", "repro_torch.glm",
-           "repro_torch.launch.serve_glm"]
+           "repro_torch.launch.serve_glm", "repro_torch.io",
+           "repro_torch.io.hashing", "repro_torch.io.libsvm",
+           "repro_torch.io.parquet", "repro_torch.io.prefetch",
+           "repro_torch.data.pipeline", "repro_torch.launch.ingest_train"]
 
 
 def _port_files():

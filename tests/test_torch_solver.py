@@ -207,12 +207,13 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         TSolver(X, y, **kw, mesh=object())
     s = TSolver(X, y, **kw)
-    s.fit(lam1=0.1, max_outer=3)
-    with pytest.raises(NotImplementedError):
-        s.fit(lam1=0.1, ckpt_every_chunks=2)        # streaming checkpoints
+    r0 = s.fit(lam1=0.1, max_outer=3)
     # ported since: the Jacobi coupling, its precision="bf16", predict
-    # on SparseCOO rows, standardize=True, fit_path and fit_cv, and the
-    # checkpoints of fit and fit_path
+    # on SparseCOO rows, standardize=True, fit_path and fit_cv, the
+    # checkpoints of fit and fit_path, and streaming (whose chunk-cursor
+    # saves an in-memory fit ignores, as the reference does)
+    r1 = s.fit(lam1=0.1, max_outer=3, ckpt_every_chunks=2)
+    np.testing.assert_array_equal(r1.beta, r0.beta)
     from repro_torch.checkpoint import CheckpointManager
     s.fit(lam1=0.1, max_outer=3, ckpt_every=1,
           ckpt_manager=CheckpointManager(tmp_path / "fit"))
