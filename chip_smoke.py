@@ -16,7 +16,9 @@ drives each path through the entry points a user calls and checks it:
   * serve: a 4-column artifact from warm-started fits of that data, saved
     and loaded, scored by ``ScoringEngine.score_coo`` and
     ``GLMSolver.predict`` over the 16384-row sparse test split and driven by
-    ``MicroBatcher`` traffic (predict_tile);
+    ``MicroBatcher`` traffic (predict_tile), then the same traffic traced
+    through a fresh engine: one ``serve/flush`` span a batch,
+    ``serve.compiled_shapes`` equal to ``compile_count``;
   * dense fit: make_dense(n=500000, p=2000) -> a 400000 x 2000 train split
     (glm_stats, cd_tile_solve, alpha_search; the dense tile Gram is a plain
     matrix product);
@@ -51,6 +53,16 @@ drives each path through the entry points a user calls and checks it:
     lambdas (async saves), both resumed in a fresh session, are held to
     those bits (else within 1e-6); each save's and the restore's ms and
     the bytes on disk;
+  * trace (after checkpoint): the sparse fit traced (``repro_torch.obs``:
+    spans, ``record_function`` and NVTX ranges, a convergence stream) for
+    5 supersteps with checkpoints every 2, equal bit for bit to the same
+    fit untraced, with one stream event a superstep (f equal to
+    ``history["f"]``), the span counts, a resume's ``ckpt/restore``;
+    ``ops.launch_trace()`` of one superstep equal to its
+    ``launch_counts()``; one profiled superstep whose ``solver/superstep``
+    range holds the host launches of K1-K4; a screened 4-lambda path's
+    stream context; overheads (traced and untraced supersteps in turns,
+    each part of tracing alone); ``trace_report`` over the directory;
   * multinomial: ``MultinomialGLM`` on the sparse train split, 4 classes,
     3 cycles: K1-K4 launched exactly for the class visits' supersteps,
     the standardized objective never rising, training accuracy at least
@@ -74,7 +86,8 @@ drives each path through the entry points a user calls and checks it:
     16 chunks) and resumed in a fresh session; a screened 4-lambda path
     with the KKT test held; the pinned copy rate, the idle share of one
     profiled superstep, the checkpoint's bytes and save ms, K1, K2 and K4
-    at the chunk shapes;
+    at the chunk shapes; one superstep traced, its ``phase_us`` (the three
+    passes) summing to its ``step_us``;
   * ingest: the sparse train split's first 65,536 rows written as libsvm
     text, then ``repro_torch.launch.ingest_train.main`` in process
     (hashed into 4,096 columns, chunks of 4,096 rows, 3 supersteps: f
@@ -930,11 +943,85 @@ def fused_parity(np, torch, solver, dev, report, parity):
           "tile_gram_bf16": report["tile_gram_bf16"]})
 
 
-def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
+def closed_loop(batcher, reqs, n_req: int, n_clients: int):
+    """``n_req`` requests of ``reqs`` from ``n_clients`` closed-loop client
+    threads through ``batcher``: (results, failures, wall seconds, whether
+    every client thread ended)."""
+    outs = [None] * n_req
+    failed = []
+
+    def client(c):
+        try:
+            for i in range(c, n_req, n_clients):
+                idx, val = reqs[i]
+                outs[i] = batcher.submit(idx, val).get(timeout=60.0)
+        except Exception as exc:          # reported by the caller
+            failed.append(repr(exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300.0)
+    return outs, failed, time.perf_counter() - t0, \
+        not any(th.is_alive() for th in threads)
+
+
+SERVE_REQUESTS, SERVE_CLIENTS = 4096, 32
+SERVE_BUCKETS = dict(max_delay_ms=2.0, batch_buckets=(1, 4, 16, 64),
+                     nnz_buckets=(32, 64, 128))
+
+
+def traced_traffic(np, torch, model, reqs, dev, tdir) -> dict:
+    """The serve phase's closed-loop traffic again, traced, through a fresh
+    engine and batcher, the metrics registry at 0 just before: one
+    ``serve/flush`` span a batch, ``serve.compiled_shapes`` equal to the
+    engine's ``compile_count``, and the ``serve.latency_ms`` histogram's
+    p50/p99 beside the batcher's own ``stats()``."""
+    from repro_torch.obs import metrics, trace
+    from repro_torch.serve import MicroBatcher, ScoringEngine
+
+    metrics.registry().reset()
+    trace.enable(tdir)
+    eng = ScoringEngine(model, device=dev)
+    batcher = MicroBatcher(eng, **SERVE_BUCKETS)
+    batcher.warmup()
+    outs, failed, wall, ended = closed_loop(batcher, reqs, SERVE_REQUESTS,
+                                            SERVE_CLIENTS)
+    batcher.close()
+    spans = span_counts(save_shard(tdir, "serve"))
+    st = batcher.stats()
+    snap = metrics.registry().snapshot()
+    hist = snap["histograms"]["serve.latency_ms"]
+    flushes = {r: snap["counters"].get(f"serve.flush.{r}", 0.0)
+               for r in ("full", "deadline", "close")}
+    check(not failed and ended, f"serve traced: traffic failed {failed[:3]}")
+    check(spans.get("serve/flush") == st["n_batches"]
+          == sum(flushes.values()) and hist["n"] == st["n_requests"]
+          == SERVE_REQUESTS,
+          f"serve traced: {spans.get('serve/flush')} flush spans, "
+          f"{flushes} flushes, {hist['n']} latencies for {st}")
+    check(snap["counters"].get("serve.compiled_shapes")
+          == eng.compile_count > 0,
+          f"serve traced: serve.compiled_shapes "
+          f"{snap['counters'].get('serve.compiled_shapes')} for "
+          f"compile_count {eng.compile_count}")
+    return {"wall_s": wall, "flush_spans": spans.get("serve/flush"),
+            "flushes": flushes, "compiled_shapes": eng.compile_count,
+            "latency_hist_p50_ms": metrics.snapshot_quantile(hist, 50),
+            "latency_hist_p99_ms": metrics.snapshot_quantile(hist, 99),
+            "stats": st}
+
+
+def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib,
+                tdir):
     """Serving on the sparse model: a 4-column artifact from warm-started
     fits, saved and loaded; K7 against its plain version; the test split
     through ``score_coo`` and ``GLMSolver.predict``; closed-loop traffic
-    through ``MicroBatcher``.  Returns the launch counts of that run."""
+    through ``MicroBatcher``, then again traced into ``tdir``.  Returns
+    the launch counts of the untraced run."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1025,35 +1112,16 @@ def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
 
     ScoringEngine.score_packed = counted
     try:
-        batcher = MicroBatcher(eng, max_delay_ms=2.0,
-                               batch_buckets=(1, 4, 16, 64),
-                               nnz_buckets=(32, 64, 128))
+        batcher = MicroBatcher(eng, **SERVE_BUCKETS)
         batcher.warmup()
         n_warm = eng.compile_count
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         calls[0] = 0
 
-        n_req, n_clients = 4096, 32
-        outs = [None] * n_req
-        failed = []
-
-        def client(c):
-            try:
-                for i in range(c, n_req, n_clients):
-                    idx, val = reqs[i]
-                    outs[i] = batcher.submit(idx, val).get(timeout=60.0)
-            except Exception as exc:          # reported below
-                failed.append(repr(exc))
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(n_clients)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300.0)
-        traffic_s = time.perf_counter() - t0
+        n_req, n_clients = SERVE_REQUESTS, SERVE_CLIENTS
+        outs, failed, traffic_s, ended = closed_loop(batcher, reqs, n_req,
+                                                     n_clients)
         batcher.close()
         n_traffic = eng.compile_count
         t0 = time.perf_counter()
@@ -1063,8 +1131,7 @@ def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
         counts = ops.launch_counts()
     finally:
         ScoringEngine.score_packed = score_packed
-    check(not failed and not any(th.is_alive() for th in threads),
-          f"serve: traffic failed {failed[:3]}")
+    check(not failed and ended, f"serve: traffic failed {failed[:3]}")
     st = batcher.stats()
 
     # held against a host product of the same rows (float64 sums)
@@ -1090,6 +1157,7 @@ def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
           f"serve: other kernels launched {counts}")
     acc = [float(((scores[:, k] > 0.5) == (yte > 0)).mean())
            for k in range(scores.shape[1])]
+    traced = traced_traffic(np, torch, model, reqs, dev, tdir)
     emit({"phase": "serve", "lambdas": lams, "fits_s": path_s,
           "artifact_bytes": art_bytes, "n_active": eng.n_active,
           "test_rows": int(Xte.shape[0]), "score_coo_s": coo_s,
@@ -1103,7 +1171,7 @@ def serve_phase(np, torch, solver, ds, dev, report, parity, floor_lib):
           "shapes": {"buckets": n_shapes, "after_warmup": n_warm,
                      "after_traffic": n_traffic},
           "engine_calls": calls[0], "launches": counts,
-          "predict_tile": report["predict_tile"]})
+          "predict_tile": report["predict_tile"], "traced": traced})
     return counts
 
 
@@ -1577,6 +1645,312 @@ def checkpoint_phase(np, torch, GLMSolver, solver, ds, dev, path):
           "alpha_after_cut": res.history["alpha"]})
 
 
+# the trace phase: supersteps of the traced fit and its checkpoint period,
+# the lambdas of sparse_path's grid it traces (from the third: the strong
+# rule at a cold start below lambda_max misses coordinates, so KKT rounds
+# follow), traced and untraced fits timed in turns, disabled spans timed
+TRACE_STEPS, TRACE_CKPT_EVERY = 5, 2
+TRACE_PATH_FROM, TRACE_PATH_LAMBDAS = 2, 4
+TRACE_TURNS = (False, True, True, False, False, True)
+TRACE_NOOP_SPANS, RECORD_LAUNCH_CALLS = 1000, 100_000
+K1_K4 = {"glm_stats": "glm_stats_", "tile_gram": "tile_gram_",
+         "cd_tile_solve": "cd_tile_solve_", "alpha_search": "alpha_search_"}
+
+
+def save_shard(tdir, tag: str):
+    """Write the enabled tracer's events as ``trace_<pid>_<tag>.json`` in
+    ``tdir`` (each traced part of the run its own shard, so a later
+    ``enable`` overwrites none), then disable it; returns its events."""
+    from repro_torch.obs import trace
+
+    tr = trace.get_tracer()
+    tr.save(pathlib.Path(tdir) / f"trace_{tr.pid}_{tag}.json")
+    trace.disable()
+    return tr.export()["traceEvents"]
+
+
+def span_counts(events) -> dict:
+    out = {}
+    for e in events:
+        if e["ph"] == "B":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def ranges_hold_launches(torch, prof, name: str, prefixes) -> tuple:
+    """(the host ranges named ``name`` in a profile, {kernel: [device
+    records, records whose host launch was found, launches inside a
+    range]}) for the kernels of ``prefixes``.  A record's launch is the
+    runtime call with its correlation id, on the host's clock."""
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in evs
+              if e.name == name and e.device_type == DeviceType.CPU]
+    launch_at = {e.id: e.time_range.start for e in evs
+                 if e.device_type == DeviceType.CPU and "aunch" in e.name}
+    out = {k: [0, 0, 0] for k in prefixes}
+    for e in evs:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kname = short_name(e.name)
+        for k, pre in prefixes.items():
+            if kname.startswith(pre):
+                out[k][0] += 1
+                t = launch_at.get(e.id)
+                if t is not None:
+                    out[k][1] += 1
+                    out[k][2] += any(a <= t <= b for a, b in ranges)
+    return ranges, out
+
+
+def tracing_parts(torch, tdir) -> dict:
+    """Median us of each part of tracing a superstep, alone, over
+    TRACE_NOOP_SPANS calls: a disabled span, an enabled span with its
+    ``record_function`` and NVTX ranges, one convergence event written and
+    flushed into ``tdir`` (the trace directory's file system); and their
+    sum for the one span and one event a traced superstep adds."""
+    from repro_torch.obs import convergence, trace
+    from repro_torch.timing import percentiles
+
+    def median_us(fn):
+        out = []
+        for _ in range(TRACE_NOOP_SPANS):
+            t0 = time.perf_counter_ns()
+            fn()
+            out.append((time.perf_counter_ns() - t0) / 1e3)
+        return percentiles(out)["p50"]
+
+    def span_in(tr):
+        def fn():
+            with tr.span("bench/noop"):
+                pass
+        return fn
+
+    event = dict(step=1, outer_it=1, lam1=1.0, lam2=0.0, f=1.0, loss=1.0,
+                 deviance=1.0, alpha=1.0, mu=1.0, nnz=1, accepted_unit=1.0,
+                 active_size=1, supersteps=1, sweep_tile_launches=65,
+                 sweep_tiles_skipped=0, step_us=20000.0)
+    path = pathlib.Path(tdir) / "bench.jsonl"
+    with convergence.ConvergenceStream(path) as cs:
+        emit_us = median_us(lambda: cs.emit(**event))
+    path.unlink()
+    span_us = median_us(span_in(trace.Tracer()))
+    return {"disabled_span_us_median": median_us(span_in(trace.NullTracer())),
+            "enabled_span_us_median": span_us,
+            "stream_event_us_median": emit_us,
+            "tracing_us_per_superstep": span_us + emit_us}
+
+
+def trace_phase(np, torch, solver, path, tdir, card):
+    """The sparse fit traced (``repro_torch.obs``), through the entry
+    points a user calls: ``trace.enable``, a convergence stream on the
+    session, ``fit`` with checkpoints and its resume, a profiled
+    superstep, a screened ``fit_path`` over TRACE_PATH_LAMBDAS lambdas of
+    sparse_path's grid, then ``trace_report`` over the directory.  Gates:
+    the traced fit equals the untraced one bit for bit (beta, f, alpha,
+    n_iter, launch counts); one stream event a superstep with f equal to
+    ``history["f"]``; the span counts; ``launch_trace`` of one superstep
+    equal to its ``launch_counts``; the profiled superstep's range
+    holding the host launches of K1-K4; the path's stream context.  Then
+    the overheads: traced and untraced ``superstep_s`` in turns, the
+    disabled span, ``record_launch`` outside a trace."""
+    import collections
+    import contextlib
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import trace_report
+    from repro_torch.obs import convergence, metrics, trace
+
+    t_phase = time.perf_counter()
+    nt = solver.design.n_tiles
+    lam1 = LAM1_FRACTION * solver.lambda_max()
+    fit = dict(lam1=lam1, max_outer=TRACE_STEPS, tol=0.0,
+               ckpt_every=TRACE_CKPT_EVERY)
+
+    def counted(**kw):
+        ops.reset_launch_counts()
+        res = solver.fit(**kw)
+        torch.cuda.synchronize()
+        return res, ops.launch_counts()
+
+    with tempfile.TemporaryDirectory(prefix="trace-ckpt-") as ck:
+        ck = pathlib.Path(ck)
+        plain, plain_counts = counted(
+            ckpt_manager=CheckpointManager(ck / "untraced"), **fit)
+        tr = trace.enable(tdir)
+        conv_path = pathlib.Path(tdir) / f"convergence_{tr.pid}.jsonl"
+        stream = convergence.ConvergenceStream(conv_path)
+        solver.set_convergence_stream(stream)
+        traced, traced_counts = counted(
+            ckpt_manager=CheckpointManager(ck / "traced"), **fit)
+        n_fit = stream.n_events
+        fit_spans = span_counts(tr.export()["traceEvents"])
+        resumed = solver.fit(ckpt_manager=CheckpointManager(ck / "traced"),
+                             **fit)
+        torch.cuda.synchronize()
+    spans = span_counts(tr.export()["traceEvents"])
+    check(np.array_equal(traced.beta, plain.beta)
+          and traced.history["f"] == plain.history["f"]
+          and traced.history["alpha"] == plain.history["alpha"]
+          and traced.n_iter == plain.n_iter == TRACE_STEPS
+          and traced_counts == plain_counts,
+          f"trace: the traced fit differs from the untraced one: n_iter "
+          f"{traced.n_iter} / {plain.n_iter}, f {traced.history['f']} / "
+          f"{plain.history['f']}, launches {traced_counts} / "
+          f"{plain_counts}, beta gap "
+          f"{float(np.abs(traced.beta - plain.beta).max())}")
+    evs = convergence.read_events(conv_path)
+    check(n_fit == TRACE_STEPS and [e["f"] for e in evs[:n_fit]]
+          == traced.history["f"] and all(e["step_us"] for e in evs),
+          f"trace: {n_fit} stream events, f {[e['f'] for e in evs]} for "
+          f"{traced.history['f']}")
+    n_saves = TRACE_STEPS // TRACE_CKPT_EVERY
+    check(fit_spans == {"solver/superstep": TRACE_STEPS,
+                        "ckpt/save": n_saves, "ckpt/commit": n_saves},
+          f"trace: spans of the traced fit {fit_spans}")
+    # the resumed fit restores the last save and runs the supersteps after
+    # it, to the fit run through
+    check(spans.get("ckpt/restore") == 1 and resumed.n_iter == TRACE_STEPS
+          and np.array_equal(resumed.beta, traced.beta)
+          and resumed.history["f"] == traced.history["f"][n_saves
+                                                         * TRACE_CKPT_EVERY:],
+          f"trace: resume spans {spans}, n_iter {resumed.n_iter}, f "
+          f"{resumed.history['f']}")
+
+    # one profiled superstep, traced: its range, its K1-K4 launches, and
+    # the span's us beside step_s and the device's busy time
+    prof, pres, pwall, _ = profiled_fit(torch, solver, lam1, 1)
+    ranges, held = ranges_hold_launches(torch, prof, "solver/superstep",
+                                        K1_K4)
+    want_rec = {"glm_stats": 1, "alpha_search": 2}
+    check(len(ranges) == 1 and all(
+        n_rec >= want_rec.get(k, nt) and n_rec == found == inside
+        for k, (n_rec, found, inside) in held.items()),
+        f"trace: profiled superstep ranges {len(ranges)}, K1-K4 records "
+        f"[records, launches found, inside] {held}")
+    busy = device_idle(torch, prof, pwall)
+    prof_span_us = convergence.read_events(conv_path)[-1]["step_us"]
+    del prof
+
+    # a screened path over part of sparse_path's grid
+    lambdas = path.lambdas[TRACE_PATH_FROM:TRACE_PATH_FROM
+                           + TRACE_PATH_LAMBDAS]
+    n0 = stream.n_events
+    tpath = solver.fit_path(lambdas=lambdas, max_outer=PATH_MAX_OUTER,
+                            tol=PATH_TOL)
+    pev = convergence.read_events(conv_path)[n0:]
+    check(len(pev) == int(tpath.n_iters.sum()), f"trace path: {len(pev)} "
+          f"events for {tpath.n_iters.tolist()} supersteps")
+    rounds = collections.Counter()
+    ctx_ok = True
+    for e in pev:
+        k = e["lam_index"]
+        if e["outer_it"] == 1:
+            rounds[k] += 1
+        first = rounds[k] == 1
+        ctx_ok &= isinstance(e["screened"], int) and e["screened"] >= 0 and (
+            e["kkt_violations"] is None if first
+            else isinstance(e["kkt_violations"], int)
+            and e["kkt_violations"] > 0)
+    ctx = [(e["lam_index"], e["outer_it"], e["screened"],
+            e["kkt_violations"]) for e in pev]
+    check(sorted(rounds) == list(range(len(lambdas))) and ctx_ok,
+          f"trace path: lam_index rounds {dict(rounds)}, context "
+          f"{ctx[:20]}")
+    solver.set_convergence_stream(None)
+    stream.close()
+    all_spans = span_counts(save_shard(tdir, "fit"))
+
+    # logical launches of one superstep, against the kernels' counts
+    ops.reset_launch_counts()
+    with ops.launch_trace() as lev:
+        solver.fit(lam1=lam1, max_outer=1, tol=0.0)
+    torch.cuda.synchronize()
+    delta = ops.launch_counts()
+    by = collections.Counter(lev)
+    want = {"glm_stats": 1, "cd_tile_solve": nt, "tile_gram": nt,
+            "alpha_search": 2}
+    check({k: by.get(k, 0) for k in want} == {k: delta[k] for k in want}
+          == want and set(by) <= set(want) | {"matvec"}
+          and sum(delta.values()) == sum(want.values()),
+          f"trace: launch_trace {dict(by)} against launch_counts {delta}")
+
+    # overheads: traced and untraced superstep_s in turns (the traced fits
+    # with a stream), then each part of the tracing alone
+    turns = []
+    with tempfile.TemporaryDirectory(prefix="trace-turns-") as td:
+        for i, on in enumerate(TRACE_TURNS):
+            with contextlib.ExitStack() as stack:
+                if on:
+                    trace.enable()
+                    stack.callback(trace.disable)
+                    st = stack.enter_context(convergence.ConvergenceStream(
+                        pathlib.Path(td) / f"c{i}.jsonl"))
+                    solver.set_convergence_stream(st)
+                    stack.callback(solver.set_convergence_stream, None)
+                r = solver.fit(lam1=lam1, max_outer=TRACE_STEPS, tol=0.0)
+            turns.append({"traced": on, "superstep_s": r.history["step_s"]})
+    steps_of = {on: [x for t in turns if t["traced"] == on
+                     for x in t["superstep_s"][1:]] for on in (False, True)}
+    med = {on: float(np.median(v)) for on, v in steps_of.items()}
+    parts = tracing_parts(torch, tdir)
+    t0 = time.perf_counter()
+    for _ in range(RECORD_LAUNCH_CALLS):
+        ops.record_launch("glm_stats")
+    record_us = (time.perf_counter() - t0) / RECORD_LAUNCH_CALLS * 1e6
+
+    # the report over what the serve and trace phases wrote
+    metrics.save_default(tdir)
+    out_json = pathlib.Path(tdir) / "summary.json"
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = trace_report.main([str(tdir), "--json", str(out_json)])
+    check(rc == 0, f"trace_report exited {rc}")
+    rep = json.loads(out_json.read_text())
+    out_json.unlink()
+    rep_counts = {r["span"]: r["count"] for r in rep["spans"]}
+    check(all(rep_counts.get(k, 0) >= v for k, v in all_spans.items())
+          and rep["convergence"]["n_events"] == len(
+              convergence.read_events(conv_path)),
+          f"trace_report: spans {rep_counts} for {all_spans}")
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "trace", "card": card, "phase_s": phase_s,
+          "supersteps": TRACE_STEPS, "ckpt_every": TRACE_CKPT_EVERY,
+          "traced_equals_untraced": True, "spans": all_spans,
+          "stream_events": len(convergence.read_events(conv_path)),
+          "span_us_vs_step_s": [
+              {"span_us": e["step_us"], "step_s": s_}
+              for e, s_ in zip(evs[:n_fit], traced.history["step_s"])],
+          "profiled_superstep": {
+              "span_us": prof_span_us, "step_s": pres.history["step_s"][0],
+              "device_busy_ms": busy["busy_s"] * 1e3,
+              "idle_share": busy["idle_share"],
+              "k1_k4_records_launches_inside": held},
+          "launches": {k: v for k, v in traced_counts.items() if v},
+          "launch_trace": dict(by), "launch_counts_delta": {
+              k: v for k, v in delta.items() if v},
+          "path": {"lambdas": [float(x) for x in lambdas],
+                   "n_iters": tpath.n_iters.tolist(),
+                   "kkt_rounds": {str(k): v for k, v in rounds.items()},
+                   "events": len(pev)},
+          "overhead": {
+              "turns": turns, "median_superstep_s_untraced": med[False],
+              "median_superstep_s_traced": med[True],
+              "traced_over_untraced": med[True] / med[False] - 1.0,
+              "min_superstep_s_untraced": min(steps_of[False]),
+              "min_superstep_s_traced": min(steps_of[True]),
+              **parts,
+              "record_launch_us_per_call": record_us,
+              "record_launch_us_per_superstep": record_us * sum(by.values()),
+              "logical_launches_per_superstep": sum(by.values())},
+          "report": {"n_spans": rep["n_spans"], "top_spans": rep["spans"][:8],
+                     "phase_attribution": rep["phase_attribution"],
+                     "convergence": rep["convergence"],
+                     "metrics_counters": (rep["metrics"] or {}).get(
+                         "counters")}})
+
+
 def multinomial_phase(np, torch, GLMSolver, DGLMNETConfig, ds, dev):
     """``MultinomialGLM`` on the sparse train split, 4 classes: labels the
     argmax of X B + 0.3 noise (B seeded, 50 nonzero rows a class, on
@@ -2039,7 +2413,7 @@ def stream_kernel_report(np, torch, solver, floors, floor_lib, parity):
 
 
 def stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev, gs_ref,
-                 jacobi_ref, lmax, floors, floor_lib, parity, card):
+                 jacobi_ref, lmax, floors, floor_lib, parity, card, tdir):
     """The out-of-core mode at full width: the dense train split stays a
     host array and streams through ``streaming_design`` in chunks of
     STREAM_ROWS rows.  Its Gauss-Seidel fit against the in-memory fit of
@@ -2051,10 +2425,14 @@ def stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev, gs_ref,
     from the same state, bit for bit; each timed by part.  A chunk-cursor
     resume, a short screened path with the KKT test held, the copy rate,
     the idle share of one profiled superstep and the kernels at the chunk
-    shapes."""
+    shapes.  One more superstep runs traced into ``tdir``: its stream
+    event's ``phase_us`` holds the three passes and sums to its
+    ``step_us``; then ``trace_report`` summarizes the whole directory."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.design import streaming_design
     from repro_torch.kernels import ops
+    from repro_torch.launch import trace_report
+    from repro_torch.obs import convergence, trace
 
     t_phase = time.perf_counter()
     X, y = dd.train.X, dd.train.y
@@ -2121,6 +2499,27 @@ def stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev, gs_ref,
     check(all(torch.equal(b, betas[0]) for b in betas),
           "stream: a superstep with prefetch off differs from on")
     del betas
+
+    # one superstep traced: the pass spans and the stream's phase split
+    tr = trace.enable(tdir)
+    conv_path = pathlib.Path(tdir) / f"convergence_{tr.pid}.jsonl"
+    with convergence.ConvergenceStream(conv_path) as cs:
+        s.set_convergence_stream(cs)
+        s.fit(lam1=lam1, max_outer=1, tol=0.0)
+        s.set_convergence_stream(None)
+    ev = convergence.read_events(conv_path)[-1]
+    tspans = span_counts(save_shard(tdir, "stream"))
+    parts = ev["phase_us"] or {}
+    check(set(parts) == {"stats", "sweep", "line_search"}
+          and abs(sum(parts.values()) - ev["step_us"]) <= 1e-6 * ev["step_us"]
+          and tspans == {"solver/stream_stats": 1, "solver/stream_sweep": 1,
+                         "solver/stream_line_search": 1},
+          f"stream traced: event {ev}, spans {tspans}")
+    summary = trace_report.summarize(tdir)
+    traced_step = {"phase_us": parts, "step_us": ev["step_us"],
+                   "spans": tspans,
+                   "report_phase_attribution": summary["phase_attribution"],
+                   "report_spans": summary["spans"][:8]}
     idle = profiled_superstep(torch, s, lam1)
     kernels = stream_kernel_report(np, torch, s, floors, floor_lib, parity)
 
@@ -2268,7 +2667,7 @@ def stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev, gs_ref,
                    "n_iters": path.n_iters.tolist(), "wall_s": path_s,
                    "n_grad": n_grad, "stats": st, "launches": counts,
                    "kkt_rounds": {str(lam): v[0] for lam, v in kkt.items()}},
-          "kernels_at_chunk_shapes": kernels})
+          "kernels_at_chunk_shapes": kernels, "traced": traced_step})
     return {"counts": gs_counts, "jacobi_counts": j_counts,
             "kernels": kernels}
 
@@ -2390,6 +2789,10 @@ def main() -> None:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else f"{kind}, power limit not read"
+
+    # the traced parts of the run (serve, trace, stream) write here
+    trace_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-trace-")
+    tdir = pathlib.Path(trace_tmp.name)
 
     # ---------------------------------------------------------------- setup
     t0 = time.perf_counter()
@@ -2730,9 +3133,10 @@ def main() -> None:
                                 "tile_gram": nt, "alpha_search": 2})
     del design, tb, rows, y, wobs, off, s0, w0, penf
     serve_counts = serve_phase(np, torch, solver, ds, dev, report, parity,
-                               floor_lib)
+                               floor_lib, tdir)
     path = sparse_path_phase(np, torch, solver)
     checkpoint_phase(np, torch, GLMSolver, solver, ds, dev, path)
+    trace_phase(np, torch, solver, path, tdir, card)
     path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev)
     lam1_sparse = LAM1_FRACTION * solver.lambda_max()
     del solver, path
@@ -2820,7 +3224,7 @@ def main() -> None:
     stream = stream_phase(np, torch, GLMSolver, DGLMNETConfig, dd, dev,
                           (LAM1_FRACTION * lmax_dense, dense_res),
                           (lam1_unfused, unfused_res), lmax_dense, floors,
-                          floor_lib, parity, card)
+                          floor_lib, parity, card, tdir)
     del dd, dense_res, unfused_res
     torch.cuda.empty_cache()
     ingest_counts = ingest_phase(np, torch, *ingest_data, dev, card)
@@ -2848,6 +3252,7 @@ def main() -> None:
           f"built-in families took a plain route: {plain}")
     emit({"phase": "plain_routes", "built_in_plain_calls": 0,
           "runs_checked": sorted(built_in)})
+    trace_tmp.cleanup()
 
     # ------------------------------------------------------------- report
     # the bf16 modes replace the bf16 branches of the TPU kernels' bodies;

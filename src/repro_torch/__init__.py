@@ -6,9 +6,10 @@ it and never imports ``jax``.  Entry points: the estimators of
 ``repro_torch.glm`` and the session ``repro_torch.core.solver.GLMSolver``
 beneath them, which run on the card unless the caller passes
 ``device="cpu"``; ``python -m repro_torch.launch.serve_glm`` serves a saved
-model.
+model.  ``repro_torch.obs`` traces a run (``REPRO_TRACE=dir``) and
+``python -m repro_torch.launch.trace_report dir`` summarizes it.
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
 __all__ = ["core", "data", "kernels", "serve", "checkpoint", "glm", "launch",
-           "convert", "device", "timing"]
+           "obs", "convert", "device", "timing"]

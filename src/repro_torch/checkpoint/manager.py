@@ -21,6 +21,10 @@ may overwrite its tensors at once; ``restore`` puts each array on the
 device of its template tensor.  Keys
 are the JAX package's: a leaf's path of dict keys, list indices and
 named-tuple fields joined by ``/`` (``"_root"`` for a bare leaf).
+
+Traced (``repro_torch.obs``), the copy to the host runs in a ``ckpt/save``
+span, the write and commit in ``ckpt/commit`` on the thread that writes,
+and the read of ``restore`` in ``ckpt/restore``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace as obs_trace
 
 # managers that may have a writer in flight; the writer threads are daemonic
 # (a hung filesystem must not wedge interpreter exit), so without this join
@@ -129,7 +135,8 @@ class CheckpointManager:
         """Write ``tree`` (tensors, arrays and scalars in dicts, lists and
         named tuples) as checkpoint ``step``."""
         self.wait()
-        flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        with obs_trace.span("ckpt/save", args={"step": int(step)}):
+            flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
         meta = {"step": int(step), "time": time.time(), "keys": sorted(flat),
                 "metadata": metadata or {}}
         if self.async_save:
@@ -147,23 +154,25 @@ class CheckpointManager:
     @staticmethod
     def _write(directory: pathlib.Path, keep_last: int, step: int,
                flat: dict, meta: dict):
-        tmp = directory / f"ckpt_{step}.tmp"
-        final = directory / f"ckpt_{step}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir()
-        np.savez(tmp / "shard_0.npz", **flat)
-        (tmp / "manifest.json").write_text(json.dumps(meta))
-        # fsync the directory entry, then commit atomically
-        fd = os.open(tmp, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-        if final.exists():
-            shutil.rmtree(final)
-        os.replace(tmp, final)
-        CheckpointManager._gc(directory, keep_last)
+        # on the writer's thread when async: its own lane in a trace
+        with obs_trace.span("ckpt/commit", args={"step": int(step)}):
+            tmp = directory / f"ckpt_{step}.tmp"
+            final = directory / f"ckpt_{step}"
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir()
+            np.savez(tmp / "shard_0.npz", **flat)
+            (tmp / "manifest.json").write_text(json.dumps(meta))
+            # fsync the directory entry, then commit atomically
+            fd = os.open(tmp, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            if final.exists():
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            CheckpointManager._gc(directory, keep_last)
 
     def wait(self):
         if self._thread is not None:
@@ -203,9 +212,11 @@ class CheckpointManager:
         on its device; a numpy leaf a numpy array; any other leaf the
         stored array."""
         d = self._step_dir(step)
-        meta = json.loads((d / "manifest.json").read_text())
-        with np.load(d / "shard_0.npz") as z:
-            flat = {k: z[k] for k in z.files}
+        with obs_trace.span("ckpt/restore",
+                            args={"step": int(d.name.split("_")[1])}):
+            meta = json.loads((d / "manifest.json").read_text())
+            with np.load(d / "shard_0.npz") as z:
+                flat = {k: z[k] for k in z.files}
         flat_like = _flatten(like)
         if sorted(flat_like) != meta["keys"]:
             differ = set(meta["keys"]) ^ set(flat_like)

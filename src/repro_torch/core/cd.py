@@ -99,6 +99,7 @@ def sweep_jacobi(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1, lam2,
                                penf=penf, tile_live=live)
     if active is not None:
         d = torch.where(active > 0, d, torch.zeros_like(d))
+    ops.record_launch("matvec")     # the xdb merge pass, its own sweep of X
     return d, design.matvec(d), tiles_done
 
 

@@ -29,10 +29,14 @@ caller reads the metrics once per superstep.
 for out-of-core designs (``StreamingDesign``): a pass over the chunks sums
 the statistics (G_w = X^T W X, g0 = X^T s, the loss), the Gram-mode sweep
 runs from them, and a second pass sums every line-search candidate's loss.
+
+``fit`` is the reference's deprecated one-shot fit, a thin wrapper over
+``GLMSolver(...).fit()``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -317,3 +321,40 @@ def make_streaming_superstep(config: DGLMNETConfig, *, n_tiles: int,
 
     return StreamingSuperstep(stats_chunk, prepare, ls_chunk, finish,
                               int(cand.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# the deprecated one-shot fit (a thin wrapper over solver.GLMSolver)
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(name: str):
+    """Warn once per name and process, as the reference does."""
+    if name in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(name)
+    warnings.warn(
+        f"repro_torch.core.dglmnet.{name} is deprecated; construct a "
+        "repro_torch.core.solver.GLMSolver session instead: it packs and "
+        "places the design once and fits warm-started lambda paths "
+        "(solver.fit / solver.fit_path).",
+        DeprecationWarning, stacklevel=3)
+
+
+def fit(X, y, config: DGLMNETConfig, *, beta0=None, verbose=False,
+        design_info=None, device=None) -> FitResult:
+    """DEPRECATED one-shot single-device fit; use ``GLMSolver(...).fit()``.
+
+    X: (n, p) dense array-like, a ``SparseCOO`` (packed into bricks without
+    densifying the whole matrix) or a prebuilt ``DesignMatrix`` (a
+    ``BlockSparseDesign`` needs the ``DesignInfo`` made with it as
+    ``design_info`` to map beta back to the feature order).  ``device``
+    None is the CUDA card.
+    """
+    _warn_deprecated("fit")
+    from repro_torch.core.solver import GLMSolver
+    solver = GLMSolver(X, y, config=config, design_info=design_info,
+                       device=device)
+    return solver.fit(beta0=beta0, verbose=verbose)

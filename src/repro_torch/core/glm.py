@@ -63,10 +63,14 @@ class GLMFamily:
             w = w * weights
         return loss, s, w
 
+    def loss(self, y, m, weights=None, offset=None):
+        """Per-example (weighted) loss, the first of ``stats``."""
+        return self.stats(y, m, weights=weights, offset=offset)[0]
+
     def deviance(self, y, m, weights=None, offset=None):
         """Total (weighted) deviance 2 sum_i w_i (l_i - l_sat,i), a 0-d
         tensor on the inputs' device."""
-        loss = self.stats(y, m, weights=weights, offset=offset)[0]
+        loss = self.loss(y, m, weights=weights, offset=offset)
         sat = torch.zeros_like(loss) if self.saturated_loss is None \
             else self.saturated_loss(y)
         if weights is not None:

@@ -57,6 +57,13 @@ on a SparseCOO goes through the serving engine (``serve/engine.py``) and
 its fused gather-dot-link kernel; ``save`` writes a serving artifact (one
 column, or one per lambda of a ``PathResult``).
 
+Observability (``repro_torch.obs``): each superstep's dispatch runs in a
+``solver/superstep`` span (a streaming one in its three pass spans), and
+a convergence stream, opened next to the trace shards when tracing
+targets a directory or attached by ``set_convergence_stream``, gets one
+event a superstep from the host scalars its one device-to-host read
+fetched.  Neither adds a synchronization.
+
 Not ported yet (raises NotImplementedError): a mesh.
 """
 from __future__ import annotations
@@ -76,6 +83,8 @@ from repro_torch.data.design import DesignMatrix, StreamingDesign
 from repro_torch.data.sparse import SparseCOO
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import convergence as conv_lib
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import artifact
 from repro_torch.serve.artifact import ServableModel
 from repro_torch.serve.engine import ScoringEngine
@@ -209,6 +218,18 @@ class GLMSolver:
         # because screening froze every coordinate of them
         self.launch_stats = {"supersteps": 0, "sweep_tile_launches": 0,
                              "sweep_tiles_skipped": 0}
+        self._phase_fractions = None    # set_phase_fractions
+        # the convergence event stream: opened next to the trace shards
+        # when tracing targets a directory, or set_convergence_stream()
+        self._conv = None
+        self._conv_step = 0
+        self._conv_ctx: dict = {}
+        self._last_step_us = None
+        self._last_phase_us = None
+        td = obs_trace.trace_dir()
+        if td is not None:
+            self._conv = conv_lib.ConvergenceStream(
+                td / f"convergence_{obs_trace.get_tracer().pid}.jsonl")
 
         # a path or an open reader becomes a StreamingDesign, and y=None
         # takes the labels from the same source
@@ -438,11 +459,12 @@ class GLMSolver:
         stay frozen and tiles without an active coordinate are skipped.
         Returns (state, history, n_iter, converged); the history also
         records each superstep's host seconds (``step_s``), taken after the
-        one device-to-host read of its metrics.  ``ckpt_manager``: resume
-        from its latest checkpoint if it has one (the history then starts
-        at the resumed superstep), and save every ``ckpt_every``; a
-        streaming session also saves its first pass's partial sums every
-        ``ckpt_every_chunks`` chunks.
+        one device-to-host read of its metrics; with a convergence stream
+        each superstep emits one event from the scalars of that read.
+        ``ckpt_manager``: resume from its latest checkpoint if it has one
+        (the history then starts at the resumed superstep), and save every
+        ``ckpt_every``; a streaming session also saves its first pass's
+        partial sums every ``ckpt_every_chunks`` chunks.
         """
         cfg = self.config
         max_outer = cfg.max_outer if max_outer is None else int(max_outer)
@@ -451,12 +473,14 @@ class GLMSolver:
         total_tiles = self._n_tiles
         active_dev = tile_active = None
         live_tiles = total_tiles
+        live_active = self._p_tot
         if active is not None:
             act = np.asarray(active, np.float32)
             active_dev = self._put(act)
             tile_active = act.reshape(total_tiles, cfg.tile_size) \
                 .max(axis=1) > 0
             live_tiles = int(tile_active.sum())
+            live_active = int((act > 0).sum())
         # counted as the reference counts: the Gauss-Seidel sweep and the
         # fused Jacobi superstep skip dead tiles ("shaped"); the unfused
         # Jacobi sweep is counted as sweeping every tile.  Both Gram-mode
@@ -491,10 +515,15 @@ class GLMSolver:
                     ckpt=(ckpt_manager, ckpt_every_chunks))
                 resume = None
             else:
-                state, m = self._superstep(
-                    self._Xs, self._ys, weights, self._offsets, (lam1, lam2),
-                    self._penf, state, active=active_dev,
-                    tile_active=tile_active)
+                # a span of the host dispatch: the read below is the
+                # superstep's one synchronization, and no other is added
+                with obs_trace.span("solver/superstep") as sp:
+                    state, m = self._superstep(
+                        self._Xs, self._ys, weights, self._offsets,
+                        (lam1, lam2), self._penf, state, active=active_dev,
+                        tile_active=tile_active)
+                self._last_step_us = sp.elapsed_us or None
+                self._last_phase_us = None
             self.launch_stats["supersteps"] += 1
             self.launch_stats["sweep_tile_launches"] += \
                 live_tiles if shaped else total_tiles
@@ -511,6 +540,9 @@ class GLMSolver:
             f = mh["f"]
             for k in _HISTORY_KEYS:
                 history[k].append(mh[k])
+            if self._conv is not None:
+                self._emit_conv(it, mh, lam1=lam1, lam2=lam2,
+                                active_size=live_active)
             if verbose:
                 tag = f"repro_torch/stream x{self._Xs.n_chunks}" \
                     if self._streaming else "repro_torch"
@@ -572,7 +604,10 @@ class GLMSolver:
         """One streaming superstep: the statistics pass (from ``resume``'s
         chunk and partial sums when given), the sweep, the line-search
         pass; returns (state, metrics).  ``ckpt`` = (manager, k): save the
-        partial sums every k chunks of the first pass."""
+        partial sums every k chunks of the first pass.  Each pass runs in a
+        span (``solver/stream_stats``, ``stream_sweep``,
+        ``stream_line_search``), whose host µs become the superstep's
+        ``phase_us`` and their sum its ``step_us`` (None untraced)."""
         fns = self._superstep
         sd = self._Xs
         mgr, every = ckpt
@@ -585,26 +620,78 @@ class GLMSolver:
                    torch.zeros((), dtype=torch.float32, device=self.device))
         else:
             start, acc = resume
-        for i, Xc, yc, wc, oc in self._iter_row_chunks(weights, start=start):
-            acc = fns.stats_chunk(Xc, yc, wc, oc, state.beta, acc)
-            if mgr is not None and every and (i + 1) % every == 0 \
-                    and i + 1 < sd.n_chunks:
-                G, g0, L = acc
-                mgr.save(it, {"beta": state.beta, "mu": state.mu, "G": G,
-                              "g0": g0, "L": L},
-                         metadata={"next_it": it, "stream_chunk": i + 1,
-                                   "f_prev": float(f_prev),
-                                   "design_layout": self._design_layout})
-        prep = fns.prepare(acc, state.beta, state.mu, lams, self._penf,
-                           state.cursor, active=active_dev,
-                           tile_active=tile_active)
+        with obs_trace.span("solver/stream_stats", args={"it": it}) as sp1:
+            for i, Xc, yc, wc, oc in self._iter_row_chunks(weights,
+                                                           start=start):
+                acc = fns.stats_chunk(Xc, yc, wc, oc, state.beta, acc)
+                if mgr is not None and every and (i + 1) % every == 0 \
+                        and i + 1 < sd.n_chunks:
+                    G, g0, L = acc
+                    mgr.save(it, {"beta": state.beta, "mu": state.mu,
+                                  "G": G, "g0": g0, "L": L},
+                             metadata={"next_it": it, "stream_chunk": i + 1,
+                                       "f_prev": float(f_prev),
+                                       "design_layout":
+                                           self._design_layout})
+        with obs_trace.span("solver/stream_sweep") as sp2:
+            prep = fns.prepare(acc, state.beta, state.mu, lams, self._penf,
+                               state.cursor, active=active_dev,
+                               tile_active=tile_active)
         del acc
-        losses = torch.zeros(fns.n_candidates, dtype=torch.float32,
-                             device=self.device)
-        for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
-            losses = fns.ls_chunk(Xc, yc, wc, oc, state.beta, prep["dbeta"],
-                                  losses)
-        return fns.finish(losses, prep, state, lams, self._penf)
+        with obs_trace.span("solver/stream_line_search") as sp3:
+            losses = torch.zeros(fns.n_candidates, dtype=torch.float32,
+                                 device=self.device)
+            for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
+                losses = fns.ls_chunk(Xc, yc, wc, oc, state.beta,
+                                      prep["dbeta"], losses)
+            out = fns.finish(losses, prep, state, lams, self._penf)
+        phase_us = {"stats": round(sp1.elapsed_us, 1),
+                    "sweep": round(sp2.elapsed_us, 1),
+                    "line_search": round(sp3.elapsed_us, 1)}
+        total = sum(phase_us.values())
+        self._last_step_us = total or None
+        self._last_phase_us = phase_us if total else None
+        return out
+
+    def set_phase_fractions(self, fractions):
+        """Register the split of a superstep's seconds into named phases
+        (``{"stats": 0.2, "sweep": 0.7, ...}``; None stops attributing).
+        As in the reference, the fractions reach a convergence event's
+        ``phase_us`` only through telemetry, which the port does not have
+        yet: they are validated and kept."""
+        if fractions is not None:
+            fractions = {str(k): float(v) for k, v in fractions.items()}
+        self._phase_fractions = fractions
+
+    def set_convergence_stream(self, stream):
+        """Attach (or detach, with None) a convergence event stream.
+        Sessions created while tracing targets a directory get one
+        (``<trace_dir>/convergence_<pid>.jsonl``).  Accepts a
+        ``repro_torch.obs.convergence.ConvergenceStream`` or a path."""
+        if stream is not None and not hasattr(stream, "emit"):
+            stream = conv_lib.ConvergenceStream(stream)
+        self._conv = stream
+
+    def _emit_conv(self, outer_it, mh, *, lam1, lam2, active_size):
+        """One convergence event a superstep, from host scalars only (the
+        superstep's one device-to-host read fetched them all)."""
+        self._conv_step += 1
+        ctx = self._conv_ctx
+        self._conv.emit(
+            step=self._conv_step, outer_it=int(outer_it),
+            lam_index=ctx.get("lam_index"),
+            lam1=float(lam1), lam2=float(lam2),
+            f=float(mh["f"]), loss=float(mh["loss"]),
+            deviance=float(mh["D"]), alpha=float(mh["alpha"]),
+            mu=float(mh["mu"]), nnz=int(mh["nnz"]),
+            accepted_unit=float(mh["accepted_unit"]),
+            active_size=int(active_size),
+            screened=ctx.get("screened"),
+            kkt_violations=ctx.get("kkt_violations"),
+            supersteps=self.launch_stats["supersteps"],
+            sweep_tile_launches=self.launch_stats["sweep_tile_launches"],
+            sweep_tiles_skipped=self.launch_stats["sweep_tiles_skipped"],
+            step_us=self._last_step_us, phase_us=self._last_phase_us)
 
     def fit(self, lam1: Optional[float] = None, lam2: Optional[float] = None,
             *, beta0=None, intercept0: float = 0.0, max_outer=None, tol=None,
@@ -811,6 +898,15 @@ class GLMSolver:
                     (state.beta.cpu().numpy() != 0.0) | unpen
                 it_k = 0
                 for _ in range(8):
+                    # the stream's context: where on the path, how many
+                    # coordinates the strong rule froze, and what the last
+                    # KKT test of this lambda found (None before it)
+                    self._conv_ctx = {
+                        "lam_index": k,
+                        "screened": int(active.size - active.sum()),
+                        "kkt_violations": self._conv_ctx.get(
+                            "kkt_violations")
+                        if self._conv_ctx.get("lam_index") == k else None}
                     state, hist, it_round, conv_k = self._run(
                         state, lam1, lam2, weights=weights, active=active,
                         max_outer=max_outer, tol=tol, verbose=verbose)
@@ -820,11 +916,13 @@ class GLMSolver:
                     g = self._grad_state(state, weights)
                     viol = (~active) & (np.abs(g) >
                                         pf * lam1 * (1.0 + kkt_slack) + 1e-7)
+                    self._conv_ctx["kkt_violations"] = int(viol.sum())
                     if not viol.any():
                         break
                     active |= viol
                 g_warm = g
             else:
+                self._conv_ctx = {"lam_index": k}
                 state, hist, it_k, conv_k = self._run(
                     state, lam1, lam2, weights=weights, max_outer=max_outer,
                     tol=tol, verbose=verbose)
@@ -857,6 +955,7 @@ class GLMSolver:
                                            converged[:k + 1].tolist()}})
         if ckpt_manager is not None:
             ckpt_manager.wait()
+        self._conv_ctx = {}
         return betas_packed, f, nnz, n_iters, converged, val_dev, state
 
     def _path_result(self, lambdas, lam2, betas_packed, f, nnz, n_iters,

@@ -1,9 +1,11 @@
 """Host-side sparse design container (numpy only).
 
-A copy of ``repro.data.sparse.SparseCOO`` so the port imports nothing of the
-JAX package: an exact COO matrix with matvec/rmatvec, row selection,
-deduplication and the feature-frequency order that the brick packing sorts
-by (``data/design.py``).
+A copy of ``repro.data.sparse`` so the port imports nothing of the JAX
+package: ``SparseCOO``, an exact COO matrix with matvec/rmatvec, row
+selection, deduplication, column permutation and the feature-frequency
+order that the brick packing sorts by (``data/design.py``); and
+``to_dense_blocks``, the frequency-sorted dense tiling with its brick
+occupancy.
 """
 from __future__ import annotations
 
@@ -61,3 +63,31 @@ class SparseCOO:
         into the same tiles maximizes brick occupancy."""
         counts = np.bincount(self.cols, minlength=self.shape[1])
         return np.argsort(-counts, kind="stable")
+
+    def permute_cols(self, perm: np.ndarray) -> "SparseCOO":
+        """The matrix with column ``perm[k]`` moved to position k."""
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        return SparseCOO(self.rows, inv[self.cols], self.vals, self.shape)
+
+
+def to_dense_blocks(X: SparseCOO, tile_size: int, *, reorder: bool = True):
+    """Densify into the feature-tiled layout of the CD sweep.
+
+    Returns (dense (n, p_pad) float32, perm, occupancy): columns in ``perm``
+    order (most frequent first with ``reorder``), padded to a multiple of
+    ``tile_size``, and the share of (256-row block x tile) bricks that
+    hold at least one nonzero.
+    """
+    perm = X.col_frequency_order() if reorder else np.arange(X.shape[1])
+    Xp = X.permute_cols(perm)
+    p_pad = X.shape[1] + ((-X.shape[1]) % tile_size)
+    dense = np.zeros((X.shape[0], p_pad), np.float32)
+    dense[Xp.rows, Xp.cols] = Xp.vals
+    rb = 256
+    n_rb = (X.shape[0] + rb - 1) // rb
+    n_tb = p_pad // tile_size
+    brick = np.zeros((n_rb, n_tb), bool)
+    brick[Xp.rows // rb, Xp.cols // tile_size] = True
+    occupancy = float(brick.mean())
+    return dense, perm, occupancy

@@ -113,3 +113,22 @@ def make_sparse(n=5000, p=20000, avg_nnz=50, k_true=100, family="logistic",
     return Dataset(tr, te, va, beta, dict(
         kind="sparse", n=n, p=p, avg_nnz=float(nnz_per_row.mean()),
         nnz=total, family=family, pos_frac=float((y > 0).mean())))
+
+
+def au_prc(y_true, scores):
+    """Area under the precision-recall curve (paper Appendix C): step-wise
+    summation of the precision at every new recall level, over thresholds
+    in a stable descending order of ``scores``; 0.0 without a positive.
+    Numpy, as the reference's, so both give the same bits."""
+    y = np.asarray(y_true) > 0
+    order = np.argsort(-np.asarray(scores), kind="stable")
+    y = y[order]
+    tp = np.cumsum(y)
+    fp = np.cumsum(~y)
+    n_pos = int(y.sum())
+    if n_pos == 0:
+        return 0.0
+    precision = tp / np.maximum(tp + fp, 1)
+    recall = tp / n_pos
+    d_recall = np.diff(np.concatenate([[0.0], recall]))
+    return float(np.sum(precision * d_recall))

@@ -1,5 +1,6 @@
 """Chunked libsvm/svmlight reader and writer (a copy of
-``repro.io.libsvm`` without its trace spans and counters).
+``repro.io.libsvm``, with its ``io/parse_chunk`` span and
+``io.chunk_cache.hit``/``miss`` counters).
 
 The libsvm text format (``label idx:val idx:val ...``, a row a line,
 optionally gzip-compressed) is how the paper's sparse datasets arrive.
@@ -31,6 +32,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.data.sparse import SparseCOO
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 def _open(path, mode="rt"):
@@ -260,16 +263,19 @@ class LibsvmReader:
                 hit = self._cache.get(i)
                 if hit is not None:
                     self._cache.move_to_end(i)
+                    obs_metrics.counter("io.chunk_cache.hit").inc()
                     return hit
-        lines = self._read_lines(i)
-        width = max(self.max_nnz, max((len(ix) for _, ix, _ in lines),
-                                      default=1), 1)
-        cols = np.full((len(lines), width), -1, np.int64)
-        vals = np.zeros((len(lines), width), np.float32)
-        shift = 0 if self._zero_based else 1
-        for r, (_, idx, v) in enumerate(lines):
-            cols[r, :len(idx)] = idx - shift
-            vals[r, :len(idx)] = v
+            obs_metrics.counter("io.chunk_cache.miss").inc()
+        with obs_trace.span("io/parse_chunk", args={"chunk": i}):
+            lines = self._read_lines(i)
+            width = max(self.max_nnz, max((len(ix) for _, ix, _ in lines),
+                                          default=1), 1)
+            cols = np.full((len(lines), width), -1, np.int64)
+            vals = np.zeros((len(lines), width), np.float32)
+            shift = 0 if self._zero_based else 1
+            for r, (_, idx, v) in enumerate(lines):
+                cols[r, :len(idx)] = idx - shift
+                vals[r, :len(idx)] = v
         if self.cache_chunks > 0:
             with self._lock:
                 self._cache[i] = (cols, vals)

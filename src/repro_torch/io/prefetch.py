@@ -1,5 +1,7 @@
 """A bounded background prefetch queue over any chunk callable (a copy
-of ``repro.io.prefetch`` without its trace spans and gauge).
+of ``repro.io.prefetch``: each chunk is made in an ``io/prefetch_produce``
+span on the worker's own trace lane, and ``io.prefetch.queue_depth``
+gauges the queue).
 
 ``StreamingDesign.iter_chunks`` already overlaps the host-to-device copy;
 for a file the costly part is making the chunk (parsing text, inflating
@@ -22,6 +24,9 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Optional
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 class PrefetchingSource:
@@ -51,16 +56,20 @@ class PrefetchingSource:
     # ------------------------------------------------------------- worker
 
     def _run(self, start: int, q: queue.Queue, stop: threading.Event):
+        depth_gauge = obs_metrics.gauge("io.prefetch.queue_depth")
         for i in range(start, self.n_chunks):
             if stop.is_set():
                 return
             try:
-                item = (i, self._fn(i), None)
+                with obs_trace.span("io/prefetch_produce",
+                                    args={"chunk": i}):
+                    item = (i, self._fn(i), None)
             except BaseException as e:          # re-raised at the consumer
                 item = (i, None, e)
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.1)
+                    depth_gauge.set(q.qsize())
                     break
                 except queue.Full:
                     continue

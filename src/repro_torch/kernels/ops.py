@@ -13,8 +13,14 @@ for their family count apart (``"glm_stats/plain"``, ...), so a run can
 show that its main path went through the kernels.  The two entries of the
 tile chain (K2), ``cd_tile_solve`` and ``jacobi_tile_solves``, take its
 constants as one tensor made by ``solve_params``, built once a sweep.
+
+Beside the counts, ``launch_trace()`` collects the logical launches of
+each dispatcher in call order, under the reference's names, on either
+device (``record_launch``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -68,6 +74,51 @@ def reset_launch_counts() -> None:
         _plain_calls[k] = 0
 
 
+# --- logical launch events (the reference's ``launch_trace``) -------------
+# Every dispatcher below records one logical launch while a
+# ``launch_trace()`` is active, on the card and on the CPU alike, under the
+# reference's name (``jacobi_tile_solves`` is its batched ``cd_tile_solve``;
+# ``core/cd.py`` adds ``matvec`` for the Jacobi sweep's merge pass).  The
+# reference records at trace time, once a compile; the port runs eagerly
+# and records once a call, so a trace around one superstep holds that
+# superstep's launches.  The dispatchers a fused entry composes on the
+# brick route are parts of its one logical launch and record nothing.
+# Outside a trace the cost is one ``is None`` test a call (and one context
+# manager a fused call).
+_LAUNCH_EVENTS = None
+
+
+@contextlib.contextmanager
+def launch_trace():
+    """Collect the dispatchers' logical launch events; yields the live
+    list."""
+    global _LAUNCH_EVENTS
+    prev = _LAUNCH_EVENTS
+    _LAUNCH_EVENTS = events = []
+    try:
+        yield events
+    finally:
+        _LAUNCH_EVENTS = prev
+
+
+def record_launch(name):
+    """Record one logical device launch (no-op outside ``launch_trace()``)."""
+    if _LAUNCH_EVENTS is not None:
+        _LAUNCH_EVENTS.append(name)
+
+
+@contextlib.contextmanager
+def _parts_of(name):
+    """Record ``name`` once; the dispatchers called inside record nothing."""
+    global _LAUNCH_EVENTS
+    record_launch(name)
+    prev, _LAUNCH_EVENTS = _LAUNCH_EVENTS, None
+    try:
+        yield
+    finally:
+        _LAUNCH_EVENTS = prev
+
+
 def _on_card(t) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
     if t.is_cuda:
@@ -107,6 +158,7 @@ def cd_tile_solve(G, g, h, beta_t, dbeta_t, params, *, penf=None):
     device; ``h`` = diag(G), a view will do; ``penf`` optional (T,) penalty
     factors (0 = unpenalized).
     """
+    record_launch("cd_tile_solve")
     if not _on_card(g):
         return ref.cd_tile_solve(G, g, h, beta_t, dbeta_t, *params.unbind(),
                                  penf=penf)
@@ -120,6 +172,7 @@ def tile_gram(bricks, rows, n_valid, w, r, *, precision="fp32"):
     (n_rows,) vectors.  Slots k >= n_valid are skipped.  ``precision``
     "bf16" rounds the product inputs to bfloat16 (``ref.tile_gram``).
     """
+    record_launch("tile_gram")
     if not _on_card(bricks):
         rb = bricks.shape[1]
         return ref.tile_gram(bricks, rows, n_valid, w.reshape(-1, rb),
@@ -134,6 +187,7 @@ def glm_stats(y, xb, family, *, weights=None, offset=None):
     ``weights`` is the combined observation weight (sample weight x fold
     mask x row padding); ``offset`` shifts the margins.
     """
+    record_launch("glm_stats")
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
@@ -144,6 +198,7 @@ def glm_stats(y, xb, family, *, weights=None, offset=None):
 
 def alpha_search(y, xb, xdb, alphas, family, *, weights=None, offset=None):
     """losses[k] = sum_i weights_i * l(y_i, xb_i + o_i + alphas[k]*xdb_i)."""
+    record_launch("alpha_search")
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
@@ -159,6 +214,7 @@ def jacobi_tile_solves(G_all, g_all, beta, params, *, penf=None,
     """The (p,) Jacobi step: each live tile's chain from a zero step (one
     K2 launch for all tiles on the card); dead tiles (host ``tile_live``
     False) get 0.  ``params`` as for ``cd_tile_solve``."""
+    record_launch("cd_tile_solve")
     if not _on_card(g_all):
         return ref.jacobi_tile_solves(G_all, g_all, beta, *params.unbind(),
                                       penf=penf, tile_live=tile_live)
@@ -195,6 +251,15 @@ def fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
     without a body in K5 takes the plain dense version on the card too;
     on bricks only K1 depends on the family (``glm_stats`` routes it).
     """
+    with _parts_of("fused_stats_sweep"):
+        return _fused_stats_sweep(design, y, xb, beta, family, mu=mu, nu=nu,
+                                  lam1=lam1, lam2=lam2, weights=weights,
+                                  offset=offset, penf=penf,
+                                  tile_live=tile_live, precision=precision)
+
+
+def _fused_stats_sweep(design, y, xb, beta, family, *, mu, nu, lam1, lam2,
+                       weights, offset, penf, tile_live, precision):
     fam = glm_lib.resolve_family(family)
     if weights is None:
         weights = torch.ones_like(y)
@@ -241,6 +306,14 @@ def fused_ls(design, y, xb, dbeta, alphas, family, *, weights=None,
     from bfloat16 X and dbeta); a brick design forms xdb with
     ``design.matvec`` and the losses with K4 over all candidates, in
     float32 at either precision, as the reference does."""
+    with _parts_of("fused_ls"):
+        return _fused_ls(design, y, xb, dbeta, alphas, family,
+                         weights=weights, offset=offset,
+                         precision=precision)
+
+
+def _fused_ls(design, y, xb, dbeta, alphas, family, *, weights, offset,
+              precision):
     ref.is_bf16(precision)      # the brick route reads it nowhere else
     fam = glm_lib.resolve_family(family)
     if weights is None:
@@ -268,6 +341,7 @@ def predict_tile(slots, vals, table, b0, family, *, kind="link"):
     columns) takes the plain version on either device; an unregistered
     name raises.
     """
+    record_launch("predict_tile")
     fam = glm_lib.resolve_family(family)
     if kind not in ("link", "response"):
         raise ValueError(f"unknown kind {kind!r}; use 'link' or 'response'")

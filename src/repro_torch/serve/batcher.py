@@ -18,7 +18,10 @@ nnz (a rare outsized launch, never an error).
 engine call goes through ``repro_torch.timing.timed``, which waits for the
 card); ``stats()`` reports p50/p99 latency, rows/s, batch occupancy and the
 shape count.  ``score_one`` is the batch-1 baseline: one real engine call
-per request through the same padding.
+per request through the same padding.  The process metrics registry
+(``repro_torch.obs.metrics``) gets the ``serve.queue_depth`` gauge, the
+``serve.latency_ms`` histogram and the ``serve.flush.{full,deadline,close}``
+counters, and a trace the ``serve/flush`` span around each engine call.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.timing import percentiles, timed
 
 DEFAULT_BATCH_BUCKETS = (1, 4, 16, 64)
@@ -106,6 +111,12 @@ class MicroBatcher:
         self._engine_s = 0.0
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+        # the same figures in the process metrics registry, so that
+        # several batchers (and processes) aggregate
+        self._m_depth = obs_metrics.gauge("serve.queue_depth")
+        self._m_lat = obs_metrics.histogram("serve.latency_ms")
+        self._m_flush = {r: obs_metrics.counter(f"serve.flush.{r}")
+                         for r in ("full", "deadline", "close")}
 
         self._thread = threading.Thread(target=self._flusher, daemon=True,
                                         name="repro-serve-flusher")
@@ -198,8 +209,13 @@ class MicroBatcher:
                        and not self._closed and now < deadline):
                     self._lock.wait(timeout=deadline - now)
                     now = time.perf_counter()
+                # why this flush fired: the loop's exit conditions in order
+                reason = "full" if len(self._queue) >= self.max_batch \
+                    else ("close" if self._closed else "deadline")
                 batch = self._queue[:self.max_batch]
                 del self._queue[:len(batch)]
+                self._m_depth.set(len(self._queue))
+            self._m_flush[reason].inc()
             try:
                 self._flush(batch)
             except Exception as e:          # noqa: BLE001 — must not die
@@ -225,8 +241,10 @@ class MicroBatcher:
             offs = np.zeros((B,), np.float32)
             for i, p in enumerate(batch):
                 offs[i] = 0.0 if p.offset is None else float(p.offset)
-        out, dt = timed(self.engine.score_sparse, reqs, kind=self.kind,
-                        nnz_pad=J, offset=offs)
+        with obs_trace.span("serve/flush", args={"batch": len(batch),
+                                                 "B": B, "nnz": J}):
+            out, dt = timed(self.engine.score_sparse, reqs, kind=self.kind,
+                            nnz_pad=J, offset=offs)
         t_done = time.perf_counter()
         with self._lock:
             self._engine_s += dt
@@ -237,7 +255,9 @@ class MicroBatcher:
             for i, p in enumerate(batch):
                 p.result = out[i]
                 p.t_done = t_done
-                self._latencies.append(t_done - p.t_submit)
+                lat = t_done - p.t_submit
+                self._latencies.append(lat)
+                self._m_lat.observe(lat * 1e3)
                 p.event.set()
 
     # ---------------------------------------------------------------- stats

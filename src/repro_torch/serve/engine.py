@@ -19,7 +19,9 @@ kind); callers that pad to a fixed bucket grid (``serve/batcher.py``) see
 each key once per bucket.  ``compile_count`` counts the distinct keys, as
 the JAX engine counts its compiled programs (PyTorch runs eagerly and
 compiles nothing per shape, so the count is the same bookkeeping of the
-shape set).
+shape set).  Each new key also adds one to the ``serve.compiled_shapes``
+counter of ``repro_torch.obs.metrics`` and marks a ``serve/compile``
+instant in a trace, so a bucket leak shows in either.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from repro_torch.core import glm
 from repro_torch.data.sparse import SparseCOO
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.artifact import ServableModel
 
 
@@ -144,7 +148,12 @@ class ScoringEngine:
         The one device launch of the sparse path; everything else routes
         here."""
         self._check_kind(kind)
-        self._shapes.add((tuple(slots.shape), kind))
+        key = (tuple(slots.shape), kind)
+        if key not in self._shapes:
+            self._shapes.add(key)
+            obs_metrics.counter("serve.compiled_shapes").inc()
+            obs_trace.instant("serve/compile",
+                              args={"shape": list(key[0]), "kind": kind})
         out = ops.predict_tile(
             torch.from_numpy(np.ascontiguousarray(slots, np.int32))
             .to(self.device),

@@ -19,7 +19,12 @@ order (1e-5); two K6 runs must give the same bits (fixed-order sums), and
 so must two K4 runs, which also leave K4's ticket counter at 0.
 The bf16 modes of K3, K5 and K6 (``precision="bf16"``) are held against
 their plain bf16 versions the same way; their G is not symmetric.
+A traced fit (``repro_torch.obs``) must equal the untraced one bit for
+bit, and its spans must be ``torch.profiler`` ranges that hold the host
+launches of K1-K4, with one NVTX push and pop a span.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -885,3 +890,97 @@ def test_streaming_resume_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(res.beta, full.beta)
     np.testing.assert_allclose(res.beta, full.beta, atol=1e-6)
     assert res.history["alpha"] == full.history["alpha"][3:]
+
+
+# --------------------------------------------------------- observability
+
+K1_K4 = {"glm_stats": "glm_stats_", "tile_gram": "tile_gram_",
+         "cd_tile_solve": "cd_tile_solve_", "alpha_search": "alpha_search_"}
+
+
+def _traced_sparse_solver(cuda):
+    ds = synthetic.make_sparse(n=3000, p=700, avg_nnz=20, k_true=30, seed=1)
+    return GLMSolver(ds.train.X, ds.train.y, family="logistic",
+                     config=DGLMNETConfig(tile_size=256), fit_intercept=True,
+                     device=cuda)
+
+
+def test_traced_fit_equals_untraced_on_the_card(cuda, tmp_path):
+    """Spans, record_function and NVTX ranges and the convergence stream
+    change nothing on the card: beta, f, alpha, n_iter and the launch
+    counts are the same bits."""
+    from repro_torch.obs import convergence, trace
+
+    s = _traced_sparse_solver(cuda)
+    lam1 = 0.05 * s.lambda_max()
+    runs = []
+    for traced in (False, True):
+        if traced:
+            trace.enable(tmp_path)
+            s.set_convergence_stream(tmp_path / "c.jsonl")
+        try:
+            ops.reset_launch_counts()
+            r = s.fit(lam1=lam1, max_outer=4, tol=0.0)
+            runs.append((r, ops.launch_counts()))
+        finally:
+            trace.disable()
+    s._conv.close()
+    (a, ca), (b, cb) = runs
+    assert np.array_equal(a.beta, b.beta) and a.n_iter == b.n_iter == 4
+    assert a.history["f"] == b.history["f"]
+    assert a.history["alpha"] == b.history["alpha"]
+    assert ca == cb
+    evs = convergence.read_events(tmp_path / "c.jsonl")
+    assert [e["f"] for e in evs] == b.history["f"]
+    assert all(e["step_us"] > 0 for e in evs)
+
+
+def test_spans_are_profiler_and_nvtx_ranges_on_the_card(cuda, monkeypatch):
+    """A traced small fit under torch.profiler: one ``solver/superstep``
+    range a superstep, each K1-K4 record launched from the host inside
+    one, and an NVTX push and pop a span on the span's thread."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    pushes = []
+    push, pop = torch.cuda.nvtx.range_push, torch.cuda.nvtx.range_pop
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda name: (
+        pushes.append(("push", name)), push(name))[1])
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: (
+        pushes.append(("pop", None)), pop())[1])
+    s = _traced_sparse_solver(cuda)
+    lam1 = 0.05 * s.lambda_max()
+    s.fit(lam1=lam1, max_outer=1)
+    torch.cuda.synchronize()
+    tr = trace.enable()
+    try:
+        assert tr._nvtx is torch.cuda.nvtx
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            res = s.fit(lam1=lam1, max_outer=3, tol=0.0)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+    finally:
+        trace.disable()
+    assert pushes == [("push", "solver/superstep"), ("pop", None)] * 3
+    evs = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in evs
+              if e.name == "solver/superstep"
+              and e.device_type == DeviceType.CPU]
+    assert len(ranges) == res.n_iter == 3
+    launch_at = {e.id: e.time_range.start for e in evs
+                 if e.device_type == DeviceType.CPU and "aunch" in e.name}
+    seen = {k: 0 for k in K1_K4}
+    for e in evs:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, pre in K1_K4.items():
+            if e.name.startswith(pre) or f" {pre}" in e.name or \
+                    f"::{pre}" in e.name:
+                seen[k] += 1
+                t = launch_at[e.id]
+                assert any(a <= t <= b for a, b in ranges), (k, t, ranges)
+    assert all(seen.values()), seen

@@ -22,7 +22,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.launch.serve_glm", "repro_torch.io",
            "repro_torch.io.hashing", "repro_torch.io.libsvm",
            "repro_torch.io.parquet", "repro_torch.io.prefetch",
-           "repro_torch.data.pipeline", "repro_torch.launch.ingest_train"]
+           "repro_torch.data.pipeline", "repro_torch.launch.ingest_train",
+           "repro_torch.obs", "repro_torch.obs.trace",
+           "repro_torch.obs.metrics", "repro_torch.obs.convergence",
+           "repro_torch.launch.trace_report"]
 
 
 def _port_files():
@@ -42,6 +45,33 @@ def test_import_leaves_jax_and_repro_out(module):
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_enabled_tracer_leaves_jax_and_repro_out(tmp_path):
+    """Tracing on (``REPRO_TRACE`` at import) and a traced CPU fit with its
+    stream, a span and a report: still no jax and nothing of repro."""
+    code = ("import sys, json, numpy as np\n"
+            "from repro_torch.obs import trace\n"
+            "from repro_torch.core.solver import GLMSolver\n"
+            "from repro_torch.launch import trace_report\n"
+            "assert trace.get_tracer().enabled\n"
+            "X = np.eye(16, 8, dtype=np.float32)\n"
+            "y = np.where(np.arange(16) % 2, 1.0, -1.0).astype(np.float32)\n"
+            "s = GLMSolver(X, y, device='cpu')\n"
+            "s.fit(lam1=0.01, max_outer=2)\n"
+            "trace.get_tracer().save()\n"
+            "assert trace_report.main([sys.argv[1]]) == 0\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(json.dumps(bad))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               REPRO_TRACE=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert list(tmp_path.glob("convergence_*.jsonl"))
 
 
 def _imports(path):
