@@ -94,6 +94,27 @@ drives each path through the entry points a user calls and checks it:
     never rising, K1 and K4 once a chunk) and its ``--smoke`` (file
     against memory within 1e-5); write, scan and parse rates and one
     profiled superstep.
+  * dist (last): the mesh on torch.distributed, worlds of processes
+    started by ``repro_torch.dist.launcher`` (this script is their worker,
+    ``--dist-worker``), each under a timeout: (a) NCCL, a world of one,
+    mesh (1, 1): the sparse fit's 5 supersteps against the single-device
+    fit above (the same alphas and n_iter, beta within 1e-6, whether the
+    bits are equal), then the same fit run to tol; (b) gloo, worlds of 2
+    ((1, 2)) and 4 ((2, 2)) sharing the one card, the sparse fit at full
+    width run to tol, f within 2e-3 |f| of (a)'s, each rank's K1 once a
+    superstep, K3 and K2 once a budgeted local tile, K4 twice, seconds a
+    superstep, the host seconds inside collectives, world start-up; over
+    NCCL too when the machine has a card per rank; (c) small (1, 2) and
+    (2, 2) fits on the card against the same worlds on the CPU (beta
+    within 1e-5, the same alphas and n_iter); (d) ``dist_run`` under
+    ``--faults "1:4.0" --telemetry``: process 1 down-budgeted after the
+    warm-up, every rank the same budgets; (e) a 2-process restart from a
+    checkpoint (the same bits) and an elastic resume (1, 2) -> (2, 1)
+    within 2e-3 |f| of the uninterrupted fit; (f) ``dist_run --data``
+    over the dense train split (memory-mapped .npy, chunks of 8,192
+    rows): 2 processes over their chunk ranges equal 1 within 1e-6.
+    Gloo stages the card's tensors through the host: its times are not
+    NCCL's.
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -154,6 +175,8 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 LAM1_FRACTION = 0.05        # lam1 of the full-size fits, over lambda_max
 N_DENSE = 400_000           # train rows of the dense fit (K1 and K4 run there)
 SERVE_FRACTIONS = (0.2, 0.1, 0.05, 0.02)   # the served model's columns
+DIST_TIMEOUT_S = 300        # one world of the dist phase
+DIST_SMALL_STEPS = 8        # supersteps of the small card-vs-CPU fits
 
 
 def full_size_data(synthetic, kind: str):
@@ -2755,7 +2778,409 @@ def ingest_phase(np, torch, coo, y, dev, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# dist: the mesh on torch.distributed (this script is also the worker)
+# ---------------------------------------------------------------------------
+
+def small_problem(np, kind: str, n: int = 600, p: int = 300):
+    """A small logistic problem whose rows and features pad on a (2, 2)
+    mesh; ``kind="block"`` is sparse (a SparseCOO is built from it)."""
+    rng = np.random.default_rng(SEED + 3)
+    X = rng.normal(size=(n, p)).astype(np.float32)
+    if kind == "block":
+        X = np.where(rng.random((n, p)) < 0.1, X, 0.0).astype(np.float32)
+    beta = np.zeros((p,), np.float32)
+    beta[: p // 6] = rng.normal(size=p // 6).astype(np.float32)
+    y = np.where(X @ beta + 0.5 * rng.normal(size=n) > 0, 1.0,
+                 -1.0).astype(np.float32)
+    return X, y
+
+
+def dist_task(np, torch, task: dict, mesh, dev) -> dict:
+    """One task of a dist worker on its mesh; returns its JSON record."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.dglmnet import DGLMNETConfig
+    from repro_torch.core.solver import GLMSolver
+    from repro_torch.data import sparse, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives
+
+    def sync():
+        if torch.cuda.is_available():     # the CPU worlds of (c) too
+            torch.cuda.synchronize()
+
+    kind = task["kind"]
+    if kind == "full":
+        t0 = time.perf_counter()
+        ds = full_size_data(synthetic, "sparse") if "size" not in task \
+            else synthetic.make_sparse(**task["size"])
+        solver = full_size_solver(GLMSolver, ds, dev, mesh=mesh)
+        sync()
+        setup_s = time.perf_counter() - t0
+        out = {"setup_s": setup_s, "n_tiles_local": solver.design.n_tiles,
+               "local_shape": list(solver.design.shape)}
+        for name, steps, tol in task["fits"]:
+            ops.reset_launch_counts()
+            collectives.reset_stats()
+            t0 = time.perf_counter()
+            res = solver.fit(lam1=task["lam1"], max_outer=steps, tol=tol)
+            sync()
+            fit_s = time.perf_counter() - t0
+            st = collectives.stats()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            out[name] = {
+                "n_iter": res.n_iter, "converged": res.converged,
+                "f": res.history["f"], "alpha": res.history["alpha"],
+                "nnz": res.history["nnz"], "step_s": res.history["step_s"],
+                "fit_s": fit_s, "collective_s": st["seconds"],
+                "collective_calls": st["calls"],
+                "collective_mb": st["bytes"] / 1e6, "launches": counts,
+                "budget_tiles": solver.design.n_tiles * res.n_iter}
+            if task.get("beta"):
+                np.save(pathlib.Path(task["out"]) / f"{name}_beta.npy",
+                        res.beta)
+        return out
+    if kind == "small":
+        out = {}
+        for design in ("dense", "block"):
+            X, y = small_problem(np, design)
+            Xin = X
+            if design == "block":
+                r, c = np.nonzero(X)
+                Xin = sparse.SparseCOO(r.astype(np.int32), c.astype(np.int32),
+                                       X[r, c], X.shape)
+            for coup in ("gauss-seidel", "jacobi"):
+                s = GLMSolver(Xin, y, config=DGLMNETConfig(
+                    tile_size=64, coupling=coup), mesh=mesh, row_block=64,
+                    device=dev)
+                res = s.fit(lam1=0.01, max_outer=DIST_SMALL_STEPS, tol=0.0)
+                out[f"{design}/{coup}"] = {
+                    "alpha": res.history["alpha"], "n_iter": res.n_iter,
+                    "f": res.history["f"],
+                    "beta": s._host_beta(s._state.beta).tolist()}
+        return out
+    if kind == "ckpt":
+        # a dense fit: uninterrupted, cut at 4 supersteps (saves at 2 and
+        # 4), or resumed from the cut; an elastic source saved after 12
+        # supersteps and its uninterrupted run to convergence
+        X, y = small_problem(np, "dense")
+        cfg = DGLMNETConfig(tile_size=64, max_outer=12, tol=0.0)
+        d = pathlib.Path(task["dir"])
+        out = {}
+        for name in task["fits"]:
+            s = GLMSolver(X, y, config=cfg, mesh=mesh, device=dev)
+            if name == "full":
+                res = s.fit(lam1=0.01)
+            elif name == "cut":
+                res = s.fit(lam1=0.01, max_outer=4, ckpt_every=2,
+                            ckpt_manager=CheckpointManager(d / "cut"))
+            else:
+                res = s.fit(lam1=0.01, ckpt_every=2,
+                            ckpt_manager=CheckpointManager(d / "cut"))
+            out[name] = {"n_iter": res.n_iter, "n_hist": len(
+                res.history["f"]), "beta": s._host_beta(
+                s._state.beta).tolist()}
+        ds = synthetic.make_dense(n=4000, p=256, seed=11)
+        ecfg = DGLMNETConfig(lam1=0.5, lam2=0.5, tile_size=64,
+                             max_outer=12, tol=1e-13)
+        if "elastic_src" in task:
+            s = GLMSolver(ds.train.X, ds.train.y, config=ecfg, mesh=mesh,
+                          device=dev)
+            s.fit(ckpt_every=4, ckpt_manager=CheckpointManager(
+                d / "elastic", keep_last=2))
+            s = GLMSolver(ds.train.X, ds.train.y, config=ecfg, mesh=mesh,
+                          device=dev)
+            res = s.fit(max_outer=200)
+            out["elastic_ref"] = {"f": res.history["f"][-1],
+                                  "n_iter": res.n_iter}
+        if "elastic" in task:
+            from repro_torch.dist import bootstrap
+            mesh21 = bootstrap.make_dist_mesh(2, 1)
+            s = GLMSolver(ds.train.X, ds.train.y, config=ecfg, mesh=mesh21,
+                          device=dev)
+            res = s.fit(max_outer=200, ckpt_every=500,
+                        ckpt_manager=CheckpointManager(d / "elastic",
+                                                       keep_last=2))
+            out["elastic"] = {"f": res.history["f"][-1],
+                              "n_hist": len(res.history["f"]),
+                              "n_iter": res.n_iter}
+        return out
+    raise ValueError(f"unknown dist task {kind!r}")
+
+
+def dist_worker(spec_path: str) -> None:
+    """One rank of a dist-phase world: the spec's tasks on its mesh, its
+    record in ``<out>/rank<r>.json``."""
+    sys.path.insert(0, str(REPO / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import bootstrap, faults
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    ctx = bootstrap.initialize(backend=spec["backend"],
+                               device=spec["device"], timeout_s=120)
+    ready = time.time()
+    mesh = bootstrap.make_dist_mesh(*spec["mesh"])
+    dev = None if spec["device"] is None else spec["device"]
+    rec = {"ready_at": ready, "backend": ctx.backend, "device": ctx.device}
+    if ctx.device == "cpu":
+        torch.set_num_threads(2)
+    for task in spec["tasks"]:
+        rec[task["name"]] = dist_task(np, torch, task, mesh, dev)
+    out = pathlib.Path(spec["out"])
+    (out / f"rank{ctx.process_id}.json").write_text(json.dumps(rec))
+    faults.guarded_barrier("chip-smoke-dist-exit", timeout_s=120)
+    bootstrap.shutdown()
+
+
+def dist_world(tdir: pathlib.Path, tag: str, n: int, mesh, tasks,
+               backend="gloo", device=None):
+    """Run one world of the dist phase; (every rank's record, seconds from
+    launch to the last rank's process group, the world's wall seconds)."""
+    from repro_torch.dist import launcher
+    out = tdir / tag
+    out.mkdir(parents=True, exist_ok=True)
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"backend": backend, "device": device,
+                                "mesh": list(mesh), "tasks": tasks,
+                                "out": str(out)}))
+    t0 = time.time()
+    res = launcher.run_local(n, REPO / "chip_smoke.py",
+                             args=["--dist-worker", str(spec)],
+                             timeout_s=DIST_TIMEOUT_S, grace_s=10)
+    check(res.ok, f"dist world {tag} failed:\n{res.summary(3000)}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(n)]
+    return ranks, max(r["ready_at"] for r in ranks) - t0, res.seconds
+
+
+def dist_run_cli(tdir: pathlib.Path, tag: str, n: int, args) -> dict:
+    """``python -m repro_torch.launch.dist_run`` as a user runs it; the
+    coordinator's record."""
+    out = tdir / f"{tag}.json"
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dist_run", "--nprocs",
+         str(n), "--timeout", str(DIST_TIMEOUT_S), "--out", str(out),
+         *map(str, args)], capture_output=True, text=True,
+        timeout=DIST_TIMEOUT_S + 60, cwd=str(REPO),
+        env={**__import__("os").environ,
+             "PYTHONPATH": str(REPO / "src")})
+    check(r.returncode == 0 and out.exists(),
+          f"dist_run {tag} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    row = json.loads(out.read_text())
+    row["cli_s"] = time.time() - t0
+    return row
+
+
+def same_ranks(np, ranks, task, keys=("f", "alpha", "nnz", "n_iter")):
+    """Every rank reports the same values of each fit of ``task``."""
+    for name, fit in ranks[0][task].items():
+        if not isinstance(fit, dict):
+            continue
+        for r in ranks[1:]:
+            for k in keys:
+                if k in fit:
+                    check(r[task][name][k] == fit[k],
+                          f"ranks disagree on {task}/{name}/{k}")
+
+
+def dist_phase(np, torch, sparse_res, lam1, dense_npy, lam1_dense, card,
+               size=None):
+    """The dist phase (module docstring): worlds (a)-(f); returns the
+    per-rank K1-K4 launches of the sharded fits.  ``size`` (the
+    make_sparse arguments) replaces the full-size sparse data in a
+    rehearsal on the CPU."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-dist-")
+    tdir = pathlib.Path(tmp.name)
+    steps5 = sparse_res.n_iter
+
+    def full(name, fits, beta=False):
+        return {"name": name, "kind": "full", "lam1": lam1, "fits": fits,
+                "beta": beta, "out": str(tdir),
+                **({"size": size} if size else {})}
+
+    # (a) NCCL, a world of one: the single-device fit's supersteps, then
+    # to tol
+    ra, start_a, wall_a = dist_world(
+        tdir, "a_nccl_1x1", 1, (1, 1),
+        [full("full", [["parity", steps5, 0.0], ["to_tol", 200, 1e-8]],
+              beta=True)], backend=None)
+    pa = ra[0]["full"]["parity"]
+    beta_a = np.load(tdir / "parity_beta.npy")
+    d_beta = float(np.max(np.abs(beta_a - sparse_res.beta)))
+    check(pa["alpha"] == sparse_res.history["alpha"]
+          and pa["n_iter"] == sparse_res.n_iter and d_beta <= 1e-6,
+          f"(a) NCCL (1, 1) vs single device: alphas {pa['alpha']} vs "
+          f"{sparse_res.history['alpha']}, beta {d_beta}")
+    tol_a = ra[0]["full"]["to_tol"]
+    check(tol_a["converged"], "(a) the (1, 1) fit did not reach tol")
+    f_single = tol_a["f"][-1]
+    nt_a = ra[0]["full"]["n_tiles_local"]
+
+    def launches_hold(tag, rk, fit):
+        c = rk["full"][fit]["launches"]
+        it = rk["full"][fit]["n_iter"]
+        tiles = rk["full"][fit]["budget_tiles"]
+        want = {"glm_stats": it, "tile_gram": tiles, "cd_tile_solve": tiles,
+                "alpha_search": 2 * it}
+        check(c == want, f"{tag}: launches {c} != {want}")
+        return c
+
+    launches_hold("(a)", ra[0], "parity")
+    report = {"phase": "dist", "card": card,
+              "a_nccl_1x1": {
+                  "alpha_equal": True, "n_iter": pa["n_iter"],
+                  "beta_max_abs_diff": d_beta,
+                  "beta_bits_equal": bool(np.array_equal(beta_a,
+                                                          sparse_res.beta)),
+                  "to_tol_n_iter": tol_a["n_iter"], "f_to_tol": f_single,
+                  "superstep_s_median": float(np.median(
+                      tol_a["step_s"][1:])),
+                  "collective_share": tol_a["collective_s"]
+                  / tol_a["fit_s"], "startup_s": start_a,
+                  "world_s": wall_a, "setup_s": ra[0]["full"]["setup_s"]}}
+
+    # (b) gloo worlds of 2 and 4 on the one card (+ (c)'s card side, and
+    # (e)'s sources in the world of 2)
+    per_rank = {}
+    worlds = {}
+    backends = [("gloo", "gloo")]
+    if torch.cuda.device_count() >= 2:
+        backends.append(("nccl", None))
+    for bname, backend in backends:
+        for n, mesh in ((2, (1, 2)), (4, (2, 2))):
+            if bname == "nccl" and n > torch.cuda.device_count():
+                continue
+            tag = f"b_{bname}_{mesh[0]}x{mesh[1]}"
+            tasks = [full("full", [["to_tol", 200, 1e-8]])]
+            if bname == "gloo":
+                tasks.append({"name": "small", "kind": "small"})
+                if n == 2:
+                    tasks.append({"name": "ckpt", "kind": "ckpt",
+                                  "dir": str(tdir / "ckpt"),
+                                  "fits": ["full", "cut"],
+                                  "elastic_src": True})
+            ranks, start, wall = dist_world(tdir, tag, n, mesh, tasks,
+                                            backend=backend)
+            same_ranks(np, ranks, "full")
+            fit = ranks[0]["full"]["to_tol"]
+            check(fit["converged"], f"{tag}: did not reach tol")
+            f = fit["f"][-1]
+            check(f <= f_single + 2e-3 * abs(f_single),
+                  f"{tag}: f {f} vs the (1, 1) fit's {f_single}")
+            counts = [launches_hold(f"{tag} rank {r}", rk, "to_tol")
+                      for r, rk in enumerate(ranks)]
+            per_rank[f"{mesh[0]}x{mesh[1]}_{bname}"] = counts
+            worlds[tag] = ranks
+            report[tag] = {
+                "n_iter": fit["n_iter"], "f": f,
+                "f_rel_to_1x1": (f - f_single) / abs(f_single),
+                "superstep_s_median": float(np.median(fit["step_s"][1:])),
+                "superstep_s": fit["step_s"], "fit_s": fit["fit_s"],
+                "collective_s": [rk["full"]["to_tol"]["collective_s"]
+                                 for rk in ranks],
+                "collective_share": [rk["full"]["to_tol"]["collective_s"]
+                                     / rk["full"]["to_tol"]["fit_s"]
+                                     for rk in ranks],
+                "collective_calls": fit["collective_calls"],
+                "collective_mb": fit["collective_mb"],
+                "launches_per_rank": counts,
+                "n_tiles_local": ranks[0]["full"]["n_tiles_local"],
+                "local_shape": ranks[0]["full"]["local_shape"],
+                "setup_s": max(rk["full"]["setup_s"] for rk in ranks),
+                "startup_s": start, "world_s": wall,
+                "backend": ranks[0]["backend"],
+                "gloo_on_one_card": bname == "gloo"}
+    if len(backends) == 1:
+        report["nccl_across_cards"] = (
+            f"not run: {torch.cuda.device_count()} card(s), NCCL needs a "
+            "card per rank")
+
+    # (c) the small fits on the card against the same worlds on the CPU
+    small = {}
+    for n, mesh in ((2, (1, 2)), (4, (2, 2))):
+        cpu, _, _ = dist_world(tdir, f"c_cpu_{mesh[0]}x{mesh[1]}", n, mesh,
+                               [{"name": "small", "kind": "small"}],
+                               device="cpu")
+        gpu = worlds[f"b_gloo_{mesh[0]}x{mesh[1]}"]
+        same_ranks(np, gpu, "small")
+        same_ranks(np, cpu, "small")
+        for key, ref in cpu[0]["small"].items():
+            got = gpu[0]["small"][key]
+            db = float(np.max(np.abs(np.asarray(got["beta"])
+                                     - np.asarray(ref["beta"]))))
+            check(got["alpha"] == ref["alpha"] and got["n_iter"]
+                  == ref["n_iter"] and db <= 1e-5,
+                  f"(c) {mesh} {key}: card vs CPU alphas {got['alpha']} "
+                  f"{ref['alpha']}, beta {db}")
+            small[f"{mesh[0]}x{mesh[1]}/{key}"] = db
+    report["c_card_vs_cpu_beta_max_abs"] = small
+
+    # (d) ALB under a fault plan, through dist_run
+    d = dist_run_cli(tdir, "d_alb", 2, [
+        "--demo", "--backend", "gloo", "--faults", "1:4.0", "--telemetry",
+        "--tile-cost-s", "0.002", "--steps", "8"])
+    hist = d["budget_history"]
+    check(d["budgets_agree"] and hist[0] == hist[1] and hist[0][0]
+          == hist[0][1] and hist[-1][1] < hist[-1][0],
+          f"(d) budgets {hist} (agree {d['budgets_agree']})")
+    report["d_alb"] = {k: d[k] for k in ("budget_history", "budgets_agree",
+                                         "speeds", "f", "n_iter", "fit_s",
+                                         "collective_s", "cli_s")}
+
+    # (e) restart and elastic resume in a fresh world of 2
+    re_, _, _ = dist_world(tdir, "e_restart", 2, (1, 2), [
+        {"name": "ckpt", "kind": "ckpt", "dir": str(tdir / "ckpt"),
+         "fits": ["resume"], "elastic": True}])
+    src = worlds["b_gloo_1x2"][0]["ckpt"]
+    got = re_[0]["ckpt"]
+    bits = got["resume"]["beta"] == src["full"]["beta"]
+    db = float(np.max(np.abs(np.asarray(got["resume"]["beta"])
+                             - np.asarray(src["full"]["beta"]))))
+    check(got["resume"]["n_hist"] == 8 and got["resume"]["n_iter"]
+          == src["full"]["n_iter"] and db <= 1e-6,
+          f"(e) restart: beta {db}, {got['resume']}")
+    f_ref = src["elastic_ref"]["f"]
+    check(got["elastic"]["f"] <= f_ref + 2e-3 * abs(f_ref),
+          f"(e) elastic {got['elastic']} vs {f_ref}")
+    report["e_checkpoint"] = {"restart_bits_equal": bool(bits),
+                              "restart_beta_max_abs": db,
+                              "elastic_f": got["elastic"]["f"],
+                              "elastic_supersteps": got["elastic"]["n_hist"],
+                              "uninterrupted_f": f_ref}
+
+    # (f) the dense split streamed by 2 processes against 1
+    X_path, y_path = dense_npy
+    common = ["--data", X_path, "--labels", y_path, "--chunk-rows", "8192",
+              "--tile", "256", "--steps", "2", "--lam1", str(lam1_dense),
+              "--tol", "0"]
+    one = dist_run_cli(tdir, "f_stream_1", 1, common)
+    two = dist_run_cli(tdir, "f_stream_2", 2, [*common, "--backend",
+                                                "gloo"])
+    df = max(abs(a - b) / abs(b) for a, b in zip(two["f"], one["f"]))
+    dbeta = float(np.max(np.abs(np.asarray(two["beta"])
+                                - np.asarray(one["beta"]))))
+    check(df <= 1e-6 and dbeta <= 1e-6 and two["supersteps"] == 2,
+          f"(f) streamed 2 vs 1: f {df}, beta {dbeta}")
+    report["f_stream"] = {"f_rel": df, "beta_max_abs": dbeta,
+                          "chunks_local": [two["chunks_local"],
+                                           one["chunks_local"]],
+                          "superstep_s": [two["wall_s"] / 2,
+                                          one["wall_s"] / 2],
+                          "cli_s": [two["cli_s"], one["cli_s"]],
+                          "collective_s": two["collective_s"]}
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    tmp.cleanup()
+    return per_rank
+
+
 def main() -> None:
+    if "--dist-worker" in sys.argv:
+        dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
+        return
     if not (REPO / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py; run it from "
              "a checkout of the repository", code=2)
@@ -3128,7 +3553,8 @@ def main() -> None:
               **extra, "peak_mem_gb": peak_gb, "test_accuracy": acc})
         return counts, res
 
-    sparse_counts, _ = run_fit("sparse", solver, ds.test.X, ds.test.y,
+    sparse_counts, sparse_res = run_fit("sparse", solver, ds.test.X,
+                                        ds.test.y,
                                {"glm_stats": 1, "cd_tile_solve": nt,
                                 "tile_gram": nt, "alpha_search": 2})
     del design, tb, rows, y, wobs, off, s0, w0, penf
@@ -3225,10 +3651,20 @@ def main() -> None:
                           (LAM1_FRACTION * lmax_dense, dense_res),
                           (lam1_unfused, unfused_res), lmax_dense, floors,
                           floor_lib, parity, card, tdir)
+    # the dist phase streams the dense train split from a .npy
+    dist_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-npy-")
+    dense_npy = (str(pathlib.Path(dist_tmp.name) / "X.npy"),
+                 str(pathlib.Path(dist_tmp.name) / "y.npy"))
+    np.save(dense_npy[0], np.asarray(dd.train.X, np.float32))
+    np.save(dense_npy[1], np.asarray(dd.train.y, np.float32))
     del dd, dense_res, unfused_res
     torch.cuda.empty_cache()
     ingest_counts = ingest_phase(np, torch, *ingest_data, dev, card)
     del ingest_data
+    torch.cuda.empty_cache()
+    dist_counts = dist_phase(np, torch, sparse_res, lam1_sparse, dense_npy,
+                             LAM1_FRACTION * lmax_dense, card)
+    dist_tmp.cleanup()
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]
@@ -3284,6 +3720,11 @@ def main() -> None:
                       f"{name.removesuffix('_bf16')}.cu",
             "replaces": src[name], "launches": main_path[name][name],
             "launches_dense": dense_counts[name],
+            **({"launches_dist_per_rank": {
+                mesh: [c.get(name, 0) for c in per_rank]
+                for mesh, per_rank in dist_counts.items()}}
+               if name in ("glm_stats", "cd_tile_solve", "tile_gram",
+                           "alpha_search") else {}),
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],

@@ -8,8 +8,11 @@ beneath them, which run on the card unless the caller passes
 ``device="cpu"``; ``python -m repro_torch.launch.serve_glm`` serves a saved
 model.  ``repro_torch.obs`` traces a run (``REPRO_TRACE=dir``) and
 ``python -m repro_torch.launch.trace_report dir`` summarizes it.
+``repro_torch.dist`` runs a session on a (data x model) mesh of processes
+over ``torch.distributed`` (``GLMSolver(..., mesh=make_dist_mesh(D, M))``,
+``python -m repro_torch.launch.dist_run``).
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
 __all__ = ["core", "data", "kernels", "serve", "checkpoint", "glm", "launch",
-           "obs", "convert", "device", "timing"]
+           "obs", "convert", "device", "timing", "dist", "sharding"]

@@ -16,6 +16,13 @@ other's checkpoints).
     flight, so the last checkpoint of a run is durable without a
     ``wait()`` after it.
 
+In a multi-process job (``repro_torch.dist``) every process calls
+``save`` with the same full host tree (the solver gathers its shards
+first), only the coordinator writes, synchronously, and a barrier
+(``ckpt-save``) orders the commit before any peer goes on to restore or
+exit; ``restore`` reads the full arrays in every process, which keeps its
+own block.
+
 Leaves are copied to host numpy before the writer starts, so the caller
 may overwrite its tensors at once; ``restore`` puts each array on the
 device of its template tensor.  Keys
@@ -41,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist import bootstrap as dist_boot
 from repro_torch.obs import trace as obs_trace
 
 # managers that may have a writer in flight; the writer threads are daemonic
@@ -139,6 +147,14 @@ class CheckpointManager:
             flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
         meta = {"step": int(step), "time": time.time(), "keys": sorted(flat),
                 "metadata": metadata or {}}
+        ctx = dist_boot.context()
+        if ctx.multiprocess:
+            # the coordinator writes, synchronously: an async write would
+            # move the commit past the barrier that orders it
+            if ctx.is_coordinator:
+                self._write(self.dir, self.keep_last, step, flat, meta)
+            dist_boot.barrier("ckpt-save")
+            return
         if self.async_save:
             # the writer is a static function over plain values: it holds no
             # reference to the manager, so a manager dropped mid-save can be

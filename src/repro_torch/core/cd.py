@@ -17,6 +17,17 @@ Mirrors ``repro.core.cd``:
 The tile loops are Python loops: the budget and the screening mask are
 known on the host, so a dead tile is skipped without asking the card.
 
+On a mesh (``data_group``: the process group of the ranks that share this
+rank's feature columns and hold the other row shards), each tile's (G, g)
+is summed over the data group: once a live tile in the Gauss-Seidel sweep,
+once a sweep in the Jacobi one.  The reference turns its dead-tile skip
+off when rows are sharded, because a traced branch cannot hold a psum.
+The host loop keeps it: every rank of a data group holds the same columns,
+the same screening mask and the same budget, so all of them skip the same
+tiles and meet at the same reductions.  An ALB budget may pass one cycle
+(``max_num_tiles``, up to four): the sweep then visits tiles again from
+where it left them.
+
 The Gram-mode sweeps (``GRAM_SWEEPS``) serve out-of-core designs, where
 one pass over the row chunks gives the full weighted Gram G_w = X^T W X and
 the gradient g0 = X^T s.  They are the row-space sweeps rewritten: at tile
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
 
 
 def alb_live_mask(n_tiles: int, start_tile: int, num_tiles: int):
@@ -40,24 +52,34 @@ def alb_live_mask(n_tiles: int, start_tile: int, num_tiles: int):
     return offset < min(num_tiles, n_tiles)
 
 
+def _budget(nt: int, num_tiles, max_num_tiles) -> int:
+    """Tiles a sweep visits: its budget (one cycle by default), at most
+    ``max_num_tiles`` (one cycle by default)."""
+    bound = nt if max_num_tiles is None else int(max_num_tiles)
+    return bound if num_tiles is None else min(int(num_tiles), bound)
+
+
 def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
                        lam2, start_tile: int = 0, num_tiles=None,
-                       active=None, tile_active=None, penf=None):
+                       max_num_tiles=None, active=None, tile_active=None,
+                       penf=None, data_group=None):
     """Cyclic tile sweep; returns (dbeta, xdb, tiles_done).
 
     s, w: (n,) link stats at the outer iterate, observation weights folded
     in.  beta, dbeta: (p,); xdb: (n,) = X dbeta.  ``mu`` may be a device
     scalar.  ``num_tiles``: the budget of tiles this superstep (default one
-    full cycle).  ``active``: optional (p,) 0/1 screening mask on the
-    device; coordinates with ``active == 0`` keep their entering step.
-    ``tile_active``: optional host (n_tiles,) bool, False for a tile with no
-    active coordinate, whose Gram, solve and matvec are then skipped
-    outright.  ``penf``: optional (p,) penalty factors (0 = unpenalized,
-    the intercept).
+    full cycle), at most ``max_num_tiles`` (default one cycle; an ALB
+    budget may run to four).  ``active``: optional (p,) 0/1 screening mask
+    on the device; coordinates with ``active == 0`` keep their entering
+    step.  ``tile_active``: optional host (n_tiles,) bool, False for a tile
+    with no active coordinate, whose Gram, solve and matvec are then
+    skipped outright.  ``penf``: optional (p,) penalty factors (0 =
+    unpenalized, the intercept).  ``data_group``: sum each tile's (G, g)
+    over the row shards.
     """
     T = design.tile_size
     nt = design.n_tiles
-    tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
+    tiles_done = _budget(nt, num_tiles, max_num_tiles)
     dbeta = dbeta.clone()
     params = ops.solve_params(mu, nu, lam1, lam2, s)   # mu is fixed a sweep
     for t in range(tiles_done):
@@ -68,6 +90,8 @@ def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
         dt = dbeta[sl]
         r = s - mu * (w * xdb)
         G, g = design.tile_gram(tid, w, r)
+        if data_group is not None:
+            G, g = collectives.all_reduce_many((G, g), data_group)
         dt_new = ops.cd_tile_solve(G, g, torch.diagonal(G), beta[sl], dt,
                                    params, penf=None if penf is None
                                    else penf[sl])
@@ -79,21 +103,26 @@ def sweep_gauss_seidel(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1,
 
 
 def sweep_jacobi(design, s, w, beta, dbeta, xdb, *, mu, nu, lam1, lam2,
-                 start_tile: int = 0, num_tiles=None, active=None,
-                 tile_active=None, penf=None):
+                 start_tile: int = 0, num_tiles=None, max_num_tiles=None,
+                 active=None, tile_active=None, penf=None, data_group=None):
     """Jacobi-across-tiles sweep; returns (dbeta, xdb, tiles_done).
 
     ``dbeta`` and ``xdb`` must be zero on entry (the start of an outer
     iteration).  The budget window and ``tile_active`` pick the live tiles
-    on the host; only those cost a Gram and a solve.  ``active`` and
-    ``penf`` act per coordinate as in ``sweep_gauss_seidel``.
+    on the host; only those cost a Gram and a solve (a budget past one
+    cycle makes every tile live once).  ``active`` and ``penf`` act per
+    coordinate as in ``sweep_gauss_seidel``; ``data_group`` sums the
+    sweep's Grams and gradients over the row shards in one reduction.
     """
     nt = design.n_tiles
-    tiles_done = nt if num_tiles is None else min(int(num_tiles), nt)
+    tiles_done = min(_budget(nt, num_tiles, max_num_tiles), nt)
     live = alb_live_mask(nt, start_tile, tiles_done)
     if tile_active is not None:
         live = live & np.asarray(tile_active, bool)
     G_all, g_all = design.all_tile_grams(w, s, live)
+    if data_group is not None:
+        G_all, g_all = collectives.all_reduce_many((G_all, g_all),
+                                                   data_group)
     d = ops.jacobi_tile_solves(G_all, g_all, beta,
                                ops.solve_params(mu, nu, lam1, lam2, s),
                                penf=penf, tile_live=live)

@@ -25,19 +25,30 @@ bf16 modes of stats_gram_solve, margin_ls and, on bricks, tile_gram).
 The superstep queues its work on the device and returns tensors; the
 caller reads the metrics once per superstep.
 
+On a (data x model) mesh (``groups=(data_group, model_group)``, one
+process per rank) the superstep is the reference's sharded one: each rank
+runs K1-K4 on its own (row shard, feature shard) block, L and the K4
+losses are summed over the data group, (G, g) over it once a live tile
+(Gauss-Seidel) or once a sweep (Jacobi), the margin delta is merged over
+the model group (``sharding.compress.psum_compressed``, optionally bf16
+or int8 on the wire), the penalty terms and nnz are summed over the model
+group, and the ALB ``budget`` (a host int, this rank's column's) bounds
+the sweep.  The fused Jacobi superstep is a single-device path, as in the
+reference: a mesh takes the unfused one.
+
 ``make_streaming_superstep`` cuts the same iteration at the chunk boundary
 for out-of-core designs (``StreamingDesign``): a pass over the chunks sums
 the statistics (G_w = X^T W X, g0 = X^T s, the loss), the Gram-mode sweep
 runs from them, and a second pass sums every line-search candidate's loss.
 
-``fit`` is the reference's deprecated one-shot fit, a thin wrapper over
-``GLMSolver(...).fit()``.
+``fit`` and ``fit_sharded`` are the reference's deprecated one-shot fits,
+thin wrappers over ``GLMSolver(...).fit()``.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +56,8 @@ import torch
 from repro_torch.core import cd as cd_lib
 from repro_torch.core import linesearch
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding import collectives
+from repro_torch.sharding.compress import psum_compressed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +88,11 @@ class DGLMNETConfig:
     # margin products (their sums, the stats, the solves and the Armijo
     # sums stay float32); inert for gauss-seidel and unfused jacobi
     precision: str = "fp32"
+    # distribution: the margin merge's wire format, None | "bf16" | "int8"
+    compress_margin: Optional[str] = None
+    # ALB (Section 7): False = BSP, every column a full cycle a superstep
+    alb: bool = False
+    alb_kappa: float = 0.75
     # outer loop
     max_outer: int = 100
     tol: float = 1e-8
@@ -99,17 +117,23 @@ METRIC_KEYS = ("f", "f_before", "loss", "alpha", "mu", "nnz",
                "accepted_unit", "D")
 
 
-def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
+def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None,
+                   groups=None, max_budget: Optional[int] = None):
     """Build the superstep closure for a design of ``n_tiles`` tiles on
     ``device`` (None: the CUDA card).
 
     The returned ``superstep(design, y, weights, offset, lams, penf, state,
-    *, active=None, tile_active=None)`` takes the combined
+    *, active=None, tile_active=None, budget=None)`` takes the combined
     observation weights (sample weight x row padding), margin offsets, the
     host pair ``lams = (lam1, lam2)``, the packed penalty factors and an
     optional screening mask (``active`` on the device, ``tile_active`` its
     per-tile summary on the host).  It returns (new state, metrics), the
     metrics being 0-d device tensors keyed by ``METRIC_KEYS``.
+
+    ``groups=(data_group, model_group)`` makes it the sharded superstep
+    of a mesh (either group may be None, a mesh dim of one); ``budget``
+    is then this rank's column's ALB tile budget, at most ``max_budget``
+    (default: one cycle, ``n_tiles``).
     """
     ref.is_bf16(config.precision)     # an unknown precision raises
     if config.coupling not in cd_lib.SWEEPS:
@@ -117,6 +141,8 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
                          f"{sorted(cd_lib.SWEEPS)}")
     fam = config.family
     sweep = cd_lib.SWEEPS[config.coupling]
+    sharded = groups is not None
+    dg, mg = groups if sharded else (None, None)
     alphas0 = linesearch.candidate_alphas(config.ls_delta,
                                           config.ls_grid_size, device)
     cand = linesearch.full_candidates(config.ls_delta, config.ls_grid_size,
@@ -126,7 +152,7 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
     def f_at(beta, L, lam1, lam2, penf):
         R0 = linesearch.penalty_terms(beta, torch.zeros_like(beta),
                                       torch.zeros_like(alphas0[:1]), lam1,
-                                      lam2, penf)[0]
+                                      lam2, penf, mg)[0]
         return L + R0
 
     def finish(state, ls, dbeta, xdb, f_cur, L, tiles_done):
@@ -139,10 +165,13 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
                                  torch.clamp(mu / config.eta2, min=1.0))
         else:
             mu_new = mu
+        nnz = torch.sum(beta_new != 0.0)
+        if mg is not None:
+            nnz = collectives.all_reduce(nnz.reshape(1), mg)[0]
         metrics = {
             "f": ls.f_new, "f_before": f_cur, "loss": L,
             "alpha": ls.alpha, "mu": mu_new,
-            "nnz": torch.sum(beta_new != 0.0),
+            "nnz": nnz,
             "accepted_unit": ls.accepted_unit.to(torch.int32),
             "D": ls.D,
         }
@@ -151,7 +180,7 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
         return new_state, metrics
 
     def superstep(design, y, weights, offset, lams, penf, state: FitState,
-                  *, active=None, tile_active=None):
+                  *, active=None, tile_active=None, budget=None):
         beta, xb, mu, cursor, _ = state
         lam1, lam2 = float(lams[0]), float(lams[1])
 
@@ -159,29 +188,47 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
         loss_i, s, w = ops.glm_stats(y, xb, fam, weights=weights,
                                      offset=offset)
         L = torch.sum(loss_i)
-        f_cur = f_at(beta, L, lam1, lam2, penf)
 
-        # (2) the local quadratic sub-problem: one full tile cycle (one
-        # device has no slow peers, so no ALB budget)
-        dbeta, xdb, tiles_done = sweep(
+        # (2) the local quadratic sub-problem: one tile cycle on one
+        # device; on a mesh this column's ALB budget of tiles
+        dbeta, xdb_local, tiles_done = sweep(
             design, s, w, beta, torch.zeros_like(beta), torch.zeros_like(xb),
             mu=mu, nu=config.nu, lam1=lam1, lam2=lam2, start_tile=cursor,
-            active=active, tile_active=tile_active, penf=penf)
+            num_tiles=budget, max_num_tiles=max_budget, active=active,
+            tile_active=tile_active, penf=penf, data_group=dg)
 
-        # (3) line search on the weighted Armijo sums
-        grad_dot_dir = -torch.sum(s * xdb)
-        quad_form = (mu * torch.sum(w * xdb * xdb)
-                     + config.nu * torch.sum(dbeta * dbeta))
+        if not sharded:
+            f_cur = f_at(beta, L, lam1, lam2, penf)
+            xdb = xdb_local
+            grad_dot_dir = -torch.sum(s * xdb)
+            quad_form = (mu * torch.sum(w * xdb * xdb)
+                         + config.nu * torch.sum(dbeta * dbeta))
+        else:
+            # (3) merge the margin deltas over the feature shards (paper
+            # step 6); the row sums over the data group in one reduction
+            xdb = psum_compressed(xdb_local, mg, config.compress_margin)
+            L, gdd, quad_local = collectives.all_reduce(torch.stack([
+                L, -torch.sum(s * xdb),
+                torch.sum(w * xdb_local * xdb_local)]), dg)
+            f_cur = f_at(beta, L, lam1, lam2, penf)
+            quad, d2 = collectives.all_reduce(
+                torch.stack([quad_local, torch.sum(dbeta * dbeta)]), mg)
+            grad_dot_dir = gdd
+            quad_form = mu * quad + config.nu * d2
+
+        # (4) line search on the weighted Armijo sums
         ls = linesearch.search(
             y, xb, xdb, beta, dbeta, family=fam, lam1=lam1, lam2=lam2,
             f_current=f_cur, grad_dot_dir=grad_dot_dir, quad_form=quad_form,
             alphas=alphas0, sigma=config.sigma, b=config.backtrack_b,
             gamma=config.gamma, max_backtracks=config.max_backtracks,
-            weights=weights, offset=offset, penf=penf)
+            weights=weights, offset=offset, penf=penf, data_group=dg,
+            model_group=mg)
         return finish(state, ls, dbeta, xdb, f_cur, L, tiles_done)
 
     def superstep_fused(design, y, weights, offset, lams, penf,
-                        state: FitState, *, active=None, tile_active=None):
+                        state: FitState, *, active=None, tile_active=None,
+                        budget=None):
         beta, xb, mu, _, _ = state
         lam1, lam2 = float(lams[0]), float(lams[1])
 
@@ -212,7 +259,8 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None):
             max_backtracks=config.max_backtracks, penf=penf)
         return finish(state, ls, dbeta, xdb, f_cur, L, n_tiles)
 
-    if config.coupling == "jacobi" and config.fuse_superstep:
+    if config.coupling == "jacobi" and config.fuse_superstep and \
+            not sharded:
         return superstep_fused
     return superstep
 
@@ -358,3 +406,26 @@ def fit(X, y, config: DGLMNETConfig, *, beta0=None, verbose=False,
     solver = GLMSolver(X, y, config=config, design_info=design_info,
                        device=device)
     return solver.fit(beta0=beta0, verbose=verbose)
+
+
+def fit_sharded(X, y, config: DGLMNETConfig, mesh, *,
+                axis_data: Optional[str] = "data",
+                axis_model: str = "model", speeds=None, seed: int = 0,
+                verbose=False, ckpt_manager=None, ckpt_every: int = 10,
+                row_block: int = 256, reorder: bool = True,
+                design_info=None, device=None) -> FitResult:
+    """DEPRECATED one-shot sharded fit; use ``GLMSolver(..., mesh=mesh)``.
+
+    Rows shard over ``axis_data`` and features over ``axis_model`` of the
+    ``DeviceMesh`` (each process calls it with the same full inputs and
+    keeps its block), with optional ALB speeds and checkpoints at superstep
+    boundaries.  ``device`` None is the card.
+    """
+    _warn_deprecated("fit_sharded")
+    from repro_torch.core.solver import GLMSolver
+    solver = GLMSolver(X, y, config=config, mesh=mesh, axis_data=axis_data,
+                       axis_model=axis_model, speeds=speeds, seed=seed,
+                       row_block=row_block, reorder=reorder,
+                       design_info=design_info, device=device)
+    return solver.fit(verbose=verbose, ckpt_manager=ckpt_manager,
+                      ckpt_every=ckpt_every)

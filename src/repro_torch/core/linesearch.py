@@ -11,6 +11,11 @@ Every candidate's loss comes from the one-pass ``alpha_search`` kernel; the
 penalties are separable and formed here.  Selection is branch-free tensor
 code, so a superstep on the card never waits for the host.
 
+On a mesh, ``search`` sums K4's losses over the data group (the row
+shards), for the grid and again for the backtracking chain, and
+``penalty_terms`` sums its per-shard terms over the model group (the
+feature shards), as the reference's psums do.
+
 The fused Jacobi superstep takes the one-pass form: the losses of
 ``full_candidates`` (the unit step, the grid and every backtracking chain)
 come from one pass over the data, and ``select_precomputed`` replays the
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
 
 
 class LineSearchResult(NamedTuple):
@@ -93,9 +99,13 @@ def armijo_select(f_unit, f_bt, bt, f_current, sigma, D) -> LineSearchResult:
     return LineSearchResult(alpha, f_new, ok_unit, D)
 
 
-def penalty_terms(beta, dbeta, alphas, lam1, lam2, penf=None):
+def penalty_terms(beta, dbeta, alphas, lam1, lam2, penf=None,
+                  model_group=None):
     """R(beta + alpha dbeta) for every alpha, (K,).  ``penf``: optional
-    per-coordinate penalty factors (0 leaves a coordinate unpenalized)."""
+    per-coordinate penalty factors (0 leaves a coordinate unpenalized).
+    ``model_group``: beta and dbeta are this rank's feature shard, and the
+    K L1 sums and the three L2 scalars are summed over the shards in one
+    reduction."""
     pf = torch.ones_like(beta) if penf is None else penf
     l1 = torch.sum(pf[None, :]
                    * torch.abs(beta[None, :] + alphas[:, None]
@@ -103,6 +113,10 @@ def penalty_terms(beta, dbeta, alphas, lam1, lam2, penf=None):
     b2 = torch.sum(pf * beta * beta)
     bd = torch.sum(pf * beta * dbeta)
     d2 = torch.sum(pf * dbeta * dbeta)
+    if model_group is not None:
+        stacked = collectives.all_reduce(
+            torch.cat([l1, torch.stack([b2, bd, d2])]), model_group)
+        l1, b2, bd, d2 = stacked[:-3], stacked[-3], stacked[-2], stacked[-1]
     l2 = b2 + 2.0 * alphas * bd + alphas * alphas * d2
     return lam1 * l1 + 0.5 * lam2 * l2
 
@@ -110,31 +124,38 @@ def penalty_terms(beta, dbeta, alphas, lam1, lam2, penf=None):
 def search(y, xb, xdb, beta, dbeta, *, family, lam1, lam2, f_current,
            grad_dot_dir, quad_form, alphas, sigma=0.01, b=0.5, gamma=0.0,
            max_backtracks=20, weights=None, offset=None,
-           penf=None) -> LineSearchResult:
+           penf=None, data_group=None,
+           model_group=None) -> LineSearchResult:
     """Run Algorithm 3.
 
     y, xb, xdb: (n,) labels, margins and margin delta; beta, dbeta: (p,);
     ``alphas``: the device tensor of ``candidate_alphas``; f_current: f(beta);
     grad_dot_dir: grad L(beta)^T dbeta; quad_form: dbeta^T (mu (H + nu I))
     dbeta (read only when gamma > 0).  ``weights``/``offset``/``penf`` are
-    the observation weights, margin offsets and penalty factors.
+    the observation weights, margin offsets and penalty factors.  On a
+    mesh the row vectors are this rank's row shard and beta, dbeta its
+    feature shard: ``data_group`` and ``model_group`` sum the losses and
+    the penalty terms over them.
     """
-    losses = ops.alpha_search(y, xb, xdb, alphas, family, weights=weights,
-                              offset=offset)
-    pens = penalty_terms(beta, dbeta, alphas, lam1, lam2, penf)
+    losses = collectives.all_reduce(
+        ops.alpha_search(y, xb, xdb, alphas, family, weights=weights,
+                         offset=offset), data_group)
+    pens = penalty_terms(beta, dbeta, alphas, lam1, lam2, penf, model_group)
     f_cand = losses + pens
 
     # the paper's D (eq. 12)
     R1 = pens[0]
     R0 = penalty_terms(beta, dbeta, torch.zeros_like(alphas[:1]), lam1,
-                       lam2, penf)[0]
+                       lam2, penf, model_group)[0]
     D = grad_dot_dir + gamma * quad_form + R1 - R0
 
     a_init = _at(alphas, torch.argmin(f_cand))
     bt = backtrack_chains(a_init[None], b, max_backtracks)[0]
-    losses_bt = ops.alpha_search(y, xb, xdb, bt, family, weights=weights,
-                                 offset=offset)
-    f_bt = losses_bt + penalty_terms(beta, dbeta, bt, lam1, lam2, penf)
+    losses_bt = collectives.all_reduce(
+        ops.alpha_search(y, xb, xdb, bt, family, weights=weights,
+                         offset=offset), data_group)
+    f_bt = losses_bt + penalty_terms(beta, dbeta, bt, lam1, lam2, penf,
+                                     model_group)
     return armijo_select(f_cand[0], f_bt, bt, f_current, sigma, D)
 
 

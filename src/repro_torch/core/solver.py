@@ -1,4 +1,5 @@
-"""GLMSolver: a single-device fitting session (mirrors ``repro.core.solver``).
+"""GLMSolver: a fitting session on one device or a (data x model) mesh of
+processes (mirrors ``repro.core.solver``).
 
     solver = GLMSolver(X, y, family="logistic", sample_weight=w, offset=o,
                        standardize=True, fit_intercept=True,
@@ -64,7 +65,21 @@ targets a directory or attached by ``set_convergence_stream``, gets one
 event a superstep from the host scalars its one device-to-host read
 fetched.  Neither adds a synchronization.
 
-Not ported yet (raises NotImplementedError): a mesh.
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with dims ``axis_data``
+and ``axis_model``, ``repro_torch.dist.bootstrap.make_dist_mesh``) makes
+the session one rank of the reference's sharded fit: every process builds
+the session with the same full host inputs and keeps its own block (rows
+of its data shard, packed columns of its feature shard; a SparseCOO packs
+only this rank's bricks), and each superstep reduces over the mesh's
+process groups (``core/dglmnet.py``).  Host decisions (the stop test, the
+strong rule and KKT masks) are taken from process 0's values, broadcast,
+so no rank leaves a loop that another stays in.  ALB budgets come from
+``config.alb`` with ``speeds``/``seed`` or from runtime ``telemetry``
+(``repro_torch.dist.telemetry``), optionally under a ``fault_plan``
+(``repro_torch.dist.faults``).  Checkpoints hold the gathered full beta and
+margins; the coordinator alone writes them, and a dense fit resumes on
+another mesh.  A StreamingDesign or a file takes no mesh
+(``launch/dist_run.py --data`` gives each process its own chunk range).
 """
 from __future__ import annotations
 
@@ -79,10 +94,13 @@ import torch
 from repro_torch.core import dglmnet, glm
 from repro_torch.core.dglmnet import DGLMNETConfig, FitResult, FitState
 from repro_torch.data import design as design_lib
-from repro_torch.data.design import DesignMatrix, StreamingDesign
+from repro_torch.data.design import (DesignMatrix, ShardedBlockSparse,
+                                     StreamingDesign)
 from repro_torch.data.sparse import SparseCOO
 from repro_torch.device import resolve_device
+from repro_torch.dist import bootstrap as dist_boot
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
 from repro_torch.obs import convergence as conv_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import artifact
@@ -92,12 +110,6 @@ from repro_torch.serve.engine import ScoringEngine
 _HISTORY_KEYS = ("f", "alpha", "mu", "nnz", "accepted_unit")
 _PF_EPS = 1e-12          # pf below this counts as "unpenalized"
 _SIGMA_EPS = 1e-7        # columns with weighted std below this are not scaled
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (a later slice of the "
-        "port); use the JAX package repro for it")
 
 
 def _put(a, device) -> torch.Tensor:
@@ -189,16 +201,17 @@ def _with_intercept_column(X, n: int):
 
 
 class GLMSolver:
-    """Reusable single-device solver session over one (X, y)."""
+    """Reusable solver session over one (X, y), on one device or as one
+    rank of a mesh."""
 
     def __init__(self, X, y, *, family=None,
                  config: Optional[DGLMNETConfig] = None, device=None,
-                 mesh=None, row_block: int = 256, reorder: bool = True,
+                 mesh=None, axis_data: Optional[str] = "data",
+                 axis_model: str = "model", speeds=None, seed: int = 0,
+                 row_block: int = 256, reorder: bool = True,
                  design_info=None, sample_weight=None, offset=None,
                  standardize: bool = False, fit_intercept: bool = False,
-                 penalty_factor=None):
-        if mesh is not None:
-            raise _not_ported("a device mesh (multi-GPU fitting)")
+                 penalty_factor=None, telemetry=None, fault_plan=None):
         config = DGLMNETConfig() if config is None else config
         if family is not None:
             fam = glm.resolve_family(family)
@@ -219,6 +232,53 @@ class GLMSolver:
         self.launch_stats = {"supersteps": 0, "sweep_tile_launches": 0,
                              "sweep_tiles_skipped": 0}
         self._phase_fractions = None    # set_phase_fractions
+        # the mesh: this rank's block (d, m) of a (D, M) grid, its groups
+        # (None on one device, or for a mesh dim of one rank), and which
+        # process owns which model column
+        if mesh is not None and not hasattr(mesh, "get_group"):
+            raise TypeError(
+                f"mesh must be a torch.distributed DeviceMesh with dims "
+                f"({axis_data!r}, {axis_model!r}) "
+                "(repro_torch.dist.bootstrap.make_dist_mesh); got "
+                f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.axis_data = axis_data if mesh is not None else None
+        self.axis_model = axis_model if mesh is not None else None
+        self._rng = np.random.default_rng(seed)
+        self._multiproc = mesh is not None and \
+            dist_boot.is_multiprocess_mesh(mesh)
+        if mesh is None:
+            self._D = self._M = 1
+            self._d = self._m = 0
+            self._groups = None
+            self.dist_info = None
+        else:
+            self._D, self._M, self._d, self._m = dist_boot.mesh_coords(
+                mesh, axis_data, axis_model)
+            self._groups = (mesh.get_group(axis_data) if axis_data
+                            else None, mesh.get_group(axis_model))
+            ctx = dist_boot.context()
+            self.dist_info = {
+                "multiprocess": self._multiproc,
+                "process_id": ctx.process_id,
+                "num_processes": ctx.num_processes,
+                "column_owner": dist_boot.column_process_map(
+                    mesh, axis_model).tolist(),
+                "local_columns": dist_boot.local_columns(mesh, axis_model),
+            }
+        self._telemetry = telemetry
+        self._faults = fault_plan
+        self._superstep_no = 0
+        self._budgets_host: Optional[np.ndarray] = None
+        if telemetry is not None and mesh is None:
+            raise ValueError(
+                "telemetry-driven ALB needs a mesh: node speeds map onto "
+                "model columns (repro_torch.dist.telemetry)")
+        if fault_plan is not None and self.dist_info is not None and \
+                fault_plan.num_processes != self.dist_info["num_processes"]:
+            raise ValueError(
+                f"fault plan covers {fault_plan.num_processes} processes "
+                f"but the job has {self.dist_info['num_processes']}")
         # the convergence event stream: opened next to the trace shards
         # when tracing targets a directory, or set_convergence_stream()
         self._conv = None
@@ -237,6 +297,12 @@ class GLMSolver:
         if isinstance(X, (str, os.PathLike)) or (
                 not hasattr(X, "shape") and hasattr(X, "to_design")
                 and hasattr(X, "labels")):
+            if mesh is not None:
+                raise ValueError(
+                    "file-backed fits stream through a single-process "
+                    "StreamingDesign (mesh=None); for multi-process "
+                    "out-of-core training use launch/dist_run.py --data, "
+                    "which gives each process its own chunk range")
             from repro_torch import io as io_lib
             X, labels, self._reader = io_lib.open_design(
                 X, tile_size=config.tile_size, device=self.device)
@@ -263,30 +329,40 @@ class GLMSolver:
         if self.fit_intercept:
             X = _with_intercept_column(X, n)
 
-        # no other reference to the design: standardization replaces it
-        self._Xs, self._info = design_lib.as_design(
-            X, T, row_block=row_block, reorder=reorder, info=design_info,
-            device=self.device)
-        # what a checkpoint must match to resume here (the reference's
-        # keys; one device, so D = M = 1)
-        self._streaming = isinstance(self._Xs, StreamingDesign)
-        if self._streaming:
-            self._design_layout = {"kind": "streaming", "tile": T,
-                                   "chunk_rows": self._Xs.chunk_rows}
-        elif isinstance(self._Xs, design_lib.DenseDesign):
-            self._design_layout = None
+        # no other reference to the design: standardization replaces it.
+        # The layout is what a checkpoint must match to resume here (the
+        # reference's keys); a dense layout is mesh-invariant (None).
+        if mesh is None:
+            self._Xs, self._info = design_lib.as_design(
+                X, T, row_block=row_block, reorder=reorder,
+                info=design_info, device=self.device)
+            self._streaming = isinstance(self._Xs, StreamingDesign)
+            if self._streaming:
+                self._design_layout = {"kind": "streaming", "tile": T,
+                                       "chunk_rows": self._Xs.chunk_rows}
+            elif isinstance(self._Xs, design_lib.DenseDesign):
+                self._design_layout = None
+            else:
+                self._design_layout = {
+                    "kind": "bricks", "D": 1, "M": 1, "tile": T,
+                    "row_block": self._Xs.row_block,
+                    "reorder": bool(reorder)}
         else:
-            self._design_layout = {
-                "kind": "bricks", "D": 1, "M": 1, "tile": T,
-                "row_block": self._Xs.row_block, "reorder": bool(reorder)}
-        n_rows, p_pad = self._Xs.shape
-        self._n_tot, self._p_tot = n_rows, p_pad
-        self._n_tiles = self._Xs.n_tiles
+            self._streaming = False
+            self._place_on_mesh(X, n, row_block, reorder, design_info)
+        n_loc, p_loc = self._Xs.shape
+        self._n_tot, self._p_tot = self._D * n_loc, self._M * p_loc
+        n_rows = self._n_tot
+        # this rank's rows and packed columns in the full coordinates
+        self._rows = slice(self._d * n_loc, (self._d + 1) * n_loc)
+        self._cols = slice(self._m * p_loc, (self._m + 1) * p_loc)
+        self._n_tiles = self._Xs.n_tiles          # this rank's tiles
 
-        self._ys = self._put(np.pad(y, (0, n_rows - n), constant_values=1.0))
+        self._ys = self._put_rows(np.pad(y, (0, n_rows - n),
+                                         constant_values=1.0))
         self._wobs_host = np.pad(sw, (0, n_rows - n))      # padding -> 0
-        self._wobs = self._put(self._wobs_host)
-        self._offsets = self._put(np.pad(off, (0, n_rows - n)))
+        self._wobs = self._put_rows(self._wobs_host)
+        self._offsets = self._put_rows(np.pad(off, (0, n_rows - n)))
 
         self._p_model = self._info.shape[1]      # columns incl. intercept
         self._p_user = self._p_model - (1 if self.fit_intercept else 0)
@@ -300,12 +376,28 @@ class GLMSolver:
         if self.fit_intercept:
             pf = np.concatenate([pf, np.zeros((1,), np.float32)])
         # padding columns keep pf = 1 so they stay pinned at zero
-        self._penf_host = self._info.pack_cols(pf, p_pad, fill=1.0)
-        self._penf = self._put(self._penf_host)
-        make = dglmnet.make_streaming_superstep if self._streaming \
-            else dglmnet.make_superstep
-        self._superstep = make(config, n_tiles=self._n_tiles,
-                               device=self.device)
+        self._penf_host = self._info.pack_cols(pf, self._p_tot, fill=1.0)
+        self._penf = self._put_cols(self._penf_host)
+
+        # ALB budgets (paper Section 7), on a mesh only, in precedence
+        # order: runtime telemetry (measured node speeds), the speeds
+        # simulation (config.alb with speeds= and seed=), or a full cycle
+        # for every column (BSP)
+        from repro_torch.core import alb as alb_lib
+        self._base_speeds = None
+        self._max_budget = self._n_tiles
+        if mesh is not None and (telemetry is not None or config.alb):
+            self._max_budget = int(alb_lib.max_budget(self._n_tiles))
+            if telemetry is None:
+                self._base_speeds = np.asarray(speeds, np.float32) \
+                    if speeds is not None else np.ones((self._M,), np.float32)
+        if self._streaming:
+            self._superstep = dglmnet.make_streaming_superstep(
+                config, n_tiles=self._n_tiles, device=self.device)
+        else:
+            self._superstep = dglmnet.make_superstep(
+                config, n_tiles=self._n_tiles, device=self.device,
+                groups=self._groups, max_budget=self._max_budget)
 
         # standardization: after packing, before anything reads the design
         self._scale_packed: Optional[np.ndarray] = None
@@ -313,12 +405,71 @@ class GLMSolver:
         if self.standardize:
             self._apply_standardization()
 
+    def _place_on_mesh(self, X, n: int, row_block: int, reorder: bool,
+                       design_info):
+        """This rank's block of the design on a mesh, its DesignInfo and
+        the layout record.  A SparseCOO packs the reference's sharded brick
+        layout (columns dealt over the M shards, rows padded to D row-block
+        multiples) and only this rank's bricks; a dense array is padded to
+        D rows and M T features and sliced."""
+        T = self.config.tile_size
+        D, M, d, m = self._D, self._M, self._d, self._m
+        if isinstance(X, StreamingDesign):
+            raise ValueError(
+                "StreamingDesign is a single-process out-of-core layout; it "
+                "cannot be mesh-sharded (mesh=None). Shard rows by giving "
+                "each process its own chunk range instead")
+        if isinstance(X, (SparseCOO, ShardedBlockSparse)):
+            if isinstance(X, SparseCOO):
+                sharded, info = design_lib.build_block_sparse_sharded(
+                    X, D=D, M=M, tile_size=T, row_block=row_block,
+                    reorder=reorder, shards=[(d, m)], device=self.device)
+            else:
+                if (X.D, X.M, X.tile_size) != (D, M, T):
+                    raise ValueError(
+                        f"pre-built ShardedBlockSparse is ({X.D}, {X.M}) "
+                        f"with tile {X.tile_size}; the mesh is ({D}, {M}) "
+                        f"with tile {T}")
+                if design_info is None:
+                    raise ValueError(
+                        "pre-built ShardedBlockSparse requires the "
+                        "DesignInfo returned by build_block_sparse_sharded "
+                        "(pass design_info=...); the brick layout reorders "
+                        "columns and beta must be unpacked with it")
+                sharded, info = X, design_info
+            self._Xs = sharded.shard(d, m)
+            if self._Xs.device.type != self.device.type:
+                raise ValueError(f"design lives on {self._Xs.device}, not "
+                                 f"{self.device}")
+            self._design_layout = {
+                "kind": "bricks", "D": D, "M": M, "tile": T,
+                "row_block": sharded.row_block, "reorder": bool(reorder)}
+        elif isinstance(X, DesignMatrix):
+            raise ValueError(
+                "a mesh takes a dense array, a SparseCOO or a "
+                "ShardedBlockSparse; a single-device design cannot be "
+                "sharded")
+        else:
+            X = np.asarray(X, np.float32)
+            p = X.shape[1]
+            info = design_lib.DesignInfo(shape=(n, p))
+            n_loc = (n + (-n) % D) // D
+            p_loc = (p + (-p) % (M * T)) // M
+            block = np.zeros((n_loc, p_loc), np.float32)
+            rows = X[d * n_loc:(d + 1) * n_loc, m * p_loc:(m + 1) * p_loc]
+            block[:rows.shape[0], :rows.shape[1]] = rows
+            self._Xs = design_lib.DenseDesign(
+                torch.from_numpy(block).to(self.device), T)
+            self._design_layout = None     # the dense layout is mesh-free
+        self._info = info
+
     @property
     def info(self):
         return self._info
 
     @property
     def design(self) -> DesignMatrix:
+        """This rank's design (the whole design on one device)."""
         return self._Xs
 
     # ------------------------------------------------------------ packing
@@ -332,6 +483,38 @@ class GLMSolver:
     def _put(self, a) -> torch.Tensor:
         return _put(a, self.device)
 
+    def _put_rows(self, a) -> torch.Tensor:
+        """This rank's rows of a full (n_tot,) host vector, on the device."""
+        return _put(np.asarray(a)[self._rows], self.device)
+
+    def _put_cols(self, a) -> torch.Tensor:
+        """This rank's packed columns of a full (p_tot,) host vector."""
+        return _put(np.asarray(a)[self._cols], self.device)
+
+    def _reduce_data(self, x):
+        """Sum over the row shards (the data group), in place."""
+        return x if self._groups is None else \
+            collectives.all_reduce(x, self._groups[0])
+
+    def _host_beta(self, beta) -> np.ndarray:
+        """The full packed beta on the host (gathered over the feature
+        shards on a mesh: a collective)."""
+        if self._groups is None:
+            return beta.cpu().numpy()
+        return dist_boot.gather_to_host(beta, self._groups[1])
+
+    def _host_rows(self, v) -> np.ndarray:
+        """A full (n_tot,) row vector on the host (gathered over the row
+        shards on a mesh: a collective)."""
+        if self._groups is None:
+            return v.cpu().numpy()
+        return dist_boot.gather_to_host(v, self._groups[0])
+
+    def _agree(self, a) -> np.ndarray:
+        """Process 0's copy of a host array on every process of a mesh:
+        a decision every rank must take alike (stop, screening, KKT)."""
+        return a if self.mesh is None else dist_boot.broadcast_host(a)
+
     # ---------------------------------------------------- standardization
 
     def _apply_standardization(self):
@@ -339,7 +522,7 @@ class GLMSolver:
         design to weighted variance 1 per column; keep the packed (scale,
         center) that maps fitted coefficients back to the original scale.
         The intercept column stays the exact ones column."""
-        s1, s2 = (m.cpu().numpy() for m in self._Xs.col_moments(self._wobs))
+        s1, s2 = self._col_moments()
         wsum = float(self._wobs_host.sum())
         if wsum <= 0:
             raise ValueError("standardize=True needs positive total weight")
@@ -357,9 +540,20 @@ class GLMSolver:
             scale[self._icol()] = 1.0
             center[self._icol()] = 0.0
         self._Xs = self._Xs.scale_columns(
-            self._put(scale), self._put(center) if centered else None)
+            self._put_cols(scale),
+            self._put_cols(center) if centered else None)
         self._scale_packed = scale
         self._center_packed = center
+
+    def _col_moments(self):
+        """(sum_i w_i x_ij, sum_i w_i x_ij^2), packed order, on the host:
+        summed over the row shards and gathered over the feature shards on
+        a mesh."""
+        s1, s2 = self._Xs.col_moments(self._wobs)
+        if self._groups is None:
+            return s1.cpu().numpy(), s2.cpu().numpy()
+        s1, s2 = collectives.all_reduce_many((s1, s2), self._groups[0])
+        return self._host_beta(s1), self._host_beta(s2)
 
     def _unpack_user(self, beta_packed: np.ndarray):
         """Packed (standardized-scale) beta -> (original-scale beta in
@@ -402,14 +596,23 @@ class GLMSolver:
             beta = torch.from_numpy(packed).to(dev)
             xb = torch.zeros(0, dtype=torch.float32, device=dev)
         elif beta0 is not None:
-            beta = torch.from_numpy(self._pack_user(beta0, intercept0)).to(dev)
-            xb = self._Xs.matvec(beta)
+            beta = self._put_cols(self._pack_user(beta0, intercept0))
+            xb = self._matvec(beta)
         else:
-            beta = torch.zeros(self._p_tot, dtype=torch.float32, device=dev)
-            xb = torch.zeros(self._n_tot, dtype=torch.float32, device=dev)
+            beta = torch.zeros(self._Xs.shape[1], dtype=torch.float32,
+                               device=dev)
+            xb = torch.zeros(self._Xs.shape[0], dtype=torch.float32,
+                             device=dev)
         mu = torch.full((), self.config.mu_init, dtype=torch.float32,
                         device=dev)
         return FitState(beta=beta, xb=xb, mu=mu, cursor=0, step=0)
+
+    def _matvec(self, beta):
+        """X beta over this rank's rows: its block's product, summed over
+        the feature shards on a mesh."""
+        xb = self._Xs.matvec(beta)
+        return xb if self._groups is None else \
+            collectives.all_reduce(xb, self._groups[1])
 
     def _check_layout(self, md):
         if md.get("design_layout") != self._design_layout:
@@ -436,7 +639,21 @@ class GLMSolver:
 
     def _restore_state(self, ckpt_manager, state: FitState, extra=None):
         """(state with beta, X beta and mu from the latest checkpoint, the
-        restored tree); ``extra`` adds leaves to the template."""
+        restored tree); ``extra`` adds leaves to the template.  On a mesh
+        every process reads the full vectors and keeps its own block."""
+        if self.mesh is not None:
+            like = {"beta": np.zeros(self._p_tot, np.float32),
+                    "xb": np.zeros(self._n_tot, np.float32),
+                    "mu": np.float32(0.0), **(extra or {})}
+            saved, _ = ckpt_manager.restore(like)
+            state = state._replace(
+                beta=self._put_cols(self._adapt(
+                    np.asarray(saved["beta"], np.float32), self._p_tot)),
+                xb=self._put_rows(self._adapt(
+                    np.asarray(saved["xb"], np.float32), self._n_tot)),
+                mu=torch.tensor(float(np.asarray(saved["mu"])),
+                                dtype=torch.float32, device=self.device))
+            return state, saved
         like = {"beta": state.beta, "xb": state.xb, "mu": state.mu,
                 **(extra or {})}
         saved, _ = ckpt_manager.restore(like)
@@ -470,24 +687,29 @@ class GLMSolver:
         max_outer = cfg.max_outer if max_outer is None else int(max_outer)
         tol = cfg.tol if tol is None else float(tol)
         weights = self._wobs if weights is None else weights
-        total_tiles = self._n_tiles
+        T = cfg.tile_size
+        total_tiles = self._p_tot // T        # over every feature shard
         active_dev = tile_active = None
         live_tiles = total_tiles
         live_active = self._p_tot
         if active is not None:
             act = np.asarray(active, np.float32)
-            active_dev = self._put(act)
-            tile_active = act.reshape(total_tiles, cfg.tile_size) \
+            active_dev = self._put_cols(act)
+            # this rank's tiles; every rank of a data group holds the same
+            # columns and mask, so all of them skip the same tiles
+            tile_active = act[self._cols].reshape(self._n_tiles, T) \
                 .max(axis=1) > 0
-            live_tiles = int(tile_active.sum())
+            live_tiles = int((act.reshape(-1, T).max(axis=1) > 0).sum())
             live_active = int((act > 0).sum())
         # counted as the reference counts: the Gauss-Seidel sweep and the
         # fused Jacobi superstep skip dead tiles ("shaped"); the unfused
         # Jacobi sweep is counted as sweeping every tile.  Both Gram-mode
-        # sweeps of a streaming session skip them.
-        shaped = active is not None and (
+        # sweeps of a streaming session skip them.  On a mesh with sharded
+        # rows the reference sweeps every tile (masked), and so counts.
+        shaped = active is not None and self.axis_data is None and (
             self._streaming or cfg.coupling == "gauss-seidel"
-            or (cfg.coupling == "jacobi" and cfg.fuse_superstep))
+            or (cfg.coupling == "jacobi" and cfg.fuse_superstep
+                and self.axis_model is None))
         history = {k: [] for k in _HISTORY_KEYS + ("step_s",)}
         f_prev, converged, it = np.inf, False, 0
         start_it = 1
@@ -515,15 +737,8 @@ class GLMSolver:
                     ckpt=(ckpt_manager, ckpt_every_chunks))
                 resume = None
             else:
-                # a span of the host dispatch: the read below is the
-                # superstep's one synchronization, and no other is added
-                with obs_trace.span("solver/superstep") as sp:
-                    state, m = self._superstep(
-                        self._Xs, self._ys, weights, self._offsets,
-                        (lam1, lam2), self._penf, state, active=active_dev,
-                        tile_active=tile_active)
-                self._last_step_us = sp.elapsed_us or None
-                self._last_phase_us = None
+                state, m = self._dispatch_superstep(
+                    weights, (lam1, lam2), active_dev, tile_active, state)
             self.launch_stats["supersteps"] += 1
             self.launch_stats["sweep_tile_launches"] += \
                 live_tiles if shaped else total_tiles
@@ -537,7 +752,9 @@ class GLMSolver:
             now = time.perf_counter()
             history["step_s"].append(now - t_prev)
             t_prev = now
-            f = mh["f"]
+            # the stop test reads process 0's f on a mesh; the history
+            # keeps this rank's own
+            f = float(self._agree(np.asarray([mh["f"]]))[0])
             for k in _HISTORY_KEYS:
                 history[k].append(mh[k])
             if self._conv is not None:
@@ -545,13 +762,18 @@ class GLMSolver:
                                 active_size=live_active)
             if verbose:
                 tag = f"repro_torch/stream x{self._Xs.n_chunks}" \
-                    if self._streaming else "repro_torch"
+                    if self._streaming else "repro_torch" \
+                    if self.mesh is None else \
+                    f"repro_torch/{self._D}x{self._M}"
                 print(f"[{tag}] it={it} f={f:.8f} "
                       f"alpha={mh['alpha']:.4f} mu={mh['mu']:.3f} "
                       f"nnz={int(mh['nnz'])}")
             if ckpt_manager is not None and it % ckpt_every == 0:
                 tree = {"beta": state.beta, "mu": state.mu}
-                if not self._streaming:
+                if self.mesh is not None:
+                    tree = {"beta": self._host_beta(state.beta),
+                            "xb": self._host_rows(state.xb), "mu": state.mu}
+                elif not self._streaming:
                     tree["xb"] = state.xb
                 ckpt_manager.save(it, tree,
                                   metadata={"next_it": it + 1, "f_prev": f,
@@ -653,12 +875,130 @@ class GLMSolver:
         self._last_phase_us = phase_us if total else None
         return out
 
+    # ------------------------------------------------------- the mesh's ALB
+
+    def _budgets(self) -> Optional[int]:
+        """This superstep's ALB budgets (``_budgets_host``, one a model
+        column) and this rank's column's, None on one device.  Every rank
+        computes the same vector: telemetry folds the same exchanged
+        samples, and the speeds simulation draws from the same seed."""
+        from repro_torch.core import alb as alb_lib
+        nt = self._n_tiles
+        if self._telemetry is not None:
+            sp = self._telemetry.column_speeds(self.mesh, self.axis_model)
+            if sp is None:        # warm-up: a full cycle for every column
+                budgets = np.full((self._M,), nt, np.int32)
+            else:
+                # measured speeds: sanitized, with the completion-rule
+                # pivot (the quantile pivot never down-budgets the slow
+                # node at small M; see alb._pivot)
+                budgets = alb_lib.alb_budgets(
+                    sp, nt, self.config.alb_kappa, self._max_budget,
+                    sanitize=True, pivot_rule="completion")
+            self._budgets_host = np.asarray(budgets, np.int32)
+        elif self._base_speeds is not None:
+            self._budgets_host = alb_lib.alb_budgets(
+                alb_lib.sample_speeds(self._rng, self._base_speeds), nt,
+                self.config.alb_kappa, self._max_budget).astype(np.int32)
+        elif self._budgets_host is None:
+            self._budgets_host = np.full((self._M,), nt, np.int32)
+        if self.mesh is None:
+            return None
+        return int(self._budgets_host[self._m])
+
+    def _my_tiles(self) -> int:
+        """Tiles this process's columns are budgeted for in the last budget
+        vector (the unit of work of faults and telemetry)."""
+        if self._budgets_host is None:
+            return self._n_tiles
+        if self.dist_info is None or not self.dist_info["local_columns"]:
+            return int(self._budgets_host.max())
+        return int(max(self._budgets_host[m]
+                       for m in self.dist_info["local_columns"]))
+
+    def _dispatch_superstep(self, weights, lams, active_dev, tile_active,
+                            state):
+        """One in-memory superstep with the mesh's hooks around it: the
+        budget, the fault plan's sleep and the telemetry record.  Without
+        telemetry or faults it is the superstep call in a span (the span
+        times the host dispatch; the metrics read that follows is the
+        superstep's one synchronization)."""
+        budget = self._budgets()
+
+        def call():
+            return self._superstep(
+                self._Xs, self._ys, weights, self._offsets, lams,
+                self._penf, state, active=active_dev,
+                tile_active=tile_active, budget=budget)
+
+        if self._telemetry is None and self._faults is None:
+            with obs_trace.span("solver/superstep") as sp:
+                out = call()
+            self._last_step_us = sp.elapsed_us or None
+            self._last_phase_us = None
+            return out
+        step_no = self._superstep_no
+        self._superstep_no += 1
+        pid = 0 if self.dist_info is None else self.dist_info["process_id"]
+        tiles = self._my_tiles()
+        work = work_phases = None
+        if self._faults is not None and self._faults.tile_cost_s > 0:
+            # simulated local work: the sleep is real wall-clock, and the
+            # same seconds are what telemetry records for this node (the
+            # measurement-source note of repro_torch.dist.telemetry)
+            work = self._faults.work_s(pid, step_no, tiles)
+            work_phases = self._faults.work_phases(pid, step_no, tiles)
+            if work > 0:
+                with obs_trace.span("solver/fault_sleep",
+                                    args={"work_s": round(work, 6)}):
+                    time.sleep(work)
+        t0 = time.perf_counter()
+        with obs_trace.span("solver/superstep",
+                            args={"step": step_no, "tiles": tiles}):
+            out = call()
+        if self._telemetry is None:
+            self._last_step_us = None
+            self._last_phase_us = None
+            return out
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # under a fault plan the injected work is the node's local seconds:
+        # wall-clock around a superstep synchronized by its collectives
+        # would fold in the wait for the straggler
+        sec = time.perf_counter() - t0 if work is None else work
+        if work_phases is not None:
+            phases = self._compose_phases(work_phases)
+        elif self._phase_fractions:
+            phases = {k: sec * f for k, f in self._phase_fractions.items()}
+        else:
+            phases = None
+        self._telemetry.record(step_no, tiles, sec, phases=phases)
+        self._last_step_us = sec * 1e6
+        self._last_phase_us = None if phases is None else \
+            {k: round(v * 1e6, 1) for k, v in phases.items()}
+        return out
+
+    def _compose_phases(self, work_phases: dict) -> dict:
+        """The fault plan's phase attribution with its compute share spread
+        over the ``set_phase_fractions`` split; wait phases ("network",
+        "io") pass through."""
+        if not self._phase_fractions:
+            return dict(work_phases)
+        from repro_torch.dist.telemetry import COMPUTE_PHASES
+        compute = sum(v for k, v in work_phases.items()
+                      if k in COMPUTE_PHASES)
+        out = {k: v for k, v in work_phases.items()
+               if k not in COMPUTE_PHASES}
+        for k, f in self._phase_fractions.items():
+            out[k] = out.get(k, 0.0) + compute * f
+        return out
+
     def set_phase_fractions(self, fractions):
         """Register the split of a superstep's seconds into named phases
         (``{"stats": 0.2, "sweep": 0.7, ...}``; None stops attributing).
-        As in the reference, the fractions reach a convergence event's
-        ``phase_us`` only through telemetry, which the port does not have
-        yet: they are validated and kept."""
+        Every later telemetry record carries ``phases = fraction x
+        seconds`` (``repro_torch.dist.telemetry.phase_breakdown``), and a
+        convergence event its ``phase_us``."""
         if fractions is not None:
             fractions = {str(k): float(v) for k, v in fractions.items()}
         self._phase_fractions = fractions
@@ -713,7 +1053,7 @@ class GLMSolver:
             ckpt_every_chunks=ckpt_every_chunks)
         self._state = state
         self.beta_, self.intercept_ = self._unpack_user(
-            state.beta.cpu().numpy())
+            self._host_beta(state.beta))
         return FitResult(self.beta_, history, n_iter, converged)
 
     def _grad_state(self, state: FitState, weights=None) -> np.ndarray:
@@ -735,7 +1075,9 @@ class GLMSolver:
             self._ys, state.xb, self.config.family,
             weights=self._wobs if weights is None else weights,
             offset=self._offsets)
-        return self._Xs.rmatvec(s).cpu().numpy()
+        # on a mesh: summed over the row shards, gathered over the feature
+        # shards (collectives every rank calls)
+        return self._host_beta(self._reduce_data(self._Xs.rmatvec(s)))
 
     def training_margins(self) -> np.ndarray:
         """Host (n,) margins X beta over the training design at the current
@@ -746,7 +1088,7 @@ class GLMSolver:
             raise ValueError("no fitted state; call fit or fit_path first")
         xb = self._Xs.matvec(self._state.beta) if self._streaming \
             else self._state.xb
-        return xb.cpu().numpy()[:self._n_user]
+        return self._host_rows(xb)[:self._n_user]
 
     def set_observations(self, *, y=None, sample_weight=None, offset=None):
         """Swap the observation model on the same session (y, weights and
@@ -760,7 +1102,8 @@ class GLMSolver:
             y = np.asarray(y, np.float32)
             if y.shape != (n,):
                 raise ValueError(f"y must be ({n},); got {y.shape}")
-            self._ys = self._put(np.pad(y, (0, pad), constant_values=1.0))
+            self._ys = self._put_rows(np.pad(y, (0, pad),
+                                             constant_values=1.0))
         if sample_weight is not None:
             sw = np.asarray(sample_weight, np.float32)
             if sw.shape != (n,):
@@ -769,12 +1112,12 @@ class GLMSolver:
             if (sw < 0).any():
                 raise ValueError("sample_weight must be nonnegative")
             self._wobs_host = np.pad(sw, (0, pad))
-            self._wobs = self._put(self._wobs_host)
+            self._wobs = self._put_rows(self._wobs_host)
         if offset is not None:
             off = np.asarray(offset, np.float32)
             if off.shape != (n,):
                 raise ValueError(f"offset must be ({n},); got {off.shape}")
-            self._offsets = self._put(np.pad(off, (0, pad)))
+            self._offsets = self._put_rows(np.pad(off, (0, pad)))
         self._state = None
         self._lmax = None
         return self
@@ -816,8 +1159,9 @@ class GLMSolver:
         streaming session sums it over chunks."""
         fam = glm.get_family(self.config.family)
         if not self._streaming:
-            return float(fam.deviance(self._ys, state.xb, weights=weights,
-                                      offset=self._offsets))
+            d = fam.deviance(self._ys, state.xb, weights=weights,
+                             offset=self._offsets)
+            return float(self._reduce_data(d.reshape(1))[0])
         d = torch.zeros((), dtype=torch.float32, device=self.device)
         for _, Xc, yc, wc, oc in self._iter_row_chunks(weights):
             d += fam.deviance(yc, Xc @ state.beta, weights=wc, offset=oc)
@@ -841,7 +1185,7 @@ class GLMSolver:
         pf = self._penf_host
         unpen = pf <= _PF_EPS
         if eval_weights is not None:
-            ew_dev = self._put(eval_weights)
+            ew_dev = self._put_rows(eval_weights)
             ew_sum = float(np.asarray(eval_weights).sum())
 
         state = self._init_state(None)
@@ -895,7 +1239,8 @@ class GLMSolver:
                 thresh = 2.0 * lam1 - (lam_prev if lam_prev is not None
                                        else lam1)
                 active = (np.abs(g) >= pf * thresh - 1e-12) | \
-                    (state.beta.cpu().numpy() != 0.0) | unpen
+                    (self._host_beta(state.beta) != 0.0) | unpen
+                active = self._agree(active)
                 it_k = 0
                 for _ in range(8):
                     # the stream's context: where on the path, how many
@@ -914,8 +1259,8 @@ class GLMSolver:
                     # KKT on the FULL gradient: a frozen coordinate (beta_j
                     # = 0) is optimal iff |g_j| <= lam1 pf_j
                     g = self._grad_state(state, weights)
-                    viol = (~active) & (np.abs(g) >
-                                        pf * lam1 * (1.0 + kkt_slack) + 1e-7)
+                    viol = self._agree((~active) & (
+                        np.abs(g) > pf * lam1 * (1.0 + kkt_slack) + 1e-7))
                     self._conv_ctx["kkt_violations"] = int(viol.sum())
                     if not viol.any():
                         break
@@ -926,7 +1271,7 @@ class GLMSolver:
                 state, hist, it_k, conv_k = self._run(
                     state, lam1, lam2, weights=weights, max_outer=max_outer,
                     tol=tol, verbose=verbose)
-            betas_packed[k] = state.beta.cpu().numpy()
+            betas_packed[k] = self._host_beta(state.beta)
             if hist["f"]:
                 f[k] = hist["f"][-1]
                 nnz[k] = int(hist["nnz"][-1])
@@ -942,6 +1287,9 @@ class GLMSolver:
             if ckpt_manager is not None:
                 ckpt_manager.save(
                     k + 1,
+                    {"beta": betas_packed[k], "xb": self._host_rows(state.xb),
+                     "mu": state.mu, "path_betas": betas_packed}
+                    if self.mesh is not None else
                     {"beta": state.beta, "xb": state.xb, "mu": state.mu,
                      "path_betas": betas_packed},
                     metadata={"design_layout": self._design_layout,
@@ -1043,7 +1391,8 @@ class GLMSolver:
                 print(f"[cv fold {fold + 1}/{n_folds}] "
                       f"train w={w_tr.sum():.0f} val w={w_val.sum():.0f}")
             _, _, _, _, _, val_dev, _ = self._path_impl(
-                lambdas, lam2, weights=self._put(w_tr), eval_weights=w_val,
+                lambdas, lam2, weights=self._put_rows(w_tr),
+                eval_weights=w_val,
                 screen=screen, max_outer=max_outer, tol=tol, verbose=False)
             dev_folds[fold] = val_dev
 

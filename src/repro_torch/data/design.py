@@ -499,6 +499,39 @@ class StreamingDesign(DesignMatrix):
         """Row range of chunk ``i`` in the padded (n_tot,) coordinates."""
         return slice(i * self.chunk_rows, (i + 1) * self.chunk_rows)
 
+    def process_slice(self, process_id: Optional[int] = None,
+                      num_processes: Optional[int] = None):
+        """The contiguous chunk range process ``process_id`` of
+        ``num_processes`` owns, as a ``StreamingDesign`` of its own, and
+        that range's rows as a slice in the unpadded global coordinates
+        (for the caller's y, weights and offsets).  ``chunk_fn`` is a pure
+        function of the global chunk index, so no data moves.  Defaults
+        come from ``repro_torch.dist.bootstrap``'s context.  Returns
+        ``(design, rows)``."""
+        if process_id is None or num_processes is None:
+            from repro_torch.dist import bootstrap as _boot
+            ctx = _boot.context()
+            process_id = ctx.process_id if process_id is None else process_id
+            num_processes = ctx.num_processes if num_processes is None \
+                else num_processes
+        if not 0 <= process_id < num_processes:
+            raise ValueError(
+                f"process_id {process_id} out of range for "
+                f"{num_processes} processes")
+        if num_processes > self.n_chunks:
+            raise ValueError(
+                f"{num_processes} processes but only {self.n_chunks} "
+                "chunks; lower chunk_rows so every process owns work")
+        base, rem = divmod(self.n_chunks, num_processes)
+        lo = process_id * base + min(process_id, rem)
+        hi = lo + base + (1 if process_id < rem else 0)
+        row_lo = lo * self.chunk_rows
+        row_hi = min(hi * self.chunk_rows, self.n_rows_data)
+        fn = self._chunk_fn
+        design = self._derive(n_rows=row_hi - row_lo)
+        design._chunk_fn = lambda j, _lo=lo: fn(_lo + j)
+        return design, slice(row_lo, row_hi)
+
     # -- operators (sums over chunks) ----------------------------------------
 
     def _row_chunks(self, *vecs):
@@ -708,6 +741,164 @@ def build_block_sparse(coo: SparseCOO, tile_size: int, *,
     info = DesignInfo(shape=(n, p), col_of_feature=col_of_feature,
                       occupancy=occ, n_bricks=n_bricks)
     return design, info
+
+
+def _place_bricks(vals, rows, cols, index, n_loc, n_tiles, tile_size,
+                  row_block, K, device) -> BlockSparseDesign:
+    """The ``BlockSparseDesign`` of one shard's triplets (local row and
+    packed column coordinates) and their ``_brick_index``, on ``device``."""
+    order, inv, brick_row, brick_tile, tile_ptr, n_bricks = index
+    bricks = torch.zeros((max(n_bricks, 1), row_block, tile_size),
+                         dtype=torch.float32, device=device)
+    if n_bricks:
+        rows, cols = rows[order], cols[order]
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        bricks.index_put_(
+            (put(inv.astype(np.int64)), put(rows % row_block),
+             put(cols % tile_size)),
+            put(np.asarray(vals, np.float32)[order]))
+    return BlockSparseDesign(
+        bricks, torch.from_numpy(brick_row).to(device),
+        torch.from_numpy(brick_tile).to(device), tile_ptr,
+        tile_size, row_block, n_loc, n_tiles, K)
+
+
+@dataclasses.dataclass
+class ShardedBlockSparse:
+    """The (D, M)-sharded brick layout: shard (d, m) holds rows [d n_rows,
+    (d + 1) n_rows) and packed columns [m p_loc, (m + 1) p_loc) as a
+    ``BlockSparseDesign`` of its own (``shards``, only those that were
+    built).  ``n_bricks`` (B) and ``max_bricks_per_tile`` (K) are the
+    largest over all shards, the reference's static bounds; ``stacked()``
+    gives the reference's padded (D, M, ...) arrays of built shards."""
+
+    D: int
+    M: int
+    tile_size: int
+    row_block: int
+    n_rows: int                 # rows a shard (a row_block multiple)
+    n_tiles: int                # tiles a shard
+    max_bricks_per_tile: int
+    n_bricks: int
+    uniform_K: bool
+    shards: dict
+    leading: int = 2
+
+    @property
+    def shape(self):
+        """A shard's (n_rows, p_loc), as the reference's design reports."""
+        return (self.n_rows, self.n_tiles * self.tile_size)
+
+    def shard(self, d: int, m: int) -> BlockSparseDesign:
+        if (d, m) not in self.shards:
+            raise ValueError(f"shard ({d}, {m}) was not built here")
+        return self.shards[(d, m)]
+
+    def stacked(self) -> dict:
+        """Host (D, M, ...) arrays padded to B bricks as the reference
+        stacks them (every shard must have been built)."""
+        B = self.n_bricks
+        out = {"bricks": [], "brick_row": [], "brick_tile": [],
+               "tile_ptr": []}
+        for d in range(self.D):
+            for m in range(self.M):
+                sh = self.shard(d, m)
+                for k in ("bricks", "brick_row", "brick_tile"):
+                    a = getattr(sh, k).cpu().numpy()
+                    pad = B - a.shape[0]
+                    if pad:
+                        a = np.concatenate(
+                            [a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                    out[k].append(a)
+                out["tile_ptr"].append(np.asarray(sh.tile_ptr))
+        return {k: np.stack(v).reshape((self.D, self.M) + v[0].shape)
+                for k, v in out.items()}
+
+
+def build_block_sparse_sharded(coo: SparseCOO, *, D: int, M: int,
+                               tile_size: int, row_block: int = 256,
+                               reorder: bool = True, shards=None,
+                               device=None):
+    """Pack a host SparseCOO into the (D, M)-sharded brick layout.
+
+    The reference's packing: features frequency-sorted into tiles, whole
+    tiles dealt round-robin over the M feature shards, rows padded to D
+    shards of a ``row_block`` multiple.  Only the shards in ``shards``
+    (a list of (d, m); None: all) get bricks, on ``device`` (None: the
+    CUDA card), so a rank builds its own block; the index arithmetic of
+    every shard runs on the host, since B and K are bounds over all of
+    them.  Returns (ShardedBlockSparse, DesignInfo).
+    """
+    coo = coo.dedupe()
+    n, p = coo.shape
+    col_of_feature, p_loc = _pack_layout(coo, M, tile_size, reorder)
+    n_loc = -(-n // (D * row_block)) * row_block
+    n_tiles = p_loc // tile_size
+    rows_all = np.asarray(coo.rows, np.int64)
+    packed = col_of_feature[coo.cols]
+    shard_m = packed // p_loc
+    shard_d = rows_all // n_loc
+    want = None if shards is None else {tuple(s) for s in shards}
+    device = resolve_device(device) if want is None or want else None
+    index, parts = {}, {}
+    for d in range(D):
+        for m in range(M):
+            sel = (shard_d == d) & (shard_m == m)
+            rows = rows_all[sel] - d * n_loc
+            cols = packed[sel] - m * p_loc
+            index[(d, m)] = _brick_index(rows, cols, n_loc, p_loc,
+                                         tile_size, row_block)
+            if want is None or (d, m) in want:
+                parts[(d, m)] = (np.asarray(coo.vals)[sel], rows, cols)
+    counts = [ix[5] for ix in index.values()]
+    B = max(max(c, 1) for c in counts)
+    K = max(max(int(np.diff(ix[4]).max(initial=0)) for ix in index.values()),
+            1)
+    uniform = all(ix[5] == n_tiles * K and np.all(np.diff(ix[4]) == K)
+                  for ix in index.values())
+    built = {dm: _place_bricks(*parts[dm], index[dm], n_loc, n_tiles,
+                               tile_size, row_block, K, device)
+             for dm in parts}
+    design = ShardedBlockSparse(D, M, tile_size, row_block, n_loc, n_tiles,
+                                K, B, uniform, built)
+    total = sum(counts)
+    occ = total / max((n_loc // row_block) * D * n_tiles * M, 1)
+    info = DesignInfo(shape=(n, p), col_of_feature=col_of_feature,
+                      occupancy=occ, n_bricks=total)
+    return design, info
+
+
+def brick_occupancy(coo: SparseCOO, tile_size: int, *, row_block: int = 256,
+                    reorder: bool = True) -> float:
+    """Non-empty-brick fraction of the packed layout, from the COO keys
+    alone (no brick is formed)."""
+    coo = coo.dedupe()
+    col_of_feature, p_loc = _pack_layout(coo, 1, tile_size, reorder)
+    n_rb = -(-coo.shape[0] // row_block)
+    n_tiles = p_loc // tile_size
+    keys = (col_of_feature[coo.cols] // tile_size) * n_rb \
+        + np.asarray(coo.rows, np.int64) // row_block
+    return len(np.unique(keys)) / max(n_rb * n_tiles, 1)
+
+
+def as_local_design(X, tile_size: int, *, device=None) -> DesignMatrix:
+    """This rank's design: a ``ShardedBlockSparse`` holding one shard
+    gives it, a design is itself, a raw (n_loc, p_loc) array becomes a
+    ``DenseDesign`` on ``device`` (None: the CUDA card)."""
+    if isinstance(X, ShardedBlockSparse):
+        if len(X.shards) != 1:
+            raise ValueError(f"{len(X.shards)} shards built; a rank holds "
+                             "one (build with shards=[(d, m)])")
+        return next(iter(X.shards.values()))
+    if isinstance(X, DesignMatrix):
+        return X
+    if torch.is_tensor(X):
+        return DenseDesign(X.to(resolve_device(device), torch.float32),
+                           tile_size)
+    return dense_design(X, tile_size, device=device)[0]
 
 
 def dense_design(X, tile_size: int, *, device=None):

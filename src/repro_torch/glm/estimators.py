@@ -26,7 +26,8 @@ is scored by the fused gather-dot-link kernel (K7).
 
 ``fit(path_or_reader, y=None)`` trains out of core from a file
 (``repro_torch.io``) with the labels it holds; a ``StreamingDesign`` works
-as X too.  Not ported yet (raises NotImplementedError): ``mesh=``.
+as X too.  ``mesh=`` (a ``DeviceMesh``, one process per rank) passes
+through to the session, which fits on the mesh.
 """
 from __future__ import annotations
 

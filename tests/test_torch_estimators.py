@@ -171,12 +171,13 @@ def test_family_pinning_and_unfitted_errors():
     with pytest.raises(ValueError, match="not fitted"):
         MultinomialGLM(device="cpu").predict(np.zeros((3, 2), np.float32))
     # file inputs are ported (a missing file raises, and y=None needs a
-    # path or a reader); a mesh is a later slice of the port
+    # path or a reader); mesh= passes through to the session, which takes
+    # a DeviceMesh (tests/test_torch_sharded.py) and refuses anything else
     with pytest.raises(FileNotFoundError):
         est.fit("data.svm")
     with pytest.raises(ValueError, match="y=None"):
         MultinomialGLM(device="cpu").fit(np.zeros((4, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ElasticNetGLM(family="squared", lam1=0.1, mesh=object(),
                       device="cpu").fit(np.zeros((4, 2), np.float32),
                                         np.ones(4, np.float32))

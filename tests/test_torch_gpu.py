@@ -984,3 +984,38 @@ def test_spans_are_profiler_and_nvtx_ranges_on_the_card(cuda, monkeypatch):
                 t = launch_at[e.id]
                 assert any(a <= t <= b for a, b in ranges), (k, t, ranges)
     assert all(seen.values()), seen
+
+
+def _dist_demo(tmp_path, tag, n, *extra):
+    """``dist_run``'s demo fit as an ``n``-process world; its record."""
+    from repro_torch.dist import launcher
+    out = tmp_path / f"{tag}.json"
+    res = launcher.run_local(
+        n, "repro_torch.launch.dist_run",
+        args=["--demo", "--steps", "6", "--out", str(out), *extra],
+        timeout_s=300)
+    assert res.ok, res.summary()
+    import json
+    return json.loads(out.read_text())
+
+
+def test_dist_nccl_world_of_one_matches_the_cpu(cuda, tmp_path):
+    """A (1, 1) mesh over NCCL on the card against the same world over
+    gloo on the CPU: the same alphas and supersteps, f within 1e-5."""
+    gpu = _dist_demo(tmp_path, "nccl", 1)
+    cpu = _dist_demo(tmp_path, "cpu", 1, "--backend", "gloo",
+                     "--device", "cpu")
+    assert gpu["backend"] == "cpu:gloo,cuda:nccl"
+    assert gpu["alpha"] == cpu["alpha"] and gpu["n_iter"] == cpu["n_iter"]
+    assert abs(gpu["f"] - cpu["f"]) <= 1e-5 * abs(cpu["f"])
+
+
+def test_dist_two_gloo_ranks_share_one_card(cuda, tmp_path):
+    """Two ranks on one card over gloo (NCCL would refuse them) against
+    the same world on the CPU."""
+    gpu = _dist_demo(tmp_path, "gloo2", 2, "--backend", "gloo")
+    cpu = _dist_demo(tmp_path, "cpu2", 2, "--backend", "gloo",
+                     "--device", "cpu")
+    assert gpu["device"] == "cuda" and gpu["mesh"] == [1, 2]
+    assert gpu["alpha"] == cpu["alpha"] and gpu["n_iter"] == cpu["n_iter"]
+    assert abs(gpu["f"] - cpu["f"]) <= 1e-5 * abs(cpu["f"])

@@ -25,7 +25,13 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.data.pipeline", "repro_torch.launch.ingest_train",
            "repro_torch.obs", "repro_torch.obs.trace",
            "repro_torch.obs.metrics", "repro_torch.obs.convergence",
-           "repro_torch.launch.trace_report"]
+           "repro_torch.launch.trace_report", "repro_torch.dist",
+           "repro_torch.dist.bootstrap", "repro_torch.dist.faults",
+           "repro_torch.dist.launcher", "repro_torch.dist.telemetry",
+           "repro_torch.core.alb", "repro_torch.sharding",
+           "repro_torch.sharding.compress",
+           "repro_torch.sharding.collectives",
+           "repro_torch.launch.dist_run"]
 
 
 def _port_files():
@@ -72,6 +78,30 @@ def test_enabled_tracer_leaves_jax_and_repro_out(tmp_path):
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert list(tmp_path.glob("convergence_*.jsonl"))
+
+
+def test_mesh_fit_leaves_jax_and_repro_out():
+    """A (1, 1) mesh fit in a world of one (gloo on the CPU), its
+    collectives and a gathered beta: no jax and nothing of repro."""
+    code = ("import sys, json, numpy as np\n"
+            "from repro_torch.dist import bootstrap\n"
+            "from repro_torch.core.solver import GLMSolver\n"
+            "bootstrap.initialize(device='cpu', backend='gloo')\n"
+            "mesh = bootstrap.make_dist_mesh(1, 1)\n"
+            "X = np.eye(16, 8, dtype=np.float32)\n"
+            "y = np.where(np.arange(16) % 2, 1.0, -1.0).astype(np.float32)\n"
+            "s = GLMSolver(X, y, mesh=mesh, device='cpu')\n"
+            "s.fit(lam1=0.01, max_outer=2)\n"
+            "bootstrap.shutdown()\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(json.dumps(bad))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _imports(path):

@@ -225,3 +225,31 @@ def test_fit_defaults_to_the_card(sparse_data, monkeypatch):
         warnings.simplefilter("ignore", DeprecationWarning)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tdglmnet.fit(X.to_dense(), y, TConfig(**CFG))
+
+
+def test_dist_public_names_match_jax():
+    """repro_torch.dist exports the reference's public names."""
+    import repro.dist as jdist
+    import repro_torch.dist as tdist
+    assert tdist.__all__ == jdist.__all__
+    for name in jdist.__all__:
+        assert hasattr(tdist, name), name
+
+
+@pytest.mark.parametrize("module", ["core.alb", "dist.bootstrap",
+                                    "dist.faults", "dist.launcher",
+                                    "dist.telemetry", "sharding.compress",
+                                    "launch.dist_run"])
+def test_ported_dist_modules_keep_the_reference_names(module):
+    """Each public function and class of the reference's module is in the
+    port's (the jax.distributed client and the XLA flags excepted)."""
+    import importlib
+    import inspect
+    jm = importlib.import_module(f"repro.{module}")
+    tm = importlib.import_module(f"repro_torch.{module}")
+    names = {n for n, v in vars(jm).items()
+             if not n.startswith("_") and (inspect.isfunction(v)
+                                           or inspect.isclass(v))
+             and getattr(v, "__module__", "") == jm.__name__}
+    missing = sorted(n for n in names if not hasattr(tm, n))
+    assert missing == []

@@ -204,8 +204,12 @@ def test_unported_options_raise(tmp_path):
     X = np.random.default_rng(0).normal(size=(40, 6)).astype(np.float32)
     y = np.where(X[:, 0] > 0, 1.0, -1.0).astype(np.float32)
     kw = dict(device="cpu", config=TConfig(tile_size=8))
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported (tests/test_torch_sharded.py); anything but a
+    # DeviceMesh is refused, and telemetry needs a mesh
+    with pytest.raises(TypeError):
         TSolver(X, y, **kw, mesh=object())
+    with pytest.raises(ValueError):
+        TSolver(X, y, **kw, telemetry=object())
     s = TSolver(X, y, **kw)
     r0 = s.fit(lam1=0.1, max_outer=3)
     # ported since: the Jacobi coupling, its precision="bf16", predict

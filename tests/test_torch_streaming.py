@@ -244,7 +244,9 @@ def test_design_rules_in_the_session():
     sd = streaming_design(X, 8, chunk_rows=64, device=CPU)[0]
     with pytest.raises(ValueError, match="tile_size"):
         TSolver(sd, y, config=TConfig(tile_size=TILE), device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is ported, and a StreamingDesign on a real one raises
+    # ValueError (tests/test_torch_sharded.py); here: not a DeviceMesh
+    with pytest.raises(TypeError, match="mesh"):
         TSolver(_tsd(X, 64), y, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="y=None"):
         TSolver(_tsd(X, 64), None, device=CPU)
