@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from a checkout (it imports ``src/repro_torch`` beside it) on a machine
-with a CUDA card and ``nvcc``.  It builds the seven hand-written CUDA
+with a CUDA card and ``nvcc``.  It builds the nine hand-written CUDA
 kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
 PyTorch version on the card at its path's shapes and times both, then
 drives each path through the entry points a user calls and checks it:
@@ -88,6 +88,19 @@ drives each path through the entry points a user calls and checks it:
     profiled superstep, the checkpoint's bytes and save ms, K1, K2 and K4
     at the chunk shapes; one superstep traced, its ``phase_us`` (the three
     passes) summing to its ``step_us``;
+  * baselines (after stream): the paper's competing algorithms on the
+    dense train split (400,000 x 2,000, no intercept column): the two
+    scan kernels (admm_shooting: one ADMM x-update, every block's
+    Shooting passes; online_tg: one epoch of every shard) held against
+    their plain versions at full width and timed beside their bytes
+    bound and dependency floor; then benchmarks/fig2_4_l1.py's L1
+    comparison at lam1 = 1 (FISTA's f*, d-GLMNET fused Jacobi, ADMM over
+    a rho grid, online truncated gradient) and fig5_6_l2.py's L2 one at
+    lam2 = 1 (f*, d-GLMNET with a fixed mu, online-warmstarted and plain
+    L-BFGS); d-GLMNET run on to 800 supersteps within 1e-3 max(1, |f*|)
+    of f*, both L-BFGS within 1e-3 |f*|, ADMM one admm_shooting launch
+    and 13 of K1 an iteration, online TG one online_tg launch an epoch;
+    each fit_* small, card against CPU;
   * ingest: the sparse train split's first 65,536 rows written as libsvm
     text, then ``repro_torch.launch.ingest_train.main`` in process
     (hashed into 4,096 columns, chunks of 4,096 rows, 3 supersteps: f
@@ -177,6 +190,13 @@ N_DENSE = 400_000           # train rows of the dense fit (K1 and K4 run there)
 SERVE_FRACTIONS = (0.2, 0.1, 0.05, 0.02)   # the served model's columns
 DIST_TIMEOUT_S = 300        # one world of the dist phase
 DIST_SMALL_STEPS = 8        # supersteps of the small card-vs-CPU fits
+BASELINE_LAM1 = 1.0         # benchmarks/fig2_4_l1.py's LAM1
+BASELINE_LAM2 = 1.0         # benchmarks/fig5_6_l2.py's LAM2
+BASELINE_ITERS = 30         # fig2_4_l1.py's ITERS
+BASELINE_L2_ITERS = 25      # fig5_6_l2.py's d-GLMNET and L-BFGS iterations
+BASELINE_FISTA_CAP = 500    # FISTA's max_iter for f* (the figures: 3,000)
+BASELINE_GATE_SUPERSTEPS = 800   # d-GLMNET run on to this for the f* gate
+BASELINE_WITNESS_ROWS = 40_000   # train rows of the protocol's witness cut
 
 
 def full_size_data(synthetic, kind: str):
@@ -281,19 +301,23 @@ def gram_bounds(bytes_moved: float, gram_flops: float, other_flops: float,
                 tf32_tflops_executed=executed_flops / ms / 1e9)
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+def time_ms(torch, fn, reps: int, warmup: int = 2,
+            queued: bool = True) -> float:
     """Mean device milliseconds per call, from CUDA events around ``reps``
     calls.  A sleep kernel is queued first, so the host has queued every
     call before the card reaches the first one: a kernel shorter than its
     host-side launch is timed on the card, not at the host's launch rate
-    (where ``torch.cuda._sleep`` is missing, the host rate bounds it)."""
+    (where ``torch.cuda._sleep`` is missing, the host rate bounds it).
+    ``queued=False`` queues no sleep, for a call whose host-side launches
+    take longer than its kernels (a plain version's loop): the sleep would
+    hide its first 50 ms."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     sleep = getattr(torch.cuda, "_sleep", None)
-    if sleep is not None:
+    if queued and sleep is not None:
         sleep(100_000_000)          # ~50 ms at the H100's clock
     start.record()
     for _ in range(reps):
@@ -3177,6 +3201,388 @@ def dist_phase(np, torch, sparse_res, lam1, dense_npy, lam1_dense, card,
     return per_rank
 
 
+def plain_call(torch, fn):
+    """(device ms of one call of ``fn``, its result): a plain version is
+    run once, for its result and its time."""
+    out = []
+    return time_ms(torch, lambda: out.append(fn()), 1, 0, False), out[0]
+
+
+def scan_kernels_report(np, torch, X, y, dev, report, parity, tol):
+    """The two scans on the card at full width, each against its plain
+    version: one ADMM x-update (the inputs of the third outer iteration at
+    rho = 1) and one online epoch (from w = 0, the first of the L1 run's).
+    Each is timed beside its bytes bound (every input read once; for ADMM
+    also the passes' reads of A, which no cache holds) and its dependency
+    floor: the same kernel on the same chain of steps with one row
+    (ADMM) or one feature (online) a thread, where the bytes are
+    negligible."""
+    from repro_torch.baselines import admm as admm_lib
+    from repro_torch.baselines.admm import ADMMConfig
+    from repro_torch.kernels import admm_shooting as admm_k
+    from repro_torch.kernels import online_tg as tg_k
+    from repro_torch.kernels import ref
+
+    n, p = X.shape
+    # ---- ADMM x-update
+    cfg = ADMMConfig(lam1=BASELINE_LAM1, rho=1.0)
+    At = admm_lib.column_blocks(X, cfg.n_blocks)
+    M, pb, _ = At.shape
+    col_sq = torch.sum(At * At, dim=2)
+    x = torch.zeros((M, pb), dtype=torch.float32, device=dev)
+    zbar = torch.zeros(n, dtype=torch.float32, device=dev)
+    u = torch.zeros_like(zbar)
+    for _ in range(2):
+        x, zbar, u, _, _ = admm_lib._admm_step(At, y, x, zbar, u, cfg,
+                                               col_sq)
+    Ax = admm_lib._block_margins(At, x)
+    v = Ax + (zbar - torch.mean(Ax, dim=0) - u)[None, :]
+    args = (At, x, v, col_sq, cfg.lam1 / cfg.rho, cfg.lam2 / cfg.rho,
+            cfg.shooting_passes)
+    got = admm_k.launch(*args)
+    plain_ms, want = plain_call(torch, lambda: ref.shooting_pass(*args))
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    parity["admm_shooting"] = err / scale
+    check(err <= tol["admm_shooting"] * scale,
+          f"admm_shooting: error {err} (largest x {scale})")
+    check(torch.equal(got, admm_k.launch(*args)),
+          "admm_shooting: x differs from run to run")
+    # the same x-update with the L2 term on (lam2 / rho = 1)
+    args_l2 = args[:5] + (1.0,) + args[6:]
+    want_l2 = ref.shooting_pass(*args_l2)
+    err_l2 = float((admm_k.launch(*args_l2) - want_l2).abs().max())
+    scale_l2 = max(1.0, float(want_l2.abs().max()))
+    check(err_l2 <= tol["admm_shooting"] * scale_l2,
+          f"admm_shooting (lam2 1): error {err_l2} (largest x {scale_l2})")
+    # what a wrong kernel reads: one Shooting pass short
+    short = float((admm_k.launch(*args[:6], args[6] - 1) - want).abs().max())
+    check(short > tol["admm_shooting"] * scale,
+          f"admm_shooting: a pass short reads {short}, inside the bar")
+    nz = want[want != 0].abs()
+    ms = time_ms(torch, lambda: admm_k.launch(*args), 10)
+    cluster, r_in_smem = admm_k.plan(n)
+    rows = cluster * 1024          # one row a thread, the same cluster
+    At_s = At[:, :, :rows].contiguous()
+    small = (At_s, x, v[:, :rows].contiguous(),
+             torch.sum(At_s * At_s, dim=2)) + args[4:]
+    check(admm_k.plan(rows)[0] == cluster, "admm_shooting: floor plan")
+    floor = time_ms(torch, lambda: admm_k.launch(*small), 10)
+    passes = cfg.shooting_passes
+    a_bytes = At.numel() * 4
+    bytes_once = a_bytes + v.numel() * 4 + 3 * col_sq.numel() * 4
+    # r = A x - v (an FMA), the dot (an FMA), r += a delta (2): a pass
+    flops = 6.0 * passes * At.numel()
+    b_ms, b_by = bound_ms(bytes_once, flops)
+    steps = passes * pb
+    report["admm_shooting"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / ms, library_ms=None, max_abs_err=err,
+        max_abs_err_lam2=err_l2, err_one_pass_short=short,
+        x_abs={"max": float(want.abs().max()),
+               "median_nonzero": float(nz.median()) if nz.numel() else 0.0,
+               "nonzero": int(nz.numel()), "size": want.numel()},
+        bytes_bound_passes_ms=passes * a_bytes / H100_BYTES_PER_S * 1e3,
+        share_of_bytes_bound_passes=passes * a_bytes / H100_BYTES_PER_S
+        * 1e3 / ms,
+        dependency_floor_ms=floor, share_of_dependency_floor=floor / ms,
+        dependency_steps=steps, step_us=ms * 1e3 / steps,
+        floor_step_us=floor * 1e3 / steps, cluster=cluster,
+        r_in_shared_memory=r_in_smem,
+        shapes={"M": M, "p_block": pb, "n": n, "passes": passes})
+    del At, At_s, small, args, args_l2, col_sq, x, v, Ax, zbar, u, got, \
+        want, want_l2, nz
+
+    # ---- online epoch
+    M = 4
+    n_per = n // M
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)
+                            [: n_per * M]).to(dev)
+    X_sh = X[perm].reshape(M, n_per, p)
+    y_sh = y[perm].reshape(M, n_per)
+    del perm
+    w0 = torch.zeros(p, dtype=torch.float32, device=dev)
+    kw = dict(lr=0.3, power=0.6, lam1=BASELINE_LAM1 / n, lam2=0.0)
+    got = tg_k.launch(X_sh, y_sh, w0, 1.0, "logistic", **kw)
+    plain_ms, want = plain_call(torch, lambda: ref.online_tg_epoch(
+        X_sh, y_sh, w0, 1.0, "logistic", **kw))
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    parity["online_tg"] = err / scale
+    check(err <= tol["online_tg"] * scale,
+          f"online_tg: error {err} (largest w {scale})")
+    check(torch.equal(got, tg_k.launch(X_sh, y_sh, w0, 1.0, "logistic",
+                                       **kw)),
+          "online_tg: w differs from run to run")
+    ms = time_ms(torch, lambda: tg_k.launch(X_sh, y_sh, w0, 1.0, "logistic",
+                                            **kw), 3, 1)
+    narrow = X_sh[:, :, :256].contiguous()       # one feature a thread
+    floor = time_ms(torch, lambda: tg_k.launch(narrow, y_sh, w0[:256], 1.0,
+                                               "logistic", **kw), 3, 1)
+    bytes_once = (X_sh.numel() + y_sh.numel() + p + M * p) * 4
+    # the dot (an FMA), w + (eta s) x (2), the shrink, the threshold (2)
+    flops = 6.0 * X_sh.numel()
+    b_ms, b_by = bound_ms(bytes_once, flops)
+    report["online_tg"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / ms, library_ms=None, max_abs_err=err,
+        w_abs={"max": float(want.abs().max()),
+               "median": float(want.abs().median())},
+        dependency_floor_ms=floor, share_of_dependency_floor=floor / ms,
+        dependency_steps=n_per, step_us=ms * 1e3 / n_per,
+        floor_step_us=floor * 1e3 / n_per,
+        w_in_shared_memory=p <= tg_k.smem_features(),
+        shapes={"M": M, "n_per": n_per, "p": p})
+    del X_sh, y_sh, narrow, got, want
+
+
+def counted_fit(torch, ops, fn):
+    """(result, wall s, the launch counts) of ``fn()`` with every count set
+    to 0 just before it."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, ops.launch_counts()
+
+
+def method_row(np, f, nnz, wall_s, iters, counts, f_star):
+    """What the phase prints of one method: f by iteration, suboptimality
+    at 10 (the reference's index 9) and at the end, nnz, seconds, and the
+    launches an iteration."""
+    f = [float(v) for v in f]
+    so = [(v - f_star) / abs(f_star) for v in f]
+    check(bool(np.isfinite(f).all()), f"non-finite f {f}")
+    return {"f": f, "subopt_at_10": so[min(9, len(so) - 1)],
+            "subopt": so[-1], "nnz": int(nnz), "iters": iters,
+            "wall_s": wall_s, "s_per_iter": wall_s / max(iters, 1),
+            "launches_per_iter": {k: v / max(iters, 1)
+                                  for k, v in counts.items() if v}}
+
+
+def dglmnet_rows(np, torch, ops, objective, f_star, lam1, lam2, solver):
+    """d-GLMNET in the figures' protocol (the solver's config: 30 or 25
+    supersteps, tol 0), then the same solver run on to
+    BASELINE_GATE_SUPERSTEPS and held to FISTA's f* by the bar of
+    tests/test_dglmnet.py (a converged fit): f <= f* + 1e-3 max(1,
+    |f*|)."""
+    res, wall, counts = counted_fit(torch, ops, lambda: solver.fit(lam1,
+                                                                   lam2))
+    row = method_row(np, res.history["f"], res.history["nnz"][-1], wall,
+                     res.n_iter, counts, f_star)
+    row["f_objective"] = objective(res.beta, lam1, lam2)
+    long, wall, counts = counted_fit(torch, ops, lambda: solver.fit(
+        lam1, lam2, max_outer=BASELINE_GATE_SUPERSTEPS))
+    f_long = [float(v) for v in long.history["f"]]
+    f_d = objective(long.beta, lam1, lam2)
+    k = len(res.history["f"])
+    row["run_on"] = {
+        "supersteps": long.n_iter, "f_objective": f_d,
+        "subopt": (f_d - f_star) / abs(f_star), "wall_s": wall,
+        "s_per_superstep": wall / long.n_iter,
+        "f_at": {str(i): f_long[i - 1] for i in (50, 100, 200, 400, 600)
+                 if i <= len(f_long)},
+        "prefix_max_rel_diff": float(np.max(np.abs(
+            np.array(f_long[:k]) / np.array(res.history["f"]) - 1))),
+        "launches_per_superstep": {kk: v / long.n_iter
+                                   for kk, v in counts.items() if v}}
+    check(bool(np.isfinite(f_long).all()), "d-GLMNET: non-finite f")
+    check(f_d <= f_star + 1e-3 * max(1.0, abs(f_star)),
+          f"d-GLMNET ({lam1}, {lam2}) after {long.n_iter} supersteps: f "
+          f"{f_d} above FISTA's f* {f_star}")
+    return row
+
+
+def baselines_phase(np, torch, dd, dev, report, parity, card):
+    """The paper's comparison on the card at the epsilon shape (the dense
+    train split, 400,000 x 2,000, logistic, no intercept column): L1 as
+    benchmarks/fig2_4_l1.py (lam1 = 1: FISTA's f*, d-GLMNET fused Jacobi
+    30 supersteps, ADMM with rho tuned over 4^k at 10 iterations then 30,
+    online truncated gradient 30 epochs) and L2 as fig5_6_l2.py (lam2 =
+    1: f*, d-GLMNET with a fixed mu 25 supersteps, online-warmstarted and
+    plain L-BFGS 25 iterations).  Gates: each scan kernel against its
+    plain version, small fits card against CPU, d-GLMNET run on to 800
+    supersteps within 1e-3 max(1, |f*|) of f* at L1 and L2 (this split is
+    nearly separable: 30 supersteps leave f 60% above f*, and the
+    reference's fit does the same on a 40,000-row cut, which
+    tests/test_torch_protocol_witness.py runs and this phase runs on the
+    card), both L-BFGS runs within 1e-3 |f*| at L2, every f finite.
+    ADMM's and online TG's suboptimality are reported, not gated.
+    Returns the launch counts of the ADMM and online TG fits of the L1
+    run."""
+    from repro_torch.baselines import (fit_admm, fit_lbfgs, fit_online_tg,
+                                       fit_online_warmstart_lbfgs)
+    from repro_torch.baselines.admm import ADMMConfig
+    from repro_torch.baselines.lbfgs import LBFGSConfig
+    from repro_torch.baselines.online_tg import OnlineTGConfig
+    from repro_torch.core import glm as glm_lib
+    from repro_torch.core import prox_ref
+    from repro_torch.core.dglmnet import DGLMNETConfig
+    from repro_torch.core.solver import GLMSolver
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    Xh = np.ascontiguousarray(dd.train.X, np.float32)
+    yh = np.asarray(dd.train.y, np.float32)
+    X = torch.from_numpy(Xh).to(dev)
+    y = torch.from_numpy(yh).to(dev)
+    n, p = X.shape
+    # kernel against plain, of max(1, the largest entry): one x-update is 3
+    # passes of 500 dependent steps, each a float32 dot over 100,000 rows a
+    # block in another order (measured 1.5e-8 on an H100; 1e-6, and a
+    # kernel a pass short must read more); an epoch is 100,000 dependent
+    # rows a shard, each a dot over 2,000 features in another order
+    # (measured 3.6e-7; 1e-5)
+    tol = {"admm_shooting": 1e-6, "online_tg": 1e-5}
+    scan_kernels_report(np, torch, X, y, dev, report, parity, tol)
+    emit({"phase": "baselines_kernels", "card": card, "tolerance": tol,
+          "max_rel_err": {k: parity[k] for k in tol},
+          "admm_shooting": report["admm_shooting"],
+          "online_tg": report["online_tg"]})
+
+    def objective(beta, lam1, lam2):
+        return float(glm_lib.objective(
+            "logistic", y, X, torch.from_numpy(np.asarray(beta, np.float32))
+            .to(dev), lam1, lam2))
+
+    out = {"phase": "baselines", "card": card, "train_shape": [n, p],
+           "fista_max_iter": BASELINE_FISTA_CAP}
+    # ---------------------------------------------------------- L1, lam1 = 1
+    lam1 = BASELINE_LAM1
+    (_, h_star), fista_s, _ = counted_fit(torch, ops, lambda: prox_ref
+                                          .fit_fista(X, y, lam1=lam1,
+                                                     lam2=0.0, max_iter=
+                                                     BASELINE_FISTA_CAP,
+                                                     device=dev))
+    f_star = h_star[-1]
+    l1 = {"f_star": f_star, "fista_iters": len(h_star) - 1,
+          "fista_s": fista_s,
+          "fista_stopped_by_tol": len(h_star) - 1 < BASELINE_FISTA_CAP}
+    l1["d-GLMNET"] = dglmnet_rows(
+        np, torch, ops, objective, f_star, lam1, 0.0, GLMSolver(
+            Xh, yh, config=DGLMNETConfig(tile_size=256, coupling="jacobi",
+                                         max_outer=BASELINE_ITERS, tol=0.0),
+            device=dev))
+    rhos = {}
+    for k in range(-3, 4):
+        _, h = fit_admm(X, y, ADMMConfig(lam1=lam1, rho=4.0 ** k,
+                                         n_blocks=4, max_outer=10),
+                        device=dev)
+        rhos[4.0 ** k] = h["f"][-1]
+    rho = min(rhos, key=lambda r: (rhos[r], r))
+    (_, h), wall, admm_counts = counted_fit(torch, ops, lambda: fit_admm(
+        X, y, ADMMConfig(lam1=lam1, rho=rho, n_blocks=4,
+                         max_outer=BASELINE_ITERS), device=dev))
+    l1["ADMM"] = method_row(np, h["f"], h["nnz"][-1], wall, BASELINE_ITERS,
+                            admm_counts, f_star)
+    l1["ADMM"].update(rho=rho, f_at_10_by_rho={str(r): f for r, f in
+                                               rhos.items()})
+    (_, h), wall, tg_counts = counted_fit(torch, ops, lambda: fit_online_tg(
+        X, y, OnlineTGConfig(lam1=lam1 / n, lam2=0.0, epochs=BASELINE_ITERS,
+                             lr=0.3, n_shards=4), device=dev))
+    l1["online-TG"] = method_row(np, h["f"], h["nnz"][-1], wall,
+                                 BASELINE_ITERS, tg_counts, f_star)
+    check(admm_counts["admm_shooting"] == BASELINE_ITERS
+          and tg_counts["online_tg"] == BASELINE_ITERS
+          and admm_counts["glm_stats"] == BASELINE_ITERS * 13
+          and tg_counts["glm_stats"] == BASELINE_ITERS + 1,
+          f"baselines launches: ADMM {admm_counts}, online {tg_counts}")
+    out["L1"] = l1
+
+    # ---------------------------------------------------------- L2, lam2 = 1
+    lam2 = BASELINE_LAM2
+    (_, h_star), fista_s, _ = counted_fit(torch, ops, lambda: prox_ref
+                                          .fit_fista(X, y, lam1=0.0,
+                                                     lam2=lam2, max_iter=
+                                                     BASELINE_FISTA_CAP,
+                                                     device=dev))
+    f_star = h_star[-1]
+    l2 = {"f_star": f_star, "fista_iters": len(h_star) - 1,
+          "fista_s": fista_s,
+          "fista_stopped_by_tol": len(h_star) - 1 < BASELINE_FISTA_CAP}
+    l2["d-GLMNET"] = dglmnet_rows(
+        np, torch, ops, objective, f_star, 0.0, lam2, GLMSolver(
+            Xh, yh, config=DGLMNETConfig(lam1=0.0, lam2=lam2, tile_size=256,
+                                         coupling="jacobi", adaptive_mu=False,
+                                         max_outer=BASELINE_L2_ITERS,
+                                         tol=0.0), device=dev))
+    lc = LBFGSConfig(lam2=lam2, max_iter=BASELINE_L2_ITERS)
+    (_, h), wall, counts = counted_fit(torch, ops, lambda:
+                                       fit_online_warmstart_lbfgs(
+        X, y, lc, OnlineTGConfig(lam1=0.0, lam2=lam2, epochs=2, lr=0.3),
+        device=dev))
+    # 2 epochs, then L-BFGS (f at w = 0 and at its start, then one a step)
+    l2["online+L-BFGS"] = method_row(np, h["f"], h["nnz"][-1], wall,
+                                     len(h["f"]) - 2, counts, f_star)
+    check(h["f"][-1] <= f_star + 1e-3 * abs(f_star),
+          f"online+L-BFGS L2 f {h['f'][-1]} above FISTA's f* {f_star}")
+    (_, h), wall, counts = counted_fit(torch, ops, lambda: fit_lbfgs(
+        X, y, lc, device=dev))
+    l2["L-BFGS"] = method_row(np, h["f"], h["nnz"][-1], wall,
+                              len(h["f"]) - 1, counts, f_star)
+    check(h["f"][-1] <= f_star + 1e-3 * abs(f_star),
+          f"L-BFGS L2 f {h['f'][-1]} above FISTA's f* {f_star}")
+    out["L2"] = l2
+    del X, y, Xh, yh
+    torch.cuda.empty_cache()
+
+    # --------------------------------------- small fits: card against CPU
+    from repro_torch.data import synthetic
+    small = {}
+    ds = synthetic.make_dense(n=500, p=61, seed=21)
+    Xs, ys = ds.train.X, ds.train.y
+    oc = OnlineTGConfig(lam1=0.2, lam2=0.1, epochs=5, lr=0.3)
+    calls = {
+        "admm": lambda d: fit_admm(Xs, ys, ADMMConfig(lam1=0.5, lam2=0.1,
+                                                      max_outer=10),
+                                   device=d),
+        "online_tg": lambda d: fit_online_tg(Xs, ys, oc, device=d),
+        "lbfgs": lambda d: fit_lbfgs(Xs, ys, LBFGSConfig(lam2=0.8,
+                                                         max_iter=12),
+                                     device=d),
+        "warmstart": lambda d: fit_online_warmstart_lbfgs(
+            Xs, ys, LBFGSConfig(lam2=0.5, max_iter=5),
+            OnlineTGConfig(lam1=0.0, lam2=0.5, epochs=3, lr=0.3), device=d),
+        "fista": lambda d: prox_ref.fit_fista(Xs, ys, lam1=0.7, lam2=0.4,
+                                              max_iter=20, tol=0.0,
+                                              device=d)}
+    for name, call in calls.items():
+        (b_g, h_g), (b_c, h_c) = call(dev), call("cpu")
+        f_g = np.array(h_g["f"] if isinstance(h_g, dict) else h_g)
+        f_c = np.array(h_c["f"] if isinstance(h_c, dict) else h_c)
+        check(len(f_g) == len(f_c), f"{name} small fit: {len(f_g)} "
+              f"iterations on the card, {len(f_c)} on the CPU")
+        small[name] = {"f_rel_err": float(np.max(np.abs(f_g / f_c - 1))),
+                       "beta_abs_err": float(np.max(np.abs(b_g - b_c)))}
+        check(small[name]["f_rel_err"] <= 1e-5
+              and small[name]["beta_abs_err"] <= 1e-4,
+              f"{name} small fit: card vs CPU {small[name]}")
+    out["small_card_vs_cpu"] = small
+    out["small_tolerance"] = {"f_rel": 1e-5, "beta_abs": 1e-4}
+
+    # ---- the L1 protocol on the cut that tests/test_torch_protocol_witness.py
+    # runs in both packages on the CPU (reported: its f at 10 and 30)
+    ds = synthetic.make_dense(n=BASELINE_WITNESS_ROWS * 5 // 4, p=p,
+                              k_true=p // 10, seed=SEED)
+    Xc, yc = ds.train.X, ds.train.y
+    _, h_c = prox_ref.fit_fista(Xc, yc, lam1=BASELINE_LAM1, max_iter=500,
+                                device=dev)
+    f_c = [float(v) for v in GLMSolver(Xc, yc, config=DGLMNETConfig(
+        tile_size=256, coupling="jacobi", max_outer=BASELINE_ITERS, tol=0.0),
+        device=dev).fit(BASELINE_LAM1, 0.0).history["f"]]
+    check(bool(np.isfinite(f_c).all()), f"witness cut: non-finite f {f_c}")
+    fs_c = float(h_c[-1])
+    out["witness_cut"] = {
+        "shape": list(Xc.shape), "f_star": fs_c, "fista_iters": len(h_c) - 1,
+        **{f"at_{k}": {"f": f_c[k - 1],
+                       "subopt": (f_c[k - 1] - fs_c) / abs(fs_c)}
+           for k in (10, BASELINE_ITERS)}}
+    del ds, Xc, yc
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return admm_counts, tg_counts
+
+
 def main() -> None:
     if "--dist-worker" in sys.argv:
         dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
@@ -3651,6 +4057,10 @@ def main() -> None:
                           (LAM1_FRACTION * lmax_dense, dense_res),
                           (lam1_unfused, unfused_res), lmax_dense, floors,
                           floor_lib, parity, card, tdir)
+    torch.cuda.empty_cache()
+    baseline_counts = baselines_phase(np, torch, dd, dev, report, parity,
+                                      card)
+    torch.cuda.empty_cache()
     # the dist phase streams the dense train split from a .npy
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-npy-")
     dense_npy = (str(pathlib.Path(dist_tmp.name) / "X.npy"),
@@ -3679,7 +4089,8 @@ def main() -> None:
                 "dense": dense_counts, "dense_jacobi": jacobi_counts,
                 "dense_jacobi_bf16": bf16_counts, "stream": stream["counts"],
                 "stream_jacobi": stream["jacobi_counts"],
-                "ingest": ingest_counts}
+                "ingest": ingest_counts, "baselines_admm": baseline_counts[0],
+                "baselines_online_tg": baseline_counts[1]}
     plain = {tag: {k: v for k, v in c.items() if k.endswith("/plain") and v}
              for tag, c in built_in.items()}
     check(not any(plain.values()) and all(
@@ -3702,7 +4113,11 @@ def main() -> None:
            "predict_tile": "src/repro/kernels/predict_tile.py:68",
            "stats_gram_solve_bf16": "src/repro/kernels/superstep_tile.py:123",
            "margin_ls_bf16": "src/repro/kernels/superstep_tile.py:217",
-           "tile_gram_bf16": "src/repro/kernels/ref.py:161"}
+           "tile_gram_bf16": "src/repro/kernels/ref.py:161",
+           # the two scans of the competing algorithms: no Pallas kernel,
+           # the reference's loops that XLA compiles
+           "admm_shooting": "src/repro/baselines/admm.py:36",
+           "online_tg": "src/repro/baselines/online_tg.py:37"}
     # each kernel's launches come from the run of its own path
     main_path = {"glm_stats": sparse_counts, "cd_tile_solve": sparse_counts,
                  "tile_gram": sparse_counts, "alpha_search": sparse_counts,
@@ -3710,7 +4125,9 @@ def main() -> None:
                  "margin_ls": jacobi_counts, "predict_tile": serve_counts,
                  "stats_gram_solve_bf16": bf16_counts,
                  "margin_ls_bf16": bf16_counts,
-                 "tile_gram_bf16": sparse_jacobi["bf16"][0]}
+                 "tile_gram_bf16": sparse_jacobi["bf16"][0],
+                 "admm_shooting": baseline_counts[0],
+                 "online_tg": baseline_counts[1]}
     kernels = []
     for name in src:
         rep = report[name]
@@ -3753,7 +4170,12 @@ def main() -> None:
                                    "at_half_of_bound", "threads", "n", "K",
                                    "asymmetry_vs_plain", "G_asymmetry",
                                    "fault_controls", "launches_stream",
-                                   "chunk_shapes")
+                                   "chunk_shapes", "bytes_bound_passes_ms",
+                                   "share_of_bytes_bound_passes",
+                                   "dependency_steps", "step_us",
+                                   "floor_step_us", "cluster",
+                                   "r_in_shared_memory",
+                                   "w_in_shared_memory")
                if k in rep}})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -7,6 +7,7 @@ the caller asks for it and there is no silent fall back to it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,18 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_float32(a, device: torch.device) -> torch.Tensor:
+    """A float32 tensor on ``device`` from a numpy array or a tensor (a
+    float32 tensor already there is returned as it is)."""
+    if torch.is_tensor(a):
+        return a.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def read_f_nnz(f, nnz) -> tuple:
+    """(f as a float, nnz as an int) from two 0-d device tensors in one
+    read."""
+    fh, nh = torch.stack([f.double(), nnz.double()]).tolist()
+    return fh, int(nh)

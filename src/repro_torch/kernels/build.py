@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("glm_stats.cu", "cd_tile_solve.cu", "tile_gram.cu",
            "alpha_search.cu", "stats_gram_solve.cu", "margin_ls.cu",
-           "predict_tile.cu")
+           "predict_tile.cu", "admm_shooting.cu", "online_tg.cu")
 HEADERS = ("glm_family.cuh", "cd_chain.cuh", "gram_tc.cuh", "mbarrier.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -26,10 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import glm as glm_lib
+from repro_torch.kernels import admm_shooting as admm_shooting_k
 from repro_torch.kernels import alpha_search as alpha_search_k
 from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
 from repro_torch.kernels import glm_stats as glm_stats_k
 from repro_torch.kernels import margin_ls as margin_ls_k
+from repro_torch.kernels import online_tg as online_tg_k
 from repro_torch.kernels import predict_tile as predict_tile_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import stats_gram_solve as stats_gram_solve_k
@@ -48,6 +50,10 @@ KERNELS = {
     "tile_gram_bf16": tile_gram_k.KERNEL_BF16,
     "stats_gram_solve_bf16": stats_gram_solve_k.KERNEL_BF16,
     "margin_ls_bf16": margin_ls_k.KERNEL_BF16,
+    # the two sequential scans of the competing algorithms (no Pallas
+    # counterpart)
+    "admm_shooting": admm_shooting_k.KERNEL,
+    "online_tg": online_tg_k.KERNEL,
 }
 
 
@@ -349,3 +355,30 @@ def predict_tile(slots, vals, table, b0, family, *, kind="link"):
                      predict_tile_k.LINK_CODES):
         return ref.predict_tile(slots, vals, table, b0, fam, kind=kind)
     return predict_tile_k.launch(slots, vals, table, b0, fam.name, kind)
+
+
+def admm_shooting(At, x, v, col_sq, lam1_eff, lam2_eff, passes):
+    """The ADMM x-update of every feature block: ``passes`` Shooting passes
+    (one launch on the card); see kernels/admm_shooting.py.  At (M,
+    p_block, n) column-major blocks, x and col_sq (M, p_block), v (M, n);
+    returns the new (M, p_block) x."""
+    record_launch("admm_shooting")
+    if not _on_card(At):
+        return ref.shooting_pass(At, x, v, col_sq, lam1_eff, lam2_eff,
+                                 passes)
+    return admm_shooting_k.launch(At, x, v, col_sq, lam1_eff, lam2_eff,
+                                  passes)
+
+
+def online_tg_epoch(X_sh, y_sh, w0, t0, family, *, lr, power, lam1, lam2):
+    """One online truncated-gradient pass of every shard from w0 at global
+    step t0 (one launch on the card); returns the shards' mean weight
+    (p,).  See kernels/online_tg.py.  On the card a family without a body
+    in the kernel raises: its plain version is a loop over rows."""
+    record_launch("online_tg")
+    fam = glm_lib.resolve_family(family)
+    if not _on_card(X_sh):
+        return ref.online_tg_epoch(X_sh, y_sh, w0, t0, fam, lr, power, lam1,
+                                   lam2)
+    return online_tg_k.launch(X_sh, y_sh, w0, t0, fam.name, lr, power, lam1,
+                              lam2)

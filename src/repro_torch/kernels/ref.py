@@ -280,3 +280,74 @@ def predict_tile(slots, vals, table, b0, family, kind="link"):
     if kind == "link":
         return m
     return glm_lib.resolve_family(family).predict(m)
+
+
+# ---------------------------------------------------------------------------
+# the two sequential scans of the paper's competing algorithms (no Pallas
+# counterpart: the reference leaves them to XLA as one loop each)
+# ---------------------------------------------------------------------------
+
+
+def shooting_pass(At, x, v, col_sq, lam1_eff, lam2_eff, passes=1):
+    """The ADMM x-update of every block: ``passes`` cyclic coordinate
+    passes (Shooting) on 0.5 ||A_m x - v_m||^2 + lam1_eff ||x||_1
+    + 0.5 lam2_eff ||x||^2, for all M blocks side by side.
+
+    At (M, p_block, n) holds each block column-major (row j of block m is
+    its column j), x (M, p_block), v (M, n), col_sq (M, p_block) the
+    columns' squared norms.  As the reference's ``_shooting_pass``
+    (``repro/baselines/admm.py``), each pass starts from a fresh residual
+    r = A x - v, and coordinate j takes rho_j = a_j . r - c_j x_j,
+    x_j' = S(-rho_j, lam1_eff) / max(c_j + lam2_eff, 1e-30), then
+    r += a_j (x_j' - x_j).  Returns the new (M, p_block) x.
+    """
+    x = x.clone()
+    den = torch.clamp(col_sq + lam2_eff, min=1e-30)
+    for _ in range(passes):
+        r = torch.einsum("mjn,mj->mn", At, x) - v
+        for j in range(x.shape[1]):
+            aj = At[:, j, :]
+            xj = x[:, j]
+            rho = torch.einsum("mn,mn->m", aj, r) - col_sq[:, j] * xj
+            xj_new = glm_lib.soft_threshold(-rho, lam1_eff) / den[:, j]
+            r = r + aj * (xj_new - xj)[:, None]
+            x[:, j] = xj_new
+    return x
+
+
+def online_tg_steps(t0, n_rows: int, lr, power):
+    """(n_rows,) float32 step sizes eta = lr / t^power of one online pass,
+    with t counted up by 1 in float32 from ``t0`` (the reference's scan
+    carries t in float32, so it stops growing at 2^24)."""
+    if n_rows == 0:
+        return np.zeros(0, np.float32)
+    ts = np.cumsum(np.concatenate([np.float32([t0]),
+                                   np.ones(n_rows - 1, np.float32)]),
+                   dtype=np.float32)
+    return (np.float32(lr) / np.power(ts, np.float32(power))) \
+        .astype(np.float32)
+
+
+def online_tg_epoch(X_sh, y_sh, w0, t0, family, lr, power, lam1, lam2):
+    """One pass of every shard of distributed online truncated gradient,
+    from the shared start w0 (p,) at global step t0; returns the shards'
+    mean weight (p,), as the reference's ``_epoch``
+    (``repro/baselines/online_tg.py``).
+
+    X_sh (M, n_per, p), y_sh (M, n_per).  Each shard walks its rows in
+    order: m = x . w, the family's s at m, then w += (eta s) x, the L2
+    shrink w *= 1 - eta lam2 and the truncation w = S(w, eta lam1).
+    """
+    fam = glm_lib.resolve_family(family)
+    M, n_per, p = X_sh.shape
+    etas = torch.from_numpy(online_tg_steps(t0, n_per, lr, power)) \
+        .to(X_sh.device)
+    w = w0.reshape(1, p).expand(M, p).clone()
+    for i in range(n_per):
+        x = X_sh[:, i, :]
+        eta = etas[i]
+        _, s, _ = fam.stats(y_sh[:, i], torch.einsum("mp,mp->m", x, w))
+        w = w + (eta * s)[:, None] * x
+        w = w * (1.0 - eta * lam2)
+        w = glm_lib.soft_threshold(w, eta * lam1)
+    return torch.mean(w, dim=0)

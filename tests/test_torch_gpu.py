@@ -1019,3 +1019,159 @@ def test_dist_two_gloo_ranks_share_one_card(cuda, tmp_path):
     assert gpu["device"] == "cuda" and gpu["mesh"] == [1, 2]
     assert gpu["alpha"] == cpu["alpha"] and gpu["n_iter"] == cpu["n_iter"]
     assert abs(gpu["f"] - cpu["f"]) <= 1e-5 * abs(cpu["f"])
+
+
+# --- the two scans of the competing algorithms -----------------------------
+# Tolerances: each kernel step's dot is a float32 sum over the rows (ADMM)
+# or features (online) in another order than the plain version's, and the
+# scan carries the difference on: 1e-4 of the largest weight for the ADMM
+# x-update (dots over up to 10^6 rows), 1e-5 for the online epoch.
+
+
+def _admm_inputs(rng, M, n, pb, dev):
+    A = rng.normal(size=(M, pb, n)).astype(np.float32)
+    A[0, pb // 2] = 0.0                         # a dead column
+    x0 = (0.2 * rng.normal(size=(M, pb))).astype(np.float32)
+    v = rng.normal(size=(M, n)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    At = t(A)
+    return At, t(x0), t(v), (At * At).sum(2)
+
+
+@pytest.mark.parametrize("M,n,pb,passes,lam1,lam2", [
+    (3, 2_999, 13, 3, 40.0, 0.0),       # one CTA a block
+    (2, 5_001, 37, 1, 20.0, 5.0),       # clusters of 4
+    (1, 17_001, 9, 2, 60.0, 1.0),       # 16 where the card schedules them
+    (2, 1_000_003, 3, 1, 500.0, 0.0),   # r past shared memory: global
+    (4, 4_096, 5, 0, 1.0, 0.0)])        # no pass: x as it came
+def test_admm_shooting_kernel(cuda, M, n, pb, passes, lam1, lam2):
+    from repro_torch.kernels import admm_shooting
+    rng = np.random.default_rng(n)
+    At, x0, v, csq = _admm_inputs(rng, M, n, pb, cuda)
+    before = ops.launch_counts()["admm_shooting"]
+    got = ops.admm_shooting(At, x0, v, csq, lam1, lam2, passes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["admm_shooting"] == before + 1
+    want = ref.shooting_pass(At, x0, v, csq, lam1, lam2, passes)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(
+        1.0, float(want.abs().max())))
+    if passes:
+        assert float(got[0, pb // 2]) == 0.0
+    cluster, in_smem = admm_shooting.plan(n)
+    assert cluster in (1, 2, 4, 8, 16) and n >= cluster * 1024 or \
+        cluster == 1
+    assert in_smem == (-(-n // cluster) * 4 <= 220 * 1024)
+    # fixed-order sums: the same bits again
+    assert torch.equal(got, ops.admm_shooting(At, x0, v, csq, lam1, lam2,
+                                              passes))
+
+
+@pytest.mark.parametrize("family", FAMS)
+@pytest.mark.parametrize("M,n_per,p", [(4, 301, 45), (3, 57, 2_000),
+                                       (2, 20, None)])
+def test_online_tg_kernel(cuda, family, M, n_per, p):
+    """Small odd shapes, the paper's p, and p past the shared-memory limit
+    of the kernel's weights (None: that limit + 13)."""
+    from repro_torch.kernels import online_tg
+    if p is None:
+        p = online_tg.smem_features() + 13
+    rng = np.random.default_rng(n_per)
+    X = torch.from_numpy((rng.normal(size=(M, n_per, p)) / np.sqrt(p))
+                         .astype(np.float32)).to(cuda)
+    yv = (rng.poisson(1.5, M * n_per) if family == "poisson"
+          else rng.choice([-1.0, 1.0], M * n_per)).astype(np.float32)
+    y = torch.from_numpy(yv.reshape(M, n_per)).to(cuda)
+    w0 = _vec(rng, p, cuda, 0.05)
+    t0 = np.float32(1 + 7 * n_per)
+    kw = dict(lr=0.3, power=0.6, lam1=1e-3, lam2=0.05)
+    before = ops.launch_counts()["online_tg"]
+    got = ops.online_tg_epoch(X, y, w0, t0, family, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["online_tg"] == before + 1
+    want = ref.online_tg_epoch(X, y, w0, t0, family, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(
+        1.0, float(want.abs().max())))
+    assert torch.equal(got, ops.online_tg_epoch(X, y, w0, t0, family, **kw))
+
+
+def _baseline_data():
+    ds = synthetic.make_dense(n=500, p=61, seed=21)
+    return ds.train.X, ds.train.y
+
+
+def _baseline_fits(device):
+    from repro_torch.baselines import (fit_admm, fit_lbfgs,
+                                       fit_online_tg,
+                                       fit_online_warmstart_lbfgs)
+    from repro_torch.baselines.admm import ADMMConfig
+    from repro_torch.baselines.lbfgs import LBFGSConfig
+    from repro_torch.baselines.online_tg import OnlineTGConfig
+    from repro_torch.core import prox_ref
+    X, y = _baseline_data()
+    oc = OnlineTGConfig(lam1=0.2, lam2=0.1, epochs=5, lr=0.3)
+    return {
+        "admm": lambda: fit_admm(X, y, ADMMConfig(lam1=0.5, lam2=0.1,
+                                                  max_outer=10),
+                                 device=device),
+        "online_tg": lambda: fit_online_tg(X, y, oc, device=device),
+        "lbfgs": lambda: fit_lbfgs(X, y, LBFGSConfig(lam2=0.8, max_iter=12),
+                                   device=device),
+        "warmstart": lambda: fit_online_warmstart_lbfgs(
+            X, y, LBFGSConfig(lam2=0.5, max_iter=5),
+            OnlineTGConfig(lam1=0.0, lam2=0.5, epochs=3, lr=0.3),
+            device=device),
+        "fista": lambda: prox_ref.fit_fista(X, y, lam1=0.7, lam2=0.4,
+                                            max_iter=20, tol=0.0,
+                                            device=device)}
+
+
+@pytest.mark.parametrize("name", ["admm", "online_tg", "lbfgs", "warmstart",
+                                  "fista"])
+def test_baseline_fit_card_vs_cpu(cuda, name):
+    """Each fit_* on the card against the same call on the CPU: beta
+    within 1e-4, each f within 1e-5 relative, the same iteration count."""
+    b_g, h_g = _baseline_fits(cuda)[name]()
+    b_c, h_c = _baseline_fits("cpu")[name]()
+    f_g = h_g["f"] if isinstance(h_g, dict) else h_g
+    f_c = h_c["f"] if isinstance(h_c, dict) else h_c
+    assert len(f_g) == len(f_c)
+    np.testing.assert_allclose(f_g, f_c, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(b_g, b_c, rtol=0, atol=1e-4)
+
+
+def test_baselines_launch_the_kernels(cuda):
+    """On the card the scans run their kernels, never the plain route:
+    ADMM one admm_shooting launch an outer iteration and K1 newton_iters
+    + 1; online TG one online_tg launch an epoch and K1 one."""
+    from repro_torch.baselines import fit_admm, fit_online_tg
+    from repro_torch.baselines.admm import ADMMConfig
+    from repro_torch.baselines.online_tg import OnlineTGConfig
+    X, y = _baseline_data()
+    ops.reset_launch_counts()
+    fit_admm(X, y, ADMMConfig(lam1=0.5, max_outer=3), device=cuda)
+    c = ops.launch_counts()
+    assert c["admm_shooting"] == 3 and c["glm_stats"] == 3 * 13
+    ops.reset_launch_counts()
+    fit_online_tg(X, y, OnlineTGConfig(epochs=4), device=cuda)
+    c = ops.launch_counts()
+    assert c["online_tg"] == 4 and c["glm_stats"] == 5
+    assert c["glm_stats/plain"] == 0 and "online_tg/plain" not in c
+
+
+def test_online_tg_registered_family_raises_on_the_card(cuda, monkeypatch):
+    """A registered family with no body in the online kernel raises on the
+    card (its plain version is a loop over rows) and runs on the CPU."""
+    from repro_torch.baselines import fit_online_tg
+    from repro_torch.baselines.online_tg import OnlineTGConfig
+    from repro_torch.core import glm as tglm
+    custom = tglm.GLMFamily("custom_squared", tglm.SQUARED.raw_stats,
+                            lambda m: m, 1.0)
+    monkeypatch.setitem(tglm.FAMILIES, custom.name, custom)
+    X, y = _baseline_data()
+    cfg = OnlineTGConfig(epochs=2, family=custom.name)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="no CUDA body"):
+        fit_online_tg(X, y, cfg, device=cuda)
+    assert ops.launch_counts()["online_tg"] == 0
+    _, h = fit_online_tg(X, y, cfg, device="cpu")
+    assert len(h["f"]) == 3 and np.isfinite(h["f"]).all()

@@ -31,7 +31,11 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.core.alb", "repro_torch.sharding",
            "repro_torch.sharding.compress",
            "repro_torch.sharding.collectives",
-           "repro_torch.launch.dist_run"]
+           "repro_torch.launch.dist_run", "repro_torch.baselines",
+           "repro_torch.baselines.admm", "repro_torch.baselines.online_tg",
+           "repro_torch.baselines.lbfgs", "repro_torch.core.prox_ref",
+           "repro_torch.kernels.admm_shooting",
+           "repro_torch.kernels.online_tg"]
 
 
 def _port_files():
