@@ -128,6 +128,19 @@ drives each path through the entry points a user calls and checks it:
     rows): 2 processes over their chunk ranges equal 1 within 1e-6.
     Gloo stages the card's tensors through the host: its times are not
     NCCL's.
+  * analysis (its line after dist's; ``repro_torch.analysis``): the lint
+    gate of this checkout (0 new findings, 0 stale baseline entries); on
+    the sparse session's bricks and the dense session's design, fused and
+    unfused Jacobi supersteps built on them: 2 and 5 logical units (the
+    dense one 2 and 4 kernel launches), each CUDA function of
+    ``ops.CUDA_FUNCTIONS`` one profiler record a logical launch and the
+    device's kernel records the host's launch calls; a warm 3-lambda path
+    of the sparse session with 0 superstep builds, nvcc builds and library
+    loads; after the baselines, every kernel of the nine sources within
+    the card's shared memory and register limits, as ptxas reported it,
+    the spilling ones named; the collective sequence of the (1, 2) gloo
+    world's sparse session, the same in two supersteps and on both ranks.
+    Any part not ``ok`` fails the run.
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -446,7 +459,8 @@ def loss_floors(np, torch, codes) -> dict:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.loss_floor_run.argtypes = [I, I, I, P, P, P, P, P]
     props = torch.cuda.get_device_properties(0)
-    sink = torch.empty(props.multi_processor_count * 2048, device="cuda")
+    sink = torch.empty(props.multi_processor_count * 2048,
+                       device=torch.cuda.current_device())
     rng = np.random.default_rng(SEED + 5)
     threads, work = ctypes.c_int(0), ctypes.c_longlong(0)
     out = {}
@@ -455,7 +469,8 @@ def loss_floors(np, torch, codes) -> dict:
             else rng.choice([-1.0, 1.0], 1024)
         rows = np.stack([y, 1.5 * rng.normal(size=1024),
                          rng.normal(size=1024), rng.random(1024)], axis=1)
-        inp = torch.from_numpy(rows.astype(np.float32).ravel()).cuda()
+        inp = torch.from_numpy(rows.astype(np.float32).ravel()) \
+            .to(sink.device)
         rec = {}
         for mode, key in ((0, "loss_ns"), (1, "stats_ns")):
             def run():
@@ -623,14 +638,6 @@ def labels_for(np, torch, rng, fam, y):
     return y
 
 
-def short_name(key: str) -> str:
-    """A kernel's name without its template and argument lists."""
-    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
-    for cut in ("(", "<"):
-        key = key.split(cut)[0]
-    return key[:60]
-
-
 # host idle time at each edge of a profiled fit's recording window
 PROFILE_EDGE_S = 0.1
 
@@ -672,6 +679,7 @@ def cuda_function_counts(torch, prof, prefixes) -> dict:
     kernels of ``prefixes`` (kernel: name prefix of its CUDA functions)."""
     from torch.autograd import DeviceType
 
+    from repro_torch.analysis.audit import short_name
     found = {k: {} for k in prefixes}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -1731,6 +1739,7 @@ def ranges_hold_launches(torch, prof, name: str, prefixes) -> tuple:
     runtime call with its correlation id, on the host's clock."""
     from torch.autograd import DeviceType
 
+    from repro_torch.analysis.audit import short_name
     evs = prof.events()
     ranges = [(e.time_range.start, e.time_range.end) for e in evs
               if e.name == name and e.device_type == DeviceType.CPU]
@@ -2863,6 +2872,14 @@ def dist_task(np, torch, task: dict, mesh, dev) -> dict:
             if task.get("beta"):
                 np.save(pathlib.Path(task["out"]) / f"{name}_beta.npy",
                         res.beta)
+        if task.get("collectives"):
+            # the analysis phase's collective sequence: two sharded
+            # unfused Jacobi supersteps of this session
+            from repro_torch.analysis import audit
+            t0 = time.perf_counter()
+            r = audit.audit_collective_sequence(solver=solver)
+            out["collectives"] = {"status": r.status, **r.details,
+                                  "s": time.perf_counter() - t0}
         return out
     if kind == "small":
         out = {}
@@ -2943,7 +2960,7 @@ def dist_worker(spec_path: str) -> None:
     spec = json.loads(pathlib.Path(spec_path).read_text())
     ctx = bootstrap.initialize(backend=spec["backend"],
                                device=spec["device"], timeout_s=120)
-    ready = time.time()
+    ready = time.time()     # lint: allow SYNC001 — read by another process
     mesh = bootstrap.make_dist_mesh(*spec["mesh"])
     dev = None if spec["device"] is None else spec["device"]
     rec = {"ready_at": ready, "backend": ctx.backend, "device": ctx.device}
@@ -2968,7 +2985,7 @@ def dist_world(tdir: pathlib.Path, tag: str, n: int, mesh, tasks,
     spec.write_text(json.dumps({"backend": backend, "device": device,
                                 "mesh": list(mesh), "tasks": tasks,
                                 "out": str(out)}))
-    t0 = time.time()
+    t0 = time.time()        # lint: allow SYNC001 — against ranks' ready_at
     res = launcher.run_local(n, REPO / "chip_smoke.py",
                              args=["--dist-worker", str(spec)],
                              timeout_s=DIST_TIMEOUT_S, grace_s=10)
@@ -2982,7 +2999,7 @@ def dist_run_cli(tdir: pathlib.Path, tag: str, n: int, args) -> dict:
     """``python -m repro_torch.launch.dist_run`` as a user runs it; the
     coordinator's record."""
     out = tdir / f"{tag}.json"
-    t0 = time.time()
+    t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dist_run", "--nprocs",
          str(n), "--timeout", str(DIST_TIMEOUT_S), "--out", str(out),
@@ -2993,7 +3010,7 @@ def dist_run_cli(tdir: pathlib.Path, tag: str, n: int, args) -> dict:
     check(r.returncode == 0 and out.exists(),
           f"dist_run {tag} failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
     row = json.loads(out.read_text())
-    row["cli_s"] = time.time() - t0
+    row["cli_s"] = time.perf_counter() - t0
     return row
 
 
@@ -3009,12 +3026,96 @@ def same_ranks(np, ranks, task, keys=("f", "alpha", "nnz", "n_iter")):
                           f"ranks disagree on {task}/{name}/{k}")
 
 
+# ------------------------------------------------------------- analysis
+
+
+def analysis_launches(solver, lmax) -> dict:
+    """The analysis phase's launch audit on a full-size session's design:
+    fused and unfused Jacobi supersteps built on it (2 and 5 logical
+    units; on a dense design 2 and 4 kernel launches), each held to the
+    profiler's records of one superstep (``audit.record_check``)."""
+    from repro_torch.analysis import audit
+    t0 = time.perf_counter()
+    res = audit.audit_superstep_launches(prob=audit.solver_problem(
+        solver, lams=(LAM1_FRACTION * lmax, 0.0)))
+    out = {r.name: {"status": r.status, **{
+        k: r.details.get(k) for k in ("units", "kernel_launches",
+                                      "kernel_target", "records_off",
+                                      "device_records")}} for r in res}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def analysis_steady_state(solver, lmax) -> dict:
+    """A warm 3-lambda path of a full-size session (the reference's audit,
+    at 0.5, 0.25 and 0.1 of lambda_max): 0 builds of its superstep, 0 nvcc
+    builds, 0 library loads."""
+    from repro_torch.analysis import audit
+    t0 = time.perf_counter()
+    res = audit.steady_state(solver, [f * lmax for f in (0.5, 0.25, 0.1)],
+                             lam2=0.0)
+    return {"status": res.status, **res.details,
+            "s": time.perf_counter() - t0}
+
+
+def analysis_kernel_smem(dev) -> dict:
+    """Every kernel of the nine sources within the card's shared-memory
+    and register limits, each source launched at least once (this run's
+    largest requests), registers and static shared memory as ptxas
+    reported them; the kernels that spill, named."""
+    from repro_torch.analysis import audit
+    t0 = time.perf_counter()
+    res = audit.kernel_smem_audit(dev, all_sources=True)
+    out = {"status": res.status,
+           **{k: v for k, v in res.details.items() if not k.startswith("_")},
+           "spills": res.details.get("_spills")}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def analysis_lint() -> dict:
+    """``python -m repro_torch.analysis --check`` of this checkout: 0 new
+    findings and 0 stale baseline entries."""
+    from repro_torch.analysis import lint
+    t0 = time.perf_counter()
+    violations, n_files = lint.lint_paths(
+        [lint.REPO_ROOT / t for t in lint.DEFAULT_TARGETS])
+    new, old, stale = lint.reconcile(
+        violations, lint.load_baseline(lint.DEFAULT_BASELINE))
+    return {"status": "ok" if not new and not stale else "fail",
+            "files": n_files, "findings": len(violations),
+            "baselined": len(old), "new": [v.render() for v in new],
+            "stale": stale, "s": time.perf_counter() - t0}
+
+
+def analysis_phase(analysis: dict, card) -> None:
+    """The analysis phase's line, from the parts run beside the sparse,
+    dense, baselines and dist phases; any part not ``ok`` (a ``skip`` too)
+    fails it."""
+    analysis["lint"] = analysis_lint()
+    parts = {k: v for k, v in analysis.items() if isinstance(v, dict)}
+    statuses = {}
+    for k, v in parts.items():
+        if "status" in v:
+            statuses[k] = v["status"]
+        else:
+            statuses.update({f"{k}/{n}": r["status"] for n, r in v.items()
+                             if isinstance(r, dict)})
+    emit({"phase": "analysis", "card": card, **analysis,
+          "statuses": statuses,
+          "phase_s": sum(v["s"] for v in parts.values())})
+    check(set(statuses.values()) == {"ok"} and len(statuses) == 8,
+          f"analysis: {statuses}")
+
+
 def dist_phase(np, torch, sparse_res, lam1, dense_npy, lam1_dense, card,
-               size=None):
+               size=None, analysis=None):
     """The dist phase (module docstring): worlds (a)-(f); returns the
     per-rank K1-K4 launches of the sharded fits.  ``size`` (the
     make_sparse arguments) replaces the full-size sparse data in a
-    rehearsal on the CPU."""
+    rehearsal on the CPU.  ``analysis`` (the analysis phase's parts) gets
+    the collective sequence of the (1, 2) gloo world's sparse session,
+    the same on both ranks."""
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-dist-")
     tdir = pathlib.Path(tmp.name)
@@ -3079,6 +3180,9 @@ def dist_phase(np, torch, sparse_res, lam1, dense_npy, lam1_dense, card,
                 continue
             tag = f"b_{bname}_{mesh[0]}x{mesh[1]}"
             tasks = [full("full", [["to_tol", 200, 1e-8]])]
+            collective_world = analysis is not None and tag == "b_gloo_1x2"
+            if collective_world:
+                tasks[0]["collectives"] = True
             if bname == "gloo":
                 tasks.append({"name": "small", "kind": "small"})
                 if n == 2:
@@ -3098,6 +3202,19 @@ def dist_phase(np, torch, sparse_res, lam1, dense_npy, lam1_dense, card,
                       for r, rk in enumerate(ranks)]
             per_rank[f"{mesh[0]}x{mesh[1]}_{bname}"] = counts
             worlds[tag] = ranks
+            if collective_world:
+                cs = [rk["full"]["collectives"] for rk in ranks]
+                same = all(c["_records"] == cs[0]["_records"] for c in cs)
+                analysis["collective_sequence"] = {
+                    "status": "ok" if same and all(
+                        c["status"] == "ok" and c["ranks"] == n
+                        for c in cs) else "fail",
+                    "world": tag, "records_equal_on_ranks": same,
+                    **{k: cs[0][k] for k in ("signature", "n_collectives",
+                                             "deterministic", "ranks",
+                                             "same_on_every_rank")},
+                    "records": cs[0]["_records"],
+                    "s": max(c["s"] for c in cs)}
             report[tag] = {
                 "n_iter": fit["n_iter"], "f": f,
                 "f_rel_to_1x1": (f - f_single) / abs(f_single),
@@ -3969,6 +4086,12 @@ def main() -> None:
     path = sparse_path_phase(np, torch, solver)
     checkpoint_phase(np, torch, GLMSolver, solver, ds, dev, path)
     trace_phase(np, torch, solver, path, tdir, card)
+    # the analysis phase's parts on the sparse session (its line follows
+    # the dist phase)
+    analysis = {"sparse_launches": analysis_launches(
+                    solver, solver.lambda_max()),
+                "steady_state": analysis_steady_state(
+                    solver, solver.lambda_max())}
     path_reference_phase(np, GLMSolver, DGLMNETConfig, synthetic, dev)
     lam1_sparse = LAM1_FRACTION * solver.lambda_max()
     del solver, path
@@ -4015,6 +4138,7 @@ def main() -> None:
                                       {"glm_stats": 1, "cd_tile_solve": dnt,
                                        "alpha_search": 2})
     lmax_dense = dsolver.lambda_max()
+    analysis["dense_launches"] = analysis_launches(dsolver, lmax_dense)
     del dsolver
     torch.cuda.empty_cache()
 
@@ -4061,6 +4185,8 @@ def main() -> None:
     baseline_counts = baselines_phase(np, torch, dd, dev, report, parity,
                                       card)
     torch.cuda.empty_cache()
+    # every kernel of the nine sources has launched by now
+    analysis["kernel_smem"] = analysis_kernel_smem(dev)
     # the dist phase streams the dense train split from a .npy
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-npy-")
     dense_npy = (str(pathlib.Path(dist_tmp.name) / "X.npy"),
@@ -4073,8 +4199,10 @@ def main() -> None:
     del ingest_data
     torch.cuda.empty_cache()
     dist_counts = dist_phase(np, torch, sparse_res, lam1_sparse, dense_npy,
-                             LAM1_FRACTION * lmax_dense, card)
+                             LAM1_FRACTION * lmax_dense, card,
+                             analysis=analysis)
     dist_tmp.cleanup()
+    analysis_phase(analysis, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]
@@ -4128,6 +4256,13 @@ def main() -> None:
                  "tile_gram_bf16": sparse_jacobi["bf16"][0],
                  "admm_shooting": baseline_counts[0],
                  "online_tg": baseline_counts[1]}
+    # what each source's launched kernels ask of the card (the analysis
+    # phase's kernel_smem read the same records)
+    resources = {stem: [{k: r[k] for k in (
+        "name", "regs", "static_smem", "requested_dynamic_smem",
+        "requested_threads", "local_bytes", "launches")}
+        for r in recs if r["launches"]]
+        for stem, recs in ops.kernel_resources().items()}
     kernels = []
     for name in src:
         rep = report[name]
@@ -4137,6 +4272,7 @@ def main() -> None:
                       f"{name.removesuffix('_bf16')}.cu",
             "replaces": src[name], "launches": main_path[name][name],
             "launches_dense": dense_counts[name],
+            "resources": resources[name.removesuffix("_bf16")],
             **({"launches_dist_per_rank": {
                 mesh: [c.get(name, 0) for c in per_rank]
                 for mesh, per_rank in dist_counts.items()}}

@@ -19,10 +19,11 @@ copies and fills per superstep, and the kernels by device time.
 The Chrome traces go to DIR when given.
 
 The device records are held against the kernels' own launch counts
-(``ops.launch_counts``) over the same supersteps: each CUDA function of K1
-to K6 must have one record for every logical launch of its kernel (either
-mode), and the device must have one kernel record for every launch call
-the host made.  A cell whose records fall short or run over is reported
+(``ops.launch_counts``) over the same supersteps: each CUDA function of
+``ops.CUDA_FUNCTIONS`` must have one record for every logical launch of
+its kernel (either mode), and the device must have one kernel record for
+every launch call the host made (``repro_torch.analysis.audit``'s
+``record_check``).  A cell whose records fall short or run over is reported
 (``launch_check``) and the script exits non-zero after the last cell: a
 profile that lost device records would understate the device time.
 (``tools/profile_records.py`` showed where records went: see
@@ -57,56 +58,20 @@ def device_us(evt) -> float:
     return 0.0
 
 
-# the CUDA functions behind one logical launch of each training kernel
-# (both modes of K3, K5 and K6 are instances of the same functions), each
-# run once a launch
-CUDA_FUNCTIONS = {
-    "glm_stats": ("glm_stats_kernel",),
-    "alpha_search": ("alpha_search_pass",),
-    "cd_tile_solve": ("cd_tile_solve_kernel",),
-    "tile_gram": ("tile_gram_partial", "tile_gram_reduce"),
-    "stats_gram_solve": ("sgs_partial", "sgs_reduce", "sgs_solve"),
-    "margin_ls": ("margin_ls_stream", "margin_ls_finish"),
-}
-
-
-def launch_records(prof):
-    """(the host's kernel launch calls, the device's kernel records) of a
-    profile, each a time-sorted list of (start us, short name); copies,
-    fills and the schedule's step ranges are not kernels."""
-    from torch.autograd import DeviceType
-
-    host, dev = [], []
-    for e in prof.events():
-        name = chip_smoke.short_name(e.name)
-        if e.device_type == DeviceType.CUDA:
-            if not name.startswith(("Memcpy", "Memset", "ProfilerStep")):
-                dev.append((e.time_range.start, name))
-        elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-            host.append((e.time_range.start, name))
-    return sorted(host), sorted(dev)
-
-
 def launch_check(torch, prof, logical) -> dict:
     """{CUDA function: [device records, logical launches]} for the
-    functions of CUDA_FUNCTIONS whose two counts differ, and under "all
-    kernels" [device kernel records, host launch calls] if those differ
-    (empty: all agree)."""
-    found = chip_smoke.cuda_function_counts(torch, prof, {"all": ""})["all"]
-    host, dev = launch_records(prof)
-    bad = {} if len(dev) == len(host) else {"all kernels":
-                                             [len(dev), len(host)]}
-    for kernel, fns in CUDA_FUNCTIONS.items():
-        want = logical[kernel] + logical.get(kernel + "_bf16", 0)
-        for fn in fns:
-            got = found.get(fn, 0)
-            if got != want:
-                bad[fn] = [got, want]
-    return bad
+    functions of ``ops.CUDA_FUNCTIONS`` whose two counts differ, and under
+    "all kernels" [device kernel records, host launch calls] if those
+    differ (empty: all agree); ``repro_torch.analysis.audit.record_check``,
+    the rule the audit holds the card to."""
+    from repro_torch.analysis import audit
+    return audit.record_check(prof, logical)
 
 
 def profile_fit(torch, solver, steps, out, tag):
     from torch.autograd import DeviceType
+
+    from repro_torch.analysis import audit
 
     lam1 = chip_smoke.LAM1_FRACTION * solver.lambda_max()
     prof, res, wall, logical = chip_smoke.profiled_fit(torch, solver, lam1,
@@ -119,7 +84,7 @@ def profile_fit(torch, solver, steps, out, tag):
         # that launched them carry the same time again
         if evt.device_type != DeviceType.CUDA:
             continue
-        name = chip_smoke.short_name(evt.key)
+        name = audit.short_name(evt.key)
         if name.startswith("ProfilerStep"):
             continue      # the schedule's step ranges, not device work
         if name.startswith(("Memcpy", "Memset")):

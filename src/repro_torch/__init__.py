@@ -10,9 +10,12 @@ model.  ``repro_torch.obs`` traces a run (``REPRO_TRACE=dir``) and
 ``python -m repro_torch.launch.trace_report dir`` summarizes it.
 ``repro_torch.dist`` runs a session on a (data x model) mesh of processes
 over ``torch.distributed`` (``GLMSolver(..., mesh=make_dist_mesh(D, M))``,
-``python -m repro_torch.launch.dist_run``).
+``python -m repro_torch.launch.dist_run``).  ``repro_torch.analysis``
+lints the port and audits it on the card (``python -m
+repro_torch.analysis --check --audit``).
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
 __all__ = ["core", "data", "kernels", "serve", "checkpoint", "glm", "launch",
-           "obs", "convert", "device", "timing", "dist", "sharding"]
+           "obs", "convert", "device", "timing", "dist", "sharding",
+           "analysis", "roofline"]

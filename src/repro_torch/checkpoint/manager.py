@@ -145,6 +145,7 @@ class CheckpointManager:
         self.wait()
         with obs_trace.span("ckpt/save", args={"step": int(step)}):
             flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        # lint: allow SYNC001 — a wall-clock timestamp, not a span
         meta = {"step": int(step), "time": time.time(), "keys": sorted(flat),
                 "metadata": metadata or {}}
         ctx = dist_boot.context()

@@ -118,9 +118,12 @@ METRIC_KEYS = ("f", "f_before", "loss", "alpha", "mu", "nnz",
 
 
 def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None,
-                   groups=None, max_budget: Optional[int] = None):
+                   groups=None, max_budget: Optional[int] = None,
+                   on_trace=None):
     """Build the superstep closure for a design of ``n_tiles`` tiles on
-    ``device`` (None: the CUDA card).
+    ``device`` (None: the CUDA card).  ``on_trace`` (a callable of no
+    argument) fires once, at this build: the port runs eagerly and has no
+    trace, so the build is what ``GLMSolver.compile_count`` counts.
 
     The returned ``superstep(design, y, weights, offset, lams, penf, state,
     *, active=None, tile_active=None, budget=None)`` takes the combined
@@ -133,7 +136,13 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None,
     ``groups=(data_group, model_group)`` makes it the sharded superstep
     of a mesh (either group may be None, a mesh dim of one); ``budget``
     is then this rank's column's ALB tile budget, at most ``max_budget``
-    (default: one cycle, ``n_tiles``).
+    (default: one cycle, ``n_tiles``).  Either group may be a
+    ``collectives.MeshGroup``, which names its mesh dim in
+    ``collectives.collective_trace()``.
+
+    The closure captures the config (and reads no lambda of it), the
+    device, the groups and the line-search candidates made from the
+    config, and nothing of a session: sessions of one key share it.
     """
     ref.is_bf16(config.precision)     # an unknown precision raises
     if config.coupling not in cd_lib.SWEEPS:
@@ -259,6 +268,8 @@ def make_superstep(config: DGLMNETConfig, *, n_tiles: int, device=None,
             max_backtracks=config.max_backtracks, penf=penf)
         return finish(state, ls, dbeta, xdb, f_cur, L, n_tiles)
 
+    if on_trace is not None:
+        on_trace()
     if config.coupling == "jacobi" and config.fuse_superstep and \
             not sharded:
         return superstep_fused
@@ -293,10 +304,12 @@ class StreamingSuperstep(NamedTuple):
 
 
 def make_streaming_superstep(config: DGLMNETConfig, *, n_tiles: int,
-                             device=None) -> StreamingSuperstep:
+                             device=None,
+                             on_trace=None) -> StreamingSuperstep:
     """The streaming superstep's pieces for ``n_tiles`` tiles on ``device``
     (None: the CUDA card).  Their work is queued on the device; nothing
-    waits for it."""
+    waits for it.  ``on_trace`` fires once, at this build (as for
+    ``make_superstep``)."""
     if config.coupling not in cd_lib.GRAM_SWEEPS:
         raise ValueError(f"unknown coupling {config.coupling!r}; have "
                          f"{sorted(cd_lib.GRAM_SWEEPS)}")
@@ -367,6 +380,8 @@ def make_streaming_superstep(config: DGLMNETConfig, *, n_tiles: int,
                         (cursor + prep["tiles_done"]) % n_tiles,
                         step + 1), metrics
 
+    if on_trace is not None:
+        on_trace()
     return StreamingSuperstep(stats_chunk, prepare, ls_chunk, finish,
                               int(cand.shape[0]))
 

@@ -83,6 +83,7 @@ another mesh.  A StreamingDesign or a file takes no mesh
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -114,6 +115,41 @@ _SIGMA_EPS = 1e-7        # columns with weighted std below this are not scaled
 
 def _put(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the superstep cache (the reference's compiled-superstep cache): one
+# superstep closure a key, shared by the sessions of that key, each build
+# counted as the reference counts each trace
+# ---------------------------------------------------------------------------
+
+_SUPERSTEP_CACHE: "collections.OrderedDict[tuple, object]" = \
+    collections.OrderedDict()
+_TRACE_COUNTS: "collections.Counter[tuple]" = collections.Counter()
+_CACHE_CAP = 32
+
+
+def _config_key(config: DGLMNETConfig) -> tuple:
+    """The config fields the superstep closures read — lambda, outer-loop
+    and host-side knobs (mu_init, alb, alb_kappa, max_outer, tol) are
+    excluded, so fits differing only in those share one superstep."""
+    return (config.family, config.adaptive_mu, config.eta1, config.eta2,
+            config.nu, config.sigma, config.backtrack_b, config.gamma,
+            config.ls_delta, config.ls_grid_size, config.max_backtracks,
+            config.tile_size, config.coupling, config.compress_margin,
+            config.fuse_superstep, config.precision)
+
+
+def _cached_superstep(key: tuple, build):
+    fn = _SUPERSTEP_CACHE.get(key)
+    if fn is None:
+        fn = build()
+        _SUPERSTEP_CACHE[key] = fn
+        while len(_SUPERSTEP_CACHE) > _CACHE_CAP:
+            _SUPERSTEP_CACHE.popitem(last=False)
+    else:
+        _SUPERSTEP_CACHE.move_to_end(key)
+    return fn
 
 
 def lambda_max(X, y, family="logistic", *, sample_weight=None, offset=None,
@@ -255,8 +291,11 @@ class GLMSolver:
         else:
             self._D, self._M, self._d, self._m = dist_boot.mesh_coords(
                 mesh, axis_data, axis_model)
-            self._groups = (mesh.get_group(axis_data) if axis_data
-                            else None, mesh.get_group(axis_model))
+            self._groups = (
+                collectives.MeshGroup(mesh.get_group(axis_data), axis_data)
+                if axis_data else None,
+                collectives.MeshGroup(mesh.get_group(axis_model),
+                                      axis_model))
             ctx = dist_boot.context()
             self.dist_info = {
                 "multiprocess": self._multiproc,
@@ -391,13 +430,25 @@ class GLMSolver:
             if telemetry is None:
                 self._base_speeds = np.asarray(speeds, np.float32) \
                     if speeds is not None else np.ones((self._M,), np.float32)
+        # the superstep closure reads the design's geometry (its tiles and
+        # the ALB bound), the device and the mesh's groups besides the
+        # config; the layout completes the reference's key
         if self._streaming:
-            self._superstep = dglmnet.make_streaming_superstep(
-                config, n_tiles=self._n_tiles, device=self.device)
+            layout_key = ("streaming", T, self._Xs.chunk_rows,
+                          self._Xs.n_chunks, self._p_tot)
+        elif isinstance(self._Xs, design_lib.DenseDesign):
+            layout_key = ("dense",)
         else:
-            self._superstep = dglmnet.make_superstep(
-                config, n_tiles=self._n_tiles, device=self.device,
-                groups=self._groups, max_budget=self._max_budget)
+            layout_key = ("bricks", T, self._Xs.row_block, self._Xs.n_rows,
+                          self._n_tiles, self._Xs.max_bricks_per_tile)
+        mesh_key = None if mesh is None else (
+            tuple(mesh.mesh.flatten().tolist()),
+            tuple(mesh.mesh_dim_names), self.axis_data, self.axis_model,
+            tuple(None if g is None else id(g.group)
+                  for g in self._groups))
+        self._key = (_config_key(config), self._n_tiles, self._max_budget,
+                     layout_key, mesh_key, str(self.device))
+        self._superstep = _cached_superstep(self._key, self._build_superstep)
 
         # standardization: after packing, before anything reads the design
         self._scale_packed: Optional[np.ndarray] = None
@@ -462,6 +513,25 @@ class GLMSolver:
                 torch.from_numpy(block).to(self.device), T)
             self._design_layout = None     # the dense layout is mesh-free
         self._info = info
+
+    @property
+    def compile_count(self) -> int:
+        """Builds of this session's superstep closure (the reference's trace
+        count; shared with other sessions on the same cache key — a second
+        session on the same key adds 0, and so does a whole lambda path)."""
+        return _TRACE_COUNTS[self._key]
+
+    def _build_superstep(self):
+        key = self._key
+        count = lambda: _TRACE_COUNTS.update([key])     # once a build
+        if self._streaming:
+            return dglmnet.make_streaming_superstep(
+                self.config, n_tiles=self._n_tiles, device=self.device,
+                on_trace=count)
+        return dglmnet.make_superstep(
+            self.config, n_tiles=self._n_tiles, device=self.device,
+            groups=self._groups, max_budget=self._max_budget,
+            on_trace=count)
 
     @property
     def info(self):

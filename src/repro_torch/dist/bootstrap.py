@@ -49,6 +49,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.sharding import collectives
+
 ENV_COORD = "REPRO_DIST_COORD"
 ENV_NPROCS = "REPRO_DIST_NPROCS"
 ENV_PROCID = "REPRO_DIST_PROCID"
@@ -287,10 +289,13 @@ def gather_to_host(x, group=None) -> np.ndarray:
     """Host numpy concatenation (along axis 0) of every member's ``x`` in
     ``group`` (None: the world), in group rank order.  Collective: every
     member calls it.  Without a process group, or in a group of one, it is
-    the host copy of ``x``."""
+    the host copy of ``x``.  ``group`` may be a ``collectives.MeshGroup``."""
     import torch.distributed as dist
     t = x.detach().cpu() if torch.is_tensor(x) else torch.as_tensor(
         np.asarray(x))
+    collectives.record_collective("gather_to_host", group, t.numel(),
+                                  t.dtype)
+    group = collectives.raw_group(group)
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return t.numpy().copy()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
@@ -305,6 +310,7 @@ def broadcast_host(arr, src: int = 0) -> np.ndarray:
     screening masks) are taken from it."""
     import torch.distributed as dist
     a = np.ascontiguousarray(arr)
+    collectives.record_collective("broadcast_host", None, a.size, a.dtype)
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return a
     t = torch.from_numpy(a.copy())
@@ -356,6 +362,7 @@ def barrier(tag: str = "repro", timeout_s: float = 60.0):
     process)."""
     global _BARRIER_SEQ
     ctx = context()
+    collectives.record_collective("barrier", None, 0, "none")
     if not ctx.multiprocess:
         return
     seq = _BARRIER_SEQ

@@ -10,7 +10,10 @@ to the plain PyTorch versions on the card.
 
 Each kernel is a ``CudaKernel``: it binds its C entry point with explicit
 ``argtypes``, raises when the entry returns a CUDA error, and counts its
-successful launches in the plain integer ``launches``.
+successful launches in the plain integer ``launches``.  ``counts()`` gives
+the nvcc builds and library loads this process made (a steady state makes
+neither), and ``resources(stem)`` what each ``__global__`` function of one
+source asks of the card (``csrc/resources.cuh``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("glm_stats.cu", "cd_tile_solve.cu", "tile_gram.cu",
            "alpha_search.cu", "stats_gram_solve.cu", "margin_ls.cu",
            "predict_tile.cu", "admm_shooting.cu", "online_tg.cu")
-HEADERS = ("glm_family.cuh", "cd_chain.cuh", "gram_tc.cuh", "mbarrier.cuh")
+HEADERS = ("glm_family.cuh", "cd_chain.cuh", "gram_tc.cuh", "mbarrier.cuh",
+           "resources.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -36,6 +40,13 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_COUNTS = {"builds": 0, "loads": 0}
+
+
+def counts() -> dict:
+    """nvcc builds (a library compiled and linked) and library loads made
+    by this process."""
+    return dict(_COUNTS)
 
 
 def nvcc_path() -> str:
@@ -77,6 +88,7 @@ def build() -> Path:
     if out.exists():
         return out
     nvcc = nvcc_path()
+    _COUNTS["builds"] += 1
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
@@ -123,6 +135,7 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _COUNTS["loads"] += 1
             _lib = lib
         return _lib
 
@@ -149,6 +162,42 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} "
                                f"(error {err})")
         self.launches += 1
+
+
+class KernelResources(ctypes.Structure):
+    """One record of ``repro_<source>_resources`` (``csrc/resources.cuh``'s
+    struct, field for field)."""
+    _fields_ = [("name", ctypes.c_char * 96),
+                ("regs", ctypes.c_int),
+                ("static_smem", ctypes.c_int),
+                ("local_bytes", ctypes.c_int),
+                ("max_dynamic_smem", ctypes.c_int),
+                ("max_threads", ctypes.c_int),
+                ("requested_dynamic_smem", ctypes.c_int),
+                ("requested_threads", ctypes.c_int),
+                ("launches", ctypes.c_int)]
+
+
+def resources(stem: str) -> list:
+    """[{name, regs, static_smem, ...}] of every ``__global__`` function
+    (template instance) of ``csrc/<stem>.cu`` on the current card: its
+    attributes, and the most dynamic shared bytes and threads a block any
+    of its launches asked for since the library was loaded."""
+    fn = getattr(library(), f"repro_{stem}_resources")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    cap = 64
+    out = (KernelResources * cap)()
+    err = fn(out, cap, ctypes.byref(n))
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{stem}: cudaFuncGetAttributes failed: {msg}")
+    if n.value > cap:
+        raise RuntimeError(f"{stem}: {n.value} kernels, room for {cap}")
+    return [{f: (getattr(r, f).decode() if f == "name" else getattr(r, f))
+             for f, _ in KernelResources._fields_} for r in out[:n.value]]
 
 
 def ptr(t) -> int | None:

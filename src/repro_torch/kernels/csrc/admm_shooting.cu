@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "resources.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -172,6 +174,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();      // no CTA leaves while another may read its slots
 }
 
+const repro::KernelSlot kSlots[] = {
+    {(const void*)admm_shooting_kernel<false>, "admm_shooting_kernel<false>"},
+    {(const void*)admm_shooting_kernel<true>, "admm_shooting_kernel<true>"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 const void* kernel_of(bool smem_r) {
   return smem_r ? (const void*)admm_shooting_kernel<true>
                 : (const void*)admm_shooting_kernel<false>;
@@ -252,6 +260,9 @@ extern "C" int repro_admm_shooting(const float* At, const float* v,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if ((err = repro::note_launch(kSlots, kMax, kernel_of(s), smem,
+                                kThreads)) != cudaSuccess)
+    return (int)err;
   err = s ? cudaLaunchKernelEx(&cfg, admm_shooting_kernel<true>, At, v, col_sq,
                                x_in, x_out, x_cta, r_glob, n, pb, passes, lam1,
                                lam2)
@@ -276,3 +287,5 @@ extern "C" int repro_admm_shooting_plan(long long n, int* cluster,
   *r_in_smem = s ? 1 : 0;
   return 0;
 }
+
+REPRO_RESOURCES_ENTRY(admm_shooting)

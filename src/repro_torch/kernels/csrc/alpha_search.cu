@@ -60,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "glm_family.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -326,6 +327,14 @@ __global__ void __launch_bounds__(KB > 0 ? kRowsThreads : kLanesThreads)
   }
 }
 
+#define ALPHA_PASS(F, KB) \
+  {(const void*)alpha_search_pass<F, KB>, "alpha_search_pass<" #F "," #KB ">"}
+#define ALPHA_FAMILY(F) ALPHA_PASS(F, 16), ALPHA_PASS(F, 32), ALPHA_PASS(F, 0)
+
+const repro::KernelSlot kSlots[] = {ALPHA_FAMILY(0), ALPHA_FAMILY(1),
+                                    ALPHA_FAMILY(2), ALPHA_FAMILY(3)};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 // the kernel of one family and K bucket: its block size, its blocks an SM
 // at most (lanes layout: one) and its slot in the table of waves
 struct Pass {
@@ -420,6 +429,8 @@ extern "C" int repro_alpha_search(const float* y, const float* xb,
     return (int)cudaErrorInvalidValue;
   void* args[] = {&y, &xb, &xdb,      &weights, &offset, &alphas,
                   &K, &n,  &partials, &ticket,  &out};
+  err = repro::note_launch(kSlots, kMax, p.fn, 0, p.threads);
+  if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernel(p.fn, dim3(nblocks), dim3(p.threads), args, 0,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
@@ -439,3 +450,5 @@ extern "C" int repro_alpha_search_grid(long long n, int K, int family,
   if (threads != nullptr) *threads = p.threads;
   return nblocks;
 }
+
+REPRO_RESOURCES_ENTRY(alpha_search)

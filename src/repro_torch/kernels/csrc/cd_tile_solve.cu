@@ -24,6 +24,7 @@
 #include <stdint.h>
 
 #include "cd_chain.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -41,6 +42,16 @@ __global__ void __launch_bounds__(kBlock)
   extern __shared__ __align__(16) float smem[];
   repro::cd_chain_tiles(G, g, h, hs, beta, dbeta, penf, params, order,
                         n_live, T, vec, out, smem);
+}
+
+const repro::KernelSlot kSlots[] = {
+    {(const void*)cd_tile_solve_kernel<512>, "cd_tile_solve_kernel<512>"},
+    {(const void*)cd_tile_solve_kernel<1024>, "cd_tile_solve_kernel<1024>"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
+cudaError_t note(const void* fn, size_t smem, int threads) {
+  return repro::note_launch(kSlots, kMax, fn, smem, threads);
 }
 
 }  // namespace
@@ -62,6 +73,8 @@ extern "C" int repro_cd_tile_solve(const float* G, const float* g,
   const bool vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(G) % 16 == 0;
   return (int)repro::launch_chain(
       cd_tile_solve_kernel<512>, cd_tile_solve_kernel<1024>, nt, T,
-      static_cast<cudaStream_t>(stream), G, g, h, hs, beta, dbeta, penf,
-      params, order, n_live, T, vec, out);
+      static_cast<cudaStream_t>(stream), note, G, g, h, hs, beta, dbeta,
+      penf, params, order, n_live, T, vec, out);
 }
+
+REPRO_RESOURCES_ENTRY(cd_tile_solve)

@@ -28,6 +28,7 @@
 #include <stdint.h>
 
 #include "glm_family.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -117,6 +118,14 @@ bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+const repro::KernelSlot kSlots[] = {
+    {(const void*)glm_stats_kernel<repro::kLogistic>, "glm_stats_kernel<0>"},
+    {(const void*)glm_stats_kernel<repro::kSquared>, "glm_stats_kernel<1>"},
+    {(const void*)glm_stats_kernel<repro::kProbit>, "glm_stats_kernel<2>"},
+    {(const void*)glm_stats_kernel<repro::kPoisson>, "glm_stats_kernel<3>"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 const void* kernel_of(int family) {
   switch (family) {
     case repro::kLogistic:
@@ -174,6 +183,8 @@ extern "C" int repro_glm_stats(const float* y, const float* xb,
             aligned16(offset) && aligned16(loss) && aligned16(s) &&
             aligned16(w);
   void* args[] = {&y, &xb, &weights, &offset, &loss, &s, &w, &n, &vec};
+  err = repro::note_launch(kSlots, kMax, kernel_of(family), 0, kThreads);
+  if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernel(kernel_of(family), dim3(nblocks), dim3(kThreads),
                          args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
@@ -187,6 +198,8 @@ extern "C" int repro_glm_stats_grid(long long n, int family) {
   if (n < 0 || grid_of(family, n, nblocks) != cudaSuccess) return -1;
   return nblocks;
 }
+
+REPRO_RESOURCES_ENTRY(glm_stats)
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

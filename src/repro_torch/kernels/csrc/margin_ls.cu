@@ -63,6 +63,7 @@
 
 #include "glm_family.cuh"
 #include "mbarrier.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -339,6 +340,18 @@ cudaError_t grid_of(long long n, int p, int& nblocks, size_t& smem) {
   return cudaSuccess;
 }
 
+#define MARGIN_LS_STREAM(F, B16) \
+  {(const void*)margin_ls_stream<F, B16>, "margin_ls_stream<" #F "," #B16 ">"}
+#define MARGIN_LS_FAMILY(F) \
+  MARGIN_LS_STREAM(F, false), MARGIN_LS_STREAM(F, true)
+
+const repro::KernelSlot kSlots[] = {
+    MARGIN_LS_FAMILY(0), MARGIN_LS_FAMILY(1), MARGIN_LS_FAMILY(2),
+    MARGIN_LS_FAMILY(3),
+    {(const void*)margin_ls_finish, "margin_ls_finish"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 template <int F, bool B16>
 cudaError_t launch_mode(const float* X, long long n, int p,
                         const float* dbeta, const float* y, const float* xb,
@@ -349,9 +362,15 @@ cudaError_t launch_mode(const float* X, long long n, int p,
   size_t smem = 0;
   cudaError_t err = grid_of<F, B16>(n, p, nblocks, smem);
   if (err != cudaSuccess) return err;
+  err = repro::note_launch(kSlots, kMax, (const void*)margin_ls_stream<F, B16>,
+                           smem, kThreads);
+  if (err != cudaSuccess) return err;
   margin_ls_stream<F, B16><<<nblocks, kThreads, smem, st>>>(
       X, n, p, dbeta, y, xb, weights, offset, alphas, K, xdb, partials);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = repro::note_launch(kSlots, kMax, (const void*)margin_ls_finish, 0,
+                           32 * kFinishWarps);
+  if (err != cudaSuccess) return err;
   margin_ls_finish<<<(K + kFinishWarps - 1) / kFinishWarps,
                       32 * kFinishWarps, 0, st>>>(partials, nblocks, K,
                                                   losses);
@@ -423,3 +442,5 @@ extern "C" int repro_margin_ls_grid(long long n, int p) {
              ? nblocks
              : -1;
 }
+
+REPRO_RESOURCES_ENTRY(margin_ls)

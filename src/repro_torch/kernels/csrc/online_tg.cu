@@ -28,6 +28,7 @@
 #include <math.h>
 
 #include "glm_family.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -106,6 +107,16 @@ const void* kernel_for(bool smem_w) {
                 : (const void*)online_tg_kernel<F, false>;
 }
 
+#define ONLINE_TG(F, W) \
+  {(const void*)online_tg_kernel<F, W>, "online_tg_kernel<" #F "," #W ">"}
+
+const repro::KernelSlot kSlots[] = {
+    ONLINE_TG(0, false), ONLINE_TG(0, true), ONLINE_TG(1, false),
+    ONLINE_TG(1, true),  ONLINE_TG(2, false), ONLINE_TG(2, true),
+    ONLINE_TG(3, false), ONLINE_TG(3, true),
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 const void* kernel_of(int family, bool smem_w) {
   switch (family) {
     case repro::kLogistic: return kernel_for<repro::kLogistic>(smem_w);
@@ -137,6 +148,9 @@ extern "C" int repro_online_tg(const float* X, const float* y,
   const size_t smem = smem_w ? (size_t)p * 4 : 0;
   void* args[] = {&X, &y, &w0, &w_out, &n_per, &p, &t0, &lr, &power,
                   &lam1, &lam2};
+  if ((err = repro::note_launch(kSlots, kMax, fn, smem, kThreads)) !=
+      cudaSuccess)
+    return (int)err;
   err = cudaLaunchKernel(fn, dim3(M), dim3(kThreads), args, smem,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
@@ -145,3 +159,5 @@ extern "C" int repro_online_tg(const float* X, const float* y,
 
 // The most features whose w the kernel keeps in shared memory.
 extern "C" int repro_online_tg_smem_features() { return kMaxDynSmem / 4; }
+
+REPRO_RESOURCES_ENTRY(online_tg)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resources.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -181,12 +183,22 @@ int lanes_per_row(int B, int J) {
   return vectors <= 8 * per_lane ? 8 : vectors <= 16 * per_lane ? 16 : 32;
 }
 
+const repro::KernelSlot kSlots[] = {
+    {(const void*)predict_tile_kernel<8>, "predict_tile_kernel<8>"},
+    {(const void*)predict_tile_kernel<16>, "predict_tile_kernel<16>"},
+    {(const void*)predict_tile_kernel<32>, "predict_tile_kernel<32>"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 template <int G>
 cudaError_t launch(const int* slots, const float* vals, int B, int J,
                    Table table, const float* b0, float* out, int link,
                    bool vec_pairs, cudaStream_t st) {
   const long long threads = (long long)B * G;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  const cudaError_t err = repro::note_launch(
+      kSlots, kMax, (const void*)predict_tile_kernel<G>, 0, kThreads);
+  if (err != cudaSuccess) return err;
   predict_tile_kernel<G><<<blocks, kThreads, 0, st>>>(
       slots, vals, B, J, table, b0, out, link, vec_pairs);
   return cudaGetLastError();
@@ -221,3 +233,5 @@ extern "C" int repro_predict_tile(const int* slots, const float* vals, int B,
                              vec_pairs, st);
   }
 }
+
+REPRO_RESOURCES_ENTRY(predict_tile)

@@ -54,6 +54,7 @@
 #include "cd_chain.cuh"
 #include "glm_family.cuh"
 #include "gram_tc.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -199,6 +200,24 @@ __global__ void __launch_bounds__(kBlock)
                         n_live, T, true, dbeta, smem);
 }
 
+#define SGS_PARTIAL(F, BN, P) \
+  {(const void*)sgs_partial<F, BN, P>, "sgs_partial<" #F "," #BN "," #P ">"}
+#define SGS_FAMILY(F)                                                    \
+  SGS_PARTIAL(F, 64, 0), SGS_PARTIAL(F, 64, 1), SGS_PARTIAL(F, 128, 0), \
+      SGS_PARTIAL(F, 128, 1)
+
+const repro::KernelSlot kSlots[] = {
+    SGS_FAMILY(0), SGS_FAMILY(1), SGS_FAMILY(2), SGS_FAMILY(3),
+    {(const void*)sgs_reduce, "sgs_reduce"},
+    {(const void*)sgs_solve<512>, "sgs_solve<512>"},
+    {(const void*)sgs_solve<1024>, "sgs_solve<1024>"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
+cudaError_t note(const void* fn, size_t smem, int threads) {
+  return repro::note_launch(kSlots, kMax, fn, smem, threads);
+}
+
 template <int F, int BN, int P>
 cudaError_t launch_partial(int splits, int n_live, cudaStream_t st,
                            const float* X, long long n, int p, int T,
@@ -214,6 +233,9 @@ cudaError_t launch_partial(int splits, int n_live, cudaStream_t st,
   if (err != cudaSuccess) return err;
   const dim3 grid(repro::gram::n_pairs<P>(T / BN), splits,
                   n_live > 0 ? n_live : 1);
+  err = note((const void*)sgs_partial<F, BN, P>, smem,
+             repro::gram::threads<BN>());
+  if (err != cudaSuccess) return err;
   sgs_partial<F, BN, P><<<grid, repro::gram::threads<BN>(), smem, st>>>(
       map, n, T, y, xb, weights, offset, order, n_live, per, Gp, gp, loss,
       s, w);
@@ -294,11 +316,15 @@ extern "C" int repro_stats_gram_solve(
   const long long total = ((long long)T * T + T) * nt;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
+  err = note((const void*)sgs_reduce, 0, 256);
+  if (err != cudaSuccess) return (int)err;
   sgs_reduce<<<(int)blocks, 256, 0, st>>>(Gp, gp, order, n_live, nt, splits,
                                           T, band, bf16 != 0, G, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)repro::launch_chain(sgs_solve<512>, sgs_solve<1024>, nt, T, st,
-                                  G, g, beta, penf, params, order, n_live, T,
-                                  dbeta);
+                                  note, G, g, beta, penf, params, order,
+                                  n_live, T, dbeta);
 }
+
+REPRO_RESOURCES_ENTRY(stats_gram_solve)

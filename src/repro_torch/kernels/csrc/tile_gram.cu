@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "gram_tc.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -130,6 +131,16 @@ __global__ void tile_gram_reduce(const float* __restrict__ Gp,
   }
 }
 
+#define TILE_GRAM_PARTIAL(BN, P) \
+  {(const void*)tile_gram_partial<BN, P>, "tile_gram_partial<" #BN "," #P ">"}
+
+const repro::KernelSlot kSlots[] = {
+    TILE_GRAM_PARTIAL(64, 0), TILE_GRAM_PARTIAL(64, 1),
+    TILE_GRAM_PARTIAL(128, 0), TILE_GRAM_PARTIAL(128, 1),
+    {(const void*)tile_gram_reduce, "tile_gram_reduce"},
+};
+repro::LaunchMax kMax[sizeof kSlots / sizeof kSlots[0]];
+
 template <int BN, int P>
 cudaError_t launch_partial(int splits, cudaStream_t st, const float* bricks,
                            int slots, const int* rows, int n_valid, int per,
@@ -142,6 +153,9 @@ cudaError_t launch_partial(int splits, cudaStream_t st, const float* bricks,
   err = repro::gram::make_map(&map, bricks, (long long)slots * rb, T, T);
   if (err != cudaSuccess) return err;
   const dim3 grid(repro::gram::n_pairs<P>(T / BN), splits);
+  err = repro::note_launch(kSlots, kMax, (const void*)tile_gram_partial<BN, P>,
+                           smem, repro::gram::threads<BN>());
+  if (err != cudaSuccess) return err;
   tile_gram_partial<BN, P><<<grid, repro::gram::threads<BN>(), smem, st>>>(
       map, rows, n_valid, per, w, r, rb, T, Gp, gp);
   return cudaGetLastError();
@@ -183,7 +197,12 @@ extern "C" int repro_tile_gram(const float* bricks, int slots,
   const long long total = (long long)T * T + T;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;
+  err = repro::note_launch(kSlots, kMax, (const void*)tile_gram_reduce, 0,
+                           256);
+  if (err != cudaSuccess) return (int)err;
   tile_gram_reduce<<<(int)blocks, 256, 0, st>>>(Gp, gp, splits, T, band,
                                                 bf16 != 0, G, g);
   return (int)cudaGetLastError();
 }
+
+REPRO_RESOURCES_ENTRY(tile_gram)

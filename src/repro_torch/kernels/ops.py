@@ -16,11 +16,14 @@ constants as one tensor made by ``solve_params``, built once a sweep.
 
 Beside the counts, ``launch_trace()`` collects the logical launches of
 each dispatcher in call order, under the reference's names, on either
-device (``record_launch``).
+device (``record_launch``).  ``CUDA_FUNCTIONS`` names the CUDA functions
+behind one logical launch of each kernel (what a profile of the card
+shows), and ``kernel_resources()`` what each of them asks of the card.
 """
 from __future__ import annotations
 
 import contextlib
+import pathlib
 
 import numpy as np
 import torch
@@ -55,6 +58,36 @@ KERNELS = {
     "admm_shooting": admm_shooting_k.KERNEL,
     "online_tg": online_tg_k.KERNEL,
 }
+
+
+# the CUDA functions behind one logical launch of each kernel (both modes
+# of K3, K5 and K6 are instances of the same functions), each run once a
+# launch: a profile of the card holds one device record of each for every
+# count of ``launch_counts()``
+CUDA_FUNCTIONS = {
+    "glm_stats": ("glm_stats_kernel",),
+    "alpha_search": ("alpha_search_pass",),
+    "cd_tile_solve": ("cd_tile_solve_kernel",),
+    "tile_gram": ("tile_gram_partial", "tile_gram_reduce"),
+    "stats_gram_solve": ("sgs_partial", "sgs_reduce", "sgs_solve"),
+    "margin_ls": ("margin_ls_stream", "margin_ls_finish"),
+    "predict_tile": ("predict_tile_kernel",),
+    "admm_shooting": ("admm_shooting_kernel",),
+    "online_tg": ("online_tg_kernel",),
+}
+
+
+def kernel_resources() -> dict:
+    """{source stem: [one record a ``__global__`` function]} for every
+    ``csrc/*.cu`` of the library on the current card: registers, static
+    shared bytes, local bytes a thread (stack and spills), the dynamic
+    shared cap and the most threads a block (``cudaFuncGetAttributes``),
+    and the most dynamic shared bytes and threads a block that any of its
+    launches asked for since the library was loaded (``launches``: how
+    many).  Card only: it loads the library."""
+    from repro_torch.kernels import build
+    return {pathlib.Path(src).stem: build.resources(pathlib.Path(src).stem)
+            for src in build.SOURCES}
 
 
 # calls on the card that ran a kernel's plain version because the family

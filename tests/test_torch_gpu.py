@@ -22,7 +22,10 @@ their plain bf16 versions the same way; their G is not symmetric.
 A traced fit (``repro_torch.obs``) must equal the untraced one bit for
 bit, and its spans must be ``torch.profiler`` ranges that hold the host
 launches of K1-K4, with one NVTX push and pop a span.
+The audits of ``repro_torch.analysis`` pass on the card (kernel_smem runs
+there: every kernel within the card's limits, as ptxas reported it).
 """
+import json
 import time
 
 import numpy as np
@@ -1175,3 +1178,60 @@ def test_online_tg_registered_family_raises_on_the_card(cuda, monkeypatch):
     assert ops.launch_counts()["online_tg"] == 0
     _, h = fit_online_tg(X, y, cfg, device="cpu")
     assert len(h["f"]) == 3 and np.isfinite(h["f"]).all()
+
+
+# ------------------------------------------------- repro_torch.analysis
+
+
+def test_audits_pass_on_the_card(cuda):
+    """Every audit on the card: launch units, the kernels' launches and
+    the profiler's records; kernel_smem runs (no skip) and every kernel is
+    within the card's limits and agrees with ptxas; the collective
+    sequence, the scoring entry points and zero steady-state rebuilds."""
+    from repro_torch.analysis import audit
+    res = {r.name: r for r in audit.run_audit()}
+    assert audit.passed(list(res.values())), {
+        k: (r.status, r.details) for k, r in res.items() if r.status != "ok"}
+    assert all(r.status == "ok" for r in res.values())
+    for name in ("launches_fused", "launches_unfused"):
+        d = res[name].details
+        assert d["records_off"] == {} and d["kernel_launches"] == \
+            d["kernel_target"]
+    k = res["kernel_smem"].details
+    assert k["over_budget"] == k["regs_over"] == k["ptxas_mismatch"] == []
+    assert k["n_kernels"] == sum(
+        len(v) for v in ops.kernel_resources().values())
+
+
+def test_lint_and_audit_cli_on_the_card(cuda, tmp_path):
+    from repro_torch.analysis import lint
+    out = tmp_path / "s.json"
+    assert lint.main(["--check", "--audit", "--json", str(out)]) == 0
+    s = json.loads(out.read_text())
+    assert {v["status"] for v in s["audit"].values()} == {"ok"}
+
+
+def test_kernel_resources_record_the_launches(cuda):
+    """The running maxima of a source's resources entry: a launch of K1
+    shows its block size and no dynamic shared memory; K6's stream kernel
+    its dynamic shared bytes, within the card's opt-in limit."""
+    from repro_torch.roofline import hlo
+    rng = np.random.default_rng(0)
+    n, p = 4096, 256
+    X = torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.choice([-1.0, 1.0], n)
+                         .astype(np.float32)).to(cuda)
+    xb = torch.zeros(n, device=cuda)
+    ops.glm_stats(y, xb, "logistic")
+    ops.fused_ls(tdesign.DenseDesign(X, 256), y, xb,
+                 torch.full((p,), 1e-3, device=cuda),
+                 linesearch.full_candidates(1e-3, 13, 0.5, 20, cuda),
+                 "logistic")
+    torch.cuda.synchronize()
+    res = ops.kernel_resources()
+    k1 = {r["name"]: r for r in res["glm_stats"]}["glm_stats_kernel<0>"]
+    assert k1["launches"] >= 1 and k1["requested_threads"] == 256
+    assert k1["requested_dynamic_smem"] == 0
+    k6 = {r["name"]: r for r in res["margin_ls"]}["margin_ls_stream<0,false>"]
+    assert 0 < k6["requested_dynamic_smem"] + k6["static_smem"] \
+        <= hlo.shared_memory_budget(cuda)

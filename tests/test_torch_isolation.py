@@ -35,7 +35,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.baselines.admm", "repro_torch.baselines.online_tg",
            "repro_torch.baselines.lbfgs", "repro_torch.core.prox_ref",
            "repro_torch.kernels.admm_shooting",
-           "repro_torch.kernels.online_tg"]
+           "repro_torch.kernels.online_tg", "repro_torch.analysis",
+           "repro_torch.analysis.lint", "repro_torch.analysis.rules",
+           "repro_torch.analysis.audit", "repro_torch.roofline",
+           "repro_torch.roofline.hlo"]
 
 
 def _port_files():

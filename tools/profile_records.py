@@ -41,7 +41,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "src"))
 import chip_smoke  # noqa: E402  (the cells' data, solver and lam1)
-import profile_superstep  # noqa: E402  (launch_check, launch_records)
+import profile_superstep  # noqa: E402  (launch_check)
+from repro_torch.analysis import audit  # noqa: E402  (launch_records)
 
 
 def one_cycle(torch, solver, lam1, steps):
@@ -94,7 +95,7 @@ def timeline(prof, k: int = 4) -> dict:
     """Where a record's device kernels lie against the host's launch
     calls: both counts, and the first and last ``k`` of each as (name, us
     from the first launch call)."""
-    host, dev = profile_superstep.launch_records(prof)
+    host, dev = audit.launch_records(prof)
     t0 = host[0][0] if host else 0.0
     ends = lambda xs: [[n, round(t - t0, 1)] for t, n in xs[:k] + xs[-k:]]
     return {"host_launch_calls": len(host), "device_kernels": len(dev),
