@@ -141,6 +141,26 @@ drives each path through the entry points a user calls and checks it:
     the spilling ones named; the collective sequence of the (1, 2) gloo
     world's sparse session, the same in two supersteps and on both ranks.
     Any part not ``ok`` fails the run.
+  * lm (last; the LM template's serving path): gemma3-12b's full config
+    (48 layers, d 3840, vocab 262,144; 11,765,395,200 float32 parameters,
+    47 GB, drawn on the card from a seed) built by
+    ``repro_torch.models.lm.build_model`` after every earlier phase freed
+    its memory; ``repro_torch.launch.serve.generate`` at batch 2, a prompt
+    of 1,536 tokens (two 1,024-key attention chunks, past the 1,024-token
+    local window) and 32 greedy tokens, timed, then one full forward over
+    the prompt and the generated tokens.  Under the reference's init the
+    forward's roundings grow about tenfold a layer, so the 48 layers'
+    decode-vs-forward difference is reported beside the forward's own
+    floor (one row forwarded alone); the check holds one-layer cuts of the
+    same weights (layer 0, local; layer 5, global) to 1e-3 of the largest
+    logit with greedy tokens equal but for ties, a decode one position off
+    must exceed it, and a depth profile (2, 3, 6, 12 layers) is reported.
+    Then ``repro_torch.core.head_probe``: examples/lm_head_probe.py's
+    task, 2,048 sequences of 32 tokens mean-pooled into (2,048, 3,840)
+    features on the card, ``fit_probe`` on the first 1,600 rows (tile 256:
+    15 tiles, Gauss-Seidel; K1, K2 and K4 launched) held against the same
+    fit on the CPU (the same alphas and n_iter, beta within 1e-5, or a
+    float32 tie named).
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -3700,10 +3720,308 @@ def baselines_phase(np, torch, dd, dev, report, parity, card):
     return admm_counts, tg_counts
 
 
+# the lm phase: gemma3-12b's full config (48 layers, d 3840, vocab 262,144)
+# with float32 weights, a request batch whose prompt spans two 1,024-key
+# attention chunks and the 1,024-token local window, and the head probe of
+# examples/lm_head_probe.py on its pooled features
+LM_ARCH = "gemma3-12b"
+LM_PARAMS = 11_765_395_200          # the reference's count of the config
+LM_BATCH, LM_PROMPT, LM_GEN = 2, 1536, 32
+# Decode against the full forward, over the largest |logit|, held on
+# one-layer cuts of the full-width weights (a local layer, a global one).
+# Under the reference's init (wq's std 1/sqrt(H)) the attention logits
+# have a std near 340 at full width, and float32 roundings grow about
+# tenfold a layer: the forward itself, on one row alone or beside another
+# (the same arithmetic in another GEMM shape), parts by 8e-5 of the
+# largest logit at one layer, 1.2e-3 at three and 1.28 at 48 (an H100 at
+# 700 W).  So the 48 layers' decode error is reported beside that floor,
+# not held.  One layer keeps the decode error near 1e-4; 1e-3 is the
+# reference's own bar (tests/test_models.py, 1e-3 on logits of about 4),
+# and a decode at a position off by one (the fault control) must exceed
+# it.
+LM_DECODE_TOL = 1e-3
+LM_DEPTHS = (2, 3, 6, 12)           # the depth profile's cuts (gen 8)
+PROBE_N, PROBE_SEQ, PROBE_TRAIN, PROBE_BATCH = 2048, 32, 1600, 128
+PROBE_BETA_TOL = 1e-5
+
+
+def probe_agreement(np, r_card, r_cpu) -> dict:
+    """The card's probe fit against the CPU's: equal alphas and n_iter and
+    beta within 1e-5; or, where a float32 near-tie parts them (ROADMAP
+    Queue 3 item 4), the step where the alphas part, with f equal there
+    within 1e-6 relative on both."""
+    a_card, a_cpu = r_card.history["alpha"], r_cpu.history["alpha"]
+    f_card = np.array(r_card.history["f"])
+    f_cpu = np.array(r_cpu.history["f"])
+    beta_err = float(np.max(np.abs(r_card.beta - r_cpu.beta)))
+    out = {"n_iter_card": r_card.n_iter, "n_iter_cpu": r_cpu.n_iter,
+           "beta_abs_err": beta_err, "alpha_card": a_card,
+           "alpha_cpu": a_cpu}
+    if a_card == a_cpu:
+        check(r_card.n_iter == r_cpu.n_iter
+              and beta_err <= PROBE_BETA_TOL,
+              f"lm: probe card vs CPU: n_iter {r_card.n_iter} / "
+              f"{r_cpu.n_iter}, beta {beta_err}")
+        return {**out, "parted_at": None}
+    k = next(i for i, (a, b) in enumerate(zip(a_card, a_cpu)) if a != b)
+    f_rel = float(np.max(np.abs(f_card[:k + 1] - f_cpu[:k + 1])
+                         / np.abs(f_cpu[:k + 1])))
+    print(f"lm: probe card and CPU part at superstep {k} (alpha "
+          f"{a_card[k]} / {a_cpu[k]}, f {f_card[k]!r} / {f_cpu[k]!r})",
+          flush=True)
+    check(f_rel <= 1e-6, f"lm: probe fits part at superstep {k} with f "
+          f"{f_rel} apart: not a float32 tie")
+    return {**out, "parted_at": k, "f_rel_err_to_part": f_rel}
+
+
+def lm_cut(model, layers, **replace):
+    """A model over the given layers of ``model`` (the same tensors, no
+    copy), its config replaced by ``replace``."""
+    from repro_torch.models.transformer import DecoderModel
+    state = model.state_dict()
+    sub = {k: v for k, v in state.items() if not k.startswith("layers.")}
+    for i, src in enumerate(layers):
+        pre = f"layers.{src}."
+        sub.update({f"layers.{i}.{k[len(pre):]}": v
+                    for k, v in state.items() if k.startswith(pre)})
+    return DecoderModel(model.cfg.replace(n_layers=len(layers), **replace),
+                        sub)
+
+
+def decode_vs_forward(torch, serve, model, prompts, gen: int) -> tuple:
+    """(the serve record, the check) of ``serve.generate`` on ``prompts``
+    against one full forward over the prompt and the generated tokens:
+    the largest difference of the logits at the positions they share, over
+    the largest |logit|; the forward's own floor (row 0 forwarded alone,
+    the same arithmetic in another GEMM shape); the greedy tokens that
+    differ from the forward's argmax, and which of those are ties (the
+    forward's top two within the decode's difference)."""
+    S = prompts.shape[1]
+    rec = serve.generate(model, prompts, gen, keep_logits=True)
+    seq, got = rec.pop("seq"), rec.pop("logits")
+    t0 = time.perf_counter()
+    full, _ = model(torch.cat([prompts, seq[:, :-1]], dim=1))
+    want = full[:, S - 1:]
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    solo, _ = model(torch.cat([prompts[:1], seq[:1, :-1]], dim=1))
+    scale = float(want.abs().max())
+    diff = (got - want).abs().amax(dim=-1)           # (B, gen)
+    err = float(diff.max()) / scale
+    floor = float((solo[0, S - 1:] - want[0]).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = want.argmax(dim=-1) != seq
+    ties = differ & (gap <= 2 * diff)
+    out = {"decode_vs_forward_rel_err": err, "forward_floor_rel": floor,
+           "max_abs_logit": scale, "min_top2_gap_rel":
+           float(gap.min()) / scale, "forward_s": forward_s,
+           "forward_tokens": want.shape[0] * (S + gen - 1),
+           "greedy_differs": int(differ.sum()), "greedy_ties":
+           int(ties.sum()), "greedy_differs_not_tie":
+           (differ & ~ties).nonzero().tolist()}
+    return rec, out
+
+
+def attention_logit_std(torch, model, tokens) -> float:
+    """The std of layer 0's attention logits (q k / sqrt(hd), before the
+    rotation and the mask) over ``tokens``: the scale the reference's init
+    gives them."""
+    from repro_torch.models import attention, common
+    cfg = model.cfg
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    h = torch.nn.functional.embedding(tokens, model.embed).to(dt)
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    lp = model.layers[0]
+    q, k, _ = attention._qkv(
+        lp["attn"], common.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
+    k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) \
+        / cfg.resolved_head_dim ** 0.5
+    return float(logits.std())
+
+
+def position_fault(torch, lm, model, prompts, want_last) -> dict:
+    """The fault control: the prompt's last token decoded at its own
+    position and at the next one (its cache entry left empty, its rotation
+    off by one), each against the forward's logits there."""
+    B, S = prompts.shape
+    prefill, decode = lm.make_prefill_step(model), lm.make_decode_step(model)
+    scale = float(want_last.abs().max())
+    out = {}
+    for tag, pos in (("right", S - 1), ("off_by_one", S)):
+        caches = lm.init_cache(model.cfg, B, S + 1, device=prompts.device)
+        _, caches = prefill(caches, {"tokens": prompts[:, :-1]})
+        logits, _ = decode(caches, prompts[:, -1:], pos)
+        out[tag] = float((logits - want_last).abs().max()) / scale
+    return out
+
+
+def lm_phase(np, torch, dev, card) -> dict:
+    """gemma3-12b at full width on the card: ``launch/serve.py``'s
+    ``generate`` (batched prefill and greedy decode) held against one full
+    forward, then ``core/head_probe.py`` on mean-pooled features (K1, K2
+    and K4 through the dense Gauss-Seidel fit) held against the same fit
+    on the CPU.  Returns the probe's launch counts."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import head_probe
+    from repro_torch.core.dglmnet import DGLMNETConfig
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import common, lm
+    from repro_torch.models.transformer import param_defs
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free_b, total_b = torch.cuda.mem_get_info()
+    cfg = get_arch(LM_ARCH)
+    n_params = common.param_count(param_defs(cfg))
+    check(n_params == LM_PARAMS, f"lm: {n_params} parameters, the "
+          f"reference counts {LM_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    check(sum(p.numel() for p in params) == n_params
+          and all(p.device == dev for p in params),
+          "lm: the model's parameters are not the config's, on the card")
+    weight_gb = sum(p.numel() * p.element_size() for p in params) / 1e9
+    del params
+    emit({"phase": "lm_setup", "arch": cfg.name, "card": card,
+          "params": n_params, "weight_gb": weight_gb, "dtype": cfg.dtype,
+          "weights_dtype": "float32", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "free_gb_before": free_b / 1e9, "total_gb": total_b / 1e9,
+          "init_s": init_s,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # ---- serve: prefill and greedy decode, then one full forward
+    prompts = torch.randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.reset_peak_memory_stats()
+    rec, full48 = decode_vs_forward(torch, serve, model, prompts, LM_GEN)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(np.isfinite([full48["decode_vs_forward_rel_err"],
+                            full48["max_abs_logit"]]).all()),
+          f"lm: non-finite logits {full48}")
+    emit({"phase": "lm_serve", "card": card,
+          **{k: v for k, v in rec.items() if k != "tokens"},
+          "first_tokens": rec["tokens"][0][:8], "peak_gb": serve_peak,
+          "check_48_layers": full48})
+    # the check: one local and one global layer at full width, held to
+    # LM_DECODE_TOL, greedy tokens equal but for ties; then the fault
+    # control and the depth profile (reported)
+    cuts = {"local_layer_0": lm_cut(model, [0]),
+            "global_layer_5": lm_cut(model, [5], local_global_ratio=0,
+                                     sliding_window=None)}
+    checks = {}
+    for tag, cut in cuts.items():
+        _, checks[tag] = decode_vs_forward(torch, serve, cut, prompts,
+                                           LM_GEN)
+        c = checks[tag]
+        check(c["decode_vs_forward_rel_err"] <= LM_DECODE_TOL,
+              f"lm: {tag}: decode logits {c['decode_vs_forward_rel_err']} "
+              f"of the largest |logit| off the full forward (tolerance "
+              f"{LM_DECODE_TOL})")
+        check(not c["greedy_differs_not_tie"],
+              f"lm: {tag}: greedy tokens differ from the forward's argmax "
+              f"at (row, step) {c['greedy_differs_not_tie']}")
+    local = cuts["local_layer_0"]
+    want_last = local(prompts)[0][:, -1]
+    fault = position_fault(torch, lm, local, prompts, want_last)
+    check(fault["right"] <= LM_DECODE_TOL < fault["off_by_one"],
+          f"lm: the position fault control does not separate: {fault}")
+    depths = {}
+    for d in LM_DEPTHS:
+        _, c = decode_vs_forward(torch, serve, lm_cut(model, range(d)),
+                                 prompts, 8)
+        depths[d] = {k: c[k] for k in ("decode_vs_forward_rel_err",
+                                       "forward_floor_rel",
+                                       "greedy_differs")}
+    emit({"phase": "lm_decode_check", "card": card,
+          "layer0_attention_logit_std": attention_logit_std(
+              torch, model, prompts[:, :256]),
+          "tolerance": LM_DECODE_TOL, "cuts": checks,
+          "position_fault": fault, "depth_profile": depths,
+          "depth_48": {k: full48[k] for k in ("decode_vs_forward_rel_err",
+                                              "forward_floor_rel",
+                                              "greedy_differs")}})
+    del rec, prompts, cuts, local, want_last
+    torch.cuda.empty_cache()
+
+    # ---- the head probe: examples/lm_head_probe.py's task at full width
+    rng = np.random.default_rng(SEED)
+    V = cfg.vocab_size
+    labels = rng.choice([-1.0, 1.0], PROBE_N).astype(np.float32)
+    tokens = np.where(labels[:, None] > 0,
+                      rng.integers(0, V // 2, (PROBE_N, PROBE_SEQ)),
+                      rng.integers(V // 2, V, (PROBE_N, PROBE_SEQ)))
+    tok = torch.from_numpy(tokens).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = head_probe.extract_features(
+        lambda m, t: m(t, return_hidden=True)[0], model,
+        tok.split(PROBE_BATCH))
+    torch.cuda.synchronize()
+    feature_s = time.perf_counter() - t0
+    feature_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(feats.shape) == (PROBE_N, cfg.d_model)
+          and feats.device == dev and bool(torch.isfinite(feats).all()),
+          f"lm: features {tuple(feats.shape)} on {feats.device}: not "
+          "finite, or not on the card")
+    del model, tok
+    torch.cuda.empty_cache()
+    n_tr = PROBE_TRAIN
+    config = DGLMNETConfig(lam1=0.05, lam2=0.05, tile_size=256,
+                           max_outer=40)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = head_probe.fit_probe(feats[:n_tr], labels[:n_tr], config)
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    probe_counts = {k: counts[k] for k in ("glm_stats", "cd_tile_solve",
+                                           "alpha_search")}
+    check(all(v > 0 for v in probe_counts.values()),
+          f"lm: the probe fit did not launch K1, K2 and K4: {counts}")
+    check(not any(v for k, v in counts.items() if k.endswith("/plain")),
+          f"lm: the probe fit took a plain route: {counts}")
+    p = head_probe.predict_proba(feats[n_tr:], res.beta).cpu().numpy()
+    y_te = labels[n_tr:]
+    acc = float(((p > 0.5) == (y_te > 0)).mean())
+    t0 = time.perf_counter()
+    res_cpu = head_probe.fit_probe(feats[:n_tr].cpu(), labels[:n_tr],
+                                   config, device="cpu")
+    cpu_fit_s = time.perf_counter() - t0
+    agree = probe_agreement(np, res, res_cpu)
+    probe_s = feature_s + fit_s + cpu_fit_s
+    emit({"phase": "lm_probe", "card": card, "n": PROBE_N,
+          "seq": PROBE_SEQ, "train": n_tr, "features_shape":
+          list(feats.shape), "feature_s": feature_s,
+          "feature_tok_per_s": PROBE_N * PROBE_SEQ / feature_s,
+          "feature_peak_gb": feature_peak, "fit_s": fit_s,
+          "n_iter": res.n_iter, "f": res.history["f"][-1],
+          "nnz": int((res.beta != 0).sum()), "p": int(res.beta.size),
+          "test_accuracy": acc, "test_au_prc": float(
+              synthetic.au_prc(y_te, p)),
+          "launches": probe_counts, "cpu_fit_s": cpu_fit_s,
+          "card_vs_cpu": agree, "probe_s": probe_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del feats
+    torch.cuda.empty_cache()
+    return probe_counts
+
+
 def main() -> None:
     if "--dist-worker" in sys.argv:
         dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
         return
+    t_start = time.perf_counter()
     if not (REPO / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py; run it from "
              "a checkout of the repository", code=2)
@@ -4203,9 +4521,13 @@ def main() -> None:
                              analysis=analysis)
     dist_tmp.cleanup()
     analysis_phase(analysis, card)
+    # the LM template's serving path and the head probe, last: every
+    # earlier phase's tensors are freed before its 47 GB of weights
+    probe_counts = lm_phase(np, torch, dev, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]
+        report[name]["launches_head_probe"] = probe_counts[name]
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
     # the four built-in families never took a plain route on the card
     built_in = {"sparse": sparse_counts, "serve": serve_counts,
@@ -4306,6 +4628,7 @@ def main() -> None:
                                    "at_half_of_bound", "threads", "n", "K",
                                    "asymmetry_vs_plain", "G_asymmetry",
                                    "fault_controls", "launches_stream",
+                                   "launches_head_probe",
                                    "chunk_shapes", "bytes_bound_passes_ms",
                                    "share_of_bytes_bound_passes",
                                    "dependency_steps", "step_us",
@@ -4314,6 +4637,8 @@ def main() -> None:
                                    "w_in_shared_memory")
                if k in rep}})
     emit({"kernels": kernels})
+    emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
+          "earlier_wall_s": "470-530 (PERF.md, PRs 23-24)"})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

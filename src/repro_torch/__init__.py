@@ -12,10 +12,13 @@ model.  ``repro_torch.obs`` traces a run (``REPRO_TRACE=dir``) and
 over ``torch.distributed`` (``GLMSolver(..., mesh=make_dist_mesh(D, M))``,
 ``python -m repro_torch.launch.dist_run``).  ``repro_torch.analysis``
 lints the port and audits it on the card (``python -m
-repro_torch.analysis --check --audit``).
+repro_torch.analysis --check --audit``).  The LM template's dense models
+(``repro_torch.configs``, ``repro_torch.models``) serve through ``python
+-m repro_torch.launch.serve``, and ``repro_torch.core.head_probe`` fits
+the GLM on their frozen features.
 """
 import torch  # noqa: F401  (the package's one hard dependency)
 
 __all__ = ["core", "data", "kernels", "serve", "checkpoint", "glm", "launch",
            "obs", "convert", "device", "timing", "dist", "sharding",
-           "analysis", "roofline"]
+           "analysis", "roofline", "configs", "models"]

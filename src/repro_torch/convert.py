@@ -1,8 +1,10 @@
-"""Carry packed designs and fit states across from numpy arrays.
+"""Carry packed designs, fit states and LM weights across from numpy
+arrays.
 
-The JAX package's designs and fit states are pytrees of arrays; their numpy
-leaves rebuild the same objects here, so both packages can be fed the very
-same packed data and the very same iterate (the parity tests do so).
+The JAX package's designs, fit states and model parameters are pytrees of
+arrays; their numpy leaves rebuild the same objects here, so both packages
+can be fed the very same packed data, the very same iterate and the very
+same weights (the parity tests do so).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import torch
 from repro_torch.core.dglmnet import FitState
 from repro_torch.data.design import BlockSparseDesign, DenseDesign
 from repro_torch.device import resolve_device
+from repro_torch.models.common import flatten, unflatten
+from repro_torch.models.transformer import param_defs, unstack
 
 
 def _t(a, dtype, device):
@@ -51,3 +55,26 @@ def state_from_numpy(beta, xb, mu, cursor=0, step=0, *, device=None):
         beta=_t(beta, np.float32, device), xb=_t(xb, np.float32, device),
         mu=_t(np.asarray(mu, np.float32).reshape(()), np.float32, device),
         cursor=int(np.asarray(cursor).reshape(-1)[0]), step=int(step))
+
+
+def lm_params_from_numpy(cfg, tree, *, device=None) -> dict:
+    """A model state of the port ({name: tensor}, for
+    ``models.lm.build_model(cfg, state=...)``) from a parameter tree in the
+    JAX package's layout, as numpy arrays, on ``device`` (None: the CUDA
+    card).  Names and shapes are checked against ``param_defs(cfg)``; the
+    stacked ``(L, ...)`` leaves are unstacked one layer a view."""
+    defs = flatten(param_defs(cfg))
+    flat = flatten(tree)
+    if set(flat) != set(defs):
+        raise ValueError(
+            f"{cfg.name}: leaves {sorted(set(flat) - set(defs))} are not in "
+            f"the config, {sorted(set(defs) - set(flat))} are missing")
+    dev = resolve_device(device)
+    tensors = {}
+    for name, d in defs.items():
+        a = np.array(flat[name], np.float32)
+        if a.shape != d.shape:
+            raise ValueError(f"{cfg.name}: {name} has shape {a.shape}, the "
+                             f"config says {d.shape}")
+        tensors[name] = torch.from_numpy(a).to(device=dev, dtype=d.dtype)
+    return unstack(cfg, unflatten(tensors))

@@ -902,15 +902,17 @@ def as_local_design(X, tile_size: int, *, device=None) -> DesignMatrix:
 
 
 def dense_design(X, tile_size: int, *, device=None):
-    """(DenseDesign, DesignInfo) from an (n, p) array; features are padded
-    with zero columns to a tile multiple on the device itself (None: the
-    CUDA card)."""
+    """(DenseDesign, DesignInfo) from an (n, p) array or tensor; features
+    are padded with zero columns to a tile multiple on the device itself
+    (None: the CUDA card).  A tensor already there is copied on the
+    device, with no trip through the host."""
     device = resolve_device(device)
-    X = np.asarray(X, np.float32)
+    if not torch.is_tensor(X):
+        X = torch.from_numpy(np.asarray(X, np.float32))
     n, p = X.shape
     data = torch.zeros((n, p + (-p) % tile_size), dtype=torch.float32,
                        device=device)
-    data[:, :p] = torch.from_numpy(X).to(device)
+    data[:, :p] = X.to(device=device, dtype=torch.float32)
     return DenseDesign(data, tile_size), DesignInfo(shape=(n, p))
 
 

@@ -1,0 +1,104 @@
+"""LM-template serving demo: batched prefill and a greedy decode loop over
+the template's configurations, on the card.  This is not the GLM serving
+path: the paper's models are served by ``repro_torch.launch.serve_glm``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --smoke --batch 4 --prompt-len 16 --gen 24 [--device cpu]
+
+A port of the JAX package's ``repro.launch.serve`` with ``--device``
+(default: the CUDA card, which raises where there is none).  ``generate``
+under the CLI runs one request batch on a built model and returns its
+record, so a caller can reuse one set of weights; the tokens stay on the
+device and are read to the host once, at the end.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
+
+import torch
+
+from repro_torch.timing import timed
+
+
+def generate(model, prompts: torch.Tensor, gen: int, *,
+             keep_logits: bool = False) -> dict:
+    """Prefill ``prompts`` (B, S) on the model's device, then ``gen`` greedy
+    tokens (the prefill's and ``gen - 1`` decode steps).  Returns the
+    record: seconds and rates of both parts, the tokens (``tokens``, on
+    the host; ``seq``, the device tensor) and, with ``keep_logits``, the
+    logits that chose each token (``logits``, (B, gen, V) on the device)."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    B, S = prompts.shape
+    if gen < 1:
+        raise ValueError(f"gen must be at least 1, got {gen}")
+    caches = lm.init_cache(cfg, B, S + gen, device=prompts.device)
+    prefill = lm.make_prefill_step(model)
+    decode = lm.make_decode_step(model)
+    (logits, caches), prefill_s = timed(prefill, caches,
+                                        {"tokens": prompts})
+    kept = [logits] if keep_logits else None
+
+    def decode_loop(caches, logits):
+        tok = logits.argmax(dim=-1)[:, None]
+        outs = [tok]
+        for i in range(S, S + gen - 1):
+            logits, caches = decode(caches, tok, i)
+            tok = logits.argmax(dim=-1)[:, None]
+            outs.append(tok)
+            if kept is not None:
+                kept.append(logits)
+        return torch.cat(outs, dim=1)
+
+    seq, decode_s = timed(decode_loop, caches, logits)
+    tokens = seq.cpu().numpy()
+    steps = gen - 1
+    rec = {"arch": cfg.name, "batch": B, "prompt_len": S, "gen": gen,
+           "device": str(prompts.device),
+           "prefill_s": prefill_s, "prefill_tok_per_s": B * S / prefill_s,
+           "decode_s": decode_s, "decode_steps": steps,
+           "decode_ms_per_step": decode_s / steps * 1e3 if steps else None,
+           "decode_tok_per_s": B * steps / decode_s if steps else None,
+           "tokens": tokens.tolist(), "seq": seq}
+    if kept is not None:
+        rec["logits"] = torch.stack(kept, dim=1)
+    return rec
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=24)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs.registry import get_arch, smoke_variant
+    from repro_torch.device import resolve_device
+    from repro_torch.models import lm
+
+    dev = resolve_device(args.device)
+    cfg = smoke_variant(args.arch) if args.smoke else get_arch(args.arch)
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len),
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    rec = generate(model, prompts, args.gen)
+    print(f"prefill {args.prompt_len} tokens x{args.batch}: "
+          f"{rec['prefill_s']:.2f}s")
+    rate = rec["decode_tok_per_s"]
+    print(f"decoded {args.gen} tokens x{args.batch} in {rec['decode_s']:.2f}s"
+          + (f" ({rate:.1f} tok/s)" if rate else ""))
+    print("sample:", rec["tokens"][0][:16])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

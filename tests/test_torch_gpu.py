@@ -1235,3 +1235,56 @@ def test_kernel_resources_record_the_launches(cuda):
     k6 = {r["name"]: r for r in res["margin_ls"]}["margin_ls_stream<0,false>"]
     assert 0 < k6["requested_dynamic_smem"] + k6["static_smem"] \
         <= hlo.shared_memory_budget(cuda)
+
+
+def test_lm_smoke_and_head_probe_on_the_card(cuda):
+    """The gemma3 smoke model on the card against the same weights on the
+    CPU, then the head probe on its pooled features: K1, K2 and K4
+    launched, and the fit held against the same fit on the CPU (the same
+    alphas and n_iter, beta within 1e-5) at 8 supersteps, under the
+    float32 plateau.  One layer's hidden states and logits are held to
+    5e-4 of the largest (the bar of tests/test_torch_models.py); through
+    six layers the reference's init (attention logits with a std of tens)
+    amplifies the two devices' roundings as it does two packages', so the
+    six-layer features are held to be finite, and the probe fits on the
+    very same features."""
+    from repro_torch.configs.registry import smoke_variant
+    from repro_torch.core import head_probe
+    from repro_torch.models import lm
+
+    def on_both(cfg):
+        cpu = lm.build_model(cfg, generator=torch.Generator().manual_seed(0))
+        return cpu, lm.build_model(cfg, state={
+            k: v.to(cuda) for k, v in cpu.state_dict().items()})
+
+    rng = np.random.default_rng(0)
+    labels = rng.choice([-1.0, 1.0], 256).astype(np.float32)
+    tok = torch.from_numpy(np.where(
+        labels[:, None] > 0, rng.integers(0, 128, (256, 32)),
+        rng.integers(128, 256, (256, 32))))
+    cfg = smoke_variant("gemma3-12b")
+    cpu1, gpu1 = on_both(cfg.replace(n_layers=1))
+    for hidden in (True, False):
+        want = cpu1(tok, return_hidden=hidden)[0]
+        got = gpu1(tok.to(cuda), return_hidden=hidden)[0]
+        assert float((got.cpu() - want).abs().max()) <= \
+            5e-4 * float(want.abs().max())
+    _, gpu = on_both(cfg)
+    feats = head_probe.extract_features(
+        lambda m, t: m(t, return_hidden=True)[0], gpu,
+        [tok[i:i + 64].to(cuda) for i in range(0, 256, 64)])
+    assert feats.is_cuda and feats.shape == (256, 64)
+    assert bool(torch.isfinite(feats).all())
+    cfg_glm = DGLMNETConfig(lam1=0.05, lam2=0.05, tile_size=16, max_outer=8,
+                            tol=0.0)
+    ops.reset_launch_counts()
+    r_gpu = head_probe.fit_probe(feats, labels, cfg_glm)
+    counts = ops.launch_counts()
+    r_cpu = head_probe.fit_probe(feats.cpu(), labels, cfg_glm, device="cpu")
+    for k in ("glm_stats", "cd_tile_solve", "alpha_search"):
+        assert counts[k] > 0, counts
+    assert r_gpu.n_iter == r_cpu.n_iter == 8
+    assert r_gpu.history["alpha"] == r_cpu.history["alpha"]
+    np.testing.assert_allclose(r_gpu.beta, r_cpu.beta, rtol=0, atol=1e-5)
+    p = head_probe.predict_proba(feats, r_gpu.beta)
+    assert p.is_cuda and bool(torch.isfinite(p).all())

@@ -38,7 +38,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.kernels.online_tg", "repro_torch.analysis",
            "repro_torch.analysis.lint", "repro_torch.analysis.rules",
            "repro_torch.analysis.audit", "repro_torch.roofline",
-           "repro_torch.roofline.hlo"]
+           "repro_torch.roofline.hlo", "repro_torch.configs",
+           "repro_torch.configs.registry", "repro_torch.launch.mesh",
+           "repro_torch.models.lm", "repro_torch.models.transformer",
+           "repro_torch.core.head_probe", "repro_torch.launch.serve"]
 
 
 def _port_files():
