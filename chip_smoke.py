@@ -141,7 +141,7 @@ drives each path through the entry points a user calls and checks it:
     the spilling ones named; the collective sequence of the (1, 2) gloo
     world's sparse session, the same in two supersteps and on both ranks.
     Any part not ``ok`` fails the run.
-  * lm (last; the LM template's serving path): gemma3-12b's full config
+  * lm (the LM template's serving path): gemma3-12b's full config
     (48 layers, d 3840, vocab 262,144; 11,765,395,200 float32 parameters,
     47 GB, drawn on the card from a seed) built by
     ``repro_torch.models.lm.build_model`` after every earlier phase freed
@@ -160,7 +160,30 @@ drives each path through the entry points a user calls and checks it:
     features on the card, ``fit_probe`` on the first 1,600 rows (tile 256:
     15 tiles, Gauss-Seidel; K1, K2 and K4 launched) held against the same
     fit on the CPU (the same alphas and n_iter, beta within 1e-5, or a
-    float32 tie named).
+    float32 tie named);
+  * lm_families (last): the template's other five families at full width,
+    one model at a time on the card (built from a seed, served, checked,
+    freed): deepseek-v2-lite-16b (moe with MLA, all 27 layers,
+    15,709,498,368 parameters), mixtral-8x7b (8 of its 32 layers: 186.81
+    GB of float32 do not fit the card), zamba2-1.2b (hybrid),
+    xlstm-1.3b (ssm), llama-3.2-vision-11b (vlm, 1,601 image tokens) and
+    whisper-tiny (audio, 1,500 frames).  ``serve.generate`` at batch 2, a
+    1,408-token prompt (zamba2 and xlstm 704, whisper 320) and 128 greedy
+    tokens, timed (the plain scans' seconds inside the hybrid and ssm
+    prefills); at capacity for every MoE token, decode against one full
+    forward at full depth (reported beside the forward's floor) and on a
+    cut of one block of each kind, held to the reference's _DECODE_TOL
+    (1e-3; zamba2 5e-3, xlstm 2e-2) or twice the cut's own forward floor,
+    the larger, with greedy tokens equal but for ties and a decode one
+    position off past the bar (an MoE cut past the bar at one position
+    only passes where the router's top-k set differs there).  At full
+    width the reference's init overflows xlstm's sLSTM (NaN logits in
+    both packages), so its cut is reported by where it is not finite and
+    its mLSTM and sLSTM blocks are held alone (the sLSTM on a tenth of
+    its inputs), with a state one token short as the fault control.  On
+    deepseek's features, the head probe by the fused Jacobi superstep
+    (1,024 sequences of 32 tokens, 800 train rows, tile 256; K5 and K6
+    launched) held against the same fit on the CPU.
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -3788,38 +3811,68 @@ def lm_cut(model, layers, **replace):
                         sub)
 
 
-def decode_vs_forward(torch, serve, model, prompts, gen: int) -> tuple:
+def decode_vs_forward(torch, serve, model, prompts, gen: int, *,
+                      extra=None, whole: bool = False, bar=None) -> tuple:
     """(the serve record, the check) of ``serve.generate`` on ``prompts``
     against one full forward over the prompt and the generated tokens:
     the largest difference of the logits at the positions they share, over
     the largest |logit|; the forward's own floor (row 0 forwarded alone,
     the same arithmetic in another GEMM shape); the greedy tokens that
     differ from the forward's argmax, and which of those are ties (the
-    forward's top two within the decode's difference)."""
+    forward's top two within the decode's difference).  ``extra``: the
+    modality inputs; ``whole``: the forward takes the last generated token
+    too (S + gen tokens a row, which an MoE's token groups divide);
+    ``bar``: list the (row, step) pairs past max(bar, LMF_FLOOR_FACTOR x
+    the floor), that bar as ``bar``."""
     S = prompts.shape[1]
-    rec = serve.generate(model, prompts, gen, keep_logits=True)
+    extra = extra or {}
+    rec = serve.generate(model, prompts, gen, extra=extra, keep_logits=True)
     seq, got = rec.pop("seq"), rec.pop("logits")
+    tail = seq if whole else seq[:, :-1]
     t0 = time.perf_counter()
-    full, _ = model(torch.cat([prompts, seq[:, :-1]], dim=1))
-    want = full[:, S - 1:]
+    full, _ = model(torch.cat([prompts, tail], dim=1), **extra)
+    want = full[:, S - 1:S - 1 + gen]
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    solo, _ = model(torch.cat([prompts[:1], seq[:1, :-1]], dim=1))
-    scale = float(want.abs().max())
-    diff = (got - want).abs().amax(dim=-1)           # (B, gen)
-    err = float(diff.max()) / scale
-    floor = float((solo[0, S - 1:] - want[0]).abs().max()) / scale
+    solo, _ = model(torch.cat([prompts[:1], tail[:1]], dim=1),
+                    **{k: v[:1] for k, v in extra.items()})
+    solo = solo[:, :S - 1 + gen]
+    forward_tokens = full.shape[0] * full.shape[1]
+    del full
+    # positions where either side is not finite (the reference's init
+    # overflows xlstm's sLSTM at full width) are compared by where they
+    # fall, the others by value
+    fin_got = torch.isfinite(got).all(dim=-1)            # (B, gen)
+    fin_want = torch.isfinite(want).all(dim=-1)
+    both = fin_got & fin_want
+    zero = torch.zeros((), device=got.device)
+    scale = float(torch.where(both[..., None], want.abs(), zero).max()) \
+        if bool(both.any()) else float("nan")
+    diff = torch.where(both, (got - want).abs().amax(dim=-1), zero)
+    err = float(diff.max()) / scale if bool(both.any()) else float("nan")
+    solo_ok = both[0] & torch.isfinite(solo[0, S - 1:]).all(dim=-1)
+    floor = float(torch.where(solo_ok, (solo[0, S - 1:] - want[0]).abs()
+                              .amax(dim=-1), zero).max()) / scale \
+        if bool(solo_ok.any()) else float("nan")
     top2 = want.topk(2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
-    differ = want.argmax(dim=-1) != seq
+    gap = torch.where(both, top2[..., 0] - top2[..., 1], float("inf"))
+    differ = (want.argmax(dim=-1) != seq) & both
     ties = differ & (gap <= 2 * diff)
     out = {"decode_vs_forward_rel_err": err, "forward_floor_rel": floor,
            "max_abs_logit": scale, "min_top2_gap_rel":
            float(gap.min()) / scale, "forward_s": forward_s,
-           "forward_tokens": want.shape[0] * (S + gen - 1),
+           "forward_tokens": forward_tokens,
            "greedy_differs": int(differ.sum()), "greedy_ties":
            int(ties.sum()), "greedy_differs_not_tie":
-           (differ & ~ties).nonzero().tolist()}
+           (differ & ~ties).nonzero().tolist(),
+           "nonfinite_decode": int((~fin_got).sum()),
+           "nonfinite_forward": int((~fin_want).sum()),
+           "nonfinite_same_positions": bool((fin_got == fin_want).all())}
+    if bar is not None:      # the (row, step) pairs past the bar
+        if floor == floor:                           # not NaN
+            bar = max(bar, LMF_FLOOR_FACTOR * floor)
+        out["bar"] = bar
+        out["over_bar"] = (diff > bar * scale).nonzero().tolist()
     return rec, out
 
 
@@ -4015,6 +4068,533 @@ def lm_phase(np, torch, dev, card) -> dict:
     del feats
     torch.cuda.empty_cache()
     return probe_counts
+
+
+# the lm_families phase: the LM template's other five families at full
+# width, one model at a time (built, served, checked, freed), and the head
+# probe's fused Jacobi fit (K5, K6) on deepseek-v2-lite's features.
+# mixtral-8x7b is 186.81 GB in float32, over one 80 GB card: 8 of its 32
+# layers, full width.  Batch 2 with 1,408- and 1,536-token rows keeps B x S
+# a multiple of the 256-token MoE group for the prefill and the checking
+# forward (which takes the last generated token too); the prompt crosses
+# the 1,024-key attention chunk; whisper stays within its 448 learned
+# positions (320 + 128).  The recurrent models (zamba2, xlstm) take half
+# the prompt: their plain scans launch a few kernels a time step, and at
+# 1,408 tokens the phase took 234-292 s on an H100 (700 W) host, past its
+# 240 s budget.
+LMF_BATCH, LMF_PROMPT, LMF_GEN = 2, 1408, 128
+LMF_RECURRENT_PROMPT = LMF_PROMPT // 2
+LMF_MODELS = (
+    # arch, layers kept (None: all), the reference's parameter count,
+    # prompt length, the stacks of the one-block-of-each-kind cut and its
+    # config
+    ("deepseek-v2-lite-16b", None, 15_709_498_368, LMF_PROMPT,
+     {"dense_layers": [0], "layers": [0]},
+     dict(n_layers=2, first_dense_layers=1)),
+    ("mixtral-8x7b", 8, 11_872_309_248, LMF_PROMPT, {"layers": [0]},
+     dict(n_layers=1)),
+    ("zamba2-1.2b", None, 1_170_138_240, LMF_RECURRENT_PROMPT,
+     {"layers": [0]}, dict(n_layers=1)),
+    ("xlstm-1.3b", None, 1_238_632_448, LMF_RECURRENT_PROMPT,
+     {"layers": [0], "slstm": [0]}, dict(n_layers=2, slstm_period=2)),
+    ("llama-3.2-vision-11b", None, 11_536_830_464, LMF_PROMPT,
+     {"cross": [0], "layers": [0]}, dict(n_layers=1, cross_attn_period=1)),
+    ("whisper-tiny", None, 37_203_072, 320,
+     {"enc_layers": [0], "dec_layers": [0]},
+     dict(n_layers=1, encoder_layers=1)),
+)
+# the cuts' bar: the reference's own _DECODE_TOL (tests/test_models.py),
+# or twice the cut's own forward floor (row 0 forwarded alone: the same
+# float32 arithmetic in another GEMM shape) where that is larger.  Under
+# the reference's init llama-3.2-vision's cross block has attention logits
+# with a std in the hundreds (its record's cross_attention_logit_std), and
+# its one-cross-one-self cut parts from itself by 1.8e-3 of the largest
+# logit (an H100 at 700 W): no float32 decode can come within 1e-3 of
+# such a forward.  The fault controls exceed either bar by two orders or
+# more.
+LMF_TOL = {"zamba2-1.2b": 5e-3, "xlstm-1.3b": 2e-2}
+LMF_DEFAULT_TOL = 1e-3
+LMF_FLOOR_FACTOR = 2.0
+LMF_NO_DROP = 16.0            # moe.CAPACITY_FACTOR for the checks
+LMF_PROBE_N, LMF_PROBE_SEQ, LMF_PROBE_TRAIN = 1024, 32, 800
+# xlstm at full width: the reference's init draws the sLSTM's w_gates (d,
+# 4, H, hd) with std 1/sqrt(H) = 0.5, so its input gates' pre-activations
+# (the record's slstm_input_gate: std 22.07, up to 123.5 above their head
+# mean on an H100 at 700 W) stray past float32 exp's range (88.7): exp
+# overflows, c / n = inf / inf, and the model's logits turn NaN from the
+# third token on, in the JAX package as here (tests/test_torch_families.py
+# holds both on one full-width sLSTM layer; ROADMAP Queue 3 item 13).  So
+# xlstm's blocks are held alone at full width: the mLSTM on the model's
+# normed embeddings, the sLSTM on them scaled by this factor (a tenth of
+# the gates' spread, finite).
+LMF_SLSTM_INPUT_SCALE = 0.1
+
+
+def family_cut(lm, model, keep: dict, **replace):
+    """A model over the layers ``keep`` ({stack: [layer, ...]}) of
+    ``model``'s stacks (the same tensors, no copy) and its other
+    parameters, its config replaced by ``replace``."""
+    state = model.state_dict()
+    stacks = {k.split(".", 1)[0] for k in state if k.split(".")[1:2]
+              and k.split(".")[1].isdigit()}
+    sub = {k: v for k, v in state.items() if k.split(".", 1)[0] not in
+           stacks}
+    for stack, layers in keep.items():
+        for i, src in enumerate(layers):
+            pre = f"{stack}.{src}."
+            sub.update({f"{stack}.{i}.{k[len(pre):]}": v
+                        for k, v in state.items() if k.startswith(pre)})
+    return lm.build_model(model.cfg.replace(**replace), state=sub)
+
+
+def family_fault(torch, lm, model, prompts, extra, want, p0: int) -> dict:
+    """The fault control of a cut: the prompt's first ``p0`` tokens
+    prefilled, then token ``p0`` decoded at its own position (``right``)
+    and at the next one (``off_by_one``: its rotation and learned
+    position off, its cache entry left empty).  Each against the
+    forward's logits at ``p0`` (``want``), over their largest |logit|."""
+    B = prompts.shape[0]
+    prefill, decode = lm.make_prefill_step(model), lm.make_decode_step(model)
+    scale = float(want.abs().max())
+    out = {}
+    for tag, pos in (("right", p0), ("off_by_one", p0 + 1)):
+        caches = lm.init_cache(model.cfg, B, p0 + 2, device=prompts.device)
+        _, caches = prefill(caches, {"tokens": prompts[:, :p0], **extra})
+        logits, _ = decode(caches, prompts[:, p0:p0 + 1], pos, extra)
+        out[tag] = float((logits - want).abs().max()) / scale
+    return out
+
+
+class RouterLog:
+    """The top-k expert sets the MoE router picks, call by call
+    (``moe.route`` wrapped while it is installed): where a cut's decode
+    parts from its forward at one position, whether a float32 tie in the
+    router moved an expert there."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self._route = route = self.moe.route
+
+        def logged(p, x, cfg):
+            out = route(p, x, cfg)
+            self.calls.append((tuple(x.shape[:2]), out[1]))
+            return out
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+
+    def sets_differ(self, n_moe: int, prompt: int, row: int, step: int):
+        """For the logits of (row, step) of a ``decode_vs_forward`` run
+        logged as [prefill, decode steps..., forward, solo forward]: the
+        MoE layers whose top-k set differs between the decode and the
+        forward at that position."""
+        pre = self.calls[:n_moe]
+        steps = self.calls[n_moe:-2 * n_moe]
+        fwd = self.calls[-2 * n_moe:-n_moe]
+        (_, T), t = fwd[0][0], prompt - 1 + step
+        layers = []
+        for layer in range(n_moe):
+            f_idx = fwd[layer][1].reshape(-1, fwd[layer][1].shape[-1])
+            want = set(f_idx[row * T + t].tolist())
+            if step == 0:
+                (_, S), d_idx = pre[layer]
+                got = d_idx.reshape(-1, d_idx.shape[-1])[row * S + S - 1]
+            else:
+                _, d_idx = steps[(step - 1) * n_moe + layer]
+                got = d_idx.reshape(-1, d_idx.shape[-1])[row]
+            if set(got.tolist()) != want:
+                layers.append(layer)
+        return layers
+
+
+class ScanTimer:
+    """Device seconds of the plain recurrences (``ssm._ssm_scan``,
+    ``xlstm._mlstm_core``, ``xlstm._slstm_scan``) while installed: CUDA
+    events around each call, by the number of time steps it ran, read
+    once at the end."""
+
+    NAMES = (("ssm", "_ssm_scan"), ("xlstm", "_mlstm_core"),
+             ("xlstm", "_slstm_scan"))
+
+    def __init__(self, torch, ssm, xlstm):
+        self.torch, self.mods = torch, {"ssm": ssm, "xlstm": xlstm}
+        self.events, self.saved = [], {}
+
+    def __enter__(self):
+        torch = self.torch
+        for mod_name, name in self.NAMES:
+            mod = self.mods[mod_name]
+            inner = self.saved[(mod_name, name)] = getattr(mod, name)
+
+            def wrapper(*a, _inner=inner, _name=name, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _inner(*a, **k)
+                end.record()
+                steps = a[3] if _name == "_slstm_scan" else a[0].shape[1]
+                self.events.append((steps, start, end))
+                return out
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod_name, name), inner in self.saved.items():
+            setattr(self.mods[mod_name], name, inner)
+
+    def seconds(self, steps: int) -> tuple:
+        """(device seconds, calls) of the scans over ``steps`` steps."""
+        self.torch.cuda.synchronize()
+        ev = [(a, b) for n, a, b in self.events if n == steps]
+        return sum(a.elapsed_time(b) for a, b in ev) / 1e3, len(ev)
+
+
+def xlstm_block_checks(torch, xlstm, common, model, prompts, gen: int,
+                       tol: float) -> dict:
+    """xlstm's mLSTM and sLSTM blocks alone at full width (layer 0 of each
+    stack): the full form over S + gen positions against a prefill of S
+    and ``gen`` decode steps from the cache it leaves, over the largest
+    |output|; and the fault control, a decode from a state one token
+    short.  The mLSTM reads the model's normed embeddings of the tokens,
+    the sLSTM the same scaled by ``LMF_SLSTM_INPUT_SCALE`` (its own
+    inputs overflow it, in the reference as here)."""
+    cfg = model.cfg
+    B, S = prompts.shape
+    tokens = torch.cat([prompts, prompts[:, :gen].flip(0)], dim=1)
+    emb = torch.nn.functional.embedding(tokens, model.embed)
+    out = {}
+    blocks = (("mlstm", xlstm.mlstm_apply, model.layers[0], 1.0),
+              ("slstm", xlstm.slstm_apply, model.slstm[0],
+               LMF_SLSTM_INPUT_SCALE))
+    for tag, apply_fn, lp, input_scale in blocks:
+        x = common.rms_norm(emb, lp["ln"], cfg.norm_eps) * input_scale
+        defs = (xlstm.mlstm_cache_defs if tag == "mlstm"
+                else xlstm.slstm_cache_defs)(cfg, B)
+
+        def fresh():
+            return {k: torch.full(d.shape, -1e30 if k == "m" else 0.0,
+                                  device=prompts.device)
+                    for k, d in defs.items()}
+
+        full, _ = apply_fn(lp["mixer"], x, cfg)
+        check(bool(torch.isfinite(full).all()),
+              f"lm_families: xlstm {tag} block: non-finite output")
+        scale = float(full.abs().max())
+        cache = fresh()
+        apply_fn(lp["mixer"], x[:, :S], cfg, cache=cache)
+        steps = []
+        for i in range(S, S + gen):
+            y, cache = apply_fn(lp["mixer"], x[:, i:i + 1], cfg, cache=cache,
+                                decode=True)
+            steps.append(y)
+        err = float((torch.cat(steps, dim=1) - full[:, S:]).abs().max()) \
+            / scale
+        short = fresh()
+        apply_fn(lp["mixer"], x[:, :S - 1], cfg, cache=short)
+        y, _ = apply_fn(lp["mixer"], x[:, S:S + 1], cfg, cache=short,
+                        decode=True)
+        fault = float((y[:, 0] - full[:, S]).abs().max()) / scale
+        check(err <= tol < fault,
+              f"lm_families: xlstm {tag} block: decode {err} off the full "
+              f"form, state one token short {fault} (tolerance {tol})")
+        out[tag] = {"decode_vs_full_rel_err": err, "max_abs_output": scale,
+                    "state_short": fault, "input_scale": input_scale,
+                    "positions": S + gen}
+    # why the model's own inputs overflow the sLSTM: its input gates'
+    # pre-activations on the normed embeddings, against exp's range
+    lp = model.slstm[0]
+    x = common.rms_norm(emb, lp["ln"], cfg.norm_eps)
+    H = cfg.n_heads
+    gates = common.matmul(x, lp["mixer"]["w_gates"].reshape(cfg.d_model, -1))
+    i_pre = gates.reshape(B, -1, 4, H, cfg.d_model // H)[:, :, 1]
+    out["slstm_input_gate"] = {
+        "std": float(i_pre.std()),
+        "max_above_head_mean": float(
+            (i_pre - i_pre.mean(dim=-1, keepdim=True)).max()),
+        "float32_exp_overflows_past": 88.72}
+    return out
+
+
+def cross_logit_std(torch, model, prompts, image_embeds) -> float:
+    """The std of the first cross block's attention logits (q k /
+    sqrt(hd)) between ``prompts``' embeddings and the projected image
+    tokens: the scale the reference's init gives them."""
+    from repro_torch.models import attention, common
+    cfg = model.cfg
+    cp = model.cross[0]
+    h = torch.nn.functional.embedding(prompts, model.embed)
+    q = attention._proj(common.rms_norm(h, cp["ln1"], cfg.norm_eps),
+                        cp["attn"]["wq"])
+    img = common.matmul(image_embeds, model.img_proj)
+    k = attention._proj(img, cp["attn"]["wk"]).repeat_interleave(
+        cfg.n_heads // cfg.n_kv_heads, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) \
+        / cfg.resolved_head_dim ** 0.5
+    return float(logits.std())
+
+
+def family_check(torch, serve, lm, moe, model, cut_spec, prompts, extra,
+                 gen: int, tol: float) -> dict:
+    """The cut of one block of each kind (the same tensors), at capacity
+    for every MoE token: decode against the forward held to the bar
+    (``tol`` or ``LMF_FLOOR_FACTOR`` x the cut's forward floor, the
+    larger), greedy tokens equal but for ties; where an MoE cut passes the
+    bar at one position only, whether the router's top-k set differs
+    there; the fault control past the bar.  The record is emitted before
+    the checks.  xlstm's cut is reported (its sLSTM overflows at full
+    width) and its blocks held alone."""
+    keep, replace = cut_spec
+    cut = family_cut(lm, model, keep, **replace)
+    is_moe = cut.cfg.family == "moe"
+    n_moe = len(cut.layers) if is_moe else 0
+    with RouterLog(moe) as log:
+        _, c = decode_vs_forward(torch, serve, cut, prompts, gen,
+                                 extra=extra, whole=True, bar=tol)
+    tag = cut.cfg.name
+    out = {"stacks": keep, "config": replace, "tolerance": tol, "check": c}
+    if cut.cfg.family == "vlm":
+        out["cross_attention_logit_std"] = cross_logit_std(
+            torch, cut, prompts[:, :256], extra["image_embeds"])
+    over, bar = c.pop("over_bar"), c["bar"]
+    if cut.cfg.family == "ssm":
+        emit({"phase": "lm_families_cut", "arch": tag, **out})
+        check(c["nonfinite_same_positions"],
+              f"lm_families: {tag} cut: decode and forward are not finite "
+              f"at different positions: {c}")
+        return out
+    if is_moe and len(over) == 1:
+        row, step = over[0]
+        c["router_sets_differ_at_worst"] = log.sets_differ(
+            n_moe, prompts.shape[1], row, step)
+    del log
+    tie = len(over) == 1 and bool(c.get("router_sets_differ_at_worst"))
+    p0 = prompts.shape[1] - gen     # B x p0 tokens fill whole MoE groups
+    want = cut(prompts, **extra)[0][:, p0]
+    out["fault_control"] = fault = family_fault(torch, lm, cut, prompts,
+                                                extra, want, p0)
+    emit({"phase": "lm_families_cut", "arch": tag, **out})
+    check(c["nonfinite_decode"] == c["nonfinite_forward"] == 0,
+          f"lm_families: {tag} cut: non-finite logits {c}")
+    check(c["decode_vs_forward_rel_err"] <= bar or tie,
+          f"lm_families: {tag} cut: decode logits "
+          f"{c['decode_vs_forward_rel_err']} of the largest |logit| off the "
+          f"full forward at (row, step) {over} (bar {bar}; router sets "
+          f"differ there: {c.get('router_sets_differ_at_worst')})")
+    check(not c["greedy_differs_not_tie"],
+          f"lm_families: {tag} cut: greedy tokens differ from the "
+          f"forward's argmax at (row, step) {c['greedy_differs_not_tie']}")
+    check(fault["right"] <= bar < fault["off_by_one"],
+          f"lm_families: {tag}: the fault control does not separate: "
+          f"{fault} (bar {bar})")
+    return out
+
+
+def lm_families_phase(np, torch, dev, card) -> dict:
+    """The LM template's moe (deepseek-v2-lite-16b at full width and
+    depth, mixtral-8x7b at 8 of its 32 layers), hybrid (zamba2-1.2b), ssm
+    (xlstm-1.3b), vlm (llama-3.2-vision-11b) and audio (whisper-tiny)
+    families at full width on the card, one at a time: built from a seed,
+    served through ``launch/serve.py``'s ``generate`` (prefill and greedy
+    decode, the modality stubs drawn on the card), held against one full
+    forward at full depth (reported beside the forward's own floor) and
+    on a cut of one block of each kind (held, with a fault control), and
+    freed.  While deepseek is on the card, the head probe of
+    ``examples/lm_head_probe.py`` on its pooled features through the
+    fused Jacobi fit (K5, K6), held against the CPU's.  Returns the
+    probe's launch counts."""
+    import gc
+
+    t_phase = time.perf_counter()
+    probe_counts, names = None, []
+    for spec in LMF_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, counts = lmf_model(np, torch, dev, card, *spec)
+        emit(rec)
+        names.append(spec[0])
+        probe_counts = counts or probe_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_families", "card": card, "models": names,
+          "phase_s": time.perf_counter() - t_phase})
+    return probe_counts
+
+
+def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
+              keep, replace) -> tuple:
+    """One model of the ``lm_families`` phase: (its record, the probe's
+    launch counts or None).  Everything it put on the card is freed when
+    it returns."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import common, lm, moe, ssm, xlstm
+
+    t_model = time.perf_counter()
+    free_b, total_b = torch.cuda.mem_get_info()
+    full_cfg = get_arch(name)
+    cfg = full_cfg if keep_layers is None \
+        else full_cfg.replace(n_layers=keep_layers)
+    n_params = common.param_count(lm.param_defs(cfg))
+    check(n_params == n_ref, f"lm_families: {name}: {n_params} "
+          f"parameters, the reference counts {n_ref}")
+    print(f"lm_families: {name}: {free_b / 1e9:.2f} of "
+          f"{total_b / 1e9:.2f} GB free before the build", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    check(sum(p.numel() for p in params) == n_params
+          and all(p.device == dev for p in params),
+          f"lm_families: {name}: the model's parameters are not the "
+          "config's, on the card")
+    weight_gb = sum(p.numel() * p.element_size() for p in params) / 1e9
+    del params
+    rec = {"phase": "lm_families_model", "arch": name, "card": card,
+           "family": cfg.family, "params": n_params,
+           "weight_gb": weight_gb, "weights_dtype": "float32",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "free_gb_before": free_b / 1e9, "init_s": init_s,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "batch": LMF_BATCH, "prompt_len": prompt_len, "gen": LMF_GEN}
+    if keep_layers is not None:
+        rec["reduced"] = {"n_layers": [full_cfg.n_layers, keep_layers],
+                          "full_params": common.param_count(
+                              lm.param_defs(full_cfg)),
+                          "why": "186.81 GB of float32 weights do not "
+                                 "fit one 80 GB card"}
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (LMF_BATCH, prompt_len),
+                            device=dev, generator=gen_t)
+    extra = serve.modality_inputs(cfg, LMF_BATCH, gen_t)
+    tol = LMF_TOL.get(name, LMF_DEFAULT_TOL)
+    keys = ("prefill_s", "prefill_tok_per_s", "decode_s", "decode_steps",
+            "decode_ms_per_step", "decode_tok_per_s")
+
+    # ---- serve at the default capacity (MoE: tokens may drop)
+    if cfg.family == "moe":
+        torch.cuda.reset_peak_memory_stats()
+        served = serve.generate(model, prompts, LMF_GEN, extra=extra)
+        rec["serve"] = {k: served[k] for k in keys}
+        rec["serve"].update(
+            first_tokens=served["tokens"][0][:8],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            capacity_factor=moe.CAPACITY_FACTOR)
+    # ---- the check at full depth, at capacity for every token (for the
+    # other families its generate is the serve record too, with the plain
+    # scans' seconds inside its prefill)
+    old_cap = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = LMF_NO_DROP
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with ScanTimer(torch, ssm, xlstm) as scans:
+            served, full = decode_vs_forward(
+                torch, serve, model, prompts, LMF_GEN, extra=extra,
+                whole=True)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if cfg.family != "moe":
+            rec["serve"] = {k: served[k] for k in keys}
+            rec["serve"].update(first_tokens=served["tokens"][0][:8],
+                                peak_gb_with_check=peak)
+        if cfg.family in ("hybrid", "ssm"):
+            scan_s, n_scans = scans.seconds(prompt_len)
+            rec["serve"]["prefill_scans"] = {
+                "scan_s": scan_s, "scans": n_scans,
+                "share_of_prefill": scan_s / served["prefill_s"],
+                "steps_a_scan": prompt_len}
+        del scans
+        check(full["nonfinite_same_positions"],
+              f"lm_families: {name}: decode and forward are not finite at "
+              f"different positions: {full}")
+        check(cfg.family == "ssm" or (
+            full["nonfinite_decode"] == 0 and bool(np.isfinite(
+                [full["decode_vs_forward_rel_err"],
+                 full["max_abs_logit"]]).all())),
+              f"lm_families: {name}: non-finite logits {full}")
+        rec["full_depth"] = full
+        rec["cut"] = family_check(torch, serve, lm, moe, model,
+                                  (keep, replace), prompts, extra,
+                                  LMF_GEN, tol)
+        if cfg.family == "ssm":
+            rec["blocks"] = xlstm_block_checks(torch, xlstm, common, model,
+                                               prompts, LMF_GEN, tol)
+    finally:
+        moe.CAPACITY_FACTOR = old_cap
+    counts = None
+    if name == "deepseek-v2-lite-16b":
+        counts, rec["probe"] = lmf_probe(np, torch, dev, model, cfg)
+    rec["model_s"] = time.perf_counter() - t_model
+    return rec, counts
+
+
+def lmf_probe(np, torch, dev, model, cfg) -> tuple:
+    """examples/lm_head_probe.py's class-conditional token task on the
+    model's mean-pooled features, fitted by the fused Jacobi superstep
+    (K5 ``stats_gram_solve``, K6 ``margin_ls``) on the card and on the
+    CPU."""
+    from repro_torch.core import head_probe
+    from repro_torch.core.dglmnet import DGLMNETConfig
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED)
+    V = cfg.vocab_size
+    labels = rng.choice([-1.0, 1.0], LMF_PROBE_N).astype(np.float32)
+    tokens = np.where(
+        labels[:, None] > 0,
+        rng.integers(0, V // 2, (LMF_PROBE_N, LMF_PROBE_SEQ)),
+        rng.integers(V // 2, V, (LMF_PROBE_N, LMF_PROBE_SEQ)))
+    tok = torch.from_numpy(tokens).to(dev)
+    t0 = time.perf_counter()
+    feats = head_probe.extract_features(
+        lambda m, t: m(t, return_hidden=True)[0], model,
+        tok.split(PROBE_BATCH))
+    torch.cuda.synchronize()
+    feature_s = time.perf_counter() - t0
+    check(tuple(feats.shape) == (LMF_PROBE_N, cfg.d_model)
+          and feats.device == dev and bool(torch.isfinite(feats).all()),
+          f"lm_families: probe features {tuple(feats.shape)} on "
+          f"{feats.device}: not finite, or not on the card")
+    n_tr = LMF_PROBE_TRAIN
+    config = DGLMNETConfig(lam1=0.05, lam2=0.05, tile_size=256,
+                           coupling="jacobi", fuse_superstep=True,
+                           max_outer=40)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = head_probe.fit_probe(feats[:n_tr], labels[:n_tr], config)
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    probe_counts = {k: counts[k] for k in ("stats_gram_solve",
+                                           "margin_ls")}
+    check(all(v > 0 for v in probe_counts.values()),
+          f"lm_families: the probe fit did not launch K5 and K6: {counts}")
+    check(not any(v for k, v in counts.items() if k.endswith("/plain")),
+          f"lm_families: the probe fit took a plain route: {counts}")
+    p = head_probe.predict_proba(feats[n_tr:], res.beta).cpu().numpy()
+    acc = float(((p > 0.5) == (labels[n_tr:] > 0)).mean())
+    t0 = time.perf_counter()
+    res_cpu = head_probe.fit_probe(feats[:n_tr].cpu(), labels[:n_tr],
+                                   config, device="cpu")
+    cpu_fit_s = time.perf_counter() - t0
+    agree = probe_agreement(np, res, res_cpu)
+    for k in ("alpha_card", "alpha_cpu"):
+        agree.pop(k)
+    return probe_counts, {
+        "n": LMF_PROBE_N, "seq": LMF_PROBE_SEQ, "train": n_tr,
+        "features_shape": list(feats.shape), "feature_s": feature_s,
+        "feature_tok_per_s": LMF_PROBE_N * LMF_PROBE_SEQ / feature_s,
+        "config": "tile 256, jacobi, fused", "fit_s": fit_s,
+        "n_iter": res.n_iter, "f": res.history["f"][-1],
+        "nnz": int((res.beta != 0).sum()), "p": int(res.beta.size),
+        "launches": probe_counts, "all_launches": {
+            k: v for k, v in counts.items() if v},
+        "test_accuracy": acc, "cpu_fit_s": cpu_fit_s,
+        "card_vs_cpu": agree}
 
 
 def main() -> None:
@@ -4524,10 +5104,15 @@ def main() -> None:
     # the LM template's serving path and the head probe, last: every
     # earlier phase's tensors are freed before its 47 GB of weights
     probe_counts = lm_phase(np, torch, dev, card)
+    # the other five families of the LM template after the dense one, and
+    # the fused Jacobi probe on deepseek-v2-lite's features
+    families_counts = lm_families_phase(np, torch, dev, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]
         report[name]["launches_head_probe"] = probe_counts[name]
+    for name in ("stats_gram_solve", "margin_ls"):
+        report[name]["launches_head_probe_deepseek"] = families_counts[name]
     emit({"phase": "kernel_parity_report", "max_rel_err": parity})
     # the four built-in families never took a plain route on the card
     built_in = {"sparse": sparse_counts, "serve": serve_counts,
@@ -4629,6 +5214,7 @@ def main() -> None:
                                    "asymmetry_vs_plain", "G_asymmetry",
                                    "fault_controls", "launches_stream",
                                    "launches_head_probe",
+                                   "launches_head_probe_deepseek",
                                    "chunk_shapes", "bytes_bound_passes_ms",
                                    "share_of_bytes_bound_passes",
                                    "dependency_steps", "step_us",
@@ -4638,7 +5224,7 @@ def main() -> None:
                if k in rep}})
     emit({"kernels": kernels})
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
-          "earlier_wall_s": "470-530 (PERF.md, PRs 23-24)"})
+          "earlier_wall_s": "550.1 (PERF.md, PR 25)"})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

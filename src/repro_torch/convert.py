@@ -15,7 +15,8 @@ from repro_torch.core.dglmnet import FitState
 from repro_torch.data.design import BlockSparseDesign, DenseDesign
 from repro_torch.device import resolve_device
 from repro_torch.models.common import flatten, unflatten
-from repro_torch.models.transformer import param_defs, unstack
+from repro_torch.models.lm import param_defs
+from repro_torch.models.transformer import unstack
 
 
 def _t(a, dtype, device):
@@ -62,8 +63,10 @@ def lm_params_from_numpy(cfg, tree, *, device=None) -> dict:
     ``models.lm.build_model(cfg, state=...)``) from a parameter tree in the
     JAX package's layout, as numpy arrays, on ``device`` (None: the CUDA
     card).  Names and shapes are checked against ``param_defs(cfg)``; the
-    stacked ``(L, ...)`` leaves are unstacked one layer a view."""
-    defs = flatten(param_defs(cfg))
+    ``(L, ...)`` leaves of every stacked subtree (``transformer.STACKED``)
+    are unstacked one layer a view."""
+    stacked = param_defs(cfg)
+    defs = flatten(stacked)
     flat = flatten(tree)
     if set(flat) != set(defs):
         raise ValueError(
@@ -77,4 +80,4 @@ def lm_params_from_numpy(cfg, tree, *, device=None) -> dict:
             raise ValueError(f"{cfg.name}: {name} has shape {a.shape}, the "
                              f"config says {d.shape}")
         tensors[name] = torch.from_numpy(a).to(device=dev, dtype=d.dtype)
-    return unstack(cfg, unflatten(tensors))
+    return unstack(stacked, unflatten(tensors))

@@ -9,7 +9,10 @@ A port of the JAX package's ``repro.launch.serve`` with ``--device``
 (default: the CUDA card, which raises where there is none).  ``generate``
 under the CLI runs one request batch on a built model and returns its
 record, so a caller can reuse one set of weights; the tokens stay on the
-device and are read to the host once, at the end.
+device and are read to the host once, at the end.  The vlm and audio
+families read the modality stubs (``image_embeds``, ``audio_embeds``):
+the CLI draws them as the reference does, normal (B, n_image_tokens or
+n_audio_frames, d_model), from a seeded generator on the device.
 """
 from __future__ import annotations
 
@@ -22,13 +25,28 @@ import torch
 from repro_torch.timing import timed
 
 
+def modality_inputs(cfg, batch: int, generator: torch.Generator) -> dict:
+    """The modality stubs ``cfg``'s model reads (none for a text-only
+    family), drawn from ``generator`` on its device."""
+    frames = {"vlm": ("image_embeds", cfg.n_image_tokens),
+              "audio": ("audio_embeds", cfg.n_audio_frames)}
+    if cfg.family not in frames:
+        return {}
+    name, n = frames[cfg.family]
+    return {name: torch.randn((batch, n, cfg.d_model), generator=generator,
+                              device=generator.device)}
+
+
 def generate(model, prompts: torch.Tensor, gen: int, *,
+             extra: Optional[dict] = None,
              keep_logits: bool = False) -> dict:
     """Prefill ``prompts`` (B, S) on the model's device, then ``gen`` greedy
-    tokens (the prefill's and ``gen - 1`` decode steps).  Returns the
-    record: seconds and rates of both parts, the tokens (``tokens``, on
-    the host; ``seq``, the device tensor) and, with ``keep_logits``, the
-    logits that chose each token (``logits``, (B, gen, V) on the device)."""
+    tokens (the prefill's and ``gen - 1`` decode steps); ``extra``: the
+    modality inputs (``modality_inputs``), given to every step.  Returns
+    the record: seconds and rates of both parts, the tokens (``tokens``,
+    on the host; ``seq``, the device tensor) and, with ``keep_logits``,
+    the logits that chose each token (``logits``, (B, gen, V) on the
+    device)."""
     from repro_torch.models import lm
 
     cfg = model.cfg
@@ -38,15 +56,16 @@ def generate(model, prompts: torch.Tensor, gen: int, *,
     caches = lm.init_cache(cfg, B, S + gen, device=prompts.device)
     prefill = lm.make_prefill_step(model)
     decode = lm.make_decode_step(model)
+    extra = dict(extra or {})
     (logits, caches), prefill_s = timed(prefill, caches,
-                                        {"tokens": prompts})
+                                        {"tokens": prompts, **extra})
     kept = [logits] if keep_logits else None
 
     def decode_loop(caches, logits):
         tok = logits.argmax(dim=-1)[:, None]
         outs = [tok]
         for i in range(S, S + gen - 1):
-            logits, caches = decode(caches, tok, i)
+            logits, caches = decode(caches, tok, i, extra)
             tok = logits.argmax(dim=-1)[:, None]
             outs.append(tok)
             if kept is not None:
@@ -90,7 +109,9 @@ def main(argv: Optional[list] = None) -> int:
     prompts = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    rec = generate(model, prompts, args.gen)
+    extra = modality_inputs(cfg, args.batch,
+                            torch.Generator(device=dev).manual_seed(2))
+    rec = generate(model, prompts, args.gen, extra=extra)
     print(f"prefill {args.prompt_len} tokens x{args.batch}: "
           f"{rec['prefill_s']:.2f}s")
     rate = rec["decode_tok_per_s"]

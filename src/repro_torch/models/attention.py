@@ -1,19 +1,24 @@
 """Attention blocks: GQA with RoPE, a sliding window, a softcap and QKV
-bias, for full sequences (train / prefill) and single-token decode.
+bias; DeepSeek-V2's MLA with its compressed-latent cache; and
+cross-attention (the VLM's image layers, whisper's decoder).  Full
+sequences (train / prefill) and single-token decode.
 
-A port of the GQA part of the JAX package's ``repro.models.attention``.
-Its MLA (DeepSeek-V2) and cross-attention blocks wait for the families
-that use them (ROADMAP Queue 1 item 6).  The decode cache is updated in
-place: ``gqa_full`` with a cache writes k and v over its first S
-positions and zeros the rest (the reference pads them into a new cache),
-``gqa_decode`` writes position ``cache_len``; both return the same cache.
+A port of the JAX package's ``repro.models.attention``.  The decode cache
+is updated in place: the full forms with a cache write their keys and
+values (MLA: the latent and the rotated key channel) over its first S
+positions and zero the rest (the reference pads them into a new cache),
+the decode forms write position ``cache_len``; each returns the same
+cache.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models.common import (ParamDef, chunked_attention,
-                                       decode_attention, matmul, rope)
+                                       decode_attention, matmul, rms_norm,
+                                       rope)
 
 
 def gqa_defs(cfg):
@@ -78,12 +83,7 @@ def gqa_full(p, x, cfg, *, window=None, theta=None, cache=None,
                             impl=getattr(cfg, "attn_impl", "flash"))
     y = _out(out, p["wo"])
     if cache is not None:
-        s_max = cache["k"].shape[1]
-        if S > s_max:
-            raise ValueError(f"{S} positions do not fit a cache of {s_max}")
-        for name, t in (("k", k), ("v", v)):
-            cache[name][:, :S] = t
-            cache[name][:, S:] = 0
+        _write_prefix(cache, {"k": k, "v": v})
     return y, cache
 
 
@@ -102,3 +102,125 @@ def gqa_decode(p, x, cfg, cache, cache_len: int, *, window=None,
     out = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
                            window=window, softcap=cfg.attn_softcap)
     return _out(out, p["wo"]), cache
+
+
+def _write_prefix(cache: dict, new: dict) -> dict:
+    """Each ``new[name]`` (B, S, ...) over the first S positions of
+    ``cache[name]``, zeros after them (in place)."""
+    for name, t in new.items():
+        s_max = cache[name].shape[1]
+        if t.shape[1] > s_max:
+            raise ValueError(f"{t.shape[1]} positions do not fit a cache of "
+                             f"{s_max}")
+        cache[name][:, :t.shape[1]] = t
+        cache[name][:, t.shape[1]:] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV latent; the cache stores the
+# latent and the rotated key channel, re-expanded to per-head K/V at every
+# decode step as the reference does.
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg):
+    d, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": ParamDef((d, H, dn + dr), (None, "model", None)),
+        "w_dkv": ParamDef((d, r + dr), (None, None)),
+        "kv_norm": ParamDef((r,), (None,), init_scale=0.0),
+        "w_uk": ParamDef((r, H, dn), (None, "model", None)),
+        "w_uv": ParamDef((r, H, dv), (None, "model", None)),
+        "wo": ParamDef((H, dv, d), ("model", None, None)),
+    }
+
+
+def mla_cache_defs(cfg, batch, s_max):
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    return {"ckv": ParamDef((batch, s_max, r), ("data", None, None)),
+            "kpe": ParamDef((batch, s_max, dr), ("data", None, None))}
+
+
+def _mla_qkv(p, x, cfg, positions):
+    dn, r = cfg.qk_nope_dim, cfg.kv_lora_rank
+    q = _proj(x, p["wq"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = rope(q_pe, positions, cfg.rope_theta)
+    dkv = matmul(x, p["w_dkv"])                   # (B, S, r + dr)
+    ckv, kpe = dkv[..., :r], dkv[..., r:]
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    # the shared rope channel, rotated with a singleton head axis
+    kpe = rope(kpe[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_pe, ckv, kpe
+
+
+def _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg):
+    """The latent expanded to per-head K/V, the rope channel appended to
+    every head (decoupled RoPE); the scale is 1/sqrt(dn + dr)."""
+    k_nope = _proj(ckv, p["w_uk"])
+    v = _proj(ckv, p["w_uv"])
+    H = k_nope.shape[2]
+    kpe_h = kpe[:, :, None, :].expand(*kpe.shape[:2], H, kpe.shape[-1])
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, kpe_h.to(k_nope.dtype)], dim=-1)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return q_full, k_full, v, scale
+
+
+def mla_full(p, x, cfg, *, cache=None, positions=None, **_):
+    """Train / prefill (any window is ignored, as the reference does)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_pe, ckv, kpe = _mla_qkv(p, x, cfg, positions)
+    q_full, k_full, v, scale = _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg)
+    out = chunked_attention(q_full, k_full, v, causal=True,
+                            chunk=cfg.attn_chunk, scale=scale,
+                            impl=getattr(cfg, "attn_impl", "flash"))
+    y = _out(out, p["wo"])
+    if cache is not None:
+        _write_prefix(cache, {"ckv": ckv, "kpe": kpe})
+    return y, cache
+
+
+def mla_decode(p, x, cfg, cache, cache_len: int, **_):
+    """x: (B, 1, d); ``cache_len`` a host int.  Writes the latent at
+    ``cache_len``, then re-expands the whole cache."""
+    pos = torch.full((x.shape[0], 1), cache_len, device=x.device)
+    q_nope, q_pe, ckv, kpe = _mla_qkv(p, x, cfg, pos)
+    cache["ckv"][:, cache_len] = ckv[:, 0]
+    cache["kpe"][:, cache_len] = kpe[:, 0]
+    q_full, k_full, v, scale = _mla_attend(
+        p, q_nope, q_pe, cache["ckv"].to(x.dtype), cache["kpe"].to(x.dtype),
+        cfg)
+    out = decode_attention(q_full, k_full, v, cache_len + 1, scale=scale)
+    return _out(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (VLM image layers, whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_defs(cfg, kv_dim=None):
+    d, H, Hkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+    kd = kv_dim or d
+    return {
+        "wq": ParamDef((d, H, hd), (None, "model", None)),
+        "wk": ParamDef((kd, Hkv, hd), (None, "model", None)),
+        "wv": ParamDef((kd, Hkv, hd), (None, "model", None)),
+        "wo": ParamDef((H, hd, d), ("model", None, None)),
+    }
+
+
+def cross_apply(p, x, kv_src, cfg):
+    """kv_src: (B, S_kv, kd) encoder or image states.  No mask, no rope,
+    no cache."""
+    q = _proj(x, p["wq"])
+    k = _proj(kv_src, p["wk"])
+    v = _proj(kv_src, p["wv"])
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
+                            impl=getattr(cfg, "attn_impl", "flash"))
+    return _out(out, p["wo"])

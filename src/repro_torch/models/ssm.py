@@ -1,0 +1,141 @@
+"""Mamba2-style selective SSM block (zamba2 hybrid's recurrent core).
+
+A port of the JAX package's ``repro.models.ssm``.  Structure per block:
+{z, x, B, C, dt} projections, a causal depthwise conv on x, the selective
+state-space recurrence (a scalar A per head, Mamba2) in float32 with
+``exp(-dt A)`` decay and the ``D`` skip term, SiLU(z) gating, the output
+projection.
+
+The full-sequence form runs the recurrence as a Python loop over time
+(the reference's ``lax.scan``), always from a zero state and an empty conv
+history whatever the cache holds; it leaves the last ``K - 1``
+pre-activation inputs as the conv state.  Decode is the O(1) single step.
+Each form writes the cache in place, when there is one, and returns it.
+
+State cache: {"conv": (B, K-1, d_inner), "state": (B, H, hd, ds)}.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParamDef, matmul
+
+
+def ssm_dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    return d_inner, n_heads
+
+
+def mamba_defs(cfg):
+    d = cfg.d_model
+    d_inner, H = ssm_dims(cfg)
+    ds, K = cfg.ssm_state, cfg.ssm_conv
+    return {
+        "w_z": ParamDef((d, d_inner), (None, "model")),
+        "w_x": ParamDef((d, d_inner), (None, "model")),
+        "w_B": ParamDef((d, ds), (None, None)),
+        "w_C": ParamDef((d, ds), (None, None)),
+        "w_dt": ParamDef((d, H), (None, "model")),
+        "dt_bias": ParamDef((H,), ("model",), init_scale=0.0),
+        "conv_w": ParamDef((K, d_inner), (None, "model")),
+        "A_log": ParamDef((H,), ("model",), init_scale=1.0),
+        "D": ParamDef((H,), ("model",), init_scale=1.0),
+        "w_out": ParamDef((d_inner, d), ("model", None)),
+    }
+
+
+def mamba_cache_defs(cfg, batch):
+    d_inner, H = ssm_dims(cfg)
+    return {
+        "conv": ParamDef((batch, cfg.ssm_conv - 1, d_inner),
+                         ("data", None, "model")),
+        "state": ParamDef((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                          ("data", "model", None, None)),
+    }
+
+
+def _ssm_step(h, xt, Bt, Ct, dtt, A, D):
+    """One step: h (B,H,hd,ds); xt (B,H,hd); Bt, Ct (B,ds); dtt (B,H).
+    Returns (h, yt (B,H,hd))."""
+    decay = torch.exp(-dtt * A)                          # (B, H)
+    upd = (xt * dtt[..., None])[..., None] * Bt[:, None, None, :]
+    h = h * decay[..., None, None] + upd
+    yt = (h @ Ct[:, None, :, None])[..., 0] + D[None, :, None] * xt
+    return h, yt
+
+
+def _ssm_scan(xh, Bm, Cm, dt, A, D, state0):
+    """xh: (B,S,H,hd); Bm/Cm: (B,S,ds); dt: (B,S,H); A: (H,) > 0.
+    Returns (y (B,S,H,hd), final state (B,H,hd,ds))."""
+    h = state0
+    ys = []
+    for t in range(xh.shape[1]):
+        h, yt = _ssm_step(h, xh[:, t], Bm[:, t], Cm[:, t], dt[:, t], A, D)
+        ys.append(yt)
+    return torch.stack(ys, dim=1), h
+
+
+def _conv_causal(x, conv_w, conv_state=None):
+    """Depthwise causal conv; x: (B, S, d_inner); conv_w: (K, d_inner)."""
+    K = conv_w.shape[0]
+    if conv_state is None:
+        hist = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    else:
+        hist = conv_state.to(x.dtype)
+    xp = torch.cat([hist, x], dim=1)
+    out = 0
+    for i in range(K):            # the reference's sum(), in its order
+        out = out + xp[:, i:i + x.shape[1]] * conv_w[i]
+    new_state = xp[:, -(K - 1):] if K > 1 else hist
+    return F.silu(out), new_state
+
+
+def _inputs(p, x, cfg, conv_state):
+    z = matmul(x, p["w_z"])
+    xin = matmul(x, p["w_x"])
+    xc, conv_state = _conv_causal(xin, p["conv_w"], conv_state)
+    Bm = matmul(x, p["w_B"])
+    Cm = matmul(x, p["w_C"])
+    dt = F.softplus(matmul(x, p["w_dt"]) + p["dt_bias"])
+    A = torch.exp(p["A_log"].float())
+    return z, xc, conv_state, Bm, Cm, dt, A
+
+
+def _write(cache, conv_state, state):
+    if cache is not None:
+        cache["conv"].copy_(conv_state)
+        cache["state"].copy_(state)
+    return cache
+
+
+def mamba_full(p, x, cfg, cache=None):
+    """x: (B, S, d).  Returns (y, cache)."""
+    B, S, d = x.shape
+    d_inner, H = ssm_dims(cfg)
+    hd, ds = cfg.ssm_head_dim, cfg.ssm_state
+    # full-sequence mode always starts from an empty history (train / fresh
+    # prefill); the conv state it leaves serves the decode steps after it
+    z, xc, conv_state, Bm, Cm, dt, A = _inputs(p, x, cfg, None)
+    xh = xc.reshape(B, S, H, hd)
+    state0 = torch.zeros((B, H, hd, ds), dtype=torch.float32,
+                         device=x.device)
+    y, h_final = _ssm_scan(xh.float(), Bm.float(), Cm.float(), dt.float(),
+                           A, p["D"].float(), state0)
+    y = y.reshape(B, S, d_inner).to(x.dtype) * F.silu(z)
+    return matmul(y, p["w_out"]), _write(cache, conv_state, h_final)
+
+
+def mamba_decode(p, x, cfg, cache):
+    """x: (B, 1, d); cache: {"conv", "state"}.  O(1) per token."""
+    B, _, d = x.shape
+    d_inner, H = ssm_dims(cfg)
+    hd = cfg.ssm_head_dim
+    z, xc, conv_state, Bm, Cm, dt, A = _inputs(p, x, cfg, cache["conv"])
+    xh = xc.reshape(B, H, hd).float()
+    h, yt = _ssm_step(cache["state"].float(), xh, Bm.float()[:, 0],
+                      Cm.float()[:, 0], dt.float()[:, 0], A,
+                      p["D"].float())
+    y = yt.reshape(B, 1, d_inner).to(x.dtype) * F.silu(z)
+    return matmul(y, p["w_out"]), _write(cache, conv_state, h)

@@ -1,19 +1,25 @@
-"""Decoder-only model assembly, family ``"dense"``.
+"""Decoder-only model assembly for the dense, moe, hybrid, ssm and vlm
+families.
 
-A port of the JAX package's ``repro.models.transformer`` for the dense
-family (gemma3 with its local:global layers, qwen2.5, phi4-mini,
-mistral-large).  ``DecoderModel`` is an ``nn.Module`` whose parameters keep
-the reference's layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``,
-``w_gate (d, f)``, ``embed (V, d)``); where the reference scans over
-stacked ``(L, ...)`` leaves, the port holds one ``nn.ModuleList`` entry a
-layer.  ``param_defs`` and ``cache_defs`` return the reference's stacked
-trees, so counts and shapes compare leaf for leaf.
+A port of the JAX package's ``repro.models.transformer``.  ``DecoderModel``
+is an ``nn.Module`` whose parameters keep the reference's layouts
+(``wq (d, H, hd)``, ``wo (H, hd, d)``, ``w_gate (d, f)``, ``embed (V,
+d)``); where the reference scans over stacked ``(L, ...)`` leaves, the
+port holds one ``nn.ModuleList`` entry a layer (``STACKED`` names those
+subtrees).  ``param_defs`` and ``cache_defs`` return the reference's
+stacked trees, so counts and shapes compare leaf for leaf; the caches stay
+stacked, and each layer reads and writes its own slice of them in place.
 
-The other families (moe, hybrid, ssm, vlm, and the audio enc-dec) raise
-``NotImplementedError``: their serving path is ROADMAP Queue 1 item 6's
-next slice.  The reference's activation-sharding constraint (``_shard_h``)
-has no counterpart on one card; without a mesh it is a no-op there too.
-Remat and the grouped-remat scan are training's, which waits likewise.
+Heterogeneous stacks run in the reference's order: deepseek's leading
+dense layers before its MoE layers (MLA only in the MoE layers); zamba's
+one shared attention block, the same weights at every application with a
+KV cache each, before every segment of ``shared_attn_every`` Mamba
+layers; xlstm's groups of ``slstm_period - 1`` mLSTM layers and one
+sLSTM layer; llama-vision's cross-attention block before every segment of
+``cross_attn_period`` self layers, only when ``image_embeds`` is given.
+The reference's activation-sharding constraint (``_shard_h``) has no
+counterpart on one card; without a mesh it is a no-op there too.  Remat
+and the grouped-remat scan are training's (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -25,21 +31,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (ParamDef, ParamTree, flatten,
                                        matmul, rms_norm, unflatten)
 
-FAMILIES = ("dense",)
-PENDING = ("ROADMAP Queue 1 item 6: the other families on the serving path "
-           "(moe with MLA, hybrid, ssm, vlm cross-attention, audio)")
+# the subtrees the reference stacks over layers (a leading (L, ...) dim)
+STACKED = ("layers", "dense_layers", "cross", "slstm", "enc_layers",
+           "dec_layers")
 
 
-def check_family(cfg) -> None:
-    """Raise for a family this port does not run yet (no substitute)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
-            f"{PENDING}")
+def segment_bounds(n_layers: int, every: int):
+    """[(lo, hi)] covering all layers in chunks of ``every`` (last
+    ragged)."""
+    return [(lo, min(lo + every, n_layers))
+            for lo in range(0, n_layers, every)]
 
 
 def stack_defs(defs, n: int):
@@ -54,57 +59,126 @@ def _norm_def(cfg):
     return ParamDef((cfg.d_model,), (None,), init_scale=0.0)
 
 
+# ---------------------------------------------------------------------------
+# per-family layer definitions
+# ---------------------------------------------------------------------------
+
 def dense_layer_defs(cfg):
     return {"ln1": _norm_def(cfg), "attn": attention.gqa_defs(cfg),
             "ln2": _norm_def(cfg), "ffn": mlp.swiglu_defs(cfg)}
 
 
+def moe_layer_defs(cfg):
+    return {"ln1": _norm_def(cfg),
+            "attn": (attention.mla_defs(cfg) if cfg.kv_lora_rank
+                     else attention.gqa_defs(cfg)),
+            "ln2": _norm_def(cfg), "ffn": moe.moe_defs(cfg)}
+
+
+def mamba_layer_defs(cfg):
+    return {"ln": _norm_def(cfg), "mixer": ssm.mamba_defs(cfg)}
+
+
+def mlstm_layer_defs(cfg):
+    return {"ln": _norm_def(cfg), "mixer": xlstm.mlstm_defs(cfg)}
+
+
+def slstm_layer_defs(cfg):
+    return {"ln": _norm_def(cfg), "mixer": xlstm.slstm_defs(cfg)}
+
+
+def attn_block_defs(cfg):
+    """Standalone attention(+MLP) block (zamba's shared block)."""
+    return {"ln1": _norm_def(cfg), "attn": attention.gqa_defs(cfg),
+            "ln2": _norm_def(cfg), "ffn": mlp.swiglu_defs(cfg)}
+
+
+def cross_block_defs(cfg):
+    return {"ln1": _norm_def(cfg), "attn": attention.cross_defs(cfg),
+            "ln2": _norm_def(cfg), "ffn": mlp.swiglu_defs(cfg)}
+
+
 def param_defs(cfg):
-    """The reference's parameter tree (stacked layers) of ``cfg``."""
-    check_family(cfg)
+    """The reference's parameter tree (stacked layers) of the decoder of
+    ``cfg``; an unknown family (or "audio", ``whisper.param_defs``)
+    raises ``ValueError``."""
     d = {"embed": ParamDef((cfg.vocab_size, cfg.d_model), ("model", None)),
          "final_norm": _norm_def(cfg)}
     if not cfg.tie_embeddings:
         d["head"] = ParamDef((cfg.d_model, cfg.vocab_size), (None, "model"))
-    d["layers"] = stack_defs(dense_layer_defs(cfg), cfg.n_layers)
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        d["layers"] = stack_defs(dense_layer_defs(cfg), cfg.n_layers)
+        if fam == "vlm":
+            n_cross = cfg.n_layers // cfg.cross_attn_period
+            d["cross"] = stack_defs(cross_block_defs(cfg), n_cross)
+            d["img_proj"] = ParamDef((cfg.d_model, cfg.d_model),
+                                     (None, "model"))
+    elif fam == "moe":
+        if cfg.first_dense_layers:
+            d["dense_layers"] = stack_defs(dense_layer_defs(cfg),
+                                           cfg.first_dense_layers)
+        d["layers"] = stack_defs(moe_layer_defs(cfg),
+                                 cfg.n_layers - cfg.first_dense_layers)
+    elif fam == "hybrid":
+        d["layers"] = stack_defs(mamba_layer_defs(cfg), cfg.n_layers)
+        d["shared_attn"] = attn_block_defs(cfg)
+    elif fam == "ssm":   # xlstm
+        period = cfg.slstm_period
+        n_groups = cfg.n_layers // period
+        d["layers"] = stack_defs(mlstm_layer_defs(cfg),
+                                 n_groups * (period - 1))
+        d["slstm"] = stack_defs(slstm_layer_defs(cfg), n_groups)
+    else:
+        raise ValueError(f"family {fam} not handled by DecoderModel")
     return d
 
 
-def unstack(cfg, tree) -> dict:
-    """A model state ({name: tensor} as ``DecoderModel.state_dict`` names
-    it) from a tree in the reference's layout: each stacked ``(L, ...)``
-    leaf of ``tree["layers"]`` becomes L views, one a layer (no copy)."""
-    state = {k: v for k, v in flatten(tree).items()
-             if not k.startswith("layers.")}
-    for name, leaf in flatten(tree["layers"]).items():
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{name}: {leaf.shape[0]} layers, the "
-                             f"config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            state[f"layers.{i}.{name}"] = leaf[i]
+def unstack(defs, tree) -> dict:
+    """A model state ({name: tensor} as the model's ``state_dict`` names
+    it) from a tree in the reference's layout with the stacked layers of
+    ``defs``: each ``(L, ...)`` leaf of a ``STACKED`` subtree becomes L
+    views, one a layer (no copy)."""
+    state = {}
+    for key in sorted(tree):
+        sub = tree[key]
+        if key not in STACKED:
+            state.update(flatten({key: sub}))
+            continue
+        n = next(iter(flatten(defs[key]).values())).shape[0]
+        for name, leaf in flatten(sub).items():
+            if leaf.shape[0] != n:
+                raise ValueError(f"{key}.{name}: {leaf.shape[0]} layers, "
+                                 f"the config has {n}")
+            for i in range(n):
+                state[f"{key}.{i}.{name}"] = leaf[i]
     return state
 
 
-def state_shapes(cfg) -> dict:
-    """{name: shape} of a model state of ``cfg``."""
-    shapes = {k: d.shape for k, d in flatten(param_defs(cfg)).items()
-              if not k.startswith("layers.")}
-    for name, d in flatten(dense_layer_defs(cfg)).items():
-        for i in range(cfg.n_layers):
-            shapes[f"layers.{i}.{name}"] = d.shape
+def state_shapes(defs) -> dict:
+    """{name: shape} of a model state over the stacked ``defs``."""
+    shapes = {}
+    for key, sub in defs.items():
+        if key not in STACKED:
+            shapes.update({k: d.shape for k, d in flatten({key: sub}).items()})
+            continue
+        for name, d in flatten(sub).items():
+            for i in range(d.shape[0]):
+                shapes[f"{key}.{i}.{name}"] = d.shape[1:]
     return shapes
 
 
-class DecoderModel(nn.Module):
-    """The decoder of ``cfg`` over a state ({name: tensor}, adopted without
-    a copy and frozen).  Without a state its parameters lie on the meta
-    device: shapes only, nothing allocated."""
+class StackedModel(nn.Module):
+    """Parameters of ``defs`` over a state ({name: tensor}, adopted without
+    a copy and frozen): top-level leaves as ``nn.Parameter``, a ``STACKED``
+    subtree as an ``nn.ModuleList`` of ``ParamTree`` (one a layer), any
+    other subtree as one ``ParamTree``.  Without a state the parameters
+    lie on the meta device: shapes only, nothing allocated."""
 
-    def __init__(self, cfg, state: Optional[dict] = None):
+    def __init__(self, cfg, defs, state: Optional[dict] = None):
         super().__init__()
-        check_family(cfg)
         self.cfg = cfg
-        shapes = state_shapes(cfg)
+        shapes = state_shapes(defs)
         if state is None:
             state = {k: torch.empty(s, device="meta")
                      for k, s in shapes.items()}
@@ -114,14 +188,31 @@ class DecoderModel(nn.Module):
                          if got.get(k) != shapes.get(k))
             raise ValueError(f"{cfg.name}: state does not match the config "
                              f"at {bad[:8]}")
-        tree = unflatten(state)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(tree["final_norm"],
-                                       requires_grad=False)
-        if "head" in tree:
-            self.head = nn.Parameter(tree["head"], requires_grad=False)
-        self.layers = nn.ModuleList(
-            ParamTree(tree["layers"][str(i)]) for i in range(cfg.n_layers))
+        for key, sub in unflatten(state).items():
+            if key in STACKED:
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(sub[str(i)]) for i in range(len(sub))))
+            elif isinstance(sub, dict):
+                self.add_module(key, ParamTree(sub))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(sub, requires_grad=False))
+
+
+def layer_cache(caches, name: str, i: int):
+    """Layer ``i``'s slice of the stacked cache ``caches[name]`` (views:
+    the layer writes through them in place); None without caches."""
+    if caches is None:
+        return None
+    return {k: v[i] for k, v in caches[name].items()}
+
+
+class DecoderModel(StackedModel):
+    """The decoder of ``cfg`` over a state ({name: tensor}, adopted without
+    a copy and frozen); on the meta device without one."""
+
+    def __init__(self, cfg, state: Optional[dict] = None):
+        super().__init__(cfg, param_defs(cfg), state)
 
     # ---------------- parameter / cache declarations
 
@@ -130,8 +221,35 @@ class DecoderModel(nn.Module):
 
     def cache_defs(self, batch: int, s_max: int):
         cfg = self.cfg
-        return {"layers": stack_defs(
-            attention.gqa_cache_defs(cfg, batch, s_max), cfg.n_layers)}
+        fam = cfg.family
+        if fam in ("dense", "vlm"):
+            return {"layers": stack_defs(
+                attention.gqa_cache_defs(cfg, batch, s_max), cfg.n_layers)}
+        if fam == "moe":
+            base = (attention.mla_cache_defs(cfg, batch, s_max)
+                    if cfg.kv_lora_rank
+                    else attention.gqa_cache_defs(cfg, batch, s_max))
+            c = {"layers": stack_defs(base,
+                                      cfg.n_layers - cfg.first_dense_layers)}
+            if cfg.first_dense_layers:
+                c["dense_layers"] = stack_defs(
+                    attention.gqa_cache_defs(cfg, batch, s_max),
+                    cfg.first_dense_layers)
+            return c
+        if fam == "hybrid":
+            n_apps = len(segment_bounds(cfg.n_layers, cfg.shared_attn_every))
+            return {"layers": stack_defs(ssm.mamba_cache_defs(cfg, batch),
+                                         cfg.n_layers),
+                    "shared_attn": stack_defs(
+                        attention.gqa_cache_defs(cfg, batch, s_max), n_apps)}
+        if fam == "ssm":
+            period = cfg.slstm_period
+            n_groups = cfg.n_layers // period
+            return {"layers": stack_defs(xlstm.mlstm_cache_defs(cfg, batch),
+                                         n_groups * (period - 1)),
+                    "slstm": stack_defs(xlstm.slstm_cache_defs(cfg, batch),
+                                        n_groups)}
+        raise ValueError(fam)
 
     def _gemma_flags(self):
         """(is_global, window, theta) per layer for local:global patterns.
@@ -154,10 +272,17 @@ class DecoderModel(nn.Module):
         return [(int(w), float(t)) for w, t in zip(win, theta)]
 
     def _attn_layer_apply(self, lp, h, mode, cache, cache_len, window,
-                          theta):
+                          theta, is_moe=False):
         cfg = self.cfg
         ln_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        if mode == "decode":
+        if cfg.kv_lora_rank and is_moe:
+            if mode == "decode":
+                a, cache = attention.mla_decode(lp["attn"], ln_in, cfg,
+                                                cache, cache_len)
+            else:
+                a, cache = attention.mla_full(lp["attn"], ln_in, cfg,
+                                              cache=cache)
+        elif mode == "decode":
             a, cache = attention.gqa_decode(lp["attn"], ln_in, cfg, cache,
                                             cache_len, window=window,
                                             theta=theta)
@@ -167,28 +292,108 @@ class DecoderModel(nn.Module):
                                           cache=cache)
         h = h + a
         ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        if is_moe:
+            return h + moe.moe_apply(lp["ffn"], ln2, cfg), cache
         return h + mlp.swiglu_apply(lp["ffn"], ln2), cache
+
+    def _attn_stack(self, name, h, mode, caches, cache_len, lo=0, hi=None,
+                    flags=None, is_moe=False):
+        """Layers ``lo:hi`` of the stack ``name``."""
+        cfg = self.cfg
+        stack = getattr(self, name)
+        hi = len(stack) if hi is None else hi
+        for i in range(lo, hi):
+            win, theta = (cfg.sliding_window, None) if flags is None \
+                else flags[i]
+            h, _ = self._attn_layer_apply(
+                stack[i], h, mode, layer_cache(caches, name, i), cache_len,
+                win, theta, is_moe)
+        return h
+
+    def _mamba_stack(self, h, mode, caches, lo, hi):
+        cfg = self.cfg
+        for i in range(lo, hi):
+            lp = self.layers[i]
+            ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+            cache = layer_cache(caches, "layers", i)
+            if mode == "decode":
+                y, _ = ssm.mamba_decode(lp["mixer"], ln, cfg, cache)
+            else:
+                y, _ = ssm.mamba_full(lp["mixer"], ln, cfg, cache=cache)
+            h = h + y
+        return h
+
+    def _recurrent(self, name, apply_fn, h, mode, caches, lo, hi):
+        """Layers ``lo:hi`` of the xLSTM stack ``name`` (mLSTM or
+        sLSTM)."""
+        cfg = self.cfg
+        stack = getattr(self, name)
+        for i in range(lo, hi):
+            lp = stack[i]
+            ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+            y, _ = apply_fn(lp["mixer"], ln, cfg,
+                            cache=layer_cache(caches, name, i),
+                            decode=(mode == "decode"))
+            h = h + y
+        return h
 
     # ---------------- forward
 
     def forward(self, tokens, *, mode="train", caches=None, cache_len=None,
-                return_hidden=False):
-        """tokens: (B, S) integers (S = 1 for decode).  Returns (logits,
-        or the final hidden states with ``return_hidden``, and the caches,
-        updated in place)."""
+                image_embeds=None, return_hidden=False):
+        """tokens: (B, S) integers (S = 1 for decode); ``cache_len`` a host
+        int.  Returns (logits, or the final hidden states with
+        ``return_hidden``, and the caches, updated in place)."""
         cfg = self.cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         h = F.embedding(tokens, self.embed).to(dt)
         if getattr(cfg, "embed_scale", False):   # gemma: h *= sqrt(d)
             # sqrt(d) rounded to h's dtype first, as the reference does
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
-        layer_caches = None if caches is None else caches["layers"]
-        for i, (lp, (win, theta)) in enumerate(zip(self.layers,
-                                                   self._layer_flags())):
-            cache = None if layer_caches is None else \
-                {"k": layer_caches["k"][i], "v": layer_caches["v"][i]}
-            h, _ = self._attn_layer_apply(lp, h, mode, cache, cache_len,
-                                          win, theta)
+        fam = cfg.family
+        if fam == "dense":
+            h = self._attn_stack("layers", h, mode, caches, cache_len,
+                                 flags=self._layer_flags())
+        elif fam == "moe":
+            if cfg.first_dense_layers:
+                h = self._attn_stack("dense_layers", h, mode, caches,
+                                     cache_len)
+            h = self._attn_stack("layers", h, mode, caches, cache_len,
+                                 is_moe=True)
+        elif fam == "hybrid":
+            for a, (lo, hi) in enumerate(segment_bounds(
+                    cfg.n_layers, cfg.shared_attn_every)):
+                # the shared block: the same weights at every application,
+                # a KV cache each
+                h, _ = self._attn_layer_apply(
+                    self.shared_attn, h, mode,
+                    layer_cache(caches, "shared_attn", a), cache_len, None,
+                    None)
+                h = self._mamba_stack(h, mode, caches, lo, hi)
+        elif fam == "ssm":
+            per_seg = cfg.slstm_period - 1
+            for g in range(cfg.n_layers // cfg.slstm_period):
+                h = self._recurrent("layers", xlstm.mlstm_apply, h, mode,
+                                    caches, g * per_seg, (g + 1) * per_seg)
+                h = self._recurrent("slstm", xlstm.slstm_apply, h, mode,
+                                    caches, g, g + 1)
+        elif fam == "vlm":
+            period = cfg.cross_attn_period
+            img = None
+            if image_embeds is not None:
+                # recomputed on every call, decode steps included
+                img = matmul(image_embeds.to(h.dtype), self.img_proj)
+            for ci in range(cfg.n_layers // period):
+                if img is not None:
+                    cp = self.cross[ci]
+                    ln = rms_norm(h, cp["ln1"], cfg.norm_eps)
+                    h = h + attention.cross_apply(cp["attn"], ln, img, cfg)
+                    ln2 = rms_norm(h, cp["ln2"], cfg.norm_eps)
+                    h = h + mlp.swiglu_apply(cp["ffn"], ln2)
+                h = self._attn_stack("layers", h, mode, caches, cache_len,
+                                     ci * period, (ci + 1) * period)
+        else:
+            raise ValueError(fam)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         if return_hidden:
             return h, caches

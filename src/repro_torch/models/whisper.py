@@ -1,0 +1,166 @@
+"""Whisper-style encoder-decoder backbone.
+
+A port of the JAX package's ``repro.models.whisper``.  The conv audio
+frontend is a stub there and here: the caller gives precomputed frame
+embeddings (B, n_frames, d).  The backbone: a bidirectional encoder with
+learned positions (no rope), and a causal decoder with learned positions,
+rope with ``rope_theta`` on its self attention on top of them (as the
+reference does), cross-attention to the encoder's output and GELU MLPs;
+RMSNorm throughout and a tied unembedding.
+
+The encoder reruns on every forward, decode steps included, as the
+reference's does.  Prefill positions are ``arange(S) %
+max_target_positions``; decode reads ``pos_dec[cache_len]``, where the
+reference's gather clamps an index past the table to its last row:
+torch raises on such an index, so the port clamps explicitly (past
+position ``max_target_positions - 1`` decode and prefill disagree in the
+reference, and so they do here; ROADMAP Queue 3 item 11).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import (ParamDef, chunked_attention, matmul,
+                                       rms_norm)
+from repro_torch.models.transformer import (StackedModel, _norm_def,
+                                            layer_cache, stack_defs)
+
+
+def enc_layer_defs(cfg):
+    return {"ln1": _norm_def(cfg), "attn": attention.gqa_defs(cfg),
+            "ln2": _norm_def(cfg), "ffn": mlp.gelu_defs(cfg)}
+
+
+def dec_layer_defs(cfg):
+    return {"ln1": _norm_def(cfg), "attn": attention.gqa_defs(cfg),
+            "lnx": _norm_def(cfg), "xattn": attention.cross_defs(cfg),
+            "ln2": _norm_def(cfg), "ffn": mlp.gelu_defs(cfg)}
+
+
+def param_defs(cfg):
+    return {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("model", None)),
+        "pos_enc": ParamDef((cfg.n_audio_frames, cfg.d_model),
+                            (None, None)),
+        "pos_dec": ParamDef((cfg.max_target_positions, cfg.d_model),
+                            (None, None)),
+        "enc_layers": stack_defs(enc_layer_defs(cfg), cfg.encoder_layers),
+        "enc_norm": _norm_def(cfg),
+        "dec_layers": stack_defs(dec_layer_defs(cfg), cfg.n_layers),
+        "final_norm": _norm_def(cfg),
+    }
+
+
+def decode_position(cfg, cache_len: int) -> int:
+    """The row of ``pos_dec`` a decode step at ``cache_len`` reads: the
+    reference's gather clamps to the last row."""
+    return min(cache_len, cfg.max_target_positions - 1)
+
+
+class EncDecModel(StackedModel):
+    """The encoder-decoder of ``cfg`` over a state ({name: tensor},
+    adopted without a copy and frozen); on the meta device without
+    one."""
+
+    def __init__(self, cfg, state: Optional[dict] = None):
+        super().__init__(cfg, param_defs(cfg), state)
+
+    def param_defs(self):
+        return param_defs(self.cfg)
+
+    def cache_defs(self, batch: int, s_max: int):
+        return {"dec_layers": stack_defs(
+            attention.gqa_cache_defs(self.cfg, batch, s_max),
+            self.cfg.n_layers)}
+
+    # -------- encoder
+
+    def encode(self, audio_embeds):
+        cfg = self.cfg
+        dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        h = audio_embeds.to(dt)
+        h = h + self.pos_enc.to(h.dtype)[None, :h.shape[1]]
+        for lp in self.enc_layers:
+            ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            q = attention._proj(ln, lp["attn"]["wq"])
+            k = attention._proj(ln, lp["attn"]["wk"])
+            v = attention._proj(ln, lp["attn"]["wv"])
+            a = chunked_attention(q, k, v, causal=False,
+                                  chunk=cfg.attn_chunk)
+            h = h + attention._out(a, lp["attn"]["wo"])
+            ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+            h = h + mlp.gelu_apply(lp["ffn"], ln2)
+        return rms_norm(h, self.enc_norm, cfg.norm_eps)
+
+    # -------- decoder
+
+    def _embed(self, tokens, enc_out, mode, cache_len):
+        cfg = self.cfg
+        h = F.embedding(tokens, self.embed).to(enc_out.dtype)
+        pos = self.pos_dec.to(h.dtype)
+        if mode == "decode":
+            return h + pos[decode_position(cfg, cache_len)][None, None]
+        idx = torch.arange(tokens.shape[1], device=tokens.device) \
+            % cfg.max_target_positions
+        return h + pos[idx][None]
+
+    def _dec_layer(self, lp, h, enc_out, mode, cache, cache_len):
+        cfg = self.cfg
+        ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        if mode == "decode":
+            a, _ = attention.gqa_decode(lp["attn"], ln, cfg, cache,
+                                        cache_len)
+        else:
+            a, _ = attention.gqa_full(lp["attn"], ln, cfg, cache=cache)
+        h = h + a
+        lnx = rms_norm(h, lp["lnx"], cfg.norm_eps)
+        h = h + attention.cross_apply(lp["xattn"], lnx, enc_out, cfg)
+        ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        return h + mlp.gelu_apply(lp["ffn"], ln2)
+
+    def decode_stack(self, tokens, enc_out, *, mode="train", caches=None,
+                     cache_len=None):
+        """The decoder over ``caches`` ({"dec_layers": ...}; prefill or
+        decode)."""
+        if caches is None:
+            raise ValueError("decode_stack requires caches (prefill/decode)")
+        h = self._embed(tokens, enc_out, mode, cache_len)
+        for i, lp in enumerate(self.dec_layers):
+            h = self._dec_layer(lp, h, enc_out, mode,
+                                layer_cache(caches, "dec_layers", i),
+                                cache_len)
+        return h, caches
+
+    def _no_cache_stack(self, tokens, enc_out):
+        h = self._embed(tokens, enc_out, "train", None)
+        for lp in self.dec_layers:
+            h = self._dec_layer(lp, h, enc_out, "train", None, None)
+        return h, None
+
+    def forward(self, tokens, *, audio_embeds, mode="train", caches=None,
+                cache_len=None, return_hidden=False, **_):
+        """tokens: (B, S) integers; ``audio_embeds`` (B, n_frames, d);
+        ``cache_len`` a host int.  Returns (logits, or the final hidden
+        states with ``return_hidden``, and the caches, updated in
+        place)."""
+        cfg = self.cfg
+        enc_out = self.encode(audio_embeds)
+        if caches is None:
+            h, _ = self._no_cache_stack(tokens, enc_out)
+        else:
+            h, _ = self.decode_stack(tokens, enc_out, mode=mode,
+                                     caches=caches, cache_len=cache_len)
+        h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        if return_hidden:
+            return h, caches
+        return self.unembed(h), caches
+
+    def unembed(self, h):
+        return matmul(h, self.embed.to(h.dtype).T).float()
+
+    def unembed_weights(self):
+        return self.embed, True

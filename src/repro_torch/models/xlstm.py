@@ -1,0 +1,239 @@
+"""xLSTM blocks: mLSTM (matrix memory, exponential gating) and sLSTM
+(scalar memory with recurrent gate connections), per Beck et al. 2024.
+
+A port of the JAX package's ``repro.models.xlstm``.  Heads come from
+``d_model // n_heads`` (not ``head_dim``).  mLSTM state: C (B, H, hd, hd)
+matrix memory, n (B, H, hd) normalizer, m (B, H) gate stabilizer, which
+starts at -1e30; sLSTM state: c, n, h (B, H, hd), m (B, H).  Both are
+O(1) per decoded token.
+
+The full-sequence forms run the recurrence as a Python loop over time
+(the reference's ``lax.scan``); the mLSTM's chunkwise-parallel form runs
+where ``ssm_chunk > 0``, ``S % ssm_chunk == 0`` and ``S > ssm_chunk``, as
+the reference's does.  Each form starts from the cache's state when there
+is a cache, writes the final state into it in place, and returns it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParamDef, matmul
+
+_NEG = -1e30
+
+
+def _heads(cfg):
+    return cfg.n_heads, cfg.d_model // cfg.n_heads
+
+
+def _log_sigmoid(x):
+    """log sigmoid(x) as the reference writes it, -softplus(-x)."""
+    return -F.softplus(-x)
+
+
+def mlstm_defs(cfg):
+    d = cfg.d_model
+    H, hd = _heads(cfg)
+    return {
+        "wq": ParamDef((d, H, hd), (None, None, "model")),
+        "wk": ParamDef((d, H, hd), (None, None, "model")),
+        "wv": ParamDef((d, H, hd), (None, None, "model")),
+        "wi": ParamDef((d, H), (None, None), init_scale=0.1),
+        "wf": ParamDef((d, H), (None, None), init_scale=0.1),
+        "wo": ParamDef((d, d), (None, "model")),
+        "w_out": ParamDef((d, d), ("model", None)),
+    }
+
+
+def mlstm_cache_defs(cfg, batch):
+    H, hd = _heads(cfg)
+    return {
+        "C": ParamDef((batch, H, hd, hd), ("data", None, None, "model")),
+        "n": ParamDef((batch, H, hd), ("data", None, "model")),
+        "m": ParamDef((batch, H), ("data", None)),
+    }
+
+
+def _mlstm_step(state, inp):
+    C, n, m = state
+    q, k, v, i_pre, f_pre = inp            # (B,H,hd) x3, (B,H) x2
+    log_f = _log_sigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    C = C * f_g[..., None, None] + i_g[..., None, None] \
+        * (k[..., :, None] * v[..., None, :])
+    n = n * f_g[..., None] + i_g[..., None] * k
+    num = (q[..., None, :] @ C)[..., 0, :]               # (B, H, hd_v)
+    den = torch.maximum((q * n).sum(dim=-1).abs(), torch.exp(-m_new))
+    h = num / den[..., None]
+    return (C, n, m_new), h
+
+
+def _mlstm_core(q, k, v, i_pre, f_pre, state):
+    """Loop over time.  q/k/v: (B,S,H,hd); gates (B,S,H)."""
+    k = k / math.sqrt(q.shape[-1])
+    hs = []
+    for t in range(q.shape[1]):
+        state, h = _mlstm_step(state, (q[:, t], k[:, t], v[:, t],
+                                       i_pre[:, t], f_pre[:, t]))
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int):
+    """The chunkwise-parallel mLSTM of the reference: the same per-position
+    stabilizer m_t as the step recurrence.  With b_j the within-chunk
+    cumulative sum of log sigmoid(f):
+      m_j   = b_j + max(m_in, cummax_j(i - b))
+      h_j   = [e^{b_j+m_in-m_j} q_j C_in + sum_{l<=j} S_jl v_l] / den_j
+      S_jl  = (q_j . k_l) e^{b_j-b_l+i_l-m_j}
+      den_j = max(|e^{b_j+m_in-m_j} q_j n_in + sum_l S_jl|, e^{-m_j})
+    and the chunk-final (C, n, m) from the same weights at j = L."""
+    B, S, H, hd = q.shape
+    hd_v = v.shape[-1]
+    k = k / math.sqrt(hd)
+    nc = S // chunk
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))
+    C_in, n_in, m_in = state
+    hs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qb, kb, vb, ib, fb = q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl], \
+            f_pre[:, sl]
+        b = torch.cumsum(_log_sigmoid(fb), dim=1)          # (B,L,H)
+        run = torch.cummax(ib - b, dim=1).values           # cummax_j(i-b)
+        m = b + torch.maximum(m_in[:, None, :], run)       # == scan m_t
+        inter = torch.exp(b + m_in[:, None, :] - m)        # (B,L,H)
+        logD = (b[:, :, None, :] - b[:, None, :, :] + ib[:, None, :, :]
+                - m[:, :, None, :])                        # (B,j,l,H)
+        logD = torch.where(tri[None, :, :, None], logD, _NEG)
+        S_mat = torch.einsum("bjhd,blhd->bjlh", qb, kb) * torch.exp(logD)
+        num = (inter[..., None] * torch.einsum("bjhd,bhdv->bjhv", qb, C_in)
+               + torch.einsum("bjlh,blhv->bjhv", S_mat, vb))
+        qn = (inter * torch.einsum("bjhd,bhd->bjh", qb, n_in)
+              + S_mat.sum(dim=2))
+        den = torch.maximum(qn.abs(), torch.exp(-m))
+        hs.append(num / den[..., None])                    # (B,L,H,hd_v)
+        b_tot = b[:, -1, :]                                # (B,H)
+        m_out = b_tot + torch.maximum(m_in, run[:, -1, :])
+        w_state = torch.exp(b_tot[:, None, :] - b + ib - m_out[:, None, :])
+        carry = torch.exp(b_tot + m_in - m_out)
+        C_in = (carry[..., None, None] * C_in
+                + torch.einsum("blh,blhd,blhv->bhdv", w_state, kb, vb))
+        n_in = (carry[..., None] * n_in
+                + torch.einsum("blh,blhd->bhd", w_state, kb))
+        m_in = m_out
+    return torch.cat(hs, dim=1).reshape(B, S, H, hd_v), (C_in, n_in, m_in)
+
+
+def _state(cache, names, zeros):
+    """The recurrence's float32 state: the cache's, or ``zeros``."""
+    if cache is None:
+        return zeros
+    return tuple(cache[k].float() for k in names)
+
+
+def _write(cache, names, state):
+    if cache is not None:
+        for k, s in zip(names, state):
+            cache[k].copy_(s)
+    return cache
+
+
+def mlstm_apply(p, x, cfg, cache=None, decode=False):
+    B, S, d = x.shape
+    H, hd = _heads(cfg)
+    f32, dev = torch.float32, x.device
+    q = matmul(x, p["wq"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
+    k = matmul(x, p["wk"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
+    v = matmul(x, p["wv"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
+    i_pre = matmul(x, p["wi"]).float()
+    f_pre = matmul(x, p["wf"]).float()
+    state = _state(cache, ("C", "n", "m"), (
+        torch.zeros((B, H, hd, hd), dtype=f32, device=dev),
+        torch.zeros((B, H, hd), dtype=f32, device=dev),
+        torch.full((B, H), _NEG, dtype=f32, device=dev)))
+    if decode:
+        state, h = _mlstm_step(state, (q[:, 0], k[:, 0] / math.sqrt(hd),
+                                       v[:, 0], i_pre[:, 0], f_pre[:, 0]))
+        hs = h[:, None]
+    else:
+        cw = getattr(cfg, "ssm_chunk", 0)
+        if cw and S % cw == 0 and S > cw:
+            hs, state = _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, cw)
+        else:
+            hs, state = _mlstm_core(q, k, v, i_pre, f_pre, state)
+    hs = hs.reshape(B, S, d).to(x.dtype)
+    out = matmul(hs * torch.sigmoid(matmul(x, p["wo"])), p["w_out"])
+    return out, _write(cache, ("C", "n", "m"), state)
+
+
+def slstm_defs(cfg):
+    d = cfg.d_model
+    H, hd = _heads(cfg)
+    return {
+        "w_gates": ParamDef((d, 4, H, hd), (None, None, None, "model")),
+        "r_gates": ParamDef((H, 4, hd, hd), (None, None, None, "model"),
+                            init_scale=0.3),
+        "w_out": ParamDef((d, d), ("model", None)),
+    }
+
+
+def slstm_cache_defs(cfg, batch):
+    H, hd = _heads(cfg)
+    return {
+        "c": ParamDef((batch, H, hd), ("data", None, "model")),
+        "n": ParamDef((batch, H, hd), ("data", None, "model")),
+        "h": ParamDef((batch, H, hd), ("data", None, "model")),
+        "m": ParamDef((batch, H), ("data", None)),
+    }
+
+
+def _slstm_step(p_r, state, g_in):
+    """p_r: (H, 4, hd, hd); g_in: (B, 4, H, hd)."""
+    c, n, h, m = state
+    rec = torch.einsum("bhk,hgkv->bghv", h, p_r)          # (B, 4, H, hd)
+    z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i] for i in range(4)]
+    i_sc = i_pre.mean(dim=-1)                             # head-level
+    f_sc = f_pre.mean(dim=-1)                             # stabilization
+    log_f = _log_sigmoid(f_sc)
+    m_new = torch.maximum(log_f + m, i_sc)
+    i_g = torch.exp(i_pre - m_new[..., None])
+    f_g = torch.exp(log_f[..., None] + (m - m_new)[..., None])
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    c = f_g * c + i_g * z
+    n = f_g * n + i_g
+    h = o * c / torch.clamp_min(n, 1e-6)
+    return (c, n, h, m_new), h
+
+
+def _slstm_scan(p_r, state, gates_in, steps: int):
+    """Loop over the first ``steps`` positions of gates_in (B,S,4,H,hd).
+    Returns (hs (B,steps,H,hd), state)."""
+    hs = []
+    for t in range(steps):
+        state, h = _slstm_step(p_r, state, gates_in[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def slstm_apply(p, x, cfg, cache=None, decode=False):
+    B, S, d = x.shape
+    H, hd = _heads(cfg)
+    f32, dev = torch.float32, x.device
+    gates_in = matmul(x, p["w_gates"].reshape(d, 4 * H * hd)).reshape(
+        B, S, 4, H, hd).float()
+    zeros = torch.zeros((B, H, hd), dtype=f32, device=dev)
+    state = _state(cache, ("c", "n", "h", "m"), (
+        zeros, zeros, zeros, torch.full((B, H), _NEG, dtype=f32,
+                                        device=dev)))
+    steps = 1 if decode else S
+    hs, state = _slstm_scan(p["r_gates"].float(), state, gates_in, steps)
+    out = matmul(hs.reshape(B, S, d).to(x.dtype), p["w_out"])
+    return out, _write(cache, ("c", "n", "h", "m"), state)

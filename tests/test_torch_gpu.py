@@ -1288,3 +1288,51 @@ def test_lm_smoke_and_head_probe_on_the_card(cuda):
     np.testing.assert_allclose(r_gpu.beta, r_cpu.beta, rtol=0, atol=1e-5)
     p = head_probe.predict_proba(feats, r_gpu.beta)
     assert p.is_cuda and bool(torch.isfinite(p).all())
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "mixtral-8x7b",
+                                  "zamba2-1.2b", "xlstm-1.3b",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
+def test_lm_family_smoke_forward_on_the_card(cuda, name):
+    """Each family's smoke model on the card against the same weights and
+    inputs on the CPU (the modality stubs too), logits and hidden states
+    within 5e-4 of the largest (the bar of tests/test_torch_families.py),
+    then prefill and three decode steps on the card against its own
+    forward at the reference's ``_DECODE_TOL``, with capacity for every
+    MoE token."""
+    from repro_torch.configs.registry import smoke_variant
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, moe
+
+    cfg = smoke_variant(name)
+    cpu = lm.build_model(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = lm.build_model(cfg, state={k: v.to(cuda) for k, v in
+                                     cpu.state_dict().items()})
+    tok = torch.randint(0, cfg.vocab_size, (2, 24),
+                        generator=torch.Generator().manual_seed(1))
+    extra = serve.modality_inputs(cfg, 2, torch.Generator().manual_seed(2))
+    extra_gpu = {k: v.to(cuda) for k, v in extra.items()}
+    for hidden in (True, False):
+        want = cpu(tok, return_hidden=hidden, **extra)[0]
+        got = gpu(tok.to(cuda), return_hidden=hidden, **extra_gpu)[0]
+        assert got.is_cuda
+        assert float((got.cpu() - want).abs().max()) <= \
+            5e-4 * float(want.abs().max())
+    old = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = 16.0
+    try:
+        full = gpu(tok.to(cuda), **extra_gpu)[0]
+        caches = lm.init_cache(cfg, 2, 24)
+        prefill = lm.make_prefill_step(gpu)
+        decode = lm.make_decode_step(gpu)
+        _, caches = prefill(caches, {"tokens": tok[:, :21].to(cuda),
+                                     **extra_gpu})
+        errs = []
+        for i in range(21, 24):
+            logits, caches = decode(caches, tok[:, i:i + 1].to(cuda), i,
+                                    extra_gpu)
+            errs.append(float((logits - full[:, i]).abs().max()))
+    finally:
+        moe.CAPACITY_FACTOR = old
+    tol = {"xlstm-1.3b": 2e-2, "zamba2-1.2b": 5e-3}.get(name, 1e-3)
+    assert max(errs) < tol, errs

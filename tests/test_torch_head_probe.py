@@ -183,3 +183,38 @@ def test_the_example_pipeline_at_smoke_size():
     p = t_hp.predict_proba(got[n_tr:], own.beta).numpy()
     acc = ((p > 0.5) == (labels[n_tr:] > 0)).mean()
     assert np.isfinite(own.beta).all() and acc > 0.5, acc
+
+
+def test_fused_jacobi_probe_on_deepseek_features_matches_jax():
+    """The probe on a smoke deepseek's (MoE with MLA) mean-pooled features,
+    by the fused Jacobi superstep (the plain versions of the
+    stats_gram_solve and margin_ls kernels here): the features held to
+    the backbone's bar, then the fit on the very same (the reference's)
+    features in both packages, beta within 1e-5 and the same n_iter and
+    alphas."""
+    name = "deepseek-v2-lite-16b"
+    j_model = j_lm.build_model(j_reg.smoke_variant(name))
+    defs = j_model.param_defs()
+    params = jax.jit(lambda k: j_common.init_params(defs, k))(
+        jax.random.PRNGKey(0))
+    cfg = t_reg.smoke_variant(name)
+    model = t_lm.build_model(cfg, state=convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, params), device="cpu"))
+    labels, tokens = _task(256, S=16, seed=3)
+    batches = np.split(tokens, 4)          # 64 x 16 tokens: 4 MoE groups
+    want = np.asarray(j_hp.extract_features(
+        _j_hidden(j_model), params, [jnp.asarray(b) for b in batches]))
+    got = t_hp.extract_features(_t_hidden, model,
+                                [torch.from_numpy(b) for b in batches])
+    assert got.shape == (256, cfg.d_model)
+    assert _rel(got, want) <= FEATURE_TOL
+    kw = dict(lam1=0.05, lam2=0.05, tile_size=16, coupling="jacobi",
+              fuse_superstep=True)
+    y = labels.astype(np.float32)
+    r_j = j_hp.fit_probe(want, y, JConfig(**kw))
+    r_t = t_hp.fit_probe(torch.from_numpy(want), y, TConfig(**kw),
+                         device="cpu")
+    assert r_t.n_iter == r_j.n_iter
+    assert r_t.history["alpha"] == r_j.history["alpha"]
+    np.testing.assert_allclose(r_t.beta, r_j.beta, rtol=0, atol=BETA_TOL)
+    assert np.abs(r_t.beta).max() > 0

@@ -41,7 +41,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.roofline.hlo", "repro_torch.configs",
            "repro_torch.configs.registry", "repro_torch.launch.mesh",
            "repro_torch.models.lm", "repro_torch.models.transformer",
-           "repro_torch.core.head_probe", "repro_torch.launch.serve"]
+           "repro_torch.core.head_probe", "repro_torch.launch.serve",
+           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.xlstm", "repro_torch.models.whisper"]
 
 
 def _port_files():
