@@ -161,7 +161,7 @@ drives each path through the entry points a user calls and checks it:
     15 tiles, Gauss-Seidel; K1, K2 and K4 launched) held against the same
     fit on the CPU (the same alphas and n_iter, beta within 1e-5, or a
     float32 tie named);
-  * lm_families (last): the template's other five families at full width,
+  * lm_families: the template's other five families at full width,
     one model at a time on the card (built from a seed, served, checked,
     freed): deepseek-v2-lite-16b (moe with MLA, all 27 layers,
     15,709,498,368 parameters), mixtral-8x7b (8 of its 32 layers: 186.81
@@ -184,6 +184,32 @@ drives each path through the entry points a user calls and checks it:
     deepseek's features, the head probe by the fused Jacobi superstep
     (1,024 sequences of 32 tokens, 800 train rows, tile 256; K5 and K6
     launched) held against the same fit on the CPU.
+  * train (last; ``train_phase``, which ``train_phase(np, torch, dev,
+    card)`` also runs alone): LM training, no hand-written kernel on its
+    path (every launch count stays 0).  phi4-mini-3.8b at full width, 16
+    of its 32 layers (2,839,907,328 parameters; 32 layers' parameters,
+    gradients and AdamW moments take 71.2 GB of float32), float32 with
+    remat and flash attention, through ``runtime.trainer.Trainer``: batch
+    2 x 2,048 tokens of ``TokenPipeline``, 6 AdamW steps (lr 3e-3, warmup
+    1), one checkpoint at the last (8 layers where the disk cannot hold
+    16 layers' 34 GB); each step's loss, grad norm, lr and seconds,
+    tokens/s, model flops (6 N D) a second against the fp32 peak, peak
+    memory, the save's seconds and bytes; every loss and grad norm finite
+    and every parameter moved; a fresh trainer restores the checkpoint
+    bit for bit (parameters, moments, count, next step 6), and one more
+    step from either state gives the same loss.  The flash backward
+    (``FlashAttention``) against autograd through the plain chunked
+    forward at phi4's and gemma3-12b's head shapes (B 2, S 2,048, causal;
+    gemma3's 1,024 window; a softcap of 50) within 1e-4 of each
+    gradient's largest entry, a log-sum-exp one chunk stale past it.
+    examples/train_lm.py's config (4 layers, d 256, vocab 2,048, batch 8
+    x 128) 200 steps: the last 10 losses below the first 10 by more than
+    0.1, and a run cut at step 100 and resumed within the reference's
+    rtol 2e-4, atol 2e-5 of the straight one.  One ``make_train_step``
+    step of every architecture of the registry at its smoke config, the
+    card against the CPU: loss 1e-5, grad norm 1e-4, gradients 1e-4 of
+    the largest entry, updated parameters 1e-7 where AdamW's step is not
+    near sign(g).
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -4597,6 +4623,423 @@ def lmf_probe(np, torch, dev, model, cfg) -> tuple:
         "card_vs_cpu": agree}
 
 
+# ---------------------------------------------------------------- train
+
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_LAYERS = 16                 # of 32: 71.2 GB of state do not fit
+TRAIN_LAYERS_SMALL_DISK = 8       # if the disk cannot hold the checkpoint
+TRAIN_PARAMS = 2_839_907_328      # the reference's count at 16 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+FLASH_BWD_TOL = 1e-4              # of each gradient's largest |entry|
+# examples/train_lm.py's config and the reference's bars
+LEARN_REPLACE = dict(n_layers=4, d_model=256, n_heads=8, n_kv_heads=4,
+                     head_dim=32, d_ff=512, vocab_size=2048)
+LEARN_BATCH, LEARN_SEQ, LEARN_STEPS, LEARN_CUT = 8, 128, 200, 100
+LEARN_DROP = 0.1                  # tests/test_system.py: mean of the last
+#                                   (here 10) below the first by 0.1
+RESUME_RTOL, RESUME_ATOL = 2e-4, 2e-5   # tests/test_checkpoint.py
+# card against CPU: tests/test_torch_train_archs.py's bars
+STEP_LOSS_TOL, STEP_GNORM_TOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-4
+STEP_PARAM_ATOL, STEP_FLOOR = 1e-7, 1e-5
+
+
+def leaf_prints(torch, params: dict) -> dict:
+    """{name: (float64 sum, float64 norm)} of each parameter: a leaf whose
+    print changes has moved."""
+    with torch.no_grad():
+        return {k: torch.stack([p.sum(dtype=torch.float64),
+                                torch.linalg.vector_norm(
+                                    p, dtype=torch.float64)])
+                for k, p in params.items()}
+
+
+def states_equal(torch, a: tuple, b: tuple) -> dict:
+    """Bit-for-bit comparison of two (params, opt_state) pairs: the count
+    of leaves that differ in each part."""
+    pa, oa = a
+    pb, ob = b
+    return {"params": sum(not torch.equal(pa[k], pb[k]) for k in pa),
+            "m": sum(not torch.equal(oa.m[k], ob.m[k]) for k in pa),
+            "v": sum(not torch.equal(oa.v[k], ob.v[k]) for k in pa),
+            "count": int(not torch.equal(oa.count, ob.count)),
+            "leaves": len(pa)}
+
+
+def train_full_width(np, torch, dev, card) -> dict:
+    """phi4-mini-3.8b at full width (16 of 32 layers, float32, remat) for
+    6 steps through ``runtime.trainer.Trainer``, its checkpoint restored
+    in a fresh trainer bit for bit, one more step from each state."""
+    import shutil
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import common, lm
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import model as roof
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.timing import timed
+
+    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    free_disk = shutil.disk_usage(ckpt_root).free
+    full = get_arch(TRAIN_ARCH)
+    layers = TRAIN_LAYERS
+    state_bytes = 3 * 4 * common.param_count(lm.param_defs(
+        full.replace(n_layers=layers)))
+    if free_disk < 1.2 * state_bytes:
+        layers = TRAIN_LAYERS_SMALL_DISK
+    cfg = full.replace(n_layers=layers, dtype="float32", remat=True,
+                       attn_impl="flash")
+    n_params = common.param_count(lm.param_defs(cfg))
+    check(layers != TRAIN_LAYERS or n_params == TRAIN_PARAMS,
+          f"train: {n_params} parameters at {layers} layers, the reference "
+          f"counts {TRAIN_PARAMS}")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1,
+                                total_steps=TRAIN_STEPS)
+    log_path = pathlib.Path(ckpt_root) / "train.jsonl"
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                         ckpt_dir=ckpt_root, keep_last=1, async_save=True,
+                         log_path=str(log_path), seed=SEED,
+                         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    rec = {"arch": cfg.name, "card": card, "n_layers": layers,
+           "reduced": {"n_layers": [full.n_layers, layers],
+                       "why": "32 layers' parameters, gradients and AdamW "
+                              "moments in float32 take 71.2 GB"
+                              + ("" if layers == TRAIN_LAYERS else
+                                 "; the disk held too little for 16 "
+                                 "layers' checkpoint")},
+           "params": n_params, "dtype": "float32", "remat": True,
+           "attn_impl": "flash", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "free_disk_gb": free_disk / 1e9}
+
+    trainer = Trainer(cfg, opt_cfg, tcfg, device=dev)
+    params0, _, _ = trainer.init_state()
+    before = leaf_prints(torch, params0)
+    del params0
+    trainer.model = trainer.train_step = None
+    # the save's two parts: the copy to the host (save) and the write
+    saves = {}
+    mgr = trainer.ckpt
+    for part in ("save", "wait"):
+        def wrapped(*a, _fn=getattr(mgr, part), _part=part, **k):
+            out, s = timed(_fn, *a, **k)
+            saves[_part] = saves.get(_part, 0.0) + s
+            return out
+        setattr(mgr, part, wrapped)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt_state, losses), run_s = timed(trainer.run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = [json.loads(ln) for ln in log_path.read_text().splitlines()]
+    for r in hist:
+        check(bool(np.isfinite([r["loss"], r["grad_norm"]]).all()),
+              f"train: step {r['step']}: loss or grad norm not finite {r}")
+    after = leaf_prints(torch, params)
+    still = [k for k in params if torch.equal(before[k], after[k])]
+    check(not still, f"train: leaves that did not move: {still[:8]}")
+    step_s = [r["step_s"] for r in hist]
+    warm = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = roof.model_flops(cfg, ShapeSpec("train", TRAIN_SEQ,
+                                            TRAIN_BATCH, "train"))
+    ckpt_dir = pathlib.Path(ckpt_root) / f"ckpt_{TRAIN_STEPS}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    save_s = saves.get("save", 0.0) + saves.get("wait", 0.0)
+    rec.update(
+        steps=hist, run_s=run_s, step_s_median_after_first=warm,
+        first_step_s=step_s[0], tokens_per_s=tokens / warm,
+        model_flops_per_step=flops, model_tflops_per_s=flops / warm / 1e12,
+        share_of_fp32_peak=flops / warm / H100_FP32_FLOPS,
+        peak_named="PEAK_FLOPS_FP32 (launch/mesh.py), 67 TFLOP/s",
+        peak_gb=peak_gb, leaves=len(params), leaves_moved=len(params),
+        save={"host_copy_s": saves.get("save"),
+              "write_wait_s": saves.get("wait"), "total_s": save_s,
+              "bytes": ckpt_bytes, "gb_per_s": ckpt_bytes / save_s / 1e9})
+
+    # ---- a fresh trainer on the same directory
+    torch.cuda.empty_cache()
+    fresh = Trainer(cfg, opt_cfg, tcfg, device=dev)
+    (restored, restore_s) = timed(fresh.restore_or_init)
+    p2, o2, start = restored
+    check(start == TRAIN_STEPS, f"train: restored next_step {start}")
+    diff = states_equal(torch, (params, opt_state), (p2, o2))
+    check(not any(v for k, v in diff.items() if k != "leaves"),
+          f"train: the restored state differs from the saved one: {diff}")
+    # one more step from each state; the first trainer's moments wait on
+    # the host meanwhile (both states and a step do not fit the card)
+    batch = trainer.pipeline.batch_at(TRAIN_STEPS)
+    host_m = {k: t.cpu() for k, t in opt_state.m.items()}
+    host_v = {k: t.cpu() for k, t in opt_state.v.items()}
+    for k in host_m:
+        opt_state.m[k] = opt_state.v[k] = None
+    torch.cuda.empty_cache()
+    _, m_restored = fresh.train_step(o2, batch)
+    loss_restored = float(m_restored["loss"])
+    del fresh, p2, o2, restored
+    torch.cuda.empty_cache()
+    for k in host_m:
+        opt_state.m[k] = host_m[k].to(dev)
+        opt_state.v[k] = host_v[k].to(dev)
+    del host_m, host_v
+    _, m_first = trainer.train_step(opt_state, batch)
+    loss_first = float(m_first["loss"])
+    check(abs(loss_restored - loss_first) <= RESUME_RTOL * abs(loss_first),
+          f"train: the step after the restore gives {loss_restored}, the "
+          f"first trainer's {loss_first}")
+    rec["restore"] = {"restore_s": restore_s, "next_step": start,
+                      "leaves_differing": diff,
+                      "loss_step7_restored": loss_restored,
+                      "loss_step7_first": loss_first,
+                      "bits_equal": loss_restored == loss_first}
+    del trainer, params, opt_state
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return rec
+
+
+def flash_case(np, torch, common, dev, *, B, S, H, Hkv, hd, window=None,
+               softcap=None, chunk=1024, seed=0) -> dict:
+    """dq, dk, dv of ``FlashAttention`` against autograd through the plain
+    chunked forward on the card; the fault control feeds the backward the
+    log-sum-exp one chunk stale (the running one before the last chunk)."""
+    import math
+
+    from repro_torch.timing import timed
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, hd), generator=g, device=dev)
+    dout = torch.randn((B, H, S, hd), generator=g, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    win = common._BIG_WINDOW if window is None else window
+    args = (True, 0, chunk, softcap, scale)
+
+    def function_grads():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = common.FlashAttention.apply(qq, kk, vv, *args, win)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+    def plain_grads():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out, _ = common._flash_fwd(*args, qq, kk, vv, win)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+    got, fn_s = timed(function_grads)
+    got, fn_s = timed(function_grads)
+    want, plain_s = timed(plain_grads)
+    want, plain_s = timed(plain_grads)
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    with torch.no_grad():
+        out, _ = common._flash_fwd(*args, q, k, v, win)
+        _, stale = common._flash_fwd(*args, q, k[:, :-chunk], v[:, :-chunk],
+                                     win)
+        bad = common._flash_bwd(*args, q, k, v, win, dout, out, stale)
+    # a stale lse can leave a query no key of its chunks: inf and NaN
+    # there, which exceed any bar
+    fault = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(bad, want)]
+    fault = [x if np.isfinite(x) else "non-finite" for x in fault]
+    return {"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+                      "window": window, "softcap": softcap, "chunk": chunk},
+            "rel_err_dq_dk_dv": errs, "fault_stale_lse": fault,
+            "function_fwd_bwd_ms": fn_s * 1e3,
+            "plain_autograd_ms": plain_s * 1e3}
+
+
+def train_flash(np, torch, dev, card) -> dict:
+    """The flash backward at phi4-mini's and gemma3-12b's head shapes."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import common
+
+    phi, gem = get_arch(TRAIN_ARCH), get_arch("gemma3-12b")
+    cases = {
+        "phi4_causal": dict(H=phi.n_heads, Hkv=phi.n_kv_heads,
+                            hd=phi.resolved_head_dim),
+        "gemma3_local_window": dict(H=gem.n_heads, Hkv=gem.n_kv_heads,
+                                    hd=gem.resolved_head_dim,
+                                    window=gem.sliding_window,
+                                    softcap=gem.attn_softcap),
+        # no config of the registry sets a softcap: gemma2's 50 on
+        # gemma3's heads, so the (1 - t^2) factor runs on the card
+        "gemma3_heads_softcap_50": dict(H=gem.n_heads, Hkv=gem.n_kv_heads,
+                                        hd=gem.resolved_head_dim,
+                                        softcap=50.0),
+    }
+    out = {"card": card, "bar": FLASH_BWD_TOL}
+    for i, (tag, kw) in enumerate(cases.items()):
+        r = flash_case(np, torch, common, dev, B=TRAIN_BATCH, S=TRAIN_SEQ,
+                       seed=SEED + i, **kw)
+        check(max(r["rel_err_dq_dk_dv"]) <= FLASH_BWD_TOL,
+              f"train: flash backward {tag}: {r['rel_err_dq_dk_dv']} of the "
+              f"largest entry (bar {FLASH_BWD_TOL})")
+        check(all(x == "non-finite" or x > FLASH_BWD_TOL
+                  for x in r["fault_stale_lse"]),
+              f"train: flash backward {tag}: a stale lse passes the bar "
+              f"{r['fault_stale_lse']}")
+        out[tag] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_learning(np, torch, dev, card) -> dict:
+    """examples/train_lm.py's config: 200 steps learn; a run cut at step
+    100 and resumed equals the straight one."""
+    from repro_torch.configs.registry import smoke_variant
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.timing import timed
+
+    cfg = smoke_variant(TRAIN_ARCH).replace(**LEARN_REPLACE)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20,
+                                total_steps=LEARN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-learn-") as d:
+        def run(sub, steps):
+            t = Trainer(cfg, opt_cfg, TrainerConfig(
+                steps=steps, ckpt_every=50, ckpt_dir=f"{d}/{sub}",
+                batch=LEARN_BATCH, seq_len=LEARN_SEQ, seed=SEED),
+                device=dev)
+            return t.run()[2]
+
+        straight, straight_s = timed(run, "straight", LEARN_STEPS)
+        run("cut", LEARN_CUT)
+        resumed, resumed_s = timed(run, "cut", LEARN_STEPS)
+    first, last = float(np.mean(straight[:10])), float(np.mean(straight[-10:]))
+    check(bool(np.isfinite(straight).all()) and last < first - LEARN_DROP,
+          f"train: examples/train_lm.py's config did not learn: first 10 "
+          f"{first}, last 10 {last}")
+    want = np.asarray(straight[LEARN_CUT:])
+    got = np.asarray(resumed)
+    err = np.abs(got - want)
+    check(len(got) == len(want) and bool(
+        (err <= RESUME_ATOL + RESUME_RTOL * np.abs(want)).all()),
+          f"train: the resumed run differs from the straight one by "
+          f"{err.max()}")
+    return {"card": card, "config": {**LEARN_REPLACE, "batch": LEARN_BATCH,
+                                     "seq_len": LEARN_SEQ},
+            "steps": LEARN_STEPS, "first10": first, "last10": last,
+            "drop": first - last, "straight_s": straight_s,
+            "ms_per_step": straight_s / LEARN_STEPS * 1e3,
+            "resume_max_abs_diff": float(err.max()),
+            "resume_bits_equal": bool((err == 0).all()),
+            "resumed_s": resumed_s}
+
+
+def smoke_weights(np, lm, common, cfg, seed: int) -> dict:
+    """numpy weights in the reference's layout for ``cfg``: N(0, 0.02^2)
+    matrices, N(0, 0.1^2) vectors (tests/test_torch_train_archs.py's)."""
+    rng = np.random.default_rng(seed)
+    return common.unflatten({
+        k: (rng.normal(size=d.shape) * (0.1 if len(d.shape) < 2 else 0.02))
+        .astype(np.float32)
+        for k, d in common.flatten(lm.param_defs(cfg)).items()})
+
+
+def one_step(np, torch, lm, convert, adamw, cfg, tree, batch, dev):
+    """(loss, grad norm, {name: gradient}, {name: updated parameter}) of
+    one ``make_train_step`` step on ``dev``, on the host."""
+    model = lm.build_model(cfg, state=convert.lm_params_from_numpy(
+        cfg, tree, device=dev))
+    step = lm.make_train_step(model, adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=8))
+    params = lm.trainable_params(model)
+    _, grads = lm.loss_and_grads(model, params,
+                                 lm.batch_to_device(batch, dev))
+    grads = {k: g.cpu().numpy() for k, g in grads.items()}
+    _, m = step(adamw.adamw_init(params), batch)
+    return (float(m["loss"]), float(m["grad_norm"]), grads,
+            {k: p.detach().cpu().numpy() for k, p in params.items()})
+
+
+def train_card_vs_cpu(np, torch, dev, card) -> dict:
+    """One ``make_train_step`` step of every architecture of the registry
+    at its smoke config (vlm and audio with their modality inputs), the
+    card against the CPU, by the CPU tests' bars."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import ARCHS, smoke_variant
+    from repro_torch.models import common, lm
+    from repro_torch.optim import adamw
+
+    out = {"card": card, "bars": {
+        "loss": STEP_LOSS_TOL, "grad_norm": STEP_GNORM_TOL,
+        "grad_leaf": STEP_GRAD_TOL, "param_atol": STEP_PARAM_ATOL}}
+    for i, name in enumerate(sorted(ARCHS)):
+        cfg = smoke_variant(name)
+        tree = smoke_weights(np, lm, common, cfg, SEED + i)
+        rng = np.random.default_rng(SEED + i)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24))
+                 .astype(np.int32),
+                 "targets": rng.integers(0, cfg.vocab_size, (2, 24))
+                 .astype(np.int32),
+                 "loss_mask": np.ones((2, 24), np.float32)}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = rng.normal(size=(
+                2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            batch["audio_embeds"] = rng.normal(size=(
+                2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        lc, gnc, gradc, pc = one_step(np, torch, lm, convert, adamw, cfg,
+                                      tree, batch, dev)
+        lh, gh, gradh, ph = one_step(np, torch, lm, convert, adamw, cfg,
+                                     tree, batch, "cpu")
+        grad_err = max(float(np.abs(gradc[k] - gradh[k]).max()
+                             / max(np.abs(gradh[k]).max(), 1e-30))
+                       for k in gradh)
+        scale = min(1.0, 1.0 / gh)
+        n_out, n_in, p_err = 0, 0, 0.0
+        for k, want in ph.items():
+            g = np.abs(gradh[k])
+            keep = ((g > STEP_GRAD_TOL * max(g.max(), 1e-30))
+                    & (g * scale > STEP_FLOOR)) \
+                | ((g == 0) & (gradc[k] == 0))
+            n_out += int((~keep).sum())
+            n_in += int(keep.sum())
+            if keep.any():
+                p_err = max(p_err, float(np.abs(pc[k] - want)[keep].max()))
+        r = {"loss_rel": abs(lc - lh) / abs(lh),
+             "grad_norm_rel": abs(gnc - gh) / gh, "grad_leaf_rel": grad_err,
+             "param_max_abs": p_err, "params_compared": n_in,
+             "params_near_sign_flip": n_out}
+        check(r["loss_rel"] <= STEP_LOSS_TOL
+              and r["grad_norm_rel"] <= STEP_GNORM_TOL
+              and grad_err <= STEP_GRAD_TOL and p_err <= STEP_PARAM_ATOL,
+              f"train: {name}: the card's step against the CPU's {r}")
+        out[name] = r
+    return out
+
+
+def train_phase(np, torch, dev, card) -> dict:
+    """LM training on the card (runs last; every earlier phase freed its
+    memory): the full-width trainer, the flash backward, learning and
+    kill-and-restart, every architecture's step against the CPU.  No
+    hand-written kernel lies on this path: the launch counts stay 0."""
+    import gc
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    recs = {}
+    for part, fn in (("train_full_width", train_full_width),
+                     ("train_flash", train_flash),
+                     ("train_learning", train_learning),
+                     ("train_card_vs_cpu", train_card_vs_cpu)):
+        t0 = time.perf_counter()
+        rec = fn(np, torch, dev, card)
+        rec["part_s"] = time.perf_counter() - t0
+        emit({"phase": part, **rec})
+        recs[part] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not launched, f"train: kernels launched on the training path "
+          f"{launched}")
+    emit({"phase": "train", "card": card, "kernel_launches": 0,
+          "phase_s": time.perf_counter() - t_phase})
+    return recs
+
+
 def main() -> None:
     if "--dist-worker" in sys.argv:
         dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
@@ -5107,6 +5550,8 @@ def main() -> None:
     # the other five families of the LM template after the dense one, and
     # the fused Jacobi probe on deepseek-v2-lite's features
     families_counts = lm_families_phase(np, torch, dev, card)
+    # LM training on the card, last: no hand-written kernel on its path
+    train_phase(np, torch, dev, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]
@@ -5224,7 +5669,7 @@ def main() -> None:
                if k in rep}})
     emit({"kernels": kernels})
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,
-          "earlier_wall_s": "550.1 (PERF.md, PR 25)"})
+          "earlier_wall_s": "729.3 (PERF.md, before the train phase)"})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,1 +1,2 @@
-from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401
+from repro_torch.checkpoint.manager import (CheckpointManager,  # noqa: F401
+                                           Stacked)

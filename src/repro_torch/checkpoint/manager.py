@@ -25,7 +25,13 @@ own block.
 
 Leaves are copied to host numpy before the writer starts, so the caller
 may overwrite its tensors at once; ``restore`` puts each array on the
-device of its template tensor.  Keys
+device of its template tensor, or, with ``in_place=True``, copies it into
+the template tensor itself (a model's parameters and an optimizer's
+moments, with no second copy on the device), reading one leaf at a time.
+A ``Stacked`` leaf (a list of tensors) is stored as one array, the tensors
+stacked on a new first axis, without a stack on the device; it is always
+restored in place, slice by slice: the LM trainer keeps the reference's
+``(L, ...)`` layers so.  Keys
 are the JAX package's: a leaf's path of dict keys, list indices and
 named-tuple fields joined by ``/`` (``"_root"`` for a bare leaf).
 
@@ -40,9 +46,11 @@ import json
 import os
 import pathlib
 import shutil
+import struct
 import threading
 import time
 import weakref
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -73,6 +81,14 @@ def _list_steps(directory: pathlib.Path):
         except ValueError:
             pass
     return sorted(out)
+
+
+class Stacked:
+    """A checkpoint leaf of tensors of one shape, stored as one array with
+    them stacked on a new first axis; restored into them in place."""
+
+    def __init__(self, tensors):
+        self.tensors = list(tensors)
 
 
 def _leaves(tree, path=()):
@@ -115,9 +131,74 @@ def _unflatten(tree, values, path=()):
 def _to_host(leaf) -> np.ndarray:
     """A host copy of a leaf that the caller may overwrite at once (a CPU
     tensor's ``.cpu()`` would share its memory)."""
+    if isinstance(leaf, Stacked):
+        first = leaf.tensors[0]
+        dtype = torch.empty(0, dtype=first.dtype).numpy().dtype
+        out = np.empty((len(leaf.tensors),) + tuple(first.shape), dtype)
+        for i, t in enumerate(leaf.tensors):     # one copy, to its slice
+            torch.from_numpy(out[i]).copy_(t.detach())
+        return out
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+_NPY_HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}
+
+
+class _StoredArrays:
+    """The arrays of a ``np.savez`` file by key.  A member stored without
+    compression (as ``np.savez`` writes them) is mapped from the file at
+    its offset, copy-on-write: a checkpoint of tens of GB is read at the
+    disk's speed, once, by the copy to its tensor, with no pass through
+    the zip stream.  Any other member is read by ``np.load``."""
+
+    def __init__(self, path: pathlib.Path):
+        self.path = path
+        self.npz = np.load(path)
+        with zipfile.ZipFile(path) as zf:
+            self.infos = {i.filename: i for i in zf.infolist()}
+
+    def close(self):
+        self.npz.close()
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self.infos.get(key + ".npy")
+        if info is None or info.compress_type != zipfile.ZIP_STORED:
+            return self.npz[key]
+        with open(self.path, "rb") as f:
+            f.seek(info.header_offset)
+            local = f.read(30)              # the zip's local file header
+            name_len, extra_len = struct.unpack("<HH", local[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            read_header = _NPY_HEADERS.get(np.lib.format.read_magic(f))
+            if read_header is None:
+                return self.npz[key]
+            shape, fortran, dtype = read_header(f)
+            offset = f.tell()
+        if dtype.hasobject or 0 in shape:
+            return self.npz[key]
+        return np.memmap(self.path, dtype=dtype, mode="c", offset=offset,
+                         shape=shape, order="F" if fortran else "C")
+
+
+@torch.no_grad()
+def _restored(key: str, ref, arr: np.ndarray, in_place: bool):
+    """The restored leaf of template ``ref`` from its stored array."""
+    if isinstance(ref, Stacked) or (in_place and torch.is_tensor(ref)):
+        parts = ref.tensors if isinstance(ref, Stacked) else [ref]
+        arrs = arr if isinstance(ref, Stacked) else arr[None]
+        if len(arrs) != len(parts) or any(
+                tuple(t.shape) != a.shape for t, a in zip(parts, arrs)):
+            raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}; "
+                             f"the template's does not match")
+        for t, a in zip(parts, arrs):
+            t.copy_(torch.from_numpy(np.asarray(a)))
+        return ref
+    if torch.is_tensor(ref):
+        return torch.from_numpy(np.array(arr)).to(ref.device)
+    return np.array(arr)
 
 
 class CheckpointManager:
@@ -223,29 +304,26 @@ class CheckpointManager:
         d = self._step_dir(step)
         return json.loads((d / "manifest.json").read_text())["metadata"]
 
-    def restore(self, like, *, step: Optional[int] = None):
+    def restore(self, like, *, step: Optional[int] = None,
+                in_place: bool = False):
         """(tree, metadata): checkpoint ``step`` (the latest by default) in
         the structure of ``like``.  A tensor leaf of ``like`` gets a tensor
-        on its device; a numpy leaf a numpy array; any other leaf the
-        stored array."""
+        on its device (with ``in_place``, the stored values copied into
+        it); a ``Stacked`` leaf its tensors filled in place; a numpy leaf
+        a numpy array; any other leaf the stored array."""
         d = self._step_dir(step)
+        flat_like = _flatten(like)
         with obs_trace.span("ckpt/restore",
                             args={"step": int(d.name.split("_")[1])}):
             meta = json.loads((d / "manifest.json").read_text())
-            with np.load(d / "shard_0.npz") as z:
-                flat = {k: z[k] for k in z.files}
-        flat_like = _flatten(like)
-        if sorted(flat_like) != meta["keys"]:
-            differ = set(meta["keys"]) ^ set(flat_like)
-            raise ValueError(f"checkpoint tree mismatch; differing keys: "
-                             f"{sorted(differ)[:8]}")
-        out = {}
-        for k, ref in flat_like.items():
-            arr = flat[k]
-            if torch.is_tensor(ref):
-                out[k] = torch.from_numpy(np.array(arr)).to(ref.device)
-            elif isinstance(ref, np.ndarray):
-                out[k] = np.array(arr)
-            else:
-                out[k] = arr
+            if sorted(flat_like) != meta["keys"]:
+                differ = set(meta["keys"]) ^ set(flat_like)
+                raise ValueError(f"checkpoint tree mismatch; differing keys: "
+                                 f"{sorted(differ)[:8]}")
+            z = _StoredArrays(d / "shard_0.npz")
+            try:
+                out = {k: _restored(k, ref, z[k], in_place)
+                       for k, ref in flat_like.items()}
+            finally:
+                z.close()
         return _unflatten(like, out), meta["metadata"]

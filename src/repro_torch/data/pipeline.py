@@ -1,5 +1,6 @@
-"""The chunk-callable contract of out-of-core designs (a copy of
-``repro.data.pipeline.validate_chunk_callable``; numpy only).
+"""The chunk-callable contract of out-of-core designs and the LM
+template's token stream (copies of ``repro.data.pipeline``'s
+``validate_chunk_callable`` and ``TokenPipeline``; numpy only).
 
 Every loader of row chunks is a pure function of its index, so a restarted
 fit replays the exact byte stream without saving any data state:
@@ -17,6 +18,10 @@ fit replays the exact byte stream without saving any data state:
 ``StreamingDesign`` consumes this contract and every reader of
 ``repro_torch.io`` produces it; ``validate_chunk_callable`` checks a
 producer against it.
+
+``TokenPipeline.batch_at(step)`` is the LM trainer's deterministic batch
+stream, a pure function of (seed, step) as well, so a resumed run reads
+the same batches; its batches equal the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -62,3 +67,34 @@ def validate_chunk_callable(chunk_fn, *, n_rows: int, n_cols: int,
                     "requires bit-identical replays)")
     return {"n_chunks": n_chunks, "last_rows": int(last_rows),
             "checked": idx}
+
+
+class TokenPipeline:
+    def __init__(self, vocab_size: int, batch: int, seq_len: int,
+                 seed: int = 0):
+        self.vocab_size = vocab_size
+        self.batch = batch
+        self.seq_len = seq_len
+        self.seed = seed
+
+    def batch_at(self, step: int):
+        """Global batch for ``step``: dict(tokens, targets, loss_mask) of
+        numpy arrays (int32, int32, float32; (batch, seq_len) each)."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+        V = self.vocab_size
+        B, S = self.batch, self.seq_len
+        # zipf-ish unigrams
+        base = (rng.pareto(1.2, size=(B, S + 1)).astype(np.int64)
+                * (V / 64)).astype(np.int64) % V
+        # learnable bigram structure: x_{t+1} = (3 x_t + 7) mod V on a
+        # motif mask
+        motif = rng.random((B, S + 1)) < 0.5
+        seq = base.copy()
+        for t in range(1, S + 1):
+            nxt = (3 * seq[:, t - 1] + 7) % V
+            seq[:, t] = np.where(motif[:, t], nxt, seq[:, t])
+        tokens = seq[:, :-1].astype(np.int32)
+        targets = seq[:, 1:].astype(np.int32)
+        mask = np.ones((B, S), np.float32)
+        return {"tokens": tokens, "targets": targets, "loss_mask": mask}

@@ -1,5 +1,6 @@
 """Shared model machinery of the LM template: parameter definitions, norms,
-rotary embeddings and chunked online-softmax attention (forward only).
+rotary embeddings and chunked online-softmax attention with its
+flash-style backward.
 
 A port of the JAX package's ``repro.models.common``, function for function
 and in its layouts and dtypes.  Every parameter is a ``ParamDef(shape,
@@ -11,8 +12,13 @@ as numpy arrays (``repro_torch.convert.lm_params_from_numpy``).
 
 Matrix products promote their operands as JAX does (bf16 with f32 gives
 f32; ``torch.matmul`` refuses mixed dtypes), and each function ends in the
-dtype JAX gives.  The flash-style backward of the reference's attention
-waits for the training slice (ROADMAP Queue 1 item 6).
+dtype JAX gives.
+
+``chunked_attention(impl="flash")`` is a ``torch.autograd.Function``
+(``FlashAttention``), the reference's ``custom_vjp``: its forward saves
+only the raw q, k and v, and its backward recomputes the output and the
+log-sum-exp, then runs over the KV chunks (``_flash_bwd``), so what a
+layer keeps for the backward is O(S), remat or not.
 """
 from __future__ import annotations
 
@@ -93,7 +99,7 @@ def param_count(defs) -> int:
 class ParamTree(nn.Module):
     """Parameters (and sub-trees) under the reference's names, read as
     ``p["wq"]`` like the reference's dicts; the tensors are adopted as
-    they are (no copy), frozen."""
+    they are (no copy), frozen until ``lm.make_train_step``."""
 
     def __init__(self, tensors: dict):
         super().__init__()
@@ -158,7 +164,7 @@ def rope(x, positions, theta=10000.0):
 
 
 # ---------------------------------------------------------------------------
-# chunked online-softmax attention (flash-style, forward only)
+# chunked online-softmax attention (flash-style forward and backward)
 # ---------------------------------------------------------------------------
 
 _BIG_WINDOW = 2**30
@@ -182,37 +188,51 @@ def _repeat_kv(k, rep: int):
     return k.repeat_interleave(rep, dim=2) if rep > 1 else k
 
 
-def _flash_fwd(causal, q_offset, chunk, softcap, scale, q_raw, k_raw, v_raw,
-               window):
-    """Online-softmax forward over KV chunks of ``chunk`` keys; the last
-    chunk is padded with zero keys masked by ``k_pos < Sk``.  Returns the
-    float32 output (B, H, Sq, hd_v)."""
+def _flash_inputs(q_raw, k_raw, v_raw, scale, chunk):
+    """float32 q (scaled), k and v (GQA heads repeated, keys padded with
+    zeros to a whole number of chunks), the key count and the chunk
+    count."""
     rep = q_raw.shape[2] // k_raw.shape[2]
     q = (q_raw * scale).float()
     k = _repeat_kv(k_raw.float(), rep)
     v = _repeat_kv(v_raw.float(), rep)
-    B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    hd_v = v.shape[-1]
-    dev = q.device
-    q_pos = q_offset + torch.arange(Sq, device=dev)
     n_chunks = max(1, -(-Sk // chunk))
     pad = n_chunks * chunk - Sk
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return q, k, v, Sk, n_chunks
+
+
+def _chunk_bias(q_pos, c, chunk, Sk, *, causal, window):
+    """The (Sq, chunk) bias of KV chunk ``c``: the mask, and the padded
+    keys past ``Sk`` masked."""
+    k_pos = c * chunk + torch.arange(chunk, device=q_pos.device)
+    bias = _mask_bias_arr(q_pos, k_pos, causal=causal, window=window)
+    return torch.where((k_pos < Sk)[None, :], bias, _F32_MIN)
+
+
+def _flash_fwd(causal, q_offset, chunk, softcap, scale, q_raw, k_raw, v_raw,
+               window):
+    """Online-softmax forward over KV chunks of ``chunk`` keys; the last
+    chunk is padded with zero keys masked by ``k_pos < Sk``.  Returns the
+    float32 output (B, H, Sq, hd_v) and the log-sum-exp (B, H, Sq)."""
+    q, k, v, Sk, n_chunks = _flash_inputs(q_raw, k_raw, v_raw, scale, chunk)
+    B, Sq, H, _ = q.shape
+    hd_v = v.shape[-1]
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
     m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, hd_v), dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         kb = k[:, c * chunk:(c + 1) * chunk]
         vb = v[:, c * chunk:(c + 1) * chunk]
-        k_pos = c * chunk + torch.arange(chunk, device=dev)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, kb)
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
-        bias = _mask_bias_arr(q_pos, k_pos, causal=causal, window=window)
-        bias = torch.where((k_pos < Sk)[None, :], bias, _F32_MIN)
+        bias = _chunk_bias(q_pos, c, chunk, Sk, causal=causal, window=window)
         logits = logits + bias[None, None, :, :]
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
@@ -220,7 +240,75 @@ def _flash_fwd(causal, q_offset, chunk, softcap, scale, q_raw, k_raw, v_raw,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
-    return acc / torch.clamp_min(l, 1e-30)[..., None]
+    l_safe = torch.clamp_min(l, 1e-30)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def _flash_bwd(causal, q_offset, chunk, softcap, scale, q_raw, k_raw, v_raw,
+               window, dout, out, lse):
+    """The flash backward from the forward's float32 ``out`` (B, H, Sq,
+    hd_v) and ``lse`` (B, H, Sq): per KV chunk the probabilities from the
+    recomputed logits, dv, dp, ds (times the softcap's 1 - t^2), dq summed
+    over the chunks, dk and dv a chunk.  Returns (dq, dk, dv) in the raw
+    inputs' dtypes, dk and dv summed back over each GQA group."""
+    q, k, v, Sk, n_chunks = _flash_inputs(q_raw, k_raw, v_raw, scale, chunk)
+    B, Sq, H, hd = q.shape
+    hd_v = v.shape[-1]
+    Hkv = k_raw.shape[2]
+    rep = H // Hkv
+    dout = dout.float()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    delta = (dout * out).sum(dim=-1)                    # (B, H, Sq)
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c in range(n_chunks):
+        kb = k[:, c * chunk:(c + 1) * chunk]
+        vb = v[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb)
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        bias = _chunk_bias(q_pos, c, chunk, Sk, causal=causal, window=window)
+        p = torch.exp(s + bias[None, None] - lse[..., None])
+        dvs.append(torch.einsum("bhqk,bhqd->bkhd", p, dout))
+        dp = torch.einsum("bhqd,bkhd->bhqk", dout, vb)
+        ds = p * (dp - delta[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, q))
+    dk = torch.cat(dks, dim=1)[:, :Sk]
+    dv = torch.cat(dvs, dim=1)[:, :Sk]
+    if rep > 1:
+        dk = dk.reshape(B, Sk, Hkv, rep, hd).sum(dim=3)
+        dv = dv.reshape(B, Sk, Hkv, rep, hd_v).sum(dim=3)
+    return ((dq * scale).to(q_raw.dtype), dk.to(k_raw.dtype),
+            dv.to(v_raw.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attn`` (a ``custom_vjp``): the output (B,
+    H, Sq, hd_v) in v's dtype; only the raw q, k, v are saved, and the
+    backward recomputes the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q_raw, k_raw, v_raw, causal, q_offset, chunk, softcap,
+                scale, window):
+        out, _ = _flash_fwd(causal, q_offset, chunk, softcap, scale, q_raw,
+                            k_raw, v_raw, window)
+        ctx.save_for_backward(q_raw, k_raw, v_raw)
+        ctx.static = (causal, q_offset, chunk, softcap, scale, window)
+        return out.to(v_raw.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_raw, k_raw, v_raw = ctx.saved_tensors
+        causal, q_offset, chunk, softcap, scale, window = ctx.static
+        out, lse = _flash_fwd(causal, q_offset, chunk, softcap, scale,
+                              q_raw, k_raw, v_raw, window)
+        dq, dk, dv = _flash_bwd(causal, q_offset, chunk, softcap, scale,
+                                q_raw, k_raw, v_raw, window, dout, out, lse)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -248,8 +336,9 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       chunk=1024, softcap=None, scale=None, impl="flash"):
-    """Memory-O(S) attention by an online softmax over KV chunks;
-    ``impl="naive"`` materializes the logits instead.
+    """Memory-O(S) attention by an online softmax over KV chunks, with the
+    flash backward (``FlashAttention``); ``impl="naive"`` materializes the
+    logits instead (plain autograd).
 
     q: (B, Sq, H, hd);  k, v: (B, Sk, Hkv, hd[_v]) with H % Hkv == 0.
     ``window`` may be None or an int (a per-layer value of a local:global
@@ -262,8 +351,9 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     win = _BIG_WINDOW if window is None else window
-    out = _flash_fwd(causal, q_offset, chunk, softcap, scale, q, k, v, win)
-    return out.to(v.dtype).transpose(1, 2)      # (B, Sq, H, hd_v)
+    out = FlashAttention.apply(q, k, v, causal, q_offset, chunk, softcap,
+                               scale, win)
+    return out.transpose(1, 2)                  # (B, Sq, H, hd_v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,

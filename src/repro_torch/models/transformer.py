@@ -18,8 +18,18 @@ layers; xlstm's groups of ``slstm_period - 1`` mLSTM layers and one
 sLSTM layer; llama-vision's cross-attention block before every segment of
 ``cross_attn_period`` self layers, only when ``image_embeds`` is given.
 The reference's activation-sharding constraint (``_shard_h``) has no
-counterpart on one card; without a mesh it is a no-op there too.  Remat
-and the grouped-remat scan are training's (ROADMAP Queue 1 item 6).
+counterpart on one card; without a mesh it is a no-op there too.
+
+Remat, as the reference's ``jax.checkpoint`` around each layer body: in
+train mode with ``cfg.remat`` and gradients on, each layer (attention and
+MoE, Mamba, mLSTM and sLSTM layers; whisper's encoder and decoder layers)
+runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps only
+its input for the backward and runs it again there; an attention stack
+with ``cfg.remat_group = G > 1`` dividing its layer count keeps the
+residual stream every G layers instead.  The forward draws no random
+numbers, so the recomputation is exact and the RNG state is not
+preserved.  The parameters are frozen (``requires_grad=False``) as built:
+serving stays gradient-free, and ``lm.make_train_step`` turns them on.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (ParamDef, ParamTree, flatten,
@@ -155,10 +166,36 @@ def unstack(defs, tree) -> dict:
     return state
 
 
+def restack(defs, state: dict) -> dict:
+    """The tree in the reference's layout of a model state over the
+    stacked ``defs`` (``unstack``'s inverse, without a copy): each leaf of
+    a ``STACKED`` subtree a ``checkpoint.Stacked`` of its layers'
+    tensors, the other leaves as they are."""
+    from repro_torch.checkpoint import Stacked
+
+    tree = {}
+    for key in sorted(defs):
+        sub = defs[key]
+        if key in STACKED:
+            n = next(iter(flatten(sub).values())).shape[0]
+            tree[key] = unflatten({
+                name: Stacked(state[f"{key}.{i}.{name}"] for i in range(n))
+                for name in flatten(sub)})
+        elif isinstance(sub, dict):
+            tree[key] = unflatten({name: state[f"{key}.{name}"]
+                                   for name in flatten(sub)})
+        else:
+            tree[key] = state[key]
+    return tree
+
+
 def state_shapes(defs) -> dict:
-    """{name: shape} of a model state over the stacked ``defs``."""
+    """{name: shape} of a model state over the stacked ``defs``, in the
+    order of the reference's leaves (``flatten`` of the stacked tree),
+    a stacked leaf's layers in turn."""
     shapes = {}
-    for key, sub in defs.items():
+    for key in sorted(defs):
+        sub = defs[key]
         if key not in STACKED:
             shapes.update({k: d.shape for k, d in flatten({key: sub}).items()})
             continue
@@ -170,10 +207,11 @@ def state_shapes(defs) -> dict:
 
 class StackedModel(nn.Module):
     """Parameters of ``defs`` over a state ({name: tensor}, adopted without
-    a copy and frozen): top-level leaves as ``nn.Parameter``, a ``STACKED``
-    subtree as an ``nn.ModuleList`` of ``ParamTree`` (one a layer), any
-    other subtree as one ``ParamTree``.  Without a state the parameters
-    lie on the meta device: shapes only, nothing allocated."""
+    a copy and frozen until ``lm.make_train_step``): top-level leaves as
+    ``nn.Parameter``, a ``STACKED`` subtree as an ``nn.ModuleList`` of
+    ``ParamTree`` (one a layer), any other subtree as one ``ParamTree``.
+    Without a state the parameters lie on the meta device: shapes only,
+    nothing allocated."""
 
     def __init__(self, cfg, defs, state: Optional[dict] = None):
         super().__init__()
@@ -198,6 +236,23 @@ class StackedModel(nn.Module):
                 self.register_parameter(
                     key, nn.Parameter(sub, requires_grad=False))
 
+    def _remat(self, mode, caches) -> bool:
+        """Whether layers run under remat: train mode, no caches, gradients
+        on and ``cfg.remat``."""
+        return (mode == "train" and caches is None and self.cfg.remat
+                and torch.is_grad_enabled())
+
+    def _run_layers(self, run, h, lo, hi, mode, caches, group: int = 1):
+        """``run(h, a, b)`` (layers ``a:b`` from the residual stream ``h``)
+        over layers ``lo:hi``; under remat a checkpoint each ``group``
+        layers, which keeps only the stream entering the group."""
+        if not self._remat(mode, caches):
+            return run(h, lo, hi)
+        for a in range(lo, hi, group):
+            h = checkpoint(run, h, a, min(a + group, hi),
+                           use_reentrant=False, preserve_rng_state=False)
+        return h
+
 
 def layer_cache(caches, name: str, i: int):
     """Layer ``i``'s slice of the stacked cache ``caches[name]`` (views:
@@ -209,7 +264,7 @@ def layer_cache(caches, name: str, i: int):
 
 class DecoderModel(StackedModel):
     """The decoder of ``cfg`` over a state ({name: tensor}, adopted without
-    a copy and frozen); on the meta device without one."""
+    a copy); on the meta device without one."""
 
     def __init__(self, cfg, state: Optional[dict] = None):
         super().__init__(cfg, param_defs(cfg), state)
@@ -302,40 +357,56 @@ class DecoderModel(StackedModel):
         cfg = self.cfg
         stack = getattr(self, name)
         hi = len(stack) if hi is None else hi
-        for i in range(lo, hi):
-            win, theta = (cfg.sliding_window, None) if flags is None \
-                else flags[i]
-            h, _ = self._attn_layer_apply(
-                stack[i], h, mode, layer_cache(caches, name, i), cache_len,
-                win, theta, is_moe)
-        return h
+
+        def run(h, a, b):
+            for i in range(a, b):
+                win, theta = (cfg.sliding_window, None) if flags is None \
+                    else flags[i]
+                h, _ = self._attn_layer_apply(
+                    stack[i], h, mode, layer_cache(caches, name, i),
+                    cache_len, win, theta, is_moe)
+            return h
+
+        # grouped remat where the group divides the stack, as the
+        # reference's scan over (L / G, G) layers
+        G = cfg.remat_group if cfg.remat_group > 1 \
+            and (hi - lo) % cfg.remat_group == 0 else 1
+        return self._run_layers(run, h, lo, hi, mode, caches, G)
 
     def _mamba_stack(self, h, mode, caches, lo, hi):
         cfg = self.cfg
-        for i in range(lo, hi):
-            lp = self.layers[i]
-            ln = rms_norm(h, lp["ln"], cfg.norm_eps)
-            cache = layer_cache(caches, "layers", i)
-            if mode == "decode":
-                y, _ = ssm.mamba_decode(lp["mixer"], ln, cfg, cache)
-            else:
-                y, _ = ssm.mamba_full(lp["mixer"], ln, cfg, cache=cache)
-            h = h + y
-        return h
+
+        def run(h, a, b):
+            for i in range(a, b):
+                lp = self.layers[i]
+                ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+                cache = layer_cache(caches, "layers", i)
+                if mode == "decode":
+                    y, _ = ssm.mamba_decode(lp["mixer"], ln, cfg, cache)
+                else:
+                    y, _ = ssm.mamba_full(lp["mixer"], ln, cfg, cache=cache)
+                h = h + y
+            return h
+
+        return self._run_layers(run, h, lo, hi, mode, caches)
 
     def _recurrent(self, name, apply_fn, h, mode, caches, lo, hi):
         """Layers ``lo:hi`` of the xLSTM stack ``name`` (mLSTM or
         sLSTM)."""
         cfg = self.cfg
         stack = getattr(self, name)
-        for i in range(lo, hi):
-            lp = stack[i]
-            ln = rms_norm(h, lp["ln"], cfg.norm_eps)
-            y, _ = apply_fn(lp["mixer"], ln, cfg,
-                            cache=layer_cache(caches, name, i),
-                            decode=(mode == "decode"))
-            h = h + y
-        return h
+
+        def run(h, a, b):
+            for i in range(a, b):
+                lp = stack[i]
+                ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+                y, _ = apply_fn(lp["mixer"], ln, cfg,
+                                cache=layer_cache(caches, name, i),
+                                decode=(mode == "decode"))
+                h = h + y
+            return h
+
+        return self._run_layers(run, h, lo, hi, mode, caches)
 
     # ---------------- forward
 

@@ -63,8 +63,9 @@ def decode_position(cfg, cache_len: int) -> int:
 
 class EncDecModel(StackedModel):
     """The encoder-decoder of ``cfg`` over a state ({name: tensor},
-    adopted without a copy and frozen); on the meta device without
-    one."""
+    adopted without a copy); on the meta device without one.  Under remat
+    (``transformer`` module docstring) each encoder layer and each
+    decoder layer of the cache-less forward is a checkpoint."""
 
     def __init__(self, cfg, state: Optional[dict] = None):
         super().__init__(cfg, param_defs(cfg), state)
@@ -79,21 +80,28 @@ class EncDecModel(StackedModel):
 
     # -------- encoder
 
-    def encode(self, audio_embeds):
+    def encode(self, audio_embeds, mode="train"):
+        """The encoder's states of ``audio_embeds``; under remat in train
+        mode (``transformer`` module docstring)."""
         cfg = self.cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         h = audio_embeds.to(dt)
         h = h + self.pos_enc.to(h.dtype)[None, :h.shape[1]]
-        for lp in self.enc_layers:
-            ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
-            q = attention._proj(ln, lp["attn"]["wq"])
-            k = attention._proj(ln, lp["attn"]["wk"])
-            v = attention._proj(ln, lp["attn"]["wv"])
-            a = chunked_attention(q, k, v, causal=False,
-                                  chunk=cfg.attn_chunk)
-            h = h + attention._out(a, lp["attn"]["wo"])
-            ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-            h = h + mlp.gelu_apply(lp["ffn"], ln2)
+
+        def run(h, a, b):
+            for lp in self.enc_layers[a:b]:
+                ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
+                q = attention._proj(ln, lp["attn"]["wq"])
+                k = attention._proj(ln, lp["attn"]["wk"])
+                v = attention._proj(ln, lp["attn"]["wv"])
+                att = chunked_attention(q, k, v, causal=False,
+                                        chunk=cfg.attn_chunk)
+                h = h + attention._out(att, lp["attn"]["wo"])
+                ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+                h = h + mlp.gelu_apply(lp["ffn"], ln2)
+            return h
+
+        h = self._run_layers(run, h, 0, len(self.enc_layers), mode, None)
         return rms_norm(h, self.enc_norm, cfg.norm_eps)
 
     # -------- decoder
@@ -137,9 +145,14 @@ class EncDecModel(StackedModel):
 
     def _no_cache_stack(self, tokens, enc_out):
         h = self._embed(tokens, enc_out, "train", None)
-        for lp in self.dec_layers:
-            h = self._dec_layer(lp, h, enc_out, "train", None, None)
-        return h, None
+
+        def run(h, a, b):
+            for lp in self.dec_layers[a:b]:
+                h = self._dec_layer(lp, h, enc_out, "train", None, None)
+            return h
+
+        return self._run_layers(run, h, 0, len(self.dec_layers), "train",
+                                None), None
 
     def forward(self, tokens, *, audio_embeds, mode="train", caches=None,
                 cache_len=None, return_hidden=False, **_):
@@ -148,7 +161,7 @@ class EncDecModel(StackedModel):
         states with ``return_hidden``, and the caches, updated in
         place)."""
         cfg = self.cfg
-        enc_out = self.encode(audio_embeds)
+        enc_out = self.encode(audio_embeds, mode)
         if caches is None:
             h, _ = self._no_cache_stack(tokens, enc_out)
         else:

@@ -14,9 +14,9 @@ the card's own ``shared_memory_per_block_optin`` (read from the card,
 never a constant); ``registers_per_sm`` bounds a block's registers
 times its threads.
 
-The rest of the JAX package's ``roofline/`` (the HLO analyser, the
-roofline terms of the LM template) waits for ROADMAP Queue 1 item 6,
-where it becomes an H100 roofline model.
+The roofline terms and model flops of the LM template are
+``roofline/model.py``; the JAX package's HLO analyser waits for the
+dry-run's slice (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 

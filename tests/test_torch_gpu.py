@@ -1336,3 +1336,70 @@ def test_lm_family_smoke_forward_on_the_card(cuda, name):
         moe.CAPACITY_FACTOR = old
     tol = {"xlstm-1.3b": 2e-2, "zamba2-1.2b": 5e-3}.get(name, 1e-3)
     assert max(errs) < tol, errs
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=40, softcap=30.0),
+                                dict(H=4, Hkv=4, hd_v=24)])
+def test_flash_backward_on_the_card(cuda, kw):
+    """``FlashAttention``'s forward and dq, dk, dv on the card against the
+    same inputs on the CPU, within 1e-5 of the largest entry (float32 sums
+    in another order): GQA, a window with a softcap, hd_v != hd."""
+    from repro_torch.models import common
+
+    H, Hkv, hd_v = kw.pop("H", 6), kw.pop("Hkv", 2), kw.pop("hd_v", 32)
+    rng = np.random.default_rng(0)
+    shapes = ((2, 100, H, 32), (2, 100, Hkv, 32), (2, 100, Hkv, hd_v))
+    host = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in shapes]
+    dout = torch.from_numpy(rng.normal(size=(2, 100, H, hd_v))
+                            .astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        qkv = [t.to(dev).requires_grad_() for t in host]
+        o = common.chunked_attention(*qkv, chunk=32, **kw)
+        outs.append([o.detach()]
+                    + list(torch.autograd.grad(o, qkv, dout.to(dev))))
+    for want, got in zip(*outs):
+        assert got.is_cuda
+        assert float((got.detach().cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "deepseek-v2-lite-16b"])
+def test_train_step_on_the_card(cuda, name):
+    """One ``make_train_step`` step of a smoke model on the card against
+    the same weights and batch on the CPU: loss 1e-5 relative, grad norm
+    1e-4, gradients 1e-4 of each leaf's largest entry, every parameter on
+    the card and moved (tests/test_torch_train_archs.py's bars)."""
+    from repro_torch.configs.registry import smoke_variant
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = smoke_variant(name)
+    ref = lm.build_model(cfg, generator=torch.Generator().manual_seed(0))
+    state = {k: v.mul(0.02 / max(float(v.std()), 1e-12))
+             if v.dim() >= 2 else v.clone() for k, v in
+             ref.state_dict().items()}
+    batch = TokenPipeline(cfg.vocab_size, 2, 24).batch_at(0)
+    out = []
+    for dev in ("cpu", cuda):
+        model = lm.build_model(cfg, state={k: v.to(dev, copy=True)
+                                           for k, v in state.items()})
+        params = lm.trainable_params(model)
+        step = lm.make_train_step(model, adamw.AdamWConfig(lr=1e-3))
+        _, grads = lm.loss_and_grads(model, params,
+                                     lm.batch_to_device(batch, dev))
+        _, m = step(adamw.adamw_init(params), batch)
+        assert all(p.device.type == torch.device(dev).type
+                   for p in params.values())
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: g.cpu() for k, g in grads.items()},
+                    {k: p.detach().cpu() for k, p in params.items()}))
+    (lc, gc, gradc, pc), (lg, gg, gradg, pg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert abs(gg - gc) <= 1e-4 * gc
+    for k, want in gradc.items():
+        assert float((gradg[k] - want).abs().max()) <= \
+            1e-4 * max(float(want.abs().max()), 1e-30), k
+    assert all(not torch.equal(pg[k], state[k]) for k in pg)

@@ -43,7 +43,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.models.lm", "repro_torch.models.transformer",
            "repro_torch.core.head_probe", "repro_torch.launch.serve",
            "repro_torch.models.moe", "repro_torch.models.ssm",
-           "repro_torch.models.xlstm", "repro_torch.models.whisper"]
+           "repro_torch.models.xlstm", "repro_torch.models.whisper",
+           "repro_torch.optim.adamw", "repro_torch.runtime.trainer",
+           "repro_torch.launch.train", "repro_torch.roofline.model"]
 
 
 def _port_files():
