@@ -184,15 +184,16 @@ drives each path through the entry points a user calls and checks it:
     deepseek's features, the head probe by the fused Jacobi superstep
     (1,024 sequences of 32 tokens, 800 train rows, tile 256; K5 and K6
     launched) held against the same fit on the CPU.
-  * train (last; ``train_phase``, which ``train_phase(np, torch, dev,
+  * train (``train_phase``, which ``train_phase(np, torch, dev,
     card)`` also runs alone): LM training, no hand-written kernel on its
-    path (every launch count stays 0).  phi4-mini-3.8b at full width, 16
-    of its 32 layers (2,839,907,328 parameters; 32 layers' parameters,
-    gradients and AdamW moments take 71.2 GB of float32), float32 with
-    remat and flash attention, through ``runtime.trainer.Trainer``: batch
-    2 x 2,048 tokens of ``TokenPipeline``, 6 AdamW steps (lr 3e-3, warmup
-    1), one checkpoint at the last (8 layers where the disk cannot hold
-    16 layers' 34 GB); each step's loss, grad norm, lr and seconds,
+    path (every launch count stays 0).  phi4-mini-3.8b at full width, 8
+    of its 32 layers (2,034,551,808 parameters; 32 layers' parameters,
+    gradients and AdamW moments take 71.2 GB of float32, and 16 layers'
+    save, 57 s, kept the whole run past its 900 s), float32 with remat
+    and flash attention, through ``runtime.trainer.Trainer``: batch 2 x
+    2,048 tokens of ``TokenPipeline``, 6 AdamW steps (lr 3e-3, warmup 1),
+    one checkpoint at the last (4 layers where the disk cannot hold 8
+    layers' 24 GB); each step's loss, grad norm, lr and seconds,
     tokens/s, model flops (6 N D) a second against the fp32 peak, peak
     memory, the save's seconds and bytes; every loss and grad norm finite
     and every parameter moved; a fresh trainer restores the checkpoint
@@ -204,12 +205,32 @@ drives each path through the entry points a user calls and checks it:
     gradient's largest entry, a log-sum-exp one chunk stale past it.
     examples/train_lm.py's config (4 layers, d 256, vocab 2,048, batch 8
     x 128) 200 steps: the last 10 losses below the first 10 by more than
-    0.1, and a run cut at step 100 and resumed within the reference's
-    rtol 2e-4, atol 2e-5 of the straight one.  One ``make_train_step``
+    0.1, and the straight run's checkpoint at step 100 resumed by a fresh
+    trainer within the reference's rtol 2e-4, atol 2e-5 of the straight
+    run's last 100 losses.  One ``make_train_step``
     step of every architecture of the registry at its smoke config, the
     card against the CPU: loss 1e-5, grad norm 1e-4, gradients 1e-4 of
     the largest entry, updated parameters 1e-7 where AdamW's step is not
     near sign(g).
+  * train_dist (after train; ``train_dist_phase``): sharded LM training
+    and the dry-run, no hand-written kernel on its path.  phi4-mini-3.8b
+    at full width, 2 of 32 layers (1,430,535,168 parameters), float32 with
+    remat, batch 2 x 512, 3 AdamW steps (lr 1e-3) from the tests' parity
+    weights (the trainer's draw rescaled to N(0, 0.02^2)): the
+    single-device ``Trainer`` first, then (a) ``Trainer(mesh=)`` on a
+    world of one over NCCL, mesh (1, 1), bit for bit the single-device
+    run's losses, grad norms and parameters; (b) a gloo world of 2 on the
+    one card (this script is its worker, ``--train-dist-worker``), mesh
+    (1, 2), tensor parallel with sequence parallelism: every step's loss
+    within 1e-5 and grad norm within 1e-4 of the single-device run's, the
+    first step's parameters within 1e-7 where AdamW's step is not near
+    sign(g) (by the single run's gradients), both ranks the same
+    collectives, each rank's
+    memory after placement within 1% of the dry-run's parameters and
+    moments for (1, 2), its step seconds (gloo stages the card's tensors
+    through the host: not NCCL's times); (c) ``launch.dryrun`` in process
+    over every architecture and shape and dglmnet on the meshes of 1 and
+    4 cards: no failed cell, the largest per-card bytes.
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -4626,9 +4647,11 @@ def lmf_probe(np, torch, dev, model, cfg) -> tuple:
 # ---------------------------------------------------------------- train
 
 TRAIN_ARCH = "phi4-mini-3.8b"
-TRAIN_LAYERS = 16                 # of 32: 71.2 GB of state do not fit
-TRAIN_LAYERS_SMALL_DISK = 8       # if the disk cannot hold the checkpoint
-TRAIN_PARAMS = 2_839_907_328      # the reference's count at 16 layers
+TRAIN_LAYERS = 8                  # of 32: 71.2 GB of state do not fit,
+#                                   and 16 layers' save kept the run past
+#                                   its 900 s
+TRAIN_LAYERS_SMALL_DISK = 4       # if the disk cannot hold the checkpoint
+TRAIN_PARAMS = 2_034_551_808      # the reference's count at 8 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
 FLASH_BWD_TOL = 1e-4              # of each gradient's largest |entry|
 # examples/train_lm.py's config and the reference's bars
@@ -4666,7 +4689,7 @@ def states_equal(torch, a: tuple, b: tuple) -> dict:
 
 
 def train_full_width(np, torch, dev, card) -> dict:
-    """phi4-mini-3.8b at full width (16 of 32 layers, float32, remat) for
+    """phi4-mini-3.8b at full width (8 of 32 layers, float32, remat) for
     6 steps through ``runtime.trainer.Trainer``, its checkpoint restored
     in a fresh trainer bit for bit, one more step from each state."""
     import shutil
@@ -4703,9 +4726,10 @@ def train_full_width(np, torch, dev, card) -> dict:
     rec = {"arch": cfg.name, "card": card, "n_layers": layers,
            "reduced": {"n_layers": [full.n_layers, layers],
                        "why": "32 layers' parameters, gradients and AdamW "
-                              "moments in float32 take 71.2 GB"
+                              "moments in float32 take 71.2 GB, and 16 "
+                              "layers' save kept chip_smoke.py past 900 s"
                               + ("" if layers == TRAIN_LAYERS else
-                                 "; the disk held too little for 16 "
+                                 "; the disk held too little for 8 "
                                  "layers' checkpoint")},
            "params": n_params, "dtype": "float32", "remat": True,
            "attn_impl": "flash", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
@@ -4882,8 +4906,11 @@ def train_flash(np, torch, dev, card) -> dict:
 
 
 def train_learning(np, torch, dev, card) -> dict:
-    """examples/train_lm.py's config: 200 steps learn; a run cut at step
-    100 and resumed equals the straight one."""
+    """examples/train_lm.py's config: 200 steps learn; the straight run's
+    checkpoint at step 100, resumed by a fresh trainer, gives the straight
+    run's last 100 losses."""
+    import shutil
+
     from repro_torch.configs.registry import smoke_variant
     from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -4896,12 +4923,14 @@ def train_learning(np, torch, dev, card) -> dict:
         def run(sub, steps):
             t = Trainer(cfg, opt_cfg, TrainerConfig(
                 steps=steps, ckpt_every=50, ckpt_dir=f"{d}/{sub}",
-                batch=LEARN_BATCH, seq_len=LEARN_SEQ, seed=SEED),
-                device=dev)
+                keep_last=LEARN_STEPS // 50, batch=LEARN_BATCH,
+                seq_len=LEARN_SEQ, seed=SEED), device=dev)
             return t.run()[2]
 
         straight, straight_s = timed(run, "straight", LEARN_STEPS)
-        run("cut", LEARN_CUT)
+        # the cut: a directory holding the straight run's step-100 save
+        shutil.copytree(f"{d}/straight/ckpt_{LEARN_CUT}",
+                        f"{d}/cut/ckpt_{LEARN_CUT}")
         resumed, resumed_s = timed(run, "cut", LEARN_STEPS)
     first, last = float(np.mean(straight[:10])), float(np.mean(straight[-10:]))
     check(bool(np.isfinite(straight).all()) and last < first - LEARN_DROP,
@@ -5008,9 +5037,10 @@ def train_card_vs_cpu(np, torch, dev, card) -> dict:
 
 
 def train_phase(np, torch, dev, card) -> dict:
-    """LM training on the card (runs last; every earlier phase freed its
-    memory): the full-width trainer, the flash backward, learning and
-    kill-and-restart, every architecture's step against the CPU.  No
+    """LM training on the card (after every phase but train_dist, each of
+    which freed its memory): the full-width trainer, the flash backward,
+    learning and kill-and-restart, every architecture's step against the
+    CPU.  No
     hand-written kernel lies on this path: the launch counts stay 0."""
     import gc
 
@@ -5040,9 +5070,327 @@ def train_phase(np, torch, dev, card) -> dict:
     return recs
 
 
+# sharded training (train_dist): phi4-mini at full width, 2 of 32 layers
+TRAIN_DIST_LAYERS = 2
+TRAIN_DIST_BATCH, TRAIN_DIST_SEQ, TRAIN_DIST_STEPS = 2, 512, 3
+TRAIN_DIST_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
+TRAIN_DIST_MEM_TOL = 0.01         # allocated after placement / dry-run
+TRAIN_DIST_TIMEOUT_S = 300
+
+
+def train_dist_trainer(cfg, mesh, dev, ckpt_dir):
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    return Trainer(cfg, adamw.AdamWConfig(**TRAIN_DIST_OPT), TrainerConfig(
+        steps=TRAIN_DIST_STEPS, ckpt_dir=ckpt_dir, seed=SEED,
+        batch=TRAIN_DIST_BATCH, seq_len=TRAIN_DIST_SEQ), mesh=mesh,
+        device=dev)
+
+
+def parity_weights(torch, trainer, params) -> None:
+    """The trainer's draw rescaled in place to N(0, 0.02^2) matrices (its
+    vectors are zeros): the tests' parity weights, as the reference's init
+    is chaotic in float32 (ROADMAP Queue 3 item 14).  Every rank rescales
+    its blocks of the same draw, so every mesh gets the same weights."""
+    import math
+
+    from repro_torch.models import common, lm, transformer
+    defs = common.flatten(lm.param_defs(trainer.cfg))
+    with torch.no_grad():
+        for name, p in params.items():
+            parts = name.split(".")
+            if parts[0] in transformer.STACKED:
+                del parts[1]
+            d = defs[".".join(parts)]
+            if p.dim() < 2 or d.init_scale == 0.0:
+                continue
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            p.mul_(0.02 / (d.init_scale / math.sqrt(max(fan_in, 1))))
+
+
+def train_dist_run(torch, trainer, capture: bool = False) -> dict:
+    """Weights drawn and rescaled, then ``TRAIN_DIST_STEPS`` steps: each
+    step's (loss, grad norm, lr) and seconds, the memory after placement,
+    the collectives recorded; with ``capture``, copies on the card of the
+    first step's gradients (before it) and parameters (after it)."""
+    from repro_torch.models import lm
+    from repro_torch.sharding import collectives
+    from repro_torch.timing import timed
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _ = trainer.init_state()
+    parity_weights(torch, trainer, params)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated()
+    out = {}
+    if capture and trainer.layout is None:
+        batch = lm.batch_to_device(trainer.pipeline.batch_at(0),
+                                   trainer.device)
+        _, out["grads0"] = lm.loss_and_grads(trainer.model, params, batch)
+        del batch
+    metrics, secs = [], []
+    with collectives.collective_trace() as ev:
+        for step in range(TRAIN_DIST_STEPS):
+            (opt, host), s = timed(trainer.step_at, opt, step)
+            metrics.append(host)
+            secs.append(s)
+            if capture and step == 0:
+                out["params1"] = {k: p.detach().clone()
+                                  for k, p in params.items()}
+    out.update(params=params, metrics=metrics, step_s=secs,
+               placed_bytes=placed,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               collectives=[list(e) for e in ev])
+    return out
+
+
+def train_dist_worker(spec_path: str) -> None:
+    """One rank of train_dist's gloo world on the one card: its trainer on
+    the spec's mesh; the metrics, memory, collectives and launch counts
+    in ``<out>/rank<r>.json``, its parameter blocks after the first step
+    in ``<out>/rank<r>/<name>.npy``."""
+    sys.path.insert(0, str(REPO / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import bootstrap, faults
+    from repro_torch.kernels import ops
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    ctx = bootstrap.initialize(backend="gloo", device=None, timeout_s=120)
+    mesh = bootstrap.make_dist_mesh(*spec["mesh"])
+    cfg = train_dist_cfg()
+    out = pathlib.Path(spec["out"])
+    ops.reset_launch_counts()
+    r = train_dist_run(torch, train_dist_trainer(
+        cfg, mesh, None, str(out / "ckpt")), capture=True)
+    blocks = out / f"rank{ctx.process_id}"
+    blocks.mkdir()
+    for k, t in r.pop("params1").items():
+        np.save(blocks / f"{k}.npy", t.cpu().numpy())
+    r.pop("params")
+    r["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
+    (out / f"rank{ctx.process_id}.json").write_text(json.dumps(r))
+    faults.guarded_barrier("chip-smoke-train-dist-exit", timeout_s=120)
+    bootstrap.shutdown()
+
+
+def train_dist_cfg():
+    from repro_torch.configs.registry import get_arch
+    return get_arch(TRAIN_ARCH).replace(
+        n_layers=TRAIN_DIST_LAYERS, dtype="float32", remat=True,
+        attn_impl="flash", seq_shard=True, parallelism="tp")
+
+
+def train_dist_dryrun(tdir: pathlib.Path) -> dict:
+    """``launch.dryrun.main`` in process over every architecture and
+    dglmnet on the meshes of 1 and 4 cards: the counts by status and the
+    largest per-card bytes."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun
+    out = tdir / "dryrun"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs = [dryrun.main(["--arch", arch, "--mesh", "both", "--out",
+                            str(out)]) for arch in ("all", "dglmnet")]
+    recs = [json.loads(f.read_text()) for f in sorted(out.rglob("*.json"))]
+    counts = {st: sum(r["status"] == st for r in recs)
+              for st in ("ok", "skipped", "failed")}
+    ok = [r for r in recs if r["status"] == "ok"]
+    big = max(ok, key=lambda r: r["bytes_per_card"]["total"])
+    return {"rcs": rcs, "cells": len(recs), **counts,
+            "largest_per_card_bytes": big["bytes_per_card"]["total"],
+            "largest_cell": f"{big['mesh']} {big['arch']} x {big['shape']}",
+            "failed_cells": [f"{r['mesh']} {r['arch']} x {r['shape']}"
+                             for r in recs if r["status"] == "failed"]}
+
+
+def train_dist_phase(np, torch, dev, card) -> dict:
+    """Sharded LM training (after train): phi4-mini-3.8b at full width,
+    2 of 32 layers, float32, remat, batch 2 x 512, 3 steps from the
+    parity weights.  The single-device trainer first (its metrics on the
+    host; its first gradients, and first and last parameters kept on the
+    card); (a) a
+    world of one over NCCL, mesh (1, 1), tp: the same bits; (b) a gloo
+    world of 2 on the one card, (1, 2), tp with sequence parallelism:
+    train_card_vs_cpu's STEP_* bars on every step's loss and grad norm
+    and on the first step's parameters, the same collectives on both
+    ranks, each rank's memory after placement
+    within 1% of the dry-run's parameters + moments for (1, 2); (c)
+    ``launch.dryrun`` over every cell: no failure.  No kernel launched."""
+    import gc
+    import shutil
+
+    from repro_torch.dist import bootstrap, launcher
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import common, lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    tdir = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-train-dist-"))
+    cfg = train_dist_cfg()
+    n_params = common.param_count(lm.param_defs(cfg))
+    rec = {"phase": "train_dist", "card": card, "arch": cfg.name,
+           "n_layers": TRAIN_DIST_LAYERS, "params": n_params,
+           "reduced": {"n_layers": [32, TRAIN_DIST_LAYERS],
+                       "why": "the phase's time (90 s) and two ranks' "
+                              "state on one card"},
+           "batch": TRAIN_DIST_BATCH, "seq_len": TRAIN_DIST_SEQ,
+           "steps": TRAIN_DIST_STEPS, "opt": TRAIN_DIST_OPT,
+           "bars": {"loss": STEP_LOSS_TOL, "grad_norm": STEP_GNORM_TOL,
+                    "step1_param_atol": STEP_PARAM_ATOL,
+                    "memory": TRAIN_DIST_MEM_TOL}}
+
+    # ---- the single-device reference
+    t0 = time.perf_counter()
+    r = train_dist_run(torch, train_dist_trainer(cfg, None, dev,
+                                                 str(tdir / "ref")),
+                       capture=True)
+    ref_metrics = r["metrics"]
+    ref_params = {k: p.detach().clone() for k, p in r.pop("params").items()}
+    ref_grads0, ref_params1 = r.pop("grads0"), r.pop("params1")
+    rec["single"] = {**{k: r[k] for k in ("metrics", "step_s")},
+                     "peak_gb": r["peak_bytes"] / 1e9,
+                     "part_s": time.perf_counter() - t0}
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (a) a world of one over NCCL, mesh (1, 1)
+    t0 = time.perf_counter()
+    import torch.distributed as tdist
+    check(not tdist.is_initialized(),
+          "train_dist: a process group is already up in this process")
+    ctx = bootstrap.initialize(coordinator=f"127.0.0.1:{launcher.free_port()}",
+                               num_processes=1, process_id=0)
+    r = train_dist_run(torch, train_dist_trainer(
+        cfg, bootstrap.make_dist_mesh(1, 1), dev, str(tdir / "one")))
+    differ = [k for k, p in r["params"].items()
+              if not torch.equal(p.detach(), ref_params[k])]
+    bootstrap.shutdown()
+    rec["a_nccl_1x1"] = {"backend": ctx.backend, "metrics": r["metrics"],
+                         "step_s": r["step_s"],
+                         "metrics_bits_equal": r["metrics"] == ref_metrics,
+                         "leaves_differing": len(differ),
+                         "leaves": len(ref_params),
+                         "part_s": time.perf_counter() - t0}
+    check(r["metrics"] == ref_metrics and not differ,
+          f"train_dist (a): (1, 1) over NCCL is not the single-device run's "
+          f"bits: {rec['a_nccl_1x1']}, leaves {differ[:6]}")
+    del r, ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) a gloo world of 2 on the one card, (1, 2), tp + seq_shard
+    t0 = time.perf_counter()
+    out = tdir / "b"
+    out.mkdir()
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"mesh": [1, 2], "out": str(out)}))
+    res = launcher.run_local(2, REPO / "chip_smoke.py",
+                             args=["--train-dist-worker", str(spec)],
+                             timeout_s=TRAIN_DIST_TIMEOUT_S, grace_s=10)
+    check(res.ok, f"train_dist (b) failed:\n{res.summary(3000)}")
+    ranks = [json.loads((out / f"rank{i}.json").read_text())
+             for i in range(2)]
+    mesh12 = AbstractMesh((1, 2))
+    params_a, opt_a = lm.abstract_state(cfg, mesh12)
+    want_bytes = dryrun.card_bytes(params_a, mesh12) \
+        + dryrun.card_bytes(opt_a, mesh12)
+    errs = {"loss": [], "grad_norm": []}
+    for (lb, gb, _), (lr_, gr, _) in zip(ranks[0]["metrics"], ref_metrics):
+        errs["loss"].append(abs(lb - lr_) / abs(lr_))
+        errs["grad_norm"].append(abs(gb - gr) / gr)
+    # the first step's parameters, the ranks' blocks against the single
+    # run's where AdamW's step is not near sign(g) (train_card_vs_cpu's
+    # rule, by the single run's gradients)
+    split = lm.split_leaves(cfg)
+    p_err, n_in, n_out = 0.0, 0, 0
+    scale = min(1.0, 1.0 / ref_metrics[0][1])
+    for k, want in ref_params1.items():
+        blocks = [np.load(out / f"rank{i}" / f"{k}.npy", mmap_mode="c")
+                  for i in range(2)]
+        if k in split:
+            d = [i for i in range(want.dim())
+                 if want.shape[i] != blocks[0].shape[i]][0]
+            got = torch.cat([torch.from_numpy(b).to(dev) for b in blocks],
+                            dim=d)
+        else:
+            got = torch.from_numpy(blocks[0]).to(dev)
+            check(np.array_equal(blocks[0], blocks[1]),
+                  f"train_dist (b): the ranks' whole leaf {k} differs")
+        g = ref_grads0[k].abs()
+        keep = (g > STEP_GRAD_TOL * g.max().clamp_min(1e-30)) \
+            & (g * scale > STEP_FLOOR)
+        n = int(keep.sum())
+        n_in += n
+        n_out += keep.numel() - n
+        if n:
+            p_err = max(p_err, float((got - want).abs()[keep].max()))
+        del got, g, keep, blocks
+    del ref_grads0, ref_params1
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_rel = [abs(r["placed_bytes"] - want_bytes) / want_bytes
+               for r in ranks]
+    same_seq = ranks[0]["collectives"] == ranks[1]["collectives"]
+    rec["b_gloo_1x2"] = {
+        "metrics": ranks[0]["metrics"],
+        "metrics_rank1_equal": ranks[0]["metrics"] == ranks[1]["metrics"],
+        "loss_rel": errs["loss"], "grad_norm_rel": errs["grad_norm"],
+        "step1_param_max_abs": p_err, "params_compared": n_in,
+        "params_near_sign_flip": n_out,
+        "step_s": [r["step_s"] for r in ranks],
+        "step_s_median_after_first": float(np.median(
+            ranks[0]["step_s"][1:])),
+        "placed_bytes": [r["placed_bytes"] for r in ranks],
+        "dryrun_params_moments_bytes": want_bytes,
+        "memory_rel": mem_rel,
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+        "collectives_per_rank": [len(r["collectives"]) for r in ranks],
+        "same_collectives": same_seq,
+        "launched": [r["launched"] for r in ranks],
+        "world_s": res.seconds, "part_s": time.perf_counter() - t0}
+    emit({"phase": "train_dist_b", **rec["b_gloo_1x2"]})
+    check(max(errs["loss"]) <= STEP_LOSS_TOL
+          and max(errs["grad_norm"]) <= STEP_GNORM_TOL
+          and p_err <= STEP_PARAM_ATOL and n_in > 0,
+          f"train_dist (b): (1, 2) against the single-device run "
+          f"{errs}, parameters {p_err}")
+    check(same_seq and ranks[0]["metrics"] == ranks[1]["metrics"],
+          "train_dist (b): the ranks' collectives or metrics differ")
+    check(max(mem_rel) <= TRAIN_DIST_MEM_TOL,
+          f"train_dist (b): memory after placement {rec['b_gloo_1x2']}")
+    check(not any(r["launched"] for r in ranks),
+          f"train_dist (b): kernels launched {ranks[0]['launched']}")
+
+    # ---- (c) the dry-run over every cell
+    t0 = time.perf_counter()
+    dr = train_dist_dryrun(tdir)
+    dr["part_s"] = time.perf_counter() - t0
+    rec["c_dryrun"] = dr
+    check(dr["failed"] == 0 and dr["rcs"] == [0, 0],
+          f"train_dist (c): dry-run cells failed {dr['failed_cells']}")
+    shutil.rmtree(tdir, ignore_errors=True)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not launched, f"train_dist: kernels launched {launched}")
+    rec["kernel_launches"] = 0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def main() -> None:
     if "--dist-worker" in sys.argv:
         dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
+        return
+    if "--train-dist-worker" in sys.argv:
+        train_dist_worker(sys.argv[sys.argv.index("--train-dist-worker")
+                                   + 1])
         return
     t_start = time.perf_counter()
     if not (REPO / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5550,8 +5898,10 @@ def main() -> None:
     # the other five families of the LM template after the dense one, and
     # the fused Jacobi probe on deepseek-v2-lite's features
     families_counts = lm_families_phase(np, torch, dev, card)
-    # LM training on the card, last: no hand-written kernel on its path
+    # LM training on the card: no hand-written kernel on its path
     train_phase(np, torch, dev, card)
+    # sharded LM training and the dry-run, last
+    train_dist_phase(np, torch, dev, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
         report[name]["chunk_shapes"] = stream["kernels"][name]
         report[name]["launches_stream"] = stream["counts"][name]

@@ -1,2 +1,2 @@
-from repro_torch.checkpoint.manager import (CheckpointManager,  # noqa: F401
-                                           Stacked)
+from repro_torch.checkpoint.manager import (Block,  # noqa: F401
+                                           CheckpointManager, Stacked)

@@ -31,7 +31,10 @@ moments, with no second copy on the device), reading one leaf at a time.
 A ``Stacked`` leaf (a list of tensors) is stored as one array, the tensors
 stacked on a new first axis, without a stack on the device; it is always
 restored in place, slice by slice: the LM trainer keeps the reference's
-``(L, ...)`` layers so.  Keys
+``(L, ...)`` layers so.  A tensor that holds one block of a stored array
+(a rank's block of a parameter split over a mesh) is a ``Block`` leaf,
+or a ``Stacked`` with an ``index``: restored in place from that block of
+the full array, so a checkpoint resumes on another mesh.  Keys
 are the JAX package's: a leaf's path of dict keys, list indices and
 named-tuple fields joined by ``/`` (``"_root"`` for a bare leaf).
 
@@ -85,10 +88,22 @@ def _list_steps(directory: pathlib.Path):
 
 class Stacked:
     """A checkpoint leaf of tensors of one shape, stored as one array with
-    them stacked on a new first axis; restored into them in place."""
+    them stacked on a new first axis; restored into them in place (with
+    ``index``, a tuple of slices: each from that block of its slice)."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, index=None):
         self.tensors = list(tensors)
+        self.index = index
+
+
+class Block:
+    """A restore template: ``tensor`` holds the block ``index`` (a tuple
+    of slices) of the stored array, filled in place.  It is never
+    saved: a save takes the full array."""
+
+    def __init__(self, tensor, index):
+        self.tensor = tensor
+        self.index = index
 
 
 def _leaves(tree, path=()):
@@ -131,6 +146,10 @@ def _unflatten(tree, values, path=()):
 def _to_host(leaf) -> np.ndarray:
     """A host copy of a leaf that the caller may overwrite at once (a CPU
     tensor's ``.cpu()`` would share its memory)."""
+    if isinstance(leaf, Block) or (isinstance(leaf, Stacked)
+                                   and leaf.index is not None):
+        raise TypeError("a block of an array is restored into, not saved: "
+                        "save the full array")
     if isinstance(leaf, Stacked):
         first = leaf.tensors[0]
         dtype = torch.empty(0, dtype=first.dtype).numpy().dtype
@@ -186,9 +205,15 @@ class _StoredArrays:
 @torch.no_grad()
 def _restored(key: str, ref, arr: np.ndarray, in_place: bool):
     """The restored leaf of template ``ref`` from its stored array."""
+    if isinstance(ref, Block):
+        _restored(key, Stacked([ref.tensor], ref.index), arr[None], True)
+        return ref
     if isinstance(ref, Stacked) or (in_place and torch.is_tensor(ref)):
         parts = ref.tensors if isinstance(ref, Stacked) else [ref]
         arrs = arr if isinstance(ref, Stacked) else arr[None]
+        index = ref.index if isinstance(ref, Stacked) else None
+        if index is not None:
+            arrs = [a[index] for a in arrs]
         if len(arrs) != len(parts) or any(
                 tuple(t.shape) != a.shape for t, a in zip(parts, arrs)):
             raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}; "

@@ -1,14 +1,17 @@
-"""The host the port runs on: one NVIDIA H100 or four of one host, and the
-d-GLMNET mesh over their processes.
+"""The host the port runs on: one NVIDIA H100 or four of one host, the
+abstract meshes of the dry-run, and the d-GLMNET mesh over their
+processes.
 
 The JAX package's ``repro.launch.mesh`` builds the TPU pod's production
 mesh (``make_production_mesh``: (16, 16) or (2, 16, 16) chips) and holds
 the TPU v5e's constants.  Neither carries over.  The port's host is one
-card or four cards of one machine joined by NVLink, so there is no pod
-mesh to build; the dry-run's size and memory check of a configuration on
-1 or 4 cards comes with ``launch/dryrun.py``'s slice (ROADMAP Queue 1 item
-6).  ``mesh_from_devices`` has no counterpart either: a mesh of the port
-is one process a rank, laid out by ``repro_torch.dist.bootstrap``.
+card or four cards of one machine joined by NVLink: ``abstract_mesh(1)``
+and ``abstract_mesh(4)`` are its (data, model) meshes (1, 1) and (1, 4),
+axis names and sizes with no process group, which ``launch/dryrun.py`` and
+the tests place abstract state on where the reference takes the
+production mesh.  A live mesh of the port is one process a rank,
+``repro_torch.dist.bootstrap.make_dist_mesh`` (``mesh_from_devices`` has
+no counterpart).
 
 The constants are per card, from NVIDIA's H100 data sheet (the SXM part,
 dense rates without sparsity, at its full power limit of 700 W).  A card
@@ -16,6 +19,8 @@ set below 700 W runs slower under load: read ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` beside any time.
 """
 from __future__ import annotations
+
+import dataclasses
 
 DEVICE_NAME = "NVIDIA H100 80GB HBM3 (SXM), 700 W"
 
@@ -37,3 +42,25 @@ def make_glm_mesh(n_data: int, n_model: int):
     (1, M) reproduces the paper's layout exactly."""
     from repro_torch.dist.bootstrap import make_dist_mesh
     return make_dist_mesh(n_data, n_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes of a mesh, with no process group: what the
+    dry-run's placement reads (``axis_names``, ``shape`` {axis: size})."""
+    sizes: tuple
+    axis_names: tuple = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def tag(self) -> str:
+        return "x".join(map(str, self.sizes))
+
+
+def abstract_mesh(n_cards: int) -> AbstractMesh:
+    """The (data, model) mesh of ``n_cards`` cards of one host, the model
+    axis across them: (1, 1) for one card, (1, 4) for four."""
+    return AbstractMesh((1, n_cards))

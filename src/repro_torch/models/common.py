@@ -5,8 +5,11 @@ flash-style backward.
 A port of the JAX package's ``repro.models.common``, function for function
 and in its layouts and dtypes.  Every parameter is a ``ParamDef(shape,
 spec)``: ``spec`` keeps the reference's PartitionSpec as a plain tuple of
-axis names (the mesh's slice reads it); ``init_params`` draws random
-tensors from an explicit ``torch.Generator`` on its device.  JAX's PRNG
+axis names (a mesh's placement reads it); ``init_params`` draws random
+tensors from an explicit ``torch.Generator`` on its device (a rank of a
+mesh keeps its block of each leaf as it is drawn); ``abstract_params``
+makes meta tensors carrying their specs for the dry-run, and
+``shard_shape`` gives one card's block of a spec.  JAX's PRNG
 cannot be reproduced here, so tests carry the JAX package's weights across
 as numpy arrays (``repro_torch.convert.lm_params_from_numpy``).
 
@@ -72,23 +75,66 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
-def init_params(defs, generator: torch.Generator, dtype=None):
+def init_params(defs, generator: torch.Generator, dtype=None, keep=None):
     """Random tensors for ``defs`` from ``generator``, on its device:
     normal with std ``init_scale / sqrt(fan_in)``, ``fan_in`` the
     second-to-last dim (the last one of a vector); zeros where
-    ``init_scale`` is 0."""
+    ``init_scale`` is 0.  ``keep(d, t)``, when given, returns what is kept
+    of each leaf as it is drawn (a rank's block of it: every rank draws
+    the same full leaves in turn and holds one full leaf at a time)."""
     dev = generator.device
 
     def mk(d: ParamDef):
         dt = dtype or d.dtype
         if d.init_scale == 0.0:
-            return torch.zeros(d.shape, dtype=dt, device=dev)
-        fan_in = d.shape[-2] if len(d.shape) >= 2 else max(d.shape[-1], 1)
-        std = d.init_scale / math.sqrt(max(fan_in, 1))
-        t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=dev).mul_(std)
-        return t if dt == torch.float32 else t.to(dt)
+            t = torch.zeros(d.shape, dtype=dt, device=dev)
+        else:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 \
+                else max(d.shape[-1], 1)
+            std = d.init_scale / math.sqrt(max(fan_in, 1))
+            t = torch.randn(d.shape, generator=generator,
+                            dtype=torch.float32, device=dev).mul_(std)
+            t = t if dt == torch.float32 else t.to(dt)
+        return t if keep is None else keep(d, t)
 
+    return tree_defs_map(mk, defs)
+
+
+def spec_axes(spec, i: int) -> tuple:
+    """The mesh axes that split dim ``i`` under ``spec`` (an axis name, a
+    tuple of them, or None a dim; a spec shorter than the shape leaves
+    the rest whole)."""
+    axes = spec[i] if i < len(spec) else None
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """One card's block of a ``shape`` tensor laid out by ``spec`` on
+    ``mesh`` (anything with a ``shape`` {axis: size}):
+    ``NamedSharding(mesh, P(*spec)).shard_shape(shape)``; a dim its axes
+    do not divide raises ``ValueError``, as that does."""
+    out = []
+    for i, n in enumerate(shape):
+        ext = math.prod(mesh.shape[a] for a in spec_axes(spec, i))
+        if n % ext:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"over {spec_axes(spec, i)} ({ext} cards)")
+        out.append(n // ext)
+    return tuple(out)
+
+
+def abstract_params(defs, mesh, dtype=None):
+    """``defs`` as meta-device tensors (nothing allocated), each carrying
+    its ``ParamDef.spec`` as ``.spec``: the dry-run's stand-ins, the
+    reference's ``ShapeDtypeStruct``s with their shardings.  ``mesh`` is
+    checked: a spec its axes do not divide raises ``ValueError``."""
+    def mk(d: ParamDef):
+        shard_shape(d.shape, d.spec, mesh)
+        t = torch.empty(d.shape, dtype=dtype or d.dtype, device="meta")
+        t.spec = tuple(d.spec)
+        return t
     return tree_defs_map(mk, defs)
 
 

@@ -17,7 +17,8 @@ or not, as the reference's einsums do.  ``GROUP_SIZE`` and
 ``CAPACITY_FACTOR`` are read at call time, so a caller may patch them
 (the reference's test sets ``CAPACITY_FACTOR = 16`` so that nothing
 drops).  The reference's expert-sharding constraint (``_shard_moe``) has
-no counterpart on one card; without a mesh it is a no-op there too.
+no counterpart yet: a data-parallel mesh runs this module as it is, and
+a ``model`` axis past 1 waits for ROADMAP Queue 1 item 6.4.
 """
 from __future__ import annotations
 

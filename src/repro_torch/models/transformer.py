@@ -17,8 +17,24 @@ KV cache each, before every segment of ``shared_attn_every`` Mamba
 layers; xlstm's groups of ``slstm_period - 1`` mLSTM layers and one
 sLSTM layer; llama-vision's cross-attention block before every segment of
 ``cross_attn_period`` self layers, only when ``image_embeds`` is given.
-The reference's activation-sharding constraint (``_shard_h``) has no
-counterpart on one card; without a mesh it is a no-op there too.
+
+On a (data, model) mesh (``layout``, a ``sharding.tensor_parallel.Layout``)
+the model holds this rank's block of each parameter, as its ``ParamDef``
+spec lays it out.  A ``model`` axis of 1 is data parallelism alone, and
+the model is the single-card one.  Past 1, the dense family runs Megatron's
+tensor parallelism, what GSPMD makes of the reference's specs: the
+embedding and the head split on the vocab (a masked lookup, summed over
+``model``), attention split on heads (``wq``/``wk``/``wv`` and their
+biases by column, ``wo`` by row), the MLP by column then by row, the norms
+whole.  The reference's activation constraint ``_shard_h`` becomes the
+boundary of sequence parallelism (``Layout.seq_parallel``): where it
+shards the sequence over ``model`` the residual stream between blocks is
+this rank's block of the sequence, gathered on entering a block and
+reduce-scattered on leaving it; elsewhere the stream is whole on every
+rank and each block's output is all-reduced (``tensor_parallel.enter`` and
+``leave``).  GQA keeps its head map only where ``model`` divides the KV
+heads.  The other families past a ``model`` axis of 1, and serving under
+one, raise ``NotImplementedError``.
 
 Remat, as the reference's ``jax.checkpoint`` around each layer body: in
 train mode with ``cfg.remat`` and gradients on, each layer (attention and
@@ -44,7 +60,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (ParamDef, ParamTree, flatten,
-                                       matmul, rms_norm, unflatten)
+                                       matmul, rms_norm, shard_shape,
+                                       unflatten)
+from repro_torch.sharding import tensor_parallel as tp
 
 # the subtrees the reference stacks over layers (a leading (L, ...) dim)
 STACKED = ("layers", "dense_layers", "cross", "slstm", "enc_layers",
@@ -166,12 +184,26 @@ def unstack(defs, tree) -> dict:
     return state
 
 
-def restack(defs, state: dict) -> dict:
+def restack(defs, state: dict, layout=None) -> dict:
     """The tree in the reference's layout of a model state over the
     stacked ``defs`` (``unstack``'s inverse, without a copy): each leaf of
     a ``STACKED`` subtree a ``checkpoint.Stacked`` of its layers'
-    tensors, the other leaves as they are."""
-    from repro_torch.checkpoint import Stacked
+    tensors, the other leaves as they are.  With a tensor-parallel
+    ``layout`` the state holds this rank's blocks, and each leaf is a
+    restore template of its block of the full array (``checkpoint.Block``,
+    or a ``Stacked`` with its ``index``)."""
+    from repro_torch.checkpoint import Block, Stacked
+
+    def index(d: ParamDef, stacked: bool):
+        if layout is None:
+            return None
+        if stacked:
+            return layout.block_index(d.spec[1:], d.shape[1:])
+        return layout.block_index(d.spec, d.shape)
+
+    def leaf(d: ParamDef, t):
+        i = index(d, False)
+        return t if i is None else Block(t, i)
 
     tree = {}
     for key in sorted(defs):
@@ -179,14 +211,49 @@ def restack(defs, state: dict) -> dict:
         if key in STACKED:
             n = next(iter(flatten(sub).values())).shape[0]
             tree[key] = unflatten({
-                name: Stacked(state[f"{key}.{i}.{name}"] for i in range(n))
-                for name in flatten(sub)})
+                name: Stacked((state[f"{key}.{i}.{name}"] for i in range(n)),
+                              index(d, True))
+                for name, d in flatten(sub).items()})
         elif isinstance(sub, dict):
-            tree[key] = unflatten({name: state[f"{key}.{name}"]
-                                   for name in flatten(sub)})
+            tree[key] = unflatten({name: leaf(d, state[f"{key}.{name}"])
+                                   for name, d in flatten(sub).items()})
         else:
-            tree[key] = state[key]
+            tree[key] = leaf(sub, state[key])
     return tree
+
+
+def block_defs(defs, layout):
+    """``defs`` with each shape this rank's block of it on ``layout``
+    (``defs`` itself without one)."""
+    if layout is None:
+        return defs
+
+    def blk(d: ParamDef):
+        return ParamDef(shard_shape(d.shape, d.spec, layout), d.spec,
+                        d.dtype, d.init_scale)
+    return {k: blk(v) if isinstance(v, ParamDef) else block_defs(v, layout)
+            for k, v in defs.items()}
+
+
+def check_layout(cfg, layout) -> None:
+    """Raise where the port has no tensor parallelism for ``cfg`` on
+    ``layout``'s ``model`` axis: a family other than dense (ROADMAP Queue 1
+    item 6.4), or KV heads the axis does not divide (contiguous head
+    blocks would break GQA's map of query head q to KV head q // (H /
+    Hkv); ``configs.base.tp_pad_config`` pads them)."""
+    if layout is None or layout.M == 1:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {layout.M} for the {cfg.family} "
+            "family; tensor parallelism is ported for the dense family "
+            "(ROADMAP Queue 1 item 6.4 ports the other five); a mesh of "
+            "(D, 1) runs every family")
+    if cfg.n_kv_heads % layout.M:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not split over a "
+            f"model axis of {layout.M}; pad them (configs.base."
+            "tp_pad_config)")
 
 
 def state_shapes(defs) -> dict:
@@ -211,12 +278,19 @@ class StackedModel(nn.Module):
     ``nn.Parameter``, a ``STACKED`` subtree as an ``nn.ModuleList`` of
     ``ParamTree`` (one a layer), any other subtree as one ``ParamTree``.
     Without a state the parameters lie on the meta device: shapes only,
-    nothing allocated."""
+    nothing allocated.  On a ``layout`` the state holds this rank's blocks
+    (``block_defs``)."""
 
-    def __init__(self, cfg, defs, state: Optional[dict] = None):
+    def __init__(self, cfg, defs, state: Optional[dict] = None,
+                 layout=None):
         super().__init__()
         self.cfg = cfg
-        shapes = state_shapes(defs)
+        check_layout(cfg, layout)
+        # the tensor-parallel layout; None on one card and for a model
+        # axis of 1 (data parallelism runs the single-card model)
+        self.layout = layout if layout is not None and layout.M > 1 \
+            else None
+        shapes = state_shapes(block_defs(defs, layout))
         if state is None:
             state = {k: torch.empty(s, device="meta")
                      for k, s in shapes.items()}
@@ -264,10 +338,11 @@ def layer_cache(caches, name: str, i: int):
 
 class DecoderModel(StackedModel):
     """The decoder of ``cfg`` over a state ({name: tensor}, adopted without
-    a copy); on the meta device without one."""
+    a copy); on the meta device without one.  ``layout``: the rank's
+    place on a mesh (module docstring)."""
 
-    def __init__(self, cfg, state: Optional[dict] = None):
-        super().__init__(cfg, param_defs(cfg), state)
+    def __init__(self, cfg, state: Optional[dict] = None, layout=None):
+        super().__init__(cfg, param_defs(cfg), state, layout)
 
     # ---------------- parameter / cache declarations
 
@@ -327,9 +402,12 @@ class DecoderModel(StackedModel):
         return [(int(w), float(t)) for w, t in zip(win, theta)]
 
     def _attn_layer_apply(self, lp, h, mode, cache, cache_len, window,
-                          theta, is_moe=False):
+                          theta, is_moe=False, sp=False):
+        """One attention layer; ``sp``: the stream is sequence-parallel
+        (a tensor-parallel layout only)."""
         cfg = self.cfg
-        ln_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        lay = self.layout
+        ln_in = tp.enter(rms_norm(h, lp["ln1"], cfg.norm_eps), lay, sp)
         if cfg.kv_lora_rank and is_moe:
             if mode == "decode":
                 a, cache = attention.mla_decode(lp["attn"], ln_in, cfg,
@@ -345,14 +423,15 @@ class DecoderModel(StackedModel):
             a, cache = attention.gqa_full(lp["attn"], ln_in, cfg,
                                           window=window, theta=theta,
                                           cache=cache)
-        h = h + a
-        ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + tp.leave(a, lay, sp)
+        ln2 = tp.enter(rms_norm(h, lp["ln2"], cfg.norm_eps), lay, sp)
         if is_moe:
             return h + moe.moe_apply(lp["ffn"], ln2, cfg), cache
-        return h + mlp.swiglu_apply(lp["ffn"], ln2), cache
+        return h + tp.leave(mlp.swiglu_apply(lp["ffn"], ln2), lay, sp), \
+            cache
 
     def _attn_stack(self, name, h, mode, caches, cache_len, lo=0, hi=None,
-                    flags=None, is_moe=False):
+                    flags=None, is_moe=False, sp=False):
         """Layers ``lo:hi`` of the stack ``name``."""
         cfg = self.cfg
         stack = getattr(self, name)
@@ -364,7 +443,7 @@ class DecoderModel(StackedModel):
                     else flags[i]
                 h, _ = self._attn_layer_apply(
                     stack[i], h, mode, layer_cache(caches, name, i),
-                    cache_len, win, theta, is_moe)
+                    cache_len, win, theta, is_moe, sp)
             return h
 
         # grouped remat where the group divides the stack, as the
@@ -417,14 +496,25 @@ class DecoderModel(StackedModel):
         ``return_hidden``, and the caches, updated in place)."""
         cfg = self.cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        h = F.embedding(tokens, self.embed).to(dt)
+        lay = self.layout
+        sp = False
+        if lay is None:
+            h = F.embedding(tokens, self.embed).to(dt)
+        else:
+            if caches is not None or not return_hidden:
+                raise NotImplementedError(
+                    "serving under a model axis past 1 is not ported: a "
+                    "tensor-parallel model runs the train step's forward "
+                    "(to the hidden states), not prefill or decode")
+            sp = lay.seq_parallel(cfg, tokens.shape[1])
+            h = tp.embed_lookup(tokens, self.embed, lay, sp).to(dt)
         if getattr(cfg, "embed_scale", False):   # gemma: h *= sqrt(d)
             # sqrt(d) rounded to h's dtype first, as the reference does
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
         fam = cfg.family
         if fam == "dense":
             h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                 flags=self._layer_flags())
+                                 flags=self._layer_flags(), sp=sp)
         elif fam == "moe":
             if cfg.first_dense_layers:
                 h = self._attn_stack("dense_layers", h, mode, caches,

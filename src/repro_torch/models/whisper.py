@@ -67,8 +67,8 @@ class EncDecModel(StackedModel):
     (``transformer`` module docstring) each encoder layer and each
     decoder layer of the cache-less forward is a checkpoint."""
 
-    def __init__(self, cfg, state: Optional[dict] = None):
-        super().__init__(cfg, param_defs(cfg), state)
+    def __init__(self, cfg, state: Optional[dict] = None, layout=None):
+        super().__init__(cfg, param_defs(cfg), state, layout)
 
     def param_defs(self):
         return param_defs(self.cfg)

@@ -12,6 +12,12 @@ the schedule, bias corrections from ``b ** count``, the weight decay
 decoupled.  ``adamw_update`` runs in place (the parameters, the moments
 and the gradients, which it scales), so a step holds no second copy of
 the parameters; the scalars it computes stay on the device.
+
+On a mesh each rank holds blocks of the parameters: the global gradient
+norm adds each split leaf's squared block over its ``group`` (the mesh's
+``model`` group) and counts each whole leaf once, then sums the leaves in
+the reference's order; without split leaves it is the single-device sum,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.sharding import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,17 +73,29 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * cos
 
 
+def global_norm(grads: dict, split=(), group=None):
+    """The gradients' global norm: each leaf's float32 sum of squares, a
+    leaf named in ``split`` summed over ``group`` (one call for them all),
+    the leaves added in order."""
+    sq = {k: g.float().square().sum() for k, g in grads.items()}
+    names = [k for k in sq if k in split]
+    if names:
+        sq.update(zip(names, collectives.all_reduce_many(
+            [sq[k] for k in names], group)))
+    gnorm = None
+    for s in sq.values():             # the reference's leaf order
+        gnorm = s if gnorm is None else gnorm + s
+    return torch.sqrt(gnorm)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
-                 params: dict):
+                 params: dict, *, split=(), group=None):
     """One AdamW step: (params, state, {"grad_norm", "lr"}), the parameters
     and moments updated in place (``grads`` is scaled in place too); the
-    metrics are 0-d tensors on the device."""
-    gnorm = None
-    for g in grads.values():          # the reference's leaf order
-        s = g.float().square().sum()
-        gnorm = s if gnorm is None else gnorm + s
-    gnorm = torch.sqrt(gnorm)
+    metrics are 0-d tensors on the device.  ``split``: the names of the
+    leaves split over ``group`` (``global_norm``)."""
+    gnorm = global_norm(grads, split, group)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     count = state.count + 1

@@ -15,8 +15,10 @@ never a constant); ``registers_per_sm`` bounds a block's registers
 times its threads.
 
 The roofline terms and model flops of the LM template are
-``roofline/model.py``; the JAX package's HLO analyser waits for the
-dry-run's slice (ROADMAP Queue 1 item 6).
+``roofline/model.py``.  The JAX package's HLO analyser (``analyze_hlo``)
+has no counterpart: the port's dry-run (``launch/dryrun.py``) compiles
+nothing, and takes a cell's flops from ``roofline/model.py`` and its
+bytes from the step's arguments.
 """
 from __future__ import annotations
 

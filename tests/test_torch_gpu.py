@@ -1024,6 +1024,29 @@ def test_dist_two_gloo_ranks_share_one_card(cuda, tmp_path):
     assert abs(gpu["f"] - cpu["f"]) <= 1e-5 * abs(cpu["f"])
 
 
+def test_sharded_trainer_world_of_one_is_the_single_device_run(cuda,
+                                                               tmp_path):
+    """``launch.train --devices 1``: ``Trainer(mesh=)`` on a world of one
+    over NCCL (mesh (1, 1)) against the trainer without a mesh on the
+    card: the same losses, grad norms and final checkpoint, bit for
+    bit."""
+    from repro_torch.launch import train
+    args = ["--arch", "phi4-mini-3.8b", "--smoke", "--steps", "3",
+            "--batch", "2", "--seq-len", "16", "--ckpt-every", "3"]
+    assert train.main(args + ["--ckpt-dir", str(tmp_path / "one")]) == 0
+    assert train.main(args + ["--devices", "1", "--ckpt-dir",
+                              str(tmp_path / "mesh")]) == 0
+    logs = [[(r["loss"], r["grad_norm"], r["lr"]) for r in map(
+        json.loads, (tmp_path / d / "train.jsonl").read_text()
+        .splitlines())] for d in ("one", "mesh")]
+    assert logs[0] == logs[1] and len(logs[0]) == 3
+    z = [np.load(tmp_path / d / "ckpt_3" / "shard_0.npz")
+         for d in ("one", "mesh")]
+    assert sorted(z[0].files) == sorted(z[1].files)
+    for k in z[0].files:
+        np.testing.assert_array_equal(z[0][k], z[1][k])
+
+
 # --- the two scans of the competing algorithms -----------------------------
 # Tolerances: each kernel step's dot is a float32 sum over the rows (ADMM)
 # or features (online) in another order than the plain version's, and the

@@ -45,7 +45,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.models.moe", "repro_torch.models.ssm",
            "repro_torch.models.xlstm", "repro_torch.models.whisper",
            "repro_torch.optim.adamw", "repro_torch.runtime.trainer",
-           "repro_torch.launch.train", "repro_torch.roofline.model"]
+           "repro_torch.launch.train", "repro_torch.roofline.model",
+           "repro_torch.sharding.tensor_parallel",
+           "repro_torch.launch.dryrun"]
 
 
 def _port_files():

@@ -154,14 +154,22 @@ def test_next_token_loss_matches_jax():
 
 
 class _Mesh:
-    """What ``vocab_parallel_ce`` reads of a ``DeviceMesh``."""
+    """What a ``tensor_parallel.Layout`` reads of a (data, model)
+    ``DeviceMesh``, for rank 0 and with no process group (a group of one:
+    no call), enough for the checks that need no collective."""
+    mesh_dim_names = ("data", "model")
 
     def __init__(self, shape: dict):
-        self.mesh_dim_names = tuple(shape)
-        self._sizes = list(shape.values())
+        self._sizes = [shape["data"], shape["model"]]
 
     def size(self, i: int) -> int:
         return self._sizes[i]
+
+    def get_local_rank(self, name: str) -> int:
+        return 0
+
+    def get_group(self, name: str):
+        return None
 
 
 @pytest.mark.parametrize("transpose_w", [True, False])
@@ -177,11 +185,11 @@ def test_vocab_parallel_ce_matches_jax(transpose_w):
                                         jnp.asarray(mask)))
     args = (_t(h), _t(w), transpose_w, _t(targets), _t(mask))
     assert abs(float(t_lm.vocab_parallel_ce(*args)) - want) <= TOL * want
+    # a model axis of 1 takes the plain loss, bit for bit; the vocab-
+    # sharded branch runs on gloo worlds (tests/test_torch_train_sharded.py)
     one = _Mesh({"data": 4, "model": 1})
     assert float(t_lm.vocab_parallel_ce(*args, mesh=one)) \
         == float(t_lm.vocab_parallel_ce(*args))
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        t_lm.vocab_parallel_ce(*args, mesh=_Mesh({"data": 1, "model": 2}))
 
 
 # ---------------------------------------------------------------- roofline
@@ -369,14 +377,18 @@ def test_launch_train_main_in_process(tmp_path, capsys):
 
 
 def test_no_mesh_yet(tmp_path):
-    """A mesh raises and names the slice that brings it; no fallback."""
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        t_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                      "--devices", "2", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        Trainer(t_reg.smoke_variant(ARCH), t_adamw.AdamWConfig(),
-                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
-                device="cpu")
+    """What a mesh does not run yet raises, naming why; no fallback to one
+    process or to the CPU: a model axis past 1 for a family other than
+    dense (the mesh itself trains: tests/test_torch_train_sharded.py),
+    and ``--devices`` over NCCL with more ranks than cards."""
+    with pytest.raises(NotImplementedError, match="dense"):
+        Trainer(t_reg.smoke_variant("deepseek-v2-lite-16b"),
+                t_adamw.AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)),
+                mesh=_Mesh({"data": 1, "model": 2}), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="a card per rank"):
+            t_train.main(["--arch", ARCH, "--smoke", "--devices", "2",
+                          "--ckpt-dir", str(tmp_path)])
 
 
 def test_train_step_moves_every_parameter():
