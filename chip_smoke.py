@@ -163,8 +163,9 @@ drives each path through the entry points a user calls and checks it:
     float32 tie named);
   * lm_families: the template's other five families at full width,
     one model at a time on the card (built from a seed, served, checked,
-    freed): deepseek-v2-lite-16b (moe with MLA, all 27 layers,
-    15,709,498,368 parameters), mixtral-8x7b (8 of its 32 layers: 186.81
+    freed): deepseek-v2-lite-16b (moe with MLA, 9 of its 27 layers,
+    5,182,236,672 parameters: the whole run's 900 s once train_dist trains
+    six families), mixtral-8x7b (8 of its 32 layers: 186.81
     GB of float32 do not fit the card), zamba2-1.2b (hybrid),
     xlstm-1.3b (ssm), llama-3.2-vision-11b (vlm, 1,601 image tokens) and
     whisper-tiny (audio, 1,500 frames).  ``serve.generate`` at batch 2, a
@@ -186,14 +187,15 @@ drives each path through the entry points a user calls and checks it:
     launched) held against the same fit on the CPU.
   * train (``train_phase``, which ``train_phase(np, torch, dev,
     card)`` also runs alone): LM training, no hand-written kernel on its
-    path (every launch count stays 0).  phi4-mini-3.8b at full width, 8
-    of its 32 layers (2,034,551,808 parameters; 32 layers' parameters,
+    path (every launch count stays 0).  phi4-mini-3.8b at full width, 4
+    of its 32 layers (1,631,874,048 parameters; 32 layers' parameters,
     gradients and AdamW moments take 71.2 GB of float32, and 16 layers'
-    save, 57 s, kept the whole run past its 900 s), float32 with remat
+    save, 57 s, then 8 layers' beside train_dist's six families, kept the
+    whole run past its 900 s), float32 with remat
     and flash attention, through ``runtime.trainer.Trainer``: batch 2 x
     2,048 tokens of ``TokenPipeline``, 6 AdamW steps (lr 3e-3, warmup 1),
-    one checkpoint at the last (4 layers where the disk cannot hold 8
-    layers' 24 GB); each step's loss, grad norm, lr and seconds,
+    one checkpoint at the last (2 layers where the disk cannot hold 4
+    layers' 20 GB); each step's loss, grad norm, lr and seconds,
     tokens/s, model flops (6 N D) a second against the fp32 peak, peak
     memory, the save's seconds and bytes; every loss and grad norm finite
     and every parameter moved; a fresh trainer restores the checkpoint
@@ -228,9 +230,24 @@ drives each path through the entry points a user calls and checks it:
     collectives, each rank's
     memory after placement within 1% of the dry-run's parameters and
     moments for (1, 2), its step seconds (gloo stages the card's tensors
-    through the host: not NCCL's times); (c) ``launch.dryrun`` in process
-    over every architecture and shape and dglmnet on the meshes of 1 and
-    4 cards: no failed cell, the largest per-card bytes.
+    through the host: not NCCL's times).  In the same world (b) then
+    trains the five other families at full width, each at the depth cut
+    that keeps every kind of layer it has (deepseek-v2-lite-16b 2 layers,
+    1 dense and 1 MoE, 32 of 64 experts a rank; mixtral-8x7b 1 layer, its
+    experts split inside; zamba2-1.2b 2 Mamba layers and the shared block;
+    xlstm-1.3b 8 layers, 7 mLSTM in their chunkwise form and 1 sLSTM;
+    llama-3.2-vision-11b 5 layers and 1 cross block; whisper-tiny whole,
+    its vocab padded to 51,866), 2 steps of batch 2 x 512 (whisper's
+    decoder 2 x 256), each against its single-device run made before the
+    world started and freed: the same bars, the ranks' collectives and
+    metrics the same, memory after placement within 1% of the dry-run's,
+    the router's margin from a tie reported.  Every run sets the first
+    step's near-sign(g) entries (whose update float32's order of a sum
+    decides) back to their initial values before the second step: xlstm's
+    second step at full width moves 3x on them.  (c) ``launch.dryrun`` in
+    process over every architecture and
+    shape and dglmnet on the meshes of 1 and 4 cards: no failed cell, the
+    largest per-card bytes.
 No built-in family takes a plain route in any phase.
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
@@ -4131,11 +4148,17 @@ def lm_phase(np, torch, dev, card) -> dict:
 # 240 s budget.
 LMF_BATCH, LMF_PROMPT, LMF_GEN = 2, 1408, 128
 LMF_RECURRENT_PROMPT = LMF_PROMPT // 2
+# why a model of LMF_MODELS is cut in depth
+LMF_REDUCED_WHY = {
+    "deepseek-v2-lite-16b": "the whole run's 900 s, once train_dist trains "
+                            "the six families too (27 layers took 35.8 s "
+                            "here)",
+    "mixtral-8x7b": "186.81 GB of float32 weights do not fit one 80 GB card"}
 LMF_MODELS = (
     # arch, layers kept (None: all), the reference's parameter count,
     # prompt length, the stacks of the one-block-of-each-kind cut and its
     # config
-    ("deepseek-v2-lite-16b", None, 15_709_498_368, LMF_PROMPT,
+    ("deepseek-v2-lite-16b", 9, 5_182_236_672, LMF_PROMPT,
      {"dense_layers": [0], "layers": [0]},
      dict(n_layers=2, first_dense_layers=1)),
     ("mixtral-8x7b", 8, 11_872_309_248, LMF_PROMPT, {"layers": [0]},
@@ -4441,8 +4464,8 @@ def family_check(torch, serve, lm, moe, model, cut_spec, prompts, extra,
 
 
 def lm_families_phase(np, torch, dev, card) -> dict:
-    """The LM template's moe (deepseek-v2-lite-16b at full width and
-    depth, mixtral-8x7b at 8 of its 32 layers), hybrid (zamba2-1.2b), ssm
+    """The LM template's moe (deepseek-v2-lite-16b at full width, 9 of its
+    27 layers, mixtral-8x7b at 8 of its 32 layers), hybrid (zamba2-1.2b), ssm
     (xlstm-1.3b), vlm (llama-3.2-vision-11b) and audio (whisper-tiny)
     families at full width on the card, one at a time: built from a seed,
     served through ``launch/serve.py``'s ``generate`` (prefill and greedy
@@ -4514,8 +4537,7 @@ def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
         rec["reduced"] = {"n_layers": [full_cfg.n_layers, keep_layers],
                           "full_params": common.param_count(
                               lm.param_defs(full_cfg)),
-                          "why": "186.81 GB of float32 weights do not "
-                                 "fit one 80 GB card"}
+                          "why": LMF_REDUCED_WHY[name]}
     gen_t = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompts = torch.randint(0, cfg.vocab_size, (LMF_BATCH, prompt_len),
                             device=dev, generator=gen_t)
@@ -4647,11 +4669,12 @@ def lmf_probe(np, torch, dev, model, cfg) -> tuple:
 # ---------------------------------------------------------------- train
 
 TRAIN_ARCH = "phi4-mini-3.8b"
-TRAIN_LAYERS = 8                  # of 32: 71.2 GB of state do not fit,
-#                                   and 16 layers' save kept the run past
-#                                   its 900 s
-TRAIN_LAYERS_SMALL_DISK = 4       # if the disk cannot hold the checkpoint
-TRAIN_PARAMS = 2_034_551_808      # the reference's count at 8 layers
+TRAIN_LAYERS = 4                  # of 32: 71.2 GB of state do not fit,
+#                                   and 16 layers' save, then 8 layers'
+#                                   beside train_dist's six families, kept
+#                                   the run past its 900 s
+TRAIN_LAYERS_SMALL_DISK = 2       # if the disk cannot hold the checkpoint
+TRAIN_PARAMS = 1_631_874_048      # the reference's count at 4 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
 FLASH_BWD_TOL = 1e-4              # of each gradient's largest |entry|
 # examples/train_lm.py's config and the reference's bars
@@ -4689,7 +4712,7 @@ def states_equal(torch, a: tuple, b: tuple) -> dict:
 
 
 def train_full_width(np, torch, dev, card) -> dict:
-    """phi4-mini-3.8b at full width (8 of 32 layers, float32, remat) for
+    """phi4-mini-3.8b at full width (4 of 32 layers, float32, remat) for
     6 steps through ``runtime.trainer.Trainer``, its checkpoint restored
     in a fresh trainer bit for bit, one more step from each state."""
     import shutil
@@ -4727,9 +4750,11 @@ def train_full_width(np, torch, dev, card) -> dict:
            "reduced": {"n_layers": [full.n_layers, layers],
                        "why": "32 layers' parameters, gradients and AdamW "
                               "moments in float32 take 71.2 GB, and 16 "
-                              "layers' save kept chip_smoke.py past 900 s"
+                              "layers' save, then 8 layers' beside "
+                              "train_dist's six families, kept "
+                              "chip_smoke.py past 900 s"
                               + ("" if layers == TRAIN_LAYERS else
-                                 "; the disk held too little for 8 "
+                                 "; the disk held too little for 4 "
                                  "layers' checkpoint")},
            "params": n_params, "dtype": "float32", "remat": True,
            "attn_impl": "flash", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
@@ -5074,8 +5099,28 @@ def train_phase(np, torch, dev, card) -> dict:
 TRAIN_DIST_LAYERS = 2
 TRAIN_DIST_BATCH, TRAIN_DIST_SEQ, TRAIN_DIST_STEPS = 2, 512, 3
 TRAIN_DIST_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
-TRAIN_DIST_MEM_TOL = 0.01         # allocated after placement / dry-run
-TRAIN_DIST_TIMEOUT_S = 300
+TRAIN_DIST_MEM_TOL = 0.01         # requested after placement / dry-run
+TRAIN_DIST_TIMEOUT_S = 600
+# (b)'s other families at full width on (1, 2): {arch: (layers or None
+# for all of them, sequence length, other config fields)}; batch 2, 2
+# steps.  xlstm's mLSTM by its chunkwise form (ssm_chunk): the step scan
+# costs 15 s a step there (host-bound autograd over 512 steps a layer),
+# the chunkwise 2.3 s; the sLSTM steps either way
+TRAIN_DIST_FAMILIES = {
+    "deepseek-v2-lite-16b": (2, 512, {}),       # 1 dense and 1 MoE layer
+    "mixtral-8x7b": (1, 512, {}),
+    "zamba2-1.2b": (2, 512, {}),                # the shared block once
+    "xlstm-1.3b": (8, 512, dict(ssm_chunk=64)),     # 7 mLSTM, 1 sLSTM
+    "llama-3.2-vision-11b": (5, 512, {}),       # 1 cross block
+    "whisper-tiny": (None, 256, {})}
+TRAIN_DIST_FAM_STEPS = 2
+# the first step's parameters (where AdamW's step is not near sign(g))
+# within STEP_PARAM_ATOL but where a family's first gradient is float32-
+# sensitive: xlstm-1.3b's at full width moves 3.7e-8-6.9e-8 under a 1e-7
+# weight perturbation, its gradient leaves 7.6e-5-1.3e-4 of their largest
+# entry, and the sharded run's 1.15e-7 / 2.2e-4 (PERF.md, tools/
+# xlstm_first_step.py)
+TRAIN_DIST_PARAM_ATOL = {"xlstm-1.3b": 2e-7}
 
 
 def train_dist_trainer(cfg, mesh, dev, ckpt_dir):
@@ -5117,10 +5162,11 @@ def train_dist_run(torch, trainer, capture: bool = False) -> dict:
     from repro_torch.sharding import collectives
     from repro_torch.timing import timed
     torch.cuda.reset_peak_memory_stats()
+    base = requested_bytes(torch)
     params, opt, _ = trainer.init_state()
     parity_weights(torch, trainer, params)
     torch.cuda.synchronize()
-    placed = torch.cuda.memory_allocated()
+    placed = requested_bytes(torch) - base
     out = {}
     if capture and trainer.layout is None:
         batch = lm.batch_to_device(trainer.pipeline.batch_at(0),
@@ -5147,8 +5193,12 @@ def train_dist_worker(spec_path: str) -> None:
     """One rank of train_dist's gloo world on the one card: its trainer on
     the spec's mesh; the metrics, memory, collectives and launch counts
     in ``<out>/rank<r>.json``, its parameter blocks after the first step
-    in ``<out>/rank<r>/<name>.npy``."""
+    in ``<out>/rank<r>/<name>.npy``; then each of the spec's other
+    families (``train_dist_family_run``), its record under
+    ``families``."""
     sys.path.insert(0, str(REPO / "src"))
+    import gc
+
     import numpy as np
     import torch
 
@@ -5168,6 +5218,22 @@ def train_dist_worker(spec_path: str) -> None:
         np.save(blocks / f"{k}.npy", t.cpu().numpy())
     r.pop("params")
     r["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
+    del t
+    # the other families in the same world, each freed before the next
+    r["families"] = {}
+    for arch in spec["families"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fcfg = train_dist_family_cfg(arch)
+        f = train_dist_family_run(
+            torch, fcfg, mesh, None, str(out / f"ckpt_{arch}"),
+            out / "kept" / arch)
+        f["part_s"] = time.perf_counter() - t0
+        f["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
+        r["families"][arch] = f
+        del f
     (out / f"rank{ctx.process_id}.json").write_text(json.dumps(r))
     faults.guarded_barrier("chip-smoke-train-dist-exit", timeout_s=120)
     bootstrap.shutdown()
@@ -5178,6 +5244,218 @@ def train_dist_cfg():
     return get_arch(TRAIN_ARCH).replace(
         n_layers=TRAIN_DIST_LAYERS, dtype="float32", remat=True,
         attn_impl="flash", seq_shard=True, parallelism="tp")
+
+
+def requested_bytes(torch) -> int:
+    """Bytes the live tensors on the card asked for: the caching
+    allocator's ``requested_bytes``, without its rounding of a block up
+    to the cached one it lands in (up to 1 MB a tensor in a process whose
+    cache earlier models fragmented): train_dist's one measure of the
+    memory after placement.  Raises where the allocator does not keep
+    it."""
+    stats = torch.cuda.memory_stats()
+    check("requested_bytes.all.current" in stats,
+          "train_dist: the caching allocator keeps no requested_bytes")
+    return stats["requested_bytes.all.current"]
+
+
+def train_dist_family_cfg(arch: str):
+    """(b)'s config of ``arch``: full width, its depth cut, float32, remat,
+    flash attention, tensor parallel with sequence parallelism, padded
+    where the reference pads for a model axis of 2 (whisper-tiny's vocab
+    of 51,865 to 51,866)."""
+    from repro_torch.configs.base import tp_pad_config
+    from repro_torch.configs.registry import get_arch
+    layers, _, extra = TRAIN_DIST_FAMILIES[arch]
+    cfg = get_arch(arch)
+    cfg = cfg.replace(n_layers=layers or cfg.n_layers, dtype="float32",
+                      remat=True, attn_impl="flash", seq_shard=True,
+                      parallelism="tp", **extra)
+    return tp_pad_config(cfg, 2)[0]
+
+
+def train_dist_family_batch(torch, cfg, step: int, dev) -> dict:
+    """Step ``step``'s batch of (b)'s family run: ``TokenPipeline``'s rows
+    (batch 2 at the family's sequence length) and, for the vlm and audio
+    families, N(0, 1) image or audio embeddings drawn on the card from
+    ``SEED + step`` (the same bits in every process)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm
+    seq = TRAIN_DIST_FAMILIES[cfg.name][1]
+    batch = lm.batch_to_device(TokenPipeline(
+        cfg.vocab_size, TRAIN_DIST_BATCH, seq, seed=SEED).batch_at(step),
+        dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + step)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (TRAIN_DIST_BATCH, cfg.n_image_tokens, cfg.d_model),
+            generator=gen, device=dev)
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn(
+            (TRAIN_DIST_BATCH, cfg.n_audio_frames, cfg.d_model),
+            generator=gen, device=dev)
+    return batch
+
+
+def router_margin(torch, model, batch) -> float | None:
+    """The smallest gap between a token's k-th and (k+1)-th router logit
+    over the MoE layers of one forward of ``batch`` (None without a
+    router): how far the routing is from a float32 tie."""
+    from repro_torch.models import common, moe
+    if model.cfg.family != "moe":
+        return None
+    gaps = []
+    route = moe.route
+
+    def spy(p, x, cfg):
+        logits = common.matmul(x, p["router"]).reshape(-1, cfg.n_experts)
+        top = torch.topk(logits, cfg.top_k + 1, dim=-1).values
+        gaps.append(top[:, -2] - top[:, -1])
+        return route(p, x, cfg)
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            model(batch["tokens"], mode="train", return_hidden=True)
+    finally:
+        moe.route = route
+    return float(torch.cat(gaps).min())
+
+
+def train_dist_family_run(torch, cfg, mesh, dev, ckpt_dir: str,
+                          kept_dir: pathlib.Path) -> dict:
+    """(b)'s run of a family: ``Trainer(mesh=)``'s model and train step
+    (weights drawn from ``SEED`` and rescaled to the parity weights), then
+    ``TRAIN_DIST_FAM_STEPS`` steps on ``train_dist_family_batch``: each
+    step's (loss, grad norm, lr) and seconds, the memory after placement,
+    the collectives.  The memory after placement is what the trainer's
+    state adds to the bytes the live tensors requested
+    (``requested_bytes``).
+
+    The first step's parameters are split by the single-device run's
+    clipped first gradient g (AdamW's first moment over (1 - b1): no extra
+    backward): where AdamW's step is not near sign(g) the single run
+    writes them into ``kept_dir`` (per leaf, flat indices and values:
+    ``<leaf>.idx.npy``, ``<leaf>.val.npy``) and a rank holds its own
+    against them (``train_dist_first_step``); the others, whose update
+    float32's order of a sum decides (|g| near AdamW's eps), every run
+    sets back to their initial values before the second step, so that
+    the second step starts from the same state on every mesh up to the
+    first step's compared entries.  The single run also reports the
+    router's margin."""
+    import numpy as np
+
+    from repro_torch.sharding import collectives
+    from repro_torch.timing import timed
+    torch.cuda.reset_peak_memory_stats()
+    base = requested_bytes(torch)
+    trainer = train_dist_trainer(cfg, mesh, dev, ckpt_dir)
+    params, opt, _ = trainer.init_state()
+    parity_weights(torch, trainer, params)
+    torch.cuda.synchronize()
+    out = {"placed_bytes": requested_bytes(torch) - base,
+           "resident_bytes": base}
+    if mesh is None:
+        out["router_margin"] = router_margin(torch, trainer.model,
+                                             train_dist_family_batch(
+                                                 torch, cfg, 0,
+                                                 trainer.device))
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+
+    def step(opt, i):
+        batch = train_dist_family_batch(torch, cfg, i, trainer.device)
+        opt, m = trainer.train_step(opt, batch)
+        return opt, torch.stack([m[k].float() for k in
+                                 ("loss", "grad_norm", "lr")]).tolist()
+    metrics, secs = [], []
+    with collectives.collective_trace() as ev:
+        for i in range(TRAIN_DIST_FAM_STEPS):
+            (opt, host), s_ = timed(step, opt, i)
+            metrics.append(host)
+            secs.append(s_)
+            if i == 0 and mesh is not None:
+                out["compare"] = train_dist_first_step(
+                    torch, cfg, trainer.model.layout, params, p0, kept_dir)
+            elif i == 0:
+                # train_card_vs_cpu's rule on the clipped gradient g scale
+                kept_dir.mkdir(parents=True)
+                n_kept = 0
+                b1 = trainer.opt_cfg.b1
+                with torch.no_grad():
+                    for k, p in params.items():
+                        g = opt.m[k].abs() / (1.0 - b1)
+                        keep = (g > STEP_GRAD_TOL * g.max().clamp_min(1e-30)) \
+                            & (g > STEP_FLOOR)
+                        idx = keep.flatten().nonzero()[:, 0]
+                        np.save(kept_dir / f"{k}.idx.npy", idx.cpu().numpy())
+                        np.save(kept_dir / f"{k}.val.npy",
+                                p.detach().flatten()[idx].cpu().numpy())
+                        n_kept += int(idx.numel())
+                        p.copy_(torch.where(keep, p, p0[k]))
+                        del g, keep, idx
+                out["kept"] = n_kept
+                out["entries"] = sum(p.numel() for p in params.values())
+            if i == 0:
+                del p0
+    out.update(metrics=metrics, step_s=secs,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               collectives=[list(e) for e in ev])
+    return out
+
+
+def train_dist_leaf_spec(cfg, name: str) -> tuple:
+    """(spec, shape) of the model state's leaf ``name`` (a stacked leaf's
+    layer without its leading dim)."""
+    from repro_torch.models import common, lm, transformer
+    parts = name.split(".")
+    stacked = parts[0] in transformer.STACKED
+    if stacked:
+        del parts[1]
+    d = common.flatten(lm.param_defs(cfg))[".".join(parts)]
+    return (d.spec[1:], d.shape[1:]) if stacked else (d.spec, d.shape)
+
+
+def train_dist_first_step(torch, cfg, layout, params: dict, p0: dict,
+                          kept_dir: pathlib.Path) -> dict:
+    """This rank's blocks of the first step's parameters against the
+    single-device run's kept entries (the largest difference, and the
+    entries compared in split and in whole leaves); then the entries not
+    kept set back to ``p0``, the blocks' initial values, in place."""
+    import numpy as np
+    err, n_split, n_whole = 0.0, 0, 0
+    for k, p in params.items():
+        spec, shape = train_dist_leaf_spec(cfg, k)
+        idx = torch.from_numpy(np.load(kept_dir / f"{k}.idx.npy")).to(
+            p.device)
+        val = torch.from_numpy(np.load(kept_dir / f"{k}.val.npy")).to(
+            p.device)
+        blk = layout.block_index(spec, shape)
+        inside = torch.ones_like(idx, dtype=torch.bool)
+        local = torch.zeros_like(idx)
+        rem = idx
+        for dim in reversed(range(len(shape))):
+            c = rem % shape[dim]
+            rem = rem // shape[dim]
+            lo, hi = blk[dim].start, blk[dim].stop
+            inside &= (c >= lo) & (c < hi)
+            local = local + (c - lo) * int(np.prod(
+                [b.stop - b.start for b in blk[dim + 1:]], dtype=np.int64))
+        n = int(inside.sum())
+        flat = p.detach().flatten()
+        keep = torch.zeros_like(flat, dtype=torch.bool)
+        if n:
+            keep[local[inside]] = True
+            err = max(err, float((flat[local[inside]]
+                                  - val[inside]).abs().max()))
+        with torch.no_grad():
+            p.copy_(torch.where(keep.view(p.shape), p, p0[k]))
+        del flat
+        if tuple(p.shape) == tuple(shape):
+            n_whole += n
+        else:
+            n_split += n
+        del idx, val, inside, local, rem, keep
+    return {"param_max_abs": err, "compared_split": n_split,
+            "compared_whole": n_whole}
 
 
 def train_dist_dryrun(tdir: pathlib.Path) -> dict:
@@ -5216,9 +5494,17 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     train_card_vs_cpu's STEP_* bars on every step's loss and grad norm
     and on the first step's parameters, the same collectives on both
     ranks, each rank's memory after placement
-    within 1% of the dry-run's parameters + moments for (1, 2); (c)
-    ``launch.dryrun`` over every cell: no failure.  No kernel launched."""
+    within 1% of the dry-run's parameters + moments for (1, 2); then the
+    other families in the same world (``TRAIN_DIST_FAMILIES``), each
+    against its single-device run, all made before the world: the same
+    bars on both steps (the second from the first step's state with its
+    near-sign(g) entries set back, ``train_dist_family_run``; the first
+    step's parameters by ``TRAIN_DIST_PARAM_ATOL`` where it names the
+    family), the same collectives, memory within 1%, the requested bytes
+    every time; (c) ``launch.dryrun`` over every cell: no failure.  No
+    kernel launched."""
     import gc
+    import math
     import shutil
 
     from repro_torch.dist import bootstrap, launcher
@@ -5285,12 +5571,37 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- (b) a gloo world of 2 on the one card, (1, 2), tp + seq_shard
-    t0 = time.perf_counter()
+    # ---- the other families' single-device runs, each freed before the
+    # next and all before the world
     out = tdir / "b"
     out.mkdir()
+    fam_single = {}
+    for arch in TRAIN_DIST_FAMILIES:
+        t0 = time.perf_counter()
+        fcfg = train_dist_family_cfg(arch)
+        r = train_dist_family_run(
+            torch, fcfg, None, dev, str(tdir / f"single_{arch}"),
+            out / "kept" / arch)
+        fam_single[arch] = {
+            k: r[k] for k in ("metrics", "step_s", "placed_bytes",
+                              "resident_bytes", "kept", "entries",
+                              "router_margin")}
+        fam_single[arch].update(
+            params=common.param_count(lm.param_defs(fcfg)),
+            peak_gb=r["peak_bytes"] / 1e9,
+            part_s=time.perf_counter() - t0)
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "train_dist_single", "arch": arch,
+              **fam_single[arch]})
+
+    # ---- (b) a gloo world of 2 on the one card, (1, 2), tp + seq_shard:
+    # phi4-mini, then the other families
+    t0 = time.perf_counter()
     spec = out / "spec.json"
-    spec.write_text(json.dumps({"mesh": [1, 2], "out": str(out)}))
+    spec.write_text(json.dumps({"mesh": [1, 2], "out": str(out),
+                                "families": list(TRAIN_DIST_FAMILIES)}))
     res = launcher.run_local(2, REPO / "chip_smoke.py",
                              args=["--train-dist-worker", str(spec)],
                              timeout_s=TRAIN_DIST_TIMEOUT_S, grace_s=10)
@@ -5367,6 +5678,60 @@ def train_dist_phase(np, torch, dev, card) -> dict:
           f"train_dist (b): memory after placement {rec['b_gloo_1x2']}")
     check(not any(r["launched"] for r in ranks),
           f"train_dist (b): kernels launched {ranks[0]['launched']}")
+    rec["b_families"] = {}
+    for arch, single in fam_single.items():
+        fcfg = train_dist_family_cfg(arch)
+        fr = [r["families"][arch] for r in ranks]
+        params_a, opt_a = lm.abstract_state(fcfg, mesh12)
+        fwant = dryrun.card_bytes(params_a, mesh12) \
+            + dryrun.card_bytes(opt_a, mesh12)
+        ref = single["metrics"]
+        ferr = {"loss": [abs(a[0] - b[0]) / abs(b[0])
+                         for a, b in zip(fr[0]["metrics"], ref)],
+                "grad_norm": [abs(a[1] - b[1]) / b[1]
+                              for a, b in zip(fr[0]["metrics"], ref)]}
+        # the first step's compared parameters; the second step from
+        # the first step's state with its near-sign(g) entries set back
+        # (train_dist_family_run)
+        p_bar = TRAIN_DIST_PARAM_ATOL.get(arch, STEP_PARAM_ATOL)
+        p_err = max(f["compare"]["param_max_abs"] for f in fr)
+        n_cmp = sum(f["compare"]["compared_split"] for f in fr) \
+            + fr[0]["compare"]["compared_whole"]
+        mem = [abs(f["placed_bytes"] - fwant) / fwant for f in fr]
+        same = fr[0]["collectives"] == fr[1]["collectives"]
+        frec = {"arch": arch, "n_layers": fcfg.n_layers,
+                "vocab_size": fcfg.vocab_size,
+                "seq_len": TRAIN_DIST_FAMILIES[arch][1],
+                "single": single, "metrics": fr[0]["metrics"],
+                "metrics_rank1_equal": fr[0]["metrics"] == fr[1]["metrics"],
+                "loss_rel": ferr["loss"], "grad_norm_rel": ferr["grad_norm"],
+                "step1_param_max_abs": p_err, "step1_param_atol": p_bar,
+                "params_compared": n_cmp,
+                "step_s": [f["step_s"] for f in fr],
+                "placed_bytes": [f["placed_bytes"] for f in fr],
+                "dryrun_params_moments_bytes": fwant, "memory_rel": mem,
+                "peak_gb": [f["peak_bytes"] / 1e9 for f in fr],
+                "resident_bytes": [f["resident_bytes"] for f in fr],
+                "world_part_s": [f["part_s"] for f in fr],
+                "collectives_per_rank": [len(f["collectives"]) for f in fr],
+                "same_collectives": same,
+                "launched": [f["launched"] for f in fr]}
+        rec["b_families"][arch] = frec
+        emit({"phase": "train_dist_b_family", **frec})
+        check(len(ferr["loss"]) == TRAIN_DIST_FAM_STEPS
+              and max(ferr["loss"]) <= STEP_LOSS_TOL
+              and max(ferr["grad_norm"]) <= STEP_GNORM_TOL
+              and all(math.isfinite(v) for m in fr[0]["metrics"] for v in m)
+              and p_err <= p_bar and n_cmp > 0,
+              f"train_dist (b) {arch}: (1, 2) against the single-device "
+              f"run {ferr}, parameters {p_err} over {n_cmp}")
+        check(same and frec["metrics_rank1_equal"],
+              f"train_dist (b) {arch}: the ranks' collectives or metrics "
+              "differ")
+        check(max(mem) <= TRAIN_DIST_MEM_TOL,
+              f"train_dist (b) {arch}: memory after placement {mem}")
+        check(not any(f["launched"] for f in fr),
+              f"train_dist (b) {arch}: kernels launched {fr[0]['launched']}")
 
     # ---- (c) the dry-run over every cell
     t0 = time.perf_counter()

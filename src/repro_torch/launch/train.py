@@ -13,7 +13,9 @@ none.
 
 ``--devices N`` trains on the mesh (1, N), as the reference's simulated
 mesh: N processes, one rank each (``repro_torch.dist.launcher``), that
-run ``Trainer(mesh=make_dist_mesh(1, N))``.  With ``--device cpu`` the
+run ``Trainer(mesh=make_dist_mesh(1, N))``: tensor parallelism over N
+for any architecture of the registry, where N divides the dims its
+specs split (``transformer.check_layout``).  With ``--device cpu`` the
 ranks run on the CPU over gloo; on cards over NCCL, a card a rank, and
 more ranks than cards raise as ``dist.bootstrap`` does.  The ranks' output
 is printed, process 0's last.

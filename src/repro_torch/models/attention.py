@@ -123,6 +123,13 @@ def _write_prefix(cache: dict, new: dict) -> dict:
 # decode step as the reference does.
 # ---------------------------------------------------------------------------
 
+# whole leaves of MLA used inside its tensor-parallel region: the latent
+# and the shared key channel are computed whole on every rank, so each
+# rank's gradient of these covers only its heads (summed over ``model``
+# by ``lm.reduce_grads``)
+MLA_REGION_WHOLE = ("w_dkv", "kv_norm")
+
+
 def mla_defs(cfg):
     d, H = cfg.d_model, cfg.n_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,

@@ -38,7 +38,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import common, transformer, whisper
+from repro_torch.models import (attention, common, moe, ssm, transformer,
+                                 whisper, xlstm)
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives
 from repro_torch.sharding import tensor_parallel as tp
@@ -320,18 +321,52 @@ def _stacked_name(name: str) -> str:
     return ".".join(parts)
 
 
+# whole leaves used inside a tensor-parallel region (their stacked names'
+# endings, each module naming its own): each rank's gradient covers only
+# its heads, experts or block of hd, with or without sequence parallelism
+REGION_LEAVES = tuple(f"{block}.{leaf}" for block, names in (
+    ("attn", attention.MLA_REGION_WHOLE), ("ffn", moe.REGION_WHOLE),
+    ("mixer", ssm.REGION_WHOLE), ("mixer", xlstm.REGION_WHOLE))
+    for leaf in names)
+
+
+def partial_leaves(cfg, layout, seq_len: int) -> list:
+    """Names, in the model state's order (every rank calls the same
+    collectives in turn), of the whole (unsplit) leaves whose gradient on a
+    tensor-parallel ``layout`` is partial, to be summed over ``model``:
+    those used inside a split region (``REGION_LEAVES``) always, and the
+    others (norms, ``b_out``, ``pos_*``) where their stream is
+    sequence-parallel (each rank saw its block of the sequence; whisper's
+    encoder leaves by the frames, ``seq_len`` the tokens)."""
+    lay = _as_layout(layout)
+    if lay is None or lay.M == 1:
+        return []
+    split = split_leaves(cfg)
+    sp = lay.seq_parallel(cfg, seq_len)
+    enc_sp = cfg.family == "audio" and lay.seq_parallel(
+        cfg, cfg.n_audio_frames)
+    out = []
+    for k in transformer.state_shapes(param_defs(cfg)):
+        if k in split:
+            continue
+        enc = k.startswith(("enc_layers.", "enc_norm", "pos_enc"))
+        if _stacked_name(k).endswith(REGION_LEAVES) or (enc_sp if enc
+                                                        else sp):
+            out.append(k)
+    return out
+
+
 def reduce_grads(grads: dict, cfg, layout, seq_len: int) -> dict:
-    """This rank's gradients completed in place: summed over ``data``, and,
-    where the stream was sequence-parallel, the whole (unsplit) leaves'
-    summed over ``model`` (each rank saw its block of the sequence)."""
+    """This rank's gradients completed in place: summed over ``data``, and
+    the whole leaves whose gradient is partial on a tensor-parallel mesh
+    (``partial_leaves``: those inside a split region, and the others where
+    their stream was sequence-parallel) summed over ``model``.  The split
+    leaves' gradients are their blocks', complete as they are."""
     lay = _as_layout(layout)
     for g in grads.values():
         collectives.all_reduce(g, lay.data)
-    if lay.seq_parallel(cfg, seq_len):
-        split = split_leaves(cfg)
-        for k, g in grads.items():
-            if k not in split:
-                collectives.all_reduce(g, lay.model)
+    for k in partial_leaves(cfg, lay, seq_len):
+        collectives.all_reduce(grads[k], lay.model)
     return grads
 
 

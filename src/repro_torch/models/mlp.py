@@ -34,6 +34,10 @@ def gelu_defs(cfg, d_ff=None):
     }
 
 
-def gelu_apply(p, x):
+def gelu_apply(p, x, leave=None):
+    """The GELU MLP; ``leave`` (a tensor-parallel region's exit) sums the
+    row-parallel product over ``model`` before the whole ``b_out`` is
+    added, once."""
     h = F.gelu(matmul(x, p["w_in"]) + p["b_in"], approximate="tanh")
-    return matmul(h, p["w_out"]) + p["b_out"]
+    y = matmul(h, p["w_out"])
+    return (y if leave is None else leave(y)) + p["b_out"]

@@ -16,9 +16,24 @@ expert runs its expert's SwiGLU (``torch.bmm`` over the experts), filled
 or not, as the reference's einsums do.  ``GROUP_SIZE`` and
 ``CAPACITY_FACTOR`` are read at call time, so a caller may patch them
 (the reference's test sets ``CAPACITY_FACTOR = 16`` so that nothing
-drops).  The reference's expert-sharding constraint (``_shard_moe``) has
-no counterpart yet: a data-parallel mesh runs this module as it is, and
-a ``model`` axis past 1 waits for ROADMAP Queue 1 item 6.4.
+drops).
+
+Tensor parallelism (``layout``, a ``model`` axis past 1): the stream
+enters the MoE whole over ``model`` (``tensor_parallel.enter``), so the
+router, the groups, the capacity and the drops are computed whole and
+alike on every rank.  With E >= 16 experts (deepseek) each rank holds and
+runs its E/M experts, global ids ``m E/M ... (m + 1) E/M``: its slots are
+those of its experts, an assignment to another rank's expert reads the
+spare zero row, and its combine is a partial sum.  The reference's
+``_shard_moe`` constraint makes GSPMD move the (G, E, C, d) dispatch
+tensor onto the expert-sharded axis by an all-to-all; here every rank
+already holds every token, so it takes its own experts' slots and no
+all-to-all is needed.  With E < 16 (mixtral) every expert is split inside
+on ``f`` (``w_gate``/``w_up`` by column, ``w_down`` by row), and the
+combine is a partial sum too.  The shared experts are a column/row
+SwiGLU; the caller sums the routed and shared partial sums over
+``model`` in one ``tensor_parallel.leave``.  The router's gradient is
+then partial on each rank (``lm.reduce_grads`` sums it).
 """
 from __future__ import annotations
 
@@ -30,6 +45,12 @@ from repro_torch.models.common import ParamDef, matmul, promoted
 
 GROUP_SIZE = 256
 CAPACITY_FACTOR = 1.5
+
+
+# whole leaves used inside the MoE's tensor-parallel region: each rank's
+# router gradient covers only its experts or its block of f (summed over
+# ``model`` by ``lm.reduce_grads``)
+REGION_WHOLE = ("router",)
 
 
 def moe_defs(cfg):
@@ -79,16 +100,21 @@ def route(p, x, cfg):
     return gates, idx, pos.gather(2, idx), C
 
 
-def moe_apply(p, x, cfg):
-    """x: (B, S, d) -> (B, S, d)."""
+def moe_apply(p, x, cfg, layout=None):
+    """x: (B, S, d) -> (B, S, d); on a tensor-parallel ``layout`` this
+    rank's partial sum (module docstring)."""
     B, S, d = x.shape
-    E = cfg.n_experts
     gates, idx, slot, C = route(p, x, cfg)
     G, n_g, k = idx.shape
-    # a dropped assignment goes to one spare row past the slots, and reads
-    # zeros from there: no boolean indexing, so no read of the card
+    # this rank's experts: all of them, or its E/M under expert parallelism
+    E = p["w_gate"].shape[0]
+    e0 = layout.m * E if layout is not None and E < cfg.n_experts else 0
+    mine = (slot < C) & (idx >= e0) & (idx < e0 + E)
+    # a dropped assignment (or another rank's) goes to one spare row past
+    # the slots, and reads zeros from there: no boolean indexing, so no
+    # read of the card
     g_ix = torch.arange(G, device=x.device)[:, None, None]
-    flat = torch.where(slot < C, (g_ix * E + idx) * C + slot, G * E * C)
+    flat = torch.where(mine, (g_ix * E + idx - e0) * C + slot, G * E * C)
     xg = x.reshape(G, n_g, 1, d).expand(G, n_g, k, d)
     x_e = x.new_zeros((G * E * C + 1, d))
     x_e[flat.reshape(-1)] = xg.reshape(-1, d)          # each slot once

@@ -13,6 +13,13 @@ pre-activation inputs as the conv state.  Decode is the O(1) single step.
 Each form writes the cache in place, when there is one, and returns it.
 
 State cache: {"conv": (B, K-1, d_inner), "state": (B, H, hd, ds)}.
+
+On a tensor-parallel mesh the block holds this rank's whole heads: the
+leaves split on ``d_inner`` or on heads (``w_z``, ``w_x``, ``conv_w``,
+``w_dt``, ``dt_bias``, ``A_log``, ``D``) give it ``d_inner / M`` channels,
+``H / M`` heads of ``ssm_head_dim`` each, and ``w_out``'s row block a
+partial sum; ``w_B`` and ``w_C`` are whole.  The widths are read from the
+parameters, so the same code runs a block or the whole.
 """
 from __future__ import annotations
 
@@ -26,6 +33,18 @@ def ssm_dims(cfg):
     d_inner = cfg.ssm_expand * cfg.d_model
     n_heads = d_inner // cfg.ssm_head_dim
     return d_inner, n_heads
+
+
+def _local_dims(p):
+    """(d_inner, heads) of the block ``p`` holds: the whole, or this
+    rank's."""
+    return p["w_x"].shape[1], p["A_log"].shape[0]
+
+
+# whole leaves used inside the Mamba2 mixer's tensor-parallel region: each
+# rank's gradient covers only its heads (summed over ``model`` by
+# ``lm.reduce_grads``)
+REGION_WHOLE = ("w_B", "w_C")
 
 
 def mamba_defs(cfg):
@@ -113,7 +132,7 @@ def _write(cache, conv_state, state):
 def mamba_full(p, x, cfg, cache=None):
     """x: (B, S, d).  Returns (y, cache)."""
     B, S, d = x.shape
-    d_inner, H = ssm_dims(cfg)
+    d_inner, H = _local_dims(p)
     hd, ds = cfg.ssm_head_dim, cfg.ssm_state
     # full-sequence mode always starts from an empty history (train / fresh
     # prefill); the conv state it leaves serves the decode steps after it
@@ -130,7 +149,7 @@ def mamba_full(p, x, cfg, cache=None):
 def mamba_decode(p, x, cfg, cache):
     """x: (B, 1, d); cache: {"conv", "state"}.  O(1) per token."""
     B, _, d = x.shape
-    d_inner, H = ssm_dims(cfg)
+    d_inner, H = _local_dims(p)
     hd = cfg.ssm_head_dim
     z, xc, conv_state, Bm, Cm, dt, A = _inputs(p, x, cfg, cache["conv"])
     xh = xc.reshape(B, H, hd).float()

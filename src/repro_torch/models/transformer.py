@@ -21,20 +21,27 @@ sLSTM layer; llama-vision's cross-attention block before every segment of
 On a (data, model) mesh (``layout``, a ``sharding.tensor_parallel.Layout``)
 the model holds this rank's block of each parameter, as its ``ParamDef``
 spec lays it out.  A ``model`` axis of 1 is data parallelism alone, and
-the model is the single-card one.  Past 1, the dense family runs Megatron's
+the model is the single-card one.  Past 1, every family runs Megatron's
 tensor parallelism, what GSPMD makes of the reference's specs: the
 embedding and the head split on the vocab (a masked lookup, summed over
 ``model``), attention split on heads (``wq``/``wk``/``wv`` and their
-biases by column, ``wo`` by row), the MLP by column then by row, the norms
-whole.  The reference's activation constraint ``_shard_h`` becomes the
-boundary of sequence parallelism (``Layout.seq_parallel``): where it
-shards the sequence over ``model`` the residual stream between blocks is
-this rank's block of the sequence, gathered on entering a block and
-reduce-scattered on leaving it; elsewhere the stream is whole on every
-rank and each block's output is all-reduced (``tensor_parallel.enter`` and
-``leave``).  GQA keeps its head map only where ``model`` divides the KV
-heads.  The other families past a ``model`` axis of 1, and serving under
-one, raise ``NotImplementedError``.
+biases by column, ``wo`` by row; MLA's latent ``w_dkv`` and ``kv_norm``
+whole, its ``w_uk``/``w_uv`` on heads), the MLP by column then by row,
+the MoE on experts (E >= 16: each rank runs its E/M experts) or inside
+each expert (``f``), Mamba2 on whole heads of ``d_inner``, xLSTM on the
+head dim (``models.xlstm``), the vlm's ``img_proj`` by column (its output
+gathered for the cross attention's whole ``kd``), the norms whole.  The
+reference's activation constraint ``_shard_h`` becomes the boundary of
+sequence parallelism (``Layout.seq_parallel``): where it shards the
+sequence over ``model`` the residual stream between blocks is this rank's
+block of the sequence, gathered on entering a block (the recurrent
+mixers' scans run along the whole sequence) and reduce-scattered on
+leaving it; elsewhere the stream is whole on every rank and each block's
+output is all-reduced (``tensor_parallel.enter`` and ``leave``).  GQA
+keeps its head map only where ``model`` divides the KV heads
+(``check_layout`` holds every family to the reference's divisibility).
+Serving (prefill and decode) under a ``model`` axis past 1 raises
+``NotImplementedError``.
 
 Remat, as the reference's ``jax.checkpoint`` around each layer body: in
 train mode with ``cfg.remat`` and gradients on, each layer (attention and
@@ -235,25 +242,52 @@ def block_defs(defs, layout):
             for k, v in defs.items()}
 
 
+def _split_dims(cfg) -> list:
+    """[(what, size)] of every dimension ``cfg``'s specs split over
+    ``model``, by family, as the reference's layouts divide them."""
+    fam = cfg.family
+    dense = fam in ("dense", "hybrid", "vlm", "audio") or (
+        fam == "moe" and cfg.first_dense_layers)
+    dims = [("vocab_size", cfg.vocab_size)]
+    if fam != "ssm":
+        dims.append(("n_heads", cfg.n_heads))
+    if dense or (fam == "moe" and not cfg.kv_lora_rank):    # GQA runs
+        dims.append(("n_kv_heads", cfg.n_kv_heads))
+    if dense:
+        dims.append(("d_ff", cfg.d_ff))
+    if fam == "moe":
+        f = cfg.moe_d_ff or cfg.d_ff
+        dims.append(("n_experts", cfg.n_experts) if cfg.n_experts >= 16
+                    else ("moe_d_ff", f))
+        if cfg.n_shared_experts:
+            dims.append(("moe_d_ff * n_shared_experts",
+                         f * cfg.n_shared_experts))
+    elif fam == "hybrid":
+        dims.append(("Mamba2 heads (d_inner / ssm_head_dim)",
+                     ssm.ssm_dims(cfg)[1]))
+    elif fam == "ssm":
+        dims.append(("d_model // n_heads (xLSTM's head dim)",
+                     cfg.d_model // cfg.n_heads))
+    return dims
+
+
 def check_layout(cfg, layout) -> None:
-    """Raise where the port has no tensor parallelism for ``cfg`` on
-    ``layout``'s ``model`` axis: a family other than dense (ROADMAP Queue 1
-    item 6.4), or KV heads the axis does not divide (contiguous head
-    blocks would break GQA's map of query head q to KV head q // (H /
-    Hkv); ``configs.base.tp_pad_config`` pads them)."""
+    """Raise ``ValueError`` where ``layout``'s ``model`` axis does not
+    divide a dimension ``cfg``'s specs split over it: the vocabulary, and
+    by family GQA's heads and KV heads (where GQA runs: contiguous head
+    blocks keep its map of query head q to KV head q // (H / Hkv)), the
+    MLP's ``d_ff``, MLA's heads, the MoE's experts (E >= 16) or expert
+    width, Mamba2's heads, xLSTM's head dim.  Heads, KV heads and the
+    vocabulary are what ``configs.base.tp_pad_config`` pads."""
     if layout is None or layout.M == 1:
         return
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {layout.M} for the {cfg.family} "
-            "family; tensor parallelism is ported for the dense family "
-            "(ROADMAP Queue 1 item 6.4 ports the other five); a mesh of "
-            "(D, 1) runs every family")
-    if cfg.n_kv_heads % layout.M:
-        raise ValueError(
-            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not split over a "
-            f"model axis of {layout.M}; pad them (configs.base."
-            "tp_pad_config)")
+    for what, n in _split_dims(cfg):
+        if n % layout.M:
+            pad = what in ("vocab_size", "n_heads", "n_kv_heads")
+            raise ValueError(
+                f"{cfg.name}: {what} = {n} does not split over a model axis "
+                f"of {layout.M}" + ("; pad it (configs.base.tp_pad_config)"
+                                    if pad else ""))
 
 
 def state_shapes(defs) -> dict:
@@ -426,9 +460,11 @@ class DecoderModel(StackedModel):
         h = h + tp.leave(a, lay, sp)
         ln2 = tp.enter(rms_norm(h, lp["ln2"], cfg.norm_eps), lay, sp)
         if is_moe:
-            return h + moe.moe_apply(lp["ffn"], ln2, cfg), cache
-        return h + tp.leave(mlp.swiglu_apply(lp["ffn"], ln2), lay, sp), \
-            cache
+            # the routed and the shared experts' partial sums, left once
+            y = moe.moe_apply(lp["ffn"], ln2, cfg, layout=lay)
+        else:
+            y = mlp.swiglu_apply(lp["ffn"], ln2)
+        return h + tp.leave(y, lay, sp), cache
 
     def _attn_stack(self, name, h, mode, caches, cache_len, lo=0, hi=None,
                     flags=None, is_moe=False, sp=False):
@@ -452,37 +488,41 @@ class DecoderModel(StackedModel):
             and (hi - lo) % cfg.remat_group == 0 else 1
         return self._run_layers(run, h, lo, hi, mode, caches, G)
 
-    def _mamba_stack(self, h, mode, caches, lo, hi):
+    def _mamba_stack(self, h, mode, caches, lo, hi, sp=False):
         cfg = self.cfg
+        lay = self.layout
 
         def run(h, a, b):
             for i in range(a, b):
                 lp = self.layers[i]
-                ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+                # the scan runs along the whole sequence: gathered under
+                # sequence parallelism
+                ln = tp.enter(rms_norm(h, lp["ln"], cfg.norm_eps), lay, sp)
                 cache = layer_cache(caches, "layers", i)
                 if mode == "decode":
                     y, _ = ssm.mamba_decode(lp["mixer"], ln, cfg, cache)
                 else:
                     y, _ = ssm.mamba_full(lp["mixer"], ln, cfg, cache=cache)
-                h = h + y
+                h = h + tp.leave(y, lay, sp)
             return h
 
         return self._run_layers(run, h, lo, hi, mode, caches)
 
-    def _recurrent(self, name, apply_fn, h, mode, caches, lo, hi):
+    def _recurrent(self, name, apply_fn, h, mode, caches, lo, hi, sp=False):
         """Layers ``lo:hi`` of the xLSTM stack ``name`` (mLSTM or
         sLSTM)."""
         cfg = self.cfg
         stack = getattr(self, name)
+        lay = self.layout
 
         def run(h, a, b):
             for i in range(a, b):
                 lp = stack[i]
-                ln = rms_norm(h, lp["ln"], cfg.norm_eps)
+                ln = tp.enter(rms_norm(h, lp["ln"], cfg.norm_eps), lay, sp)
                 y, _ = apply_fn(lp["mixer"], ln, cfg,
                                 cache=layer_cache(caches, name, i),
-                                decode=(mode == "decode"))
-                h = h + y
+                                decode=(mode == "decode"), layout=lay)
+                h = h + tp.leave(y, lay, sp)
             return h
 
         return self._run_layers(run, h, lo, hi, mode, caches)
@@ -518,9 +558,9 @@ class DecoderModel(StackedModel):
         elif fam == "moe":
             if cfg.first_dense_layers:
                 h = self._attn_stack("dense_layers", h, mode, caches,
-                                     cache_len)
+                                     cache_len, sp=sp)
             h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                 is_moe=True)
+                                 is_moe=True, sp=sp)
         elif fam == "hybrid":
             for a, (lo, hi) in enumerate(segment_bounds(
                     cfg.n_layers, cfg.shared_attn_every)):
@@ -529,30 +569,41 @@ class DecoderModel(StackedModel):
                 h, _ = self._attn_layer_apply(
                     self.shared_attn, h, mode,
                     layer_cache(caches, "shared_attn", a), cache_len, None,
-                    None)
-                h = self._mamba_stack(h, mode, caches, lo, hi)
+                    None, sp=sp)
+                h = self._mamba_stack(h, mode, caches, lo, hi, sp)
         elif fam == "ssm":
             per_seg = cfg.slstm_period - 1
             for g in range(cfg.n_layers // cfg.slstm_period):
                 h = self._recurrent("layers", xlstm.mlstm_apply, h, mode,
-                                    caches, g * per_seg, (g + 1) * per_seg)
+                                    caches, g * per_seg, (g + 1) * per_seg,
+                                    sp)
                 h = self._recurrent("slstm", xlstm.slstm_apply, h, mode,
-                                    caches, g, g + 1)
+                                    caches, g, g + 1, sp)
         elif fam == "vlm":
             period = cfg.cross_attn_period
             img = None
             if image_embeds is not None:
                 # recomputed on every call, decode steps included
                 img = matmul(image_embeds.to(h.dtype), self.img_proj)
+                if lay is not None:
+                    # img_proj's column block gives a block of d; the cross
+                    # attention's wk/wv read d whole (the backward
+                    # reduce-scatters every rank's heads' partial sums)
+                    img = tp.gather(img, lay.model, -1)
             for ci in range(cfg.n_layers // period):
                 if img is not None:
                     cp = self.cross[ci]
-                    ln = rms_norm(h, cp["ln1"], cfg.norm_eps)
-                    h = h + attention.cross_apply(cp["attn"], ln, img, cfg)
-                    ln2 = rms_norm(h, cp["ln2"], cfg.norm_eps)
-                    h = h + mlp.swiglu_apply(cp["ffn"], ln2)
+                    ln = tp.enter(rms_norm(h, cp["ln1"], cfg.norm_eps), lay,
+                                  sp)
+                    h = h + tp.leave(attention.cross_apply(cp["attn"], ln,
+                                                           img, cfg),
+                                     lay, sp)
+                    ln2 = tp.enter(rms_norm(h, cp["ln2"], cfg.norm_eps), lay,
+                                   sp)
+                    h = h + tp.leave(mlp.swiglu_apply(cp["ffn"], ln2), lay,
+                                     sp)
                 h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                     ci * period, (ci + 1) * period)
+                                     ci * period, (ci + 1) * period, sp=sp)
         else:
             raise ValueError(fam)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)

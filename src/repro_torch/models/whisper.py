@@ -15,6 +15,17 @@ reference's gather clamps an index past the table to its last row:
 torch raises on such an index, so the port clamps explicitly (past
 position ``max_target_positions - 1`` decode and prefill disagree in the
 reference, and so they do here; ROADMAP Queue 3 item 11).
+
+On a tensor-parallel mesh (``layout``, ``transformer``'s module
+docstring) the encoder and the decoder run GQA split on heads and the
+GELU MLP by column then by row, its whole ``b_out`` added once after the
+sum over ``model``; the tied embedding is split on the vocab.  Each
+stream is sequence-parallel where ``Layout.seq_parallel`` says so for its
+own length (the encoder's frames, the decoder's tokens), and then each
+rank adds the rows of ``pos_enc``/``pos_dec`` of its own positions.  The
+encoder's output is made whole over ``model`` once for the decoder (the
+frames gathered, or, whole already, marked for the sum of its gradient),
+and every cross attention reads it.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.models import attention, mlp
 from repro_torch.models.common import (ParamDef, chunked_attention, matmul,
                                        rms_norm)
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.models.transformer import (StackedModel, _norm_def,
                                             layer_cache, stack_defs)
 
@@ -80,25 +92,49 @@ class EncDecModel(StackedModel):
 
     # -------- encoder
 
+    def _sp(self, seq_len: int) -> bool:
+        """Whether a stream of ``seq_len`` is sequence-parallel."""
+        return self.layout is not None and \
+            self.layout.seq_parallel(self.cfg, seq_len)
+
+    def _seq_block(self, n: int) -> slice:
+        """This rank's block of a sequence of ``n`` positions."""
+        return self.layout.block_index((None, "model"), (1, n))[1]
+
+    def _positions(self, h, rows, sp: bool):
+        """``h`` (this rank's block of the sequence under ``sp``) plus its
+        positions' ``rows`` of a table."""
+        if sp:
+            rows = rows[self._seq_block(rows.shape[0])]
+        return h + rows[None]
+
     def encode(self, audio_embeds, mode="train"):
-        """The encoder's states of ``audio_embeds``; under remat in train
-        mode (``transformer`` module docstring)."""
+        """The encoder's states of ``audio_embeds`` (this rank's block of
+        the frames where the encoder is sequence-parallel); under remat in
+        train mode (``transformer`` module docstring)."""
         cfg = self.cfg
+        lay = self.layout
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         h = audio_embeds.to(dt)
-        h = h + self.pos_enc.to(h.dtype)[None, :h.shape[1]]
+        n = h.shape[1]
+        sp = self._sp(n)
+        if sp:
+            h = h[:, self._seq_block(n)]
+        h = self._positions(h, self.pos_enc.to(h.dtype)[:n], sp)
 
         def run(h, a, b):
             for lp in self.enc_layers[a:b]:
-                ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
+                ln = tp.enter(rms_norm(h, lp["ln1"], cfg.norm_eps), lay, sp)
                 q = attention._proj(ln, lp["attn"]["wq"])
                 k = attention._proj(ln, lp["attn"]["wk"])
                 v = attention._proj(ln, lp["attn"]["wv"])
                 att = chunked_attention(q, k, v, causal=False,
                                         chunk=cfg.attn_chunk)
-                h = h + attention._out(att, lp["attn"]["wo"])
-                ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-                h = h + mlp.gelu_apply(lp["ffn"], ln2)
+                h = h + tp.leave(attention._out(att, lp["attn"]["wo"]), lay,
+                                 sp)
+                ln2 = tp.enter(rms_norm(h, lp["ln2"], cfg.norm_eps), lay, sp)
+                h = h + mlp.gelu_apply(lp["ffn"], ln2,
+                                       self._leave(sp))
             return h
 
         h = self._run_layers(run, h, 0, len(self.enc_layers), mode, None)
@@ -106,29 +142,42 @@ class EncDecModel(StackedModel):
 
     # -------- decoder
 
-    def _embed(self, tokens, enc_out, mode, cache_len):
+    def _leave(self, sp: bool):
+        """``tensor_parallel.leave`` of a region on this model's layout
+        (None without one)."""
+        if self.layout is None:
+            return None
+        return lambda y: tp.leave(y, self.layout, sp)
+
+    def _embed(self, tokens, enc_out, mode, cache_len, sp=False):
         cfg = self.cfg
-        h = F.embedding(tokens, self.embed).to(enc_out.dtype)
+        if self.layout is None:
+            h = F.embedding(tokens, self.embed).to(enc_out.dtype)
+        else:
+            h = tp.embed_lookup(tokens, self.embed, self.layout,
+                                sp).to(enc_out.dtype)
         pos = self.pos_dec.to(h.dtype)
         if mode == "decode":
             return h + pos[decode_position(cfg, cache_len)][None, None]
         idx = torch.arange(tokens.shape[1], device=tokens.device) \
             % cfg.max_target_positions
-        return h + pos[idx][None]
+        return self._positions(h, pos[idx], sp)
 
-    def _dec_layer(self, lp, h, enc_out, mode, cache, cache_len):
+    def _dec_layer(self, lp, h, enc_out, mode, cache, cache_len, sp=False):
         cfg = self.cfg
-        ln = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        lay = self.layout
+        ln = tp.enter(rms_norm(h, lp["ln1"], cfg.norm_eps), lay, sp)
         if mode == "decode":
             a, _ = attention.gqa_decode(lp["attn"], ln, cfg, cache,
                                         cache_len)
         else:
             a, _ = attention.gqa_full(lp["attn"], ln, cfg, cache=cache)
-        h = h + a
-        lnx = rms_norm(h, lp["lnx"], cfg.norm_eps)
-        h = h + attention.cross_apply(lp["xattn"], lnx, enc_out, cfg)
-        ln2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        return h + mlp.gelu_apply(lp["ffn"], ln2)
+        h = h + tp.leave(a, lay, sp)
+        lnx = tp.enter(rms_norm(h, lp["lnx"], cfg.norm_eps), lay, sp)
+        h = h + tp.leave(attention.cross_apply(lp["xattn"], lnx, enc_out,
+                                               cfg), lay, sp)
+        ln2 = tp.enter(rms_norm(h, lp["ln2"], cfg.norm_eps), lay, sp)
+        return h + mlp.gelu_apply(lp["ffn"], ln2, self._leave(sp))
 
     def decode_stack(self, tokens, enc_out, *, mode="train", caches=None,
                      cache_len=None):
@@ -143,12 +192,19 @@ class EncDecModel(StackedModel):
                                 cache_len)
         return h, caches
 
-    def _no_cache_stack(self, tokens, enc_out):
-        h = self._embed(tokens, enc_out, "train", None)
+    def _no_cache_stack(self, tokens, enc_out, enc_sp=False):
+        lay = self.layout
+        sp = self._sp(tokens.shape[1])
+        if lay is not None:
+            # the encoder's output whole over model, once for every cross
+            # attention: its frames gathered, or its gradient summed
+            enc_out = tp.gather(enc_out, lay.model) if enc_sp \
+                else tp.copy(enc_out, lay.model)
+        h = self._embed(tokens, enc_out, "train", None, sp)
 
         def run(h, a, b):
             for lp in self.dec_layers[a:b]:
-                h = self._dec_layer(lp, h, enc_out, "train", None, None)
+                h = self._dec_layer(lp, h, enc_out, "train", None, None, sp)
             return h
 
         return self._run_layers(run, h, 0, len(self.dec_layers), "train",
@@ -161,9 +217,16 @@ class EncDecModel(StackedModel):
         states with ``return_hidden``, and the caches, updated in
         place)."""
         cfg = self.cfg
+        if self.layout is not None and (caches is not None
+                                        or not return_hidden):
+            raise NotImplementedError(
+                "serving under a model axis past 1 is not ported: a "
+                "tensor-parallel model runs the train step's forward (to "
+                "the hidden states), not prefill or decode")
         enc_out = self.encode(audio_embeds, mode)
         if caches is None:
-            h, _ = self._no_cache_stack(tokens, enc_out)
+            h, _ = self._no_cache_stack(tokens, enc_out,
+                                        self._sp(audio_embeds.shape[1]))
         else:
             h, _ = self.decode_stack(tokens, enc_out, mode=mode,
                                      caches=caches, cache_len=cache_len)

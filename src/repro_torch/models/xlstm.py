@@ -12,6 +12,26 @@ The full-sequence forms run the recurrence as a Python loop over time
 where ``ssm_chunk > 0``, ``S % ssm_chunk == 0`` and ``S > ssm_chunk``, as
 the reference's does.  Each form starts from the cache's state when there
 is a cache, writes the final state into it in place, and returns it.
+
+Tensor parallelism (``layout``, a ``model`` axis past 1) splits the head
+dim ``hd``, as the reference's specs do (``P(None, None, "model")`` on
+``wq``/``wk``/``wv``, the last dim of ``w_gates`` and ``r_gates``), so a
+rank holds a block of every head.  mLSTM: ``q`` and ``k`` are gathered
+over ``hd`` (``tensor_parallel.gather``: its backward reduce-scatters), so
+``q.k``, ``q.n`` and the normalizer are whole on every rank, while ``v``,
+``C`` and the numerator keep this rank's ``hd_v`` block.  sLSTM: each
+step gathers the whole ``h_{t-1}`` for ``r_gates``' block; the
+head-level means of ``i_pre``/``f_pre`` over ``hd`` are sums over
+``model`` whose replicated results feed split work, so their gradients
+are summed too (``reduce`` then ``copy``): by linearity, once a forward
+over the input gates and ``r_gates``' rows, not once a step
+(``_head_sums``).  Either way the output
+``(B, S, H, hd_v / M)`` is a block of every head, while ``wo``'s columns
+and ``w_out``'s rows expect a contiguous block of ``d``: it is gathered
+and sliced (``_d_block``).  ``w_out`` gives a partial sum, summed by the
+caller; ``wi``/``wf`` are whole, their gradients partial on each rank
+(``lm.reduce_grads`` sums them).  The widths are read from the
+parameters, so the same code runs a block or the whole.
 """
 from __future__ import annotations
 
@@ -21,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamDef, matmul
+from repro_torch.sharding import tensor_parallel as tp
 
 _NEG = -1e30
 
@@ -32,6 +53,12 @@ def _heads(cfg):
 def _log_sigmoid(x):
     """log sigmoid(x) as the reference writes it, -softplus(-x)."""
     return -F.softplus(-x)
+
+
+# whole leaves used inside the mLSTM's tensor-parallel region: each rank's
+# gradient covers only its block of hd (summed over ``model`` by
+# ``lm.reduce_grads``)
+REGION_WHOLE = ("wi", "wf")
 
 
 def mlstm_defs(cfg):
@@ -145,17 +172,35 @@ def _write(cache, names, state):
     return cache
 
 
-def mlstm_apply(p, x, cfg, cache=None, decode=False):
+def _d_block(hs, layout):
+    """hs (B, S, H, hd_v): each head's block on a ``layout`` -> (B, S, d
+    / M), this rank's contiguous block of the flattened ``d`` (gathered
+    over ``model`` and sliced: the backward reduce-scatters what every
+    rank's slice needs); without one, (B, S, d)."""
+    B, S = hs.shape[:2]
+    if layout is None:
+        return hs.reshape(B, S, -1)
+    full = tp.gather(hs, layout.model, -1).reshape(B, S, -1)
+    w = full.shape[-1] // layout.M
+    return full[..., layout.m * w:(layout.m + 1) * w]
+
+
+def mlstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
     B, S, d = x.shape
     H, hd = _heads(cfg)
+    hl = p["wv"].shape[-1]            # this rank's block of hd
     f32, dev = torch.float32, x.device
-    q = matmul(x, p["wq"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
-    k = matmul(x, p["wk"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
-    v = matmul(x, p["wv"].reshape(d, H * hd)).reshape(B, S, H, hd).float()
+
+    def proj(w):
+        return matmul(x, w.reshape(d, H * hl)).reshape(B, S, H, hl).float()
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if layout is not None:
+        q = tp.gather(q, layout.model, -1)
+        k = tp.gather(k, layout.model, -1)
     i_pre = matmul(x, p["wi"]).float()
     f_pre = matmul(x, p["wf"]).float()
     state = _state(cache, ("C", "n", "m"), (
-        torch.zeros((B, H, hd, hd), dtype=f32, device=dev),
+        torch.zeros((B, H, hd, hl), dtype=f32, device=dev),
         torch.zeros((B, H, hd), dtype=f32, device=dev),
         torch.full((B, H), _NEG, dtype=f32, device=dev)))
     if decode:
@@ -168,7 +213,7 @@ def mlstm_apply(p, x, cfg, cache=None, decode=False):
             hs, state = _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, cw)
         else:
             hs, state = _mlstm_core(q, k, v, i_pre, f_pre, state)
-    hs = hs.reshape(B, S, d).to(x.dtype)
+    hs = _d_block(hs, layout).to(x.dtype)
     out = matmul(hs * torch.sigmoid(matmul(x, p["wo"])), p["w_out"])
     return out, _write(cache, ("C", "n", "m"), state)
 
@@ -194,13 +239,35 @@ def slstm_cache_defs(cfg, batch):
     }
 
 
-def _slstm_step(p_r, state, g_in):
-    """p_r: (H, 4, hd, hd); g_in: (B, 4, H, hd)."""
+def _head_sums(p_r, gates_in, layout):
+    """The sums over the whole hd that the head-level means of ``i_pre``
+    and ``f_pre`` need, hoisted out of the time loop by linearity
+    (``i_pre = g_in + h r``): of the input gates (B, S, 2, H) and of
+    ``r_gates``' rows (H, 2, hd), each summed over ``model`` forward and
+    its gradient backward (replicated, then used by split work)."""
+    g = layout.model
+    g_sum = tp.copy(tp.reduce(gates_in[:, :, 1:3].sum(dim=-1), g), g)
+    r_sum = tp.copy(tp.reduce(p_r[:, 1:3].sum(dim=-1), g), g)
+    return g_sum, r_sum
+
+
+def _slstm_step(p_r, state, g_in, layout=None, sums=None):
+    """p_r: (H, 4, hd, hd_v); g_in: (B, 4, H, hd_v), hd_v this rank's
+    block of hd on a ``layout``, with ``sums`` this step's
+    (``_head_sums``: (B, 2, H) and (H, 2, hd))."""
     c, n, h, m = state
-    rec = torch.einsum("bhk,hgkv->bghv", h, p_r)          # (B, 4, H, hd)
+    if layout is not None:
+        h = tp.gather(h, layout.model, -1)                # the whole h
+    rec = torch.einsum("bhk,hgkv->bghv", h, p_r)          # (B, 4, H, hd_v)
     z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i] for i in range(4)]
-    i_sc = i_pre.mean(dim=-1)                             # head-level
-    f_sc = f_pre.mean(dim=-1)                             # stabilization
+    if layout is None:
+        i_sc = i_pre.mean(dim=-1)                         # head-level
+        f_sc = f_pre.mean(dim=-1)                         # stabilization
+    else:
+        # the means over the whole hd: no collective a step
+        g_sum, r_sum = sums
+        tot = g_sum + torch.einsum("bhk,hgk->bgh", h, r_sum)
+        i_sc, f_sc = tot[:, 0] / p_r.shape[2], tot[:, 1] / p_r.shape[2]
     log_f = _log_sigmoid(f_sc)
     m_new = torch.maximum(log_f + m, i_sc)
     i_g = torch.exp(i_pre - m_new[..., None])
@@ -213,27 +280,32 @@ def _slstm_step(p_r, state, g_in):
     return (c, n, h, m_new), h
 
 
-def _slstm_scan(p_r, state, gates_in, steps: int):
+def _slstm_scan(p_r, state, gates_in, steps: int, layout=None):
     """Loop over the first ``steps`` positions of gates_in (B,S,4,H,hd).
     Returns (hs (B,steps,H,hd), state)."""
+    sums = None if layout is None else _head_sums(p_r, gates_in, layout)
     hs = []
     for t in range(steps):
-        state, h = _slstm_step(p_r, state, gates_in[:, t])
+        state, h = _slstm_step(p_r, state, gates_in[:, t], layout,
+                               None if sums is None
+                               else (sums[0][:, t], sums[1]))
         hs.append(h)
     return torch.stack(hs, dim=1), state
 
 
-def slstm_apply(p, x, cfg, cache=None, decode=False):
+def slstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
     B, S, d = x.shape
-    H, hd = _heads(cfg)
+    H, _ = _heads(cfg)
+    hl = p["w_gates"].shape[-1]       # this rank's block of hd
     f32, dev = torch.float32, x.device
-    gates_in = matmul(x, p["w_gates"].reshape(d, 4 * H * hd)).reshape(
-        B, S, 4, H, hd).float()
-    zeros = torch.zeros((B, H, hd), dtype=f32, device=dev)
+    gates_in = matmul(x, p["w_gates"].reshape(d, 4 * H * hl)).reshape(
+        B, S, 4, H, hl).float()
+    zeros = torch.zeros((B, H, hl), dtype=f32, device=dev)
     state = _state(cache, ("c", "n", "h", "m"), (
         zeros, zeros, zeros, torch.full((B, H), _NEG, dtype=f32,
                                         device=dev)))
     steps = 1 if decode else S
-    hs, state = _slstm_scan(p["r_gates"].float(), state, gates_in, steps)
-    out = matmul(hs.reshape(B, S, d).to(x.dtype), p["w_out"])
+    hs, state = _slstm_scan(p["r_gates"].float(), state, gates_in, steps,
+                            layout)
+    out = matmul(_d_block(hs, layout).to(x.dtype), p["w_out"])
     return out, _write(cache, ("c", "n", "h", "m"), state)

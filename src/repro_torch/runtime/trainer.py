@@ -31,10 +31,11 @@ run starts from the single-device run's weights), the batch's rows split
 over ``data`` and whole over ``model``, the gradients summed over
 ``data``, the vocab-sharded loss under ``parallelism="tp"`` and the plain
 loss over the gathered unembed under ``"fsdp"`` (``models.lm``,
-``sharding.tensor_parallel``).  A ``model`` axis past 1 runs the dense
-family; the others raise ``NotImplementedError`` (a (D, 1) mesh runs them
-all).  Every rank reads the metrics, which are the same on each; process
-0 writes the log.  A checkpoint holds the full arrays in the reference's
+``sharding.tensor_parallel``).  A ``model`` axis past 1 runs tensor
+parallelism for every family (``models.transformer``); a dimension the
+axis does not divide raises ``ValueError`` (``transformer.check_layout``),
+and serving under such an axis is not ported.  Every rank reads the
+metrics, which are the same on each; process 0 writes the log.  A checkpoint holds the full arrays in the reference's
 layout, gathered over ``model`` on every rank and written by process 0;
 a restore reads each rank's blocks from them, so a checkpoint resumes on
 another mesh, on one card, and in the other package.

@@ -378,13 +378,31 @@ def test_launch_train_main_in_process(tmp_path, capsys):
 
 def test_no_mesh_yet(tmp_path):
     """What a mesh does not run yet raises, naming why; no fallback to one
-    process or to the CPU: a model axis past 1 for a family other than
-    dense (the mesh itself trains: tests/test_torch_train_sharded.py),
-    and ``--devices`` over NCCL with more ranks than cards."""
-    with pytest.raises(NotImplementedError, match="dense"):
-        Trainer(t_reg.smoke_variant("deepseek-v2-lite-16b"),
-                t_adamw.AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)),
-                mesh=_Mesh({"data": 1, "model": 2}), device="cpu")
+    process or to the CPU: serving (prefill or decode) under a model axis
+    of 2, for a decoder and for whisper (training there runs:
+    tests/test_torch_train_sharded_families.py); KV heads that a model
+    axis does not divide (xlstm's, which no GQA reads, do not count); and
+    ``--devices`` over NCCL with more ranks than cards."""
+    from repro_torch.sharding import tensor_parallel as tp
+    lay = tp.Layout(_Mesh({"data": 1, "model": 2}))
+    for arch in ("deepseek-v2-lite-16b", "whisper-tiny"):
+        cfg = t_reg.smoke_variant(arch)
+        model = t_lm.build_model(cfg, generator=torch.Generator()
+                                 .manual_seed(0), layout=lay)
+        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
+        if cfg.family == "audio":
+            batch["audio_embeds"] = torch.zeros(
+                (2, cfg.n_audio_frames, cfg.d_model))
+        caches = t_lm.init_cache(cfg, 2, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="serving"):
+            t_lm.make_prefill_step(model)(caches, batch)
+    four = _Mesh({"data": 1, "model": 4})
+    with pytest.raises(ValueError, match="n_kv_heads = 2"):
+        Trainer(t_reg.smoke_variant("mixtral-8x7b"), t_adamw.AdamWConfig(),
+                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=four,
+                device="cpu")
+    Trainer(t_reg.smoke_variant("xlstm-1.3b"), t_adamw.AdamWConfig(),
+            TrainerConfig(ckpt_dir=str(tmp_path)), mesh=four, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="a card per rank"):
             t_train.main(["--arch", ARCH, "--smoke", "--devices", "2",

@@ -14,11 +14,12 @@ The module is also its own worker and reference script:
     ``--jax-resume DIR`` (2 fake devices) resumes JAX's (1, 2) trainer
     from the port's checkpoint.
 
-Worlds: W1 (1 process) trains on (1, 1); W2 (2 processes) holds the (1, 2) trainers (sequence-parallel on
-and off, fsdp), the (2, 1) step of every other family and the refusal of
-a non-dense family on (1, 2); W4 (4 processes) the (1, 4) and (2, 2)
-trainers, ``vocab_parallel_ce`` on (1, 4) and (2, 2), and the (1, 2)
-checkpoint resumed on (1, 4); W2b (2 fresh processes) the (1, 2)
+Worlds: W1 (1 process) trains on (1, 1); W2 (2 processes) holds the
+(1, 2) trainers (sequence-parallel on and off, fsdp) and the (2, 1) step
+of every other family (their model axes:
+tests/test_torch_train_sharded_families.py); W4 (4 processes) the (1, 4)
+and (2, 2) trainers, ``vocab_parallel_ce`` on (1, 4) and (2, 2), and the
+(1, 2) checkpoint resumed on (1, 4); W2b (2 fresh processes) the (1, 2)
 checkpoints of both packages resumed on (1, 2).  Every world runs under
 ``run_local``'s timeout.
 
@@ -285,10 +286,7 @@ def _worker_main(argv) -> int:
 
     import torch
 
-    from repro_torch.configs.registry import smoke_variant
     from repro_torch.dist import bootstrap, faults
-    from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", required=True)
     ap.add_argument("--root", required=True)
@@ -305,14 +303,6 @@ def _worker_main(argv) -> int:
             R[case] = _dense_case(root, case, m12)
         R["families"] = _family_steps(root, bootstrap.make_dist_mesh(2, 1),
                                       rank)
-        try:
-            Trainer(smoke_variant("deepseek-v2-lite-16b"),
-                    adamw.AdamWConfig(), TrainerConfig(
-                        ckpt_dir=str(root / "refused")), mesh=m12,
-                    device="cpu")
-            R["refused"] = None
-        except NotImplementedError as e:
-            R["refused"] = str(e)
     elif a.worker == "W4":
         for case in W4_CASES:
             R[case] = _dense_case(root, case,
@@ -791,13 +781,6 @@ def _stacked(arch, flat_npz: dict) -> dict:
                     tree[name] = state[name]
         out[part] = tree
     return out
-
-
-def test_non_dense_family_on_a_model_axis_raises(runs):
-    """A model axis past 1 for a family other than dense raises and names
-    the ROADMAP item that ports it."""
-    msg = runs["w2"][0]["refused"]
-    assert msg is not None and "6.4" in msg and "dense" in msg
 
 
 def test_checkpoint_resumes_on_the_same_mesh_bit_for_bit(runs):
