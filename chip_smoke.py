@@ -241,7 +241,18 @@ drives each path through the entry points a user calls and checks it:
     decoder 2 x 256), each against its single-device run made before the
     world started and freed: the same bars, the ranks' collectives and
     metrics the same, memory after placement within 1% of the dry-run's,
-    the router's margin from a tie reported.  Every run sets the first
+    the router's margin from a tie reported.  Before any training the
+    same world serves (serve_dist, ``serve_dist_rank``): phi4-mini and the
+    five families at those cuts from the parity weights, batch 2 x 512
+    prompts (whisper's decoder 2 x 256) and 16 greedy tokens through
+    ``launch.serve.generate`` on (1, 2), then zamba2 at batch 1 on (2, 1)
+    of the same two ranks, its shared block's KV cache split on the
+    sequence over data; each against its single-card run made before the
+    world: every logit within 1e-5 of the largest |logit| (or 4x the
+    single run's float32 control, its logits under weights times 1 +
+    1e-7 N(0, 1), where that is larger), the same tokens, the same collectives on both ranks, each rank's bytes after
+    placement (parameters and caches) the dry-run's for its layout, its
+    prefill seconds and decode ms a step.  Every run sets the first
     step's near-sign(g) entries (whose update float32's order of a sum
     decides) back to their initial values before the second step: xlstm's
     second step at full width moves 3x on them.  (c) ``launch.dryrun`` in
@@ -5121,6 +5132,19 @@ TRAIN_DIST_FAM_STEPS = 2
 # entry, and the sharded run's 1.15e-7 / 2.2e-4 (PERF.md, tools/
 # xlstm_first_step.py)
 TRAIN_DIST_PARAM_ATOL = {"xlstm-1.3b": 2e-7}
+# serve_dist (train_dist's world, before its training): batch 2 x the
+# family's train_dist sequence (phi4-mini 512, whisper's decoder 256) and
+# 16 greedy tokens from the parity weights, each arch on (1, 2) against
+# its single-card run; then zamba2 at batch 1 on (2, 1), its shared
+# block's KV cache split on the sequence over data
+SERVE_DIST_GEN = 16
+SERVE_DIST_LOGIT_TOL = 1e-5       # of the largest |logit|
+# float32's own control: the single run again from weights times (1 +
+# 1e-7 N(0, 1)), which moves full-width logits by 7.9e-7 (whisper) to
+# 3.5e-5 (xlstm) of the largest (PERF.md); where 4x it exceeds the bar,
+# the bar is 4x it
+SERVE_DIST_CONTROL_X = 4.0
+SERVE_DIST_B1 = "zamba2-1.2b"
 
 
 def train_dist_trainer(cfg, mesh, dev, ckpt_dir):
@@ -5132,7 +5156,7 @@ def train_dist_trainer(cfg, mesh, dev, ckpt_dir):
         device=dev)
 
 
-def parity_weights(torch, trainer, params) -> None:
+def parity_weights(torch, cfg, params) -> None:
     """The trainer's draw rescaled in place to N(0, 0.02^2) matrices (its
     vectors are zeros): the tests' parity weights, as the reference's init
     is chaotic in float32 (ROADMAP Queue 3 item 14).  Every rank rescales
@@ -5140,7 +5164,7 @@ def parity_weights(torch, trainer, params) -> None:
     import math
 
     from repro_torch.models import common, lm, transformer
-    defs = common.flatten(lm.param_defs(trainer.cfg))
+    defs = common.flatten(lm.param_defs(cfg))
     with torch.no_grad():
         for name, p in params.items():
             parts = name.split(".")
@@ -5164,7 +5188,7 @@ def train_dist_run(torch, trainer, capture: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = requested_bytes(torch)
     params, opt, _ = trainer.init_state()
-    parity_weights(torch, trainer, params)
+    parity_weights(torch, trainer.cfg, params)
     torch.cuda.synchronize()
     placed = requested_bytes(torch) - base
     out = {}
@@ -5189,9 +5213,134 @@ def train_dist_run(torch, trainer, capture: bool = False) -> dict:
     return out
 
 
+def serve_dist_archs() -> list:
+    """serve_dist's arch keys: phi4-mini, the five other families, and
+    ``"b1"`` (``SERVE_DIST_B1`` at batch 1 on (2, 1))."""
+    return [TRAIN_ARCH, *TRAIN_DIST_FAMILIES, "b1"]
+
+
+def serve_dist_case(key: str):
+    """(config, batch, mesh shape) of a serve_dist key: train_dist's
+    configs (full width, their depth cuts)."""
+    if key == "b1":
+        return train_dist_family_cfg(SERVE_DIST_B1), 1, (2, 1)
+    cfg = train_dist_cfg() if key == TRAIN_ARCH \
+        else train_dist_family_cfg(key)
+    return cfg, TRAIN_DIST_BATCH, (1, 2)
+
+
+def logits_rel(torch, got, want) -> list:
+    """Each step's largest |difference| of logits (B, steps, V) over the
+    largest |logit| of ``want``, on the host."""
+    return [float((got[:, i] - want[:, i]).abs().max()
+                  / want[:, i].abs().max()) for i in range(want.shape[1])]
+
+
+def serve_dist_run(torch, cfg, layout, dev, batch: int, mesh_shape,
+                   control: bool = False) -> dict:
+    """One serving run of ``cfg`` (``layout``: this rank's place, None on
+    one card): the model drawn from ``SEED`` and rescaled to the parity
+    weights, the request (``batch`` prompts of the family's train_dist
+    length drawn from ``SEED + 1``, its modality stubs), the bytes
+    requested by the model and a cache of the request (this rank's
+    blocks) against the dry-run's count for ``mesh_shape``, then
+    ``launch.serve.generate`` of ``SERVE_DIST_GEN`` tokens: its seconds,
+    tokens, the logits that chose them (on the card), the collectives.
+    With ``control``, the request once more from weights times (1 + 1e-7
+    N(0, 1)) (a draw from ``SEED + 2``): each step's logits against the
+    first run's (``control_rel``), float32's own spread."""
+    import gc
+
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import common, lm
+    from repro_torch.sharding import collectives
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = TRAIN_DIST_SEQ if cfg.name == TRAIN_ARCH \
+        else TRAIN_DIST_FAMILIES[cfg.name][1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                            device=dev)
+    extra = serve.modality_inputs(cfg, batch, gen)
+    s_max = seq + SERVE_DIST_GEN
+    torch.cuda.synchronize()
+    base = requested_bytes(torch)
+    model = lm.build_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED), layout=layout)
+    parity_weights(torch, cfg, lm.trainable_params(model))
+    caches = lm.init_cache(cfg, batch, s_max, device=dev, layout=layout)
+    torch.cuda.synchronize()
+    placed = requested_bytes(torch) - base
+    del caches
+    mesh = AbstractMesh(mesh_shape)
+    params_a, _ = lm.abstract_state(cfg, mesh, with_opt=False)
+    want = dryrun.card_bytes(params_a, mesh) + dryrun.card_bytes(
+        common.abstract_params(lm.cache_specs(cfg, batch, s_max, mesh), mesh,
+                               dtype=torch.float32), mesh)
+    with collectives.collective_trace() as ev, torch.no_grad():
+        rec = serve.generate(model, prompts, SERVE_DIST_GEN, extra=extra,
+                             keep_logits=True)
+    out = {"placed_bytes": placed, "dryrun_bytes": want,
+           "prefill_s": rec["prefill_s"],
+           "decode_ms_per_step": rec["decode_ms_per_step"],
+           "tokens": rec["tokens"], "logits": rec["logits"],
+           "collectives": [list(e) for e in ev]}
+    if control:
+        noise = torch.Generator(device=dev).manual_seed(SEED + 2)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + 1e-7 * torch.randn(p.shape, generator=noise,
+                                                device=dev))
+            again = serve.generate(model, prompts, SERVE_DIST_GEN,
+                                   extra=extra, keep_logits=True)
+        out["control_rel"] = logits_rel(torch, again["logits"],
+                                        rec["logits"])
+        del again
+    del model, rec
+    return out
+
+
+def serve_dist_rank(torch, spec: dict, mesh) -> dict:
+    """serve_dist's part of a train_dist rank, before its training: each
+    key of ``serve_dist_archs`` on its mesh (the world's (1, 2), or (2, 1)
+    of the same ranks), held against its single-card run's logits and
+    tokens (``<serve_ref>/<key>.pt``, written by the phase): the largest
+    |difference| over the largest |logit|, the tokens' equality, the
+    launch counts."""
+    import gc
+
+    from repro_torch.device import resolve_device
+    from repro_torch.dist import bootstrap
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import tensor_parallel as tp
+    dev = resolve_device(None)
+    meshes = {(1, 2): mesh, (2, 1): bootstrap.make_dist_mesh(2, 1)}
+    ref = pathlib.Path(spec["serve_ref"])
+    out = {}
+    for key in serve_dist_archs():
+        cfg, batch, shape = serve_dist_case(key)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = serve_dist_run(torch, cfg, tp.Layout(meshes[shape]), dev, batch,
+                           shape)
+        want = torch.load(ref / f"{key}.pt")
+        r["logits_rel"] = logits_rel(torch, r.pop("logits").cpu(),
+                                     want["logits"])
+        r["tokens_equal"] = r.pop("tokens") == want["tokens"]
+        r["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
+        r["part_s"] = time.perf_counter() - t0
+        out[key] = r
+        del want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_dist_worker(spec_path: str) -> None:
-    """One rank of train_dist's gloo world on the one card: its trainer on
-    the spec's mesh; the metrics, memory, collectives and launch counts
+    """One rank of train_dist's gloo world on the one card: first
+    serve_dist's runs (``serve_dist_rank``, its record under ``serve``),
+    then its trainer on the spec's mesh; the metrics, memory, collectives and launch counts
     in ``<out>/rank<r>.json``, its parameter blocks after the first step
     in ``<out>/rank<r>/<name>.npy``; then each of the spec's other
     families (``train_dist_family_run``), its record under
@@ -5209,9 +5358,13 @@ def train_dist_worker(spec_path: str) -> None:
     mesh = bootstrap.make_dist_mesh(*spec["mesh"])
     cfg = train_dist_cfg()
     out = pathlib.Path(spec["out"])
+    serve = serve_dist_rank(torch, spec, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     r = train_dist_run(torch, train_dist_trainer(
         cfg, mesh, None, str(out / "ckpt")), capture=True)
+    r["serve"] = serve
     blocks = out / f"rank{ctx.process_id}"
     blocks.mkdir()
     for k, t in r.pop("params1").items():
@@ -5350,7 +5503,7 @@ def train_dist_family_run(torch, cfg, mesh, dev, ckpt_dir: str,
     base = requested_bytes(torch)
     trainer = train_dist_trainer(cfg, mesh, dev, ckpt_dir)
     params, opt, _ = trainer.init_state()
-    parity_weights(torch, trainer, params)
+    parity_weights(torch, trainer.cfg, params)
     torch.cuda.synchronize()
     out = {"placed_bytes": requested_bytes(torch) - base,
            "resident_bytes": base}
@@ -5483,6 +5636,55 @@ def train_dist_dryrun(tdir: pathlib.Path) -> dict:
                              for r in recs if r["status"] == "failed"]}
 
 
+def serve_dist_gates(single: dict, ranks: list) -> dict:
+    """serve_dist's record and gates: for each key, both ranks' logits
+    of every step within ``SERVE_DIST_LOGIT_TOL`` of the single run's
+    largest |logit| (or ``SERVE_DIST_CONTROL_X`` times the single run's
+    float32 control where that is the larger) and its tokens, the same
+    collectives on both ranks (some), each rank's bytes after placement
+    the dry-run's, no kernel launched."""
+    from repro_torch.configs.registry import get_arch
+    out = {}
+    for key, one in single.items():
+        cfg, batch, shape = serve_dist_case(key)
+        fr = [r[key] for r in ranks]
+        same = fr[0]["collectives"] == fr[1]["collectives"]
+        bar = max(SERVE_DIST_LOGIT_TOL,
+                  SERVE_DIST_CONTROL_X * max(one["control_rel"]))
+        frec = {"arch": cfg.name,
+                "reduced": {"n_layers": [get_arch(cfg.name).n_layers,
+                                         cfg.n_layers]},
+                "vocab_size": cfg.vocab_size, "batch": batch,
+                "mesh": list(shape), "single": one,
+                "prefill_s": [f["prefill_s"] for f in fr],
+                "decode_ms_per_step": [f["decode_ms_per_step"] for f in fr],
+                "logits_rel": [max(f["logits_rel"]) for f in fr],
+                "logits_rel_steps": fr[0]["logits_rel"],
+                "control_rel": max(one["control_rel"]), "bar": bar,
+                "tokens_equal": [f["tokens_equal"] for f in fr],
+                "placed_bytes": [f["placed_bytes"] for f in fr],
+                "dryrun_bytes": fr[0]["dryrun_bytes"],
+                "collectives_per_rank": [len(f["collectives"]) for f in fr],
+                "same_collectives": same,
+                "launched": [f["launched"] for f in fr],
+                "world_part_s": [f["part_s"] for f in fr]}
+        out[key] = frec
+        emit({"phase": "serve_dist", "key": key, **frec})
+        check(all(e <= bar for e in frec["logits_rel"])
+              and all(frec["tokens_equal"]),
+              f"serve_dist {key}: {shape} against the single-card run "
+              f"{frec['logits_rel']}, tokens {frec['tokens_equal']}")
+        check(same and fr[0]["collectives"],
+              f"serve_dist {key}: the ranks' collectives differ or none "
+              "ran")
+        check(all(f["placed_bytes"] == f["dryrun_bytes"] for f in fr),
+              f"serve_dist {key}: bytes after placement "
+              f"{frec['placed_bytes']} against {frec['dryrun_bytes']}")
+        check(not any(frec["launched"]),
+              f"serve_dist {key}: kernels launched {frec['launched']}")
+    return out
+
+
 def train_dist_phase(np, torch, dev, card) -> dict:
     """Sharded LM training (after train): phi4-mini-3.8b at full width,
     2 of 32 layers, float32, remat, batch 2 x 512, 3 steps from the
@@ -5501,8 +5703,10 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     near-sign(g) entries set back, ``train_dist_family_run``; the first
     step's parameters by ``TRAIN_DIST_PARAM_ATOL`` where it names the
     family), the same collectives, memory within 1%, the requested bytes
-    every time; (c) ``launch.dryrun`` over every cell: no failure.  No
-    kernel launched."""
+    every time; before the training, serving in the same world
+    (``serve_dist_rank``, ``serve_dist_gates``) against single-card runs
+    made before it; (c) ``launch.dryrun`` over every cell: no failure.
+    No kernel launched."""
     import gc
     import math
     import shutil
@@ -5596,18 +5800,39 @@ def train_dist_phase(np, torch, dev, card) -> dict:
         emit({"phase": "train_dist_single", "arch": arch,
               **fam_single[arch]})
 
+    # ---- serve_dist's single-card runs, before the world
+    serve_ref = tdir / "serve_ref"
+    serve_ref.mkdir()
+    serve_single = {}
+    for key in serve_dist_archs():
+        t0 = time.perf_counter()
+        scfg, batch, _ = serve_dist_case(key)
+        r = serve_dist_run(torch, scfg, None, dev, batch, (1, 1),
+                           control=True)
+        torch.save({"logits": r.pop("logits").cpu(),
+                    "tokens": r.pop("tokens")}, serve_ref / f"{key}.pt")
+        r.pop("collectives")
+        serve_single[key] = {**r, "part_s": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(r["placed_bytes"] == r["dryrun_bytes"],
+              f"serve_dist {key}: single-card bytes after placement {r}")
+
     # ---- (b) a gloo world of 2 on the one card, (1, 2), tp + seq_shard:
-    # phi4-mini, then the other families
+    # serve_dist, then phi4-mini's training, then the other families'
     t0 = time.perf_counter()
     spec = out / "spec.json"
     spec.write_text(json.dumps({"mesh": [1, 2], "out": str(out),
-                                "families": list(TRAIN_DIST_FAMILIES)}))
+                                "families": list(TRAIN_DIST_FAMILIES),
+                                "serve_ref": str(serve_ref)}))
     res = launcher.run_local(2, REPO / "chip_smoke.py",
                              args=["--train-dist-worker", str(spec)],
                              timeout_s=TRAIN_DIST_TIMEOUT_S, grace_s=10)
     check(res.ok, f"train_dist (b) failed:\n{res.summary(3000)}")
     ranks = [json.loads((out / f"rank{i}.json").read_text())
              for i in range(2)]
+    rec["serve_dist"] = serve_dist_gates(serve_single,
+                                         [r.pop("serve") for r in ranks])
     mesh12 = AbstractMesh((1, 2))
     params_a, opt_a = lm.abstract_state(cfg, mesh12)
     want_bytes = dryrun.card_bytes(params_a, mesh12) \

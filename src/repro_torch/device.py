@@ -24,7 +24,7 @@ def resolve_device(device=None) -> torch.device:
         # full fp32 Gram sums: TF32 would break the 1e-5 bar on beta
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):     # meta: shapes, no storage
         raise ValueError(f"unsupported device {dev}")
     return dev
 

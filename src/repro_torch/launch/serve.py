@@ -46,17 +46,28 @@ def generate(model, prompts: torch.Tensor, gen: int, *,
     the record: seconds and rates of both parts, the tokens (``tokens``,
     on the host; ``seq``, the device tensor) and, with ``keep_logits``,
     the logits that chose each token (``logits``, (B, gen, V) on the
-    device)."""
+    device).
+
+    On a mesh (a model built with a ``layout``; one process a rank, each
+    passing the whole request) each rank serves its rows
+    (``lm.served_rows``) from its blocks of the caches
+    (``lm.init_cache(layout=)``), takes its greedy tokens from the
+    gathered logits, and gathers every rank's rows over ``data`` at the
+    end: every rank returns the single-card record."""
     from repro_torch.models import lm
 
     cfg = model.cfg
     B, S = prompts.shape
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
-    caches = lm.init_cache(cfg, B, S + gen, device=prompts.device)
+    lay = model.mesh_layout
+    caches = lm.init_cache(cfg, B, S + gen, device=prompts.device,
+                           layout=lay)
     prefill = lm.make_prefill_step(model)
     decode = lm.make_decode_step(model)
-    extra = dict(extra or {})
+    rows = lm.served_rows(B, lay)
+    prompts = prompts[rows]
+    extra = {k: v[rows] for k, v in (extra or {}).items()}
     (logits, caches), prefill_s = timed(prefill, caches,
                                         {"tokens": prompts, **extra})
     kept = [logits] if keep_logits else None
@@ -73,6 +84,12 @@ def generate(model, prompts: torch.Tensor, gen: int, *,
         return torch.cat(outs, dim=1)
 
     seq, decode_s = timed(decode_loop, caches, logits)
+    if rows != slice(0, B):
+        # every rank's rows, so each returns the whole request's record
+        from repro_torch.sharding import tensor_parallel as tp
+        seq = tp.all_gather(seq, lay.data, 0)
+        if kept is not None:
+            kept = [tp.all_gather(t, lay.data, 0) for t in kept]
     tokens = seq.cpu().numpy()
     steps = gen - 1
     rec = {"arch": cfg.name, "batch": B, "prompt_len": S, "gen": gen,

@@ -9,6 +9,18 @@ values (MLA: the latent and the rotated key channel) over its first S
 positions and zero the rest (the reference pads them into a new cache),
 the decode forms write position ``cache_len``; each returns the same
 cache.
+
+On a mesh each rank holds its block of every cache as its spec lays it
+out (``models.lm.init_cache``): GQA's on its KV heads over ``model``
+(the rank's heads are those of its ``wk``/``wv`` blocks, so the code is
+the same), MLA's latent and rotated key channel whole over ``model``
+(each rank computes them from the whole ``w_dkv``).  Where a decode's
+batch is below the data extent the KV caches' sequence is split over
+``data`` instead of the batch (``seq``, the rank's ``Layout``): the full
+forms write the rank's block of the prompt's positions, a decode step
+writes its new position only on the rank whose block holds it, and each
+rank attends over its block of positions, merged over ``data``
+(``common.decode_attention``).
 """
 from __future__ import annotations
 
@@ -69,8 +81,9 @@ def _qkv(p, x, cfg):
 
 
 def gqa_full(p, x, cfg, *, window=None, theta=None, cache=None,
-             positions=None):
-    """Train / prefill.  x: (B, S, d).  Returns (out, cache)."""
+             positions=None, seq=None):
+    """Train / prefill.  x: (B, S, d).  Returns (out, cache); ``seq``:
+    the cache's sequence split over ``data`` (module docstring)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if positions is None:
@@ -83,37 +96,68 @@ def gqa_full(p, x, cfg, *, window=None, theta=None, cache=None,
                             impl=getattr(cfg, "attn_impl", "flash"))
     y = _out(out, p["wo"])
     if cache is not None:
-        _write_prefix(cache, {"k": k, "v": v})
+        _write_prefix(cache, {"k": k, "v": v}, seq)
     return y, cache
 
 
 def gqa_decode(p, x, cfg, cache, cache_len: int, *, window=None,
-               theta=None):
+               theta=None, seq=None):
     """x: (B, 1, d); ``cache_len``: the valid length so far, a host int
     (the decode loop knows it: no read of the card).  Returns (out,
-    cache)."""
+    cache); ``seq``: the cache's sequence split over ``data``."""
     q, k, v = _qkv(p, x, cfg)
     pos = torch.full((x.shape[0], 1), cache_len, device=x.device)
     th = theta if theta is not None else cfg.rope_theta
     q = rope(q, pos, th)
     k = rope(k, pos, th)
-    for name, t in (("k", k), ("v", v)):
-        cache[name][:, cache_len] = t[:, 0]
+    _write_position(cache, {"k": k, "v": v}, cache_len, seq)
     out = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
-                           window=window, softcap=cfg.attn_softcap)
+                           window=window, softcap=cfg.attn_softcap,
+                           **_seq_block(cache["k"], seq))
     return _out(out, p["wo"]), cache
 
 
-def _write_prefix(cache: dict, new: dict) -> dict:
-    """Each ``new[name]`` (B, S, ...) over the first S positions of
-    ``cache[name]``, zeros after them (in place)."""
+def _seq_block(leaf, seq) -> dict:
+    """``decode_attention``'s ``offset`` and ``group`` of a cache ``leaf``
+    (B, S_block, ...) whose sequence is split over ``data`` on ``seq`` (a
+    ``Layout``): the first position of this rank's block and the group
+    that merges the blocks; nothing without a split."""
+    if seq is None:
+        return {}
+    return {"offset": seq.d * leaf.shape[1], "group": seq.data}
+
+
+def _write_position(cache: dict, new: dict, cache_len: int, seq) -> None:
+    """Each ``new[name]`` (B, 1, ...) at position ``cache_len`` of
+    ``cache[name]``, in place: on a sequence split (``seq``) only the rank
+    whose block holds that position writes."""
     for name, t in new.items():
-        s_max = cache[name].shape[1]
+        blk = cache[name].shape[1]
+        if seq is None:
+            cache[name][:, cache_len] = t[:, 0]
+            continue
+        if not 0 <= cache_len < blk * seq.D:
+            raise IndexError(f"position {cache_len} is outside a cache of "
+                             f"{blk * seq.D}")
+        i = cache_len - _seq_block(cache[name], seq)["offset"]
+        if 0 <= i < blk:
+            cache[name][:, i] = t[:, 0]
+
+
+def _write_prefix(cache: dict, new: dict, seq=None) -> dict:
+    """Each ``new[name]`` (B, S, ...) over the first S positions of
+    ``cache[name]``, zeros after them (in place); on a sequence split
+    (``seq``) the positions of this rank's block of them."""
+    for name, t in new.items():
+        blk = cache[name].shape[1]
+        s_max = blk * (seq.D if seq is not None else 1)
         if t.shape[1] > s_max:
             raise ValueError(f"{t.shape[1]} positions do not fit a cache of "
                              f"{s_max}")
-        cache[name][:, :t.shape[1]] = t
-        cache[name][:, t.shape[1]:] = 0
+        off = _seq_block(cache[name], seq).get("offset", 0)
+        part = t[:, off:off + blk]
+        cache[name][:, :part.shape[1]] = part
+        cache[name][:, part.shape[1]:] = 0
     return cache
 
 
@@ -176,7 +220,7 @@ def _mla_attend(p, q_nope, q_pe, ckv, kpe, cfg):
     return q_full, k_full, v, scale
 
 
-def mla_full(p, x, cfg, *, cache=None, positions=None, **_):
+def mla_full(p, x, cfg, *, cache=None, positions=None, seq=None, **_):
     """Train / prefill (any window is ignored, as the reference does)."""
     B, S, _ = x.shape
     if positions is None:
@@ -188,21 +232,22 @@ def mla_full(p, x, cfg, *, cache=None, positions=None, **_):
                             impl=getattr(cfg, "attn_impl", "flash"))
     y = _out(out, p["wo"])
     if cache is not None:
-        _write_prefix(cache, {"ckv": ckv, "kpe": kpe})
+        _write_prefix(cache, {"ckv": ckv, "kpe": kpe}, seq)
     return y, cache
 
 
-def mla_decode(p, x, cfg, cache, cache_len: int, **_):
+def mla_decode(p, x, cfg, cache, cache_len: int, seq=None, **_):
     """x: (B, 1, d); ``cache_len`` a host int.  Writes the latent at
-    ``cache_len``, then re-expands the whole cache."""
+    ``cache_len``, then re-expands the whole cache (on a sequence split,
+    this rank's block of it)."""
     pos = torch.full((x.shape[0], 1), cache_len, device=x.device)
     q_nope, q_pe, ckv, kpe = _mla_qkv(p, x, cfg, pos)
-    cache["ckv"][:, cache_len] = ckv[:, 0]
-    cache["kpe"][:, cache_len] = kpe[:, 0]
+    _write_position(cache, {"ckv": ckv, "kpe": kpe}, cache_len, seq)
     q_full, k_full, v, scale = _mla_attend(
         p, q_nope, q_pe, cache["ckv"].to(x.dtype), cache["kpe"].to(x.dtype),
         cfg)
-    out = decode_attention(q_full, k_full, v, cache_len + 1, scale=scale)
+    out = decode_attention(q_full, k_full, v, cache_len + 1, scale=scale,
+                           **_seq_block(cache["ckv"], seq))
     return _out(out, p["wo"]), cache
 
 

@@ -403,10 +403,18 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
-                     softcap=None, scale=None):
+                     softcap=None, scale=None, offset=0, group=None):
     """Single-token decode: q (B, 1, H, hd) against a cache (B, S_max, Hkv,
     hd).  ``cache_len``: the number of valid cache entries, a host int or
-    an integer tensor () or (B,)."""
+    an integer tensor () or (B,).
+
+    With a ``group`` the cache is this rank's block of a sequence split
+    over it, from position ``offset``: the rank masks its block by the
+    absolute positions (the window too), and the blocks' partial softmax
+    statistics are merged over the group (the max by an all-reduce of
+    max, then the sums of exp and of the exp-weighted values in one
+    all-reduce of sum): every rank gets the attention over the whole
+    cache."""
     B, _, H, hd = q.shape
     S_max, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
@@ -417,13 +425,22 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
     logits = torch.einsum("bhd,bshd->bhs", qf, kf)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    pos = torch.arange(S_max, device=q.device)
+    pos = offset + torch.arange(S_max, device=q.device)
     n = cache_len.reshape(-1, 1) if torch.is_tensor(cache_len) else cache_len
     valid = pos[None, :] < n
     if window is not None:
         valid &= pos[None, :] > n - 1 - window
     logits = torch.where(valid[:, None, :], logits, _F32_MIN)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", p, vf)
+    if group is None:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhs,bshd->bhd", p, vf)
+    else:
+        from repro_torch.sharding import tensor_parallel as tp
+        mx = tp.all_reduce(logits.amax(dim=-1), group, "max")
+        e = torch.exp(logits - mx[..., None])              # 0 where masked
+        part = torch.cat([torch.einsum("bhs,bshd->bhd", e, vf),
+                          e.sum(dim=-1)[..., None]], dim=-1)
+        part = tp.all_reduce(part, group)
+        out = part[..., :-1] / part[..., -1:]
     return out[:, None].to(v_cache.dtype)                 # (B, 1, H, hd)
 

@@ -7,7 +7,11 @@ state, ``make_prefill_step`` and ``make_decode_step`` build the two steps
 of greedy generation, passing ``image_embeds`` (vlm) and ``audio_embeds``
 (audio) from the batch.  A model of the port holds its weights, so the
 step builders take the built model where the reference takes the config,
-and the steps drop the reference's ``params`` argument.
+and the steps drop the reference's ``params`` argument.  On a mesh
+(``build_model(layout=)``) the steps serve a rank's rows
+(``served_rows``) from its blocks of the caches (``init_cache(layout=)``,
+placed by ``cache_specs`` as the dry-run places them) and return the
+full-vocabulary logits of those rows.
 
 Training: ``next_token_loss``; ``vocab_parallel_ce``, whose vocab-sharded
 branch runs on a ``model`` axis past 1 (``sharding.tensor_parallel``);
@@ -91,41 +95,94 @@ def _modality(cfg, batch) -> dict:
 
 
 def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32, *,
-               device=None):
+               device=None, layout=None):
     """Concrete empty decode state on ``device`` (None: the CUDA card):
     zeros, but for the xLSTM gate stabilizers ``m``, which start at -1e30
     (an empty exponential-gated memory), as the blocks' own cache-less
-    start does."""
+    start does.
+
+    On a mesh (``layout``: a ``DeviceMesh`` or a ``tensor_parallel.Layout``)
+    this rank's block of every leaf of a ``batch``-row cache, laid out by
+    ``cache_specs`` (the dry-run's placement); each leaf carries its spec
+    as ``.spec``, which the model's serving forward reads
+    (``transformer.DecoderModel.cache_placement``)."""
     dev = resolve_device(device)
+    lay = _as_layout(layout)
+    if lay is None:
+        defs = build_model(cfg).cache_defs(batch, s_max)
+    else:
+        defs = cache_specs(cfg, batch, s_max, lay)
+
+    def mk(name, d):
+        shape = d.shape if lay is None else \
+            common.shard_shape(d.shape, d.spec, lay)
+        t = torch.full(shape, -1e30, dtype=dtype, device=dev) \
+            if name == "m" and cfg.family == "ssm" \
+            else torch.zeros(shape, dtype=dtype, device=dev)
+        if lay is not None:
+            t.spec = tuple(d.spec)
+        return t
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else mk(k, v)
+                for k, v in tree.items()}
+
+    return walk(defs)
+
+
+def cache_specs(cfg, batch: int, s_max: int, mesh, kind: str = "decode"):
+    """The cache defs of a ``batch`` x ``s_max`` decode state with the
+    specs they take on ``mesh``: the model's ``cache_defs``; for a
+    ``kind="decode"`` cell with a batch below the data extent,
+    ``_reshard_cache_seq`` (the KV caches' sequence over the data axes);
+    then ``sanitize_specs``.  The dry-run's caches (``input_specs``; a
+    prefill cell, as the reference's, without the resharding) and the
+    run's (``init_cache``: a cache that serves decode steps) are placed by
+    it."""
     defs = build_model(cfg).cache_defs(batch, s_max)
+    if kind == "decode":
+        dp = _dp_axes(mesh, cfg)
+        if batch < _extent(mesh, dp):
+            # long-context decode at a tiny batch: the caches' sequence
+            # dim over the data axes instead of the batch dim
+            defs = _reshard_cache_seq(defs, s_max, dp)
+    return sanitize_specs(defs, mesh)
 
-    def mk(tree):
-        return {k: mk(v) if isinstance(v, dict) else (
-            torch.full(v.shape, -1e30, dtype=dtype, device=dev)
-            if k == "m" and cfg.family == "ssm"
-            else torch.zeros(v.shape, dtype=dtype, device=dev))
-            for k, v in tree.items()}
 
-    return mk(defs)
+def served_rows(batch: int, layout) -> slice:
+    """The rows of a ``batch``-row request that this rank serves on a mesh:
+    its block where the data extent divides the batch (the reference's
+    batch split), else all of them (each data rank serves every row)."""
+    lay = _as_layout(layout)
+    if lay is None or batch % lay.D:
+        return slice(0, batch)
+    n = batch // lay.D
+    return slice(lay.d * n, (lay.d + 1) * n)
 
 
 def make_prefill_step(model):
     """``prefill_step(caches, batch) -> (logits (B, V), caches)``: the
-    prompt through the model, unembedding only the last position."""
+    prompt through the model, unembedding only the last position.  On a
+    mesh ``batch`` holds the rows this rank serves (``served_rows``) and
+    ``caches`` its blocks (``init_cache(layout=)``); the logits are over
+    the full vocabulary (the padded one where ``tp_pad_config`` pads)."""
 
     def prefill_step(caches, batch):
-        h, caches = model(batch["tokens"], mode="prefill", caches=caches,
+        tokens = batch["tokens"]
+        h, caches = model(tokens, mode="prefill", caches=caches,
                           cache_len=None, return_hidden=True,
                           **_modality(model.cfg, batch))
         # (B, 1, d) @ (d, V), not (B, S, V)
-        return model.unembed(h[:, -1:])[:, 0], caches
+        h = model.last_position(h, tokens.shape[1])
+        return model.unembed(h)[:, 0], caches
 
     return prefill_step
 
 
 def make_decode_step(model):
     """``decode_step(caches, token (B, 1), cache_len, batch=None) ->
-    (logits (B, V), caches)``; ``batch`` carries the modality inputs."""
+    (logits (B, V), caches)``; ``batch`` carries the modality inputs.  On
+    a mesh as ``make_prefill_step``."""
 
     def decode_step(caches, token, cache_len, batch=None):
         logits, caches = model(token, mode="decode", caches=caches,
@@ -376,10 +433,9 @@ def check_moe_groups(rows: int, seq_len: int, n_data: int) -> None:
     tokens, or all of them): a rank groups its own tokens, the reference
     the global ones, and the capacity (and so which tokens drop) is a
     group's."""
-    from repro_torch.models import moe
     local = rows * seq_len
     group = min(moe.GROUP_SIZE, local * n_data)
-    if local % group:
+    if not moe.whole_groups(local, n_data):
         raise ValueError(
             f"MoE over {n_data} data ranks: a rank's {local} tokens are "
             f"not whole groups of the global batch's {group}; choose a "
@@ -510,7 +566,6 @@ def input_specs(cfg, shape, mesh):
         return _meta(shape_, torch.int32, (dp_b, None))
 
     batch = {}
-    model = build_model(cfg)
     if cfg.family == "vlm":
         batch["image_embeds"] = _meta((B, cfg.n_image_tokens, cfg.d_model),
                                       torch.float32, (dp_b, None, None))
@@ -522,20 +577,12 @@ def input_specs(cfg, shape, mesh):
         batch["targets"] = tok((B, S))
         batch["loss_mask"] = _meta((B, S), torch.float32, (dp_b, None))
         return batch, None, None, None
+    caches = common.abstract_params(cache_specs(cfg, B, S, mesh, shape.kind),
+                                    mesh, dtype=torch.bfloat16)
     if shape.kind == "prefill":
         batch["tokens"] = tok((B, S))
-        cache_defs = sanitize_specs(model.cache_defs(B, S), mesh)
-        caches = common.abstract_params(cache_defs, mesh,
-                                        dtype=torch.bfloat16)
         return batch, caches, None, None
     # decode: one new token against an S-long cache
-    cache_defs = model.cache_defs(B, S)
-    if B < _extent(mesh, dp):
-        # long-context decode at a tiny batch: the caches' sequence dim
-        # over the data axes instead of the batch dim
-        cache_defs = _reshard_cache_seq(cache_defs, S, dp)
-    cache_defs = sanitize_specs(cache_defs, mesh)
-    caches = common.abstract_params(cache_defs, mesh, dtype=torch.bfloat16)
     return batch, caches, _meta((), torch.int32, ()), tok((B, 1))
 
 

@@ -34,6 +34,13 @@ combine is a partial sum too.  The shared experts are a column/row
 SwiGLU; the caller sums the routed and shared partial sums over
 ``model`` in one ``tensor_parallel.leave``.  The router's gradient is
 then partial on each rank (``lm.reduce_grads`` sums it).
+
+Over ``data`` the reference groups the global batch's tokens.  A rank
+whose rows make whole groups (``whole_groups``) routes its own; where
+they do not (a serving step's few rows: a decode's B/D tokens) the
+rows are gathered over ``data``, the group is routed and run whole on
+every rank, and each keeps its rows (``data``; serving only, no gradient
+crosses the gather: training raises first, ``lm.check_moe_groups``).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import mlp
 from repro_torch.models.common import ParamDef, matmul, promoted
+from repro_torch.sharding import tensor_parallel as tp
 
 GROUP_SIZE = 256
 CAPACITY_FACTOR = 1.5
@@ -100,10 +108,24 @@ def route(p, x, cfg):
     return gates, idx, pos.gather(2, idx), C
 
 
-def moe_apply(p, x, cfg, layout=None):
+def whole_groups(tokens: int, n_data: int) -> bool:
+    """Whether a rank's ``tokens`` of a batch split over ``n_data`` ranks
+    are whole token groups of the global batch's (``GROUP_SIZE`` tokens,
+    or all of them)."""
+    return tokens % min(GROUP_SIZE, tokens * n_data) == 0
+
+
+def moe_apply(p, x, cfg, layout=None, data=None):
     """x: (B, S, d) -> (B, S, d); on a tensor-parallel ``layout`` this
-    rank's partial sum (module docstring)."""
+    rank's partial sum; ``data``: the rank's ``Layout`` where its rows
+    are its block of a batch split over ``data`` (module docstring)."""
     B, S, d = x.shape
+    if data is not None and data.D > 1 and not whole_groups(B * S, data.D):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("a rank's tokens are not whole MoE groups of "
+                             "the global batch (lm.check_moe_groups)")
+        y = moe_apply(p, tp.all_gather(x, data.data, 0), cfg, layout)
+        return y[data.d * B:(data.d + 1) * B]
     gates, idx, slot, C = route(p, x, cfg)
     G, n_g, k = idx.shape
     # this rank's experts: all of them, or its E/M under expert parallelism

@@ -40,8 +40,21 @@ leaving it; elsewhere the stream is whole on every rank and each block's
 output is all-reduced (``tensor_parallel.enter`` and ``leave``).  GQA
 keeps its head map only where ``model`` divides the KV heads
 (``check_layout`` holds every family to the reference's divisibility).
-Serving (prefill and decode) under a ``model`` axis past 1 raises
-``NotImplementedError``.
+
+Serving (prefill and decode) runs on the same layouts: each rank holds
+its block of every cache as the cache's spec lays it out
+(``models.lm.init_cache``; each leaf carries its spec as ``.spec``, which
+the forward reads, as GSPMD reads an input's sharding).  A prefill is
+sequence-parallel where training would be, and writes each head block's
+whole sequence into the cache; a decode step (S = 1) never is.  The
+logits' vocab blocks are gathered over ``model`` (``unembed``), so each
+rank gets the full logits of its rows.  Where the caches' batch is split
+over ``data`` a rank serves its rows (the MoE gathers a decode's rows
+over ``data`` where they are not whole token groups,
+``moe.moe_apply``); where the KV caches' sequence is split over ``data``
+instead (a batch below the data extent, the reference's
+``_reshard_cache_seq``) every rank serves every row and attends over its
+block of positions (``models.attention``).
 
 Remat, as the reference's ``jax.checkpoint`` around each layer body: in
 train mode with ``cfg.remat`` and gradients on, each layer (attention and
@@ -68,7 +81,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (ParamDef, ParamTree, flatten,
                                        matmul, rms_norm, shard_shape,
-                                       unflatten)
+                                       spec_axes, unflatten)
 from repro_torch.sharding import tensor_parallel as tp
 
 # the subtrees the reference stacks over layers (a leading (L, ...) dim)
@@ -278,7 +291,12 @@ def check_layout(cfg, layout) -> None:
     blocks keep its map of query head q to KV head q // (H / Hkv)), the
     MLP's ``d_ff``, MLA's heads, the MoE's experts (E >= 16) or expert
     width, Mamba2's heads, xLSTM's head dim.  Heads, KV heads and the
-    vocabulary are what ``configs.base.tp_pad_config`` pads."""
+    vocabulary are what ``configs.base.tp_pad_config`` pads.  The caches
+    split over ``model`` only dims of these (GQA's KV heads, Mamba2's
+    heads and their ``d_inner``, xLSTM's head dim; MLA's latent is
+    whole), so a layout that passes places every cache too; over
+    ``data`` a cache's split is dropped where it does not divide
+    (``lm.cache_specs``)."""
     if layout is None or layout.M == 1:
         return
     for what, n in _split_dims(cfg):
@@ -324,6 +342,9 @@ class StackedModel(nn.Module):
         # axis of 1 (data parallelism runs the single-card model)
         self.layout = layout if layout is not None and layout.M > 1 \
             else None
+        # the rank's place on the mesh, whatever its model axis (serving
+        # reads its data axis: rows, sequence blocks)
+        self.mesh_layout = layout
         shapes = state_shapes(block_defs(defs, layout))
         if state is None:
             state = {k: torch.empty(s, device="meta")
@@ -349,6 +370,45 @@ class StackedModel(nn.Module):
         on and ``cfg.remat``."""
         return (mode == "train" and caches is None and self.cfg.remat
                 and torch.is_grad_enabled())
+
+    def cache_placement(self, caches):
+        """(seq, data) of a serving forward over ``caches``: ``seq`` this
+        rank's ``Layout`` where the KV caches' sequence is split over
+        ``data`` (a stacked leaf's dim 2 in its ``.spec``), ``data`` where
+        the rows are this rank's block of the batch over a data axis past
+        1 (dim 1); each None otherwise.  Without caches (training), or
+        without specs, the rows are split as training splits them."""
+        lay = self.mesh_layout
+        if lay is None or lay.D == 1:
+            return None, None
+        specs = [getattr(t, "spec", None)
+                 for t in flatten(caches or {}).values()]
+        if not specs or None in specs:
+            return None, lay
+        seq = any("data" in spec_axes(sp, 2) for sp in specs)
+        rows = any("data" in spec_axes(sp, 1) for sp in specs)
+        return (lay if seq else None), (lay if rows else None)
+
+    def last_position(self, h, seq_len: int):
+        """(B, 1, d): the last position of final hidden states ``h`` of a
+        ``seq_len`` forward; on a sequence-parallel stream the last rank's
+        block holds it (each rank's last positions gathered, the last
+        kept)."""
+        h = h[:, -1:]
+        if self.layout is not None and \
+                self.layout.seq_parallel(self.cfg, seq_len):
+            h = tp.all_gather(h, self.layout.model, 1)[:, -1:]
+        return h
+
+    def _logits(self, h, w, transpose: bool):
+        """float32 logits of ``h`` against the unembedding ``w``; on a
+        tensor-parallel layout this rank's vocab block, gathered over
+        ``model`` to the full vocabulary."""
+        w = w.to(h.dtype)
+        logits = matmul(h, w.T if transpose else w).float()
+        if self.layout is not None:
+            logits = tp.all_gather(logits, self.layout.model, -1)
+        return logits
 
     def _run_layers(self, run, h, lo, hi, mode, caches, group: int = 1):
         """``run(h, a, b)`` (layers ``a:b`` from the residual stream ``h``)
@@ -436,38 +496,40 @@ class DecoderModel(StackedModel):
         return [(int(w), float(t)) for w, t in zip(win, theta)]
 
     def _attn_layer_apply(self, lp, h, mode, cache, cache_len, window,
-                          theta, is_moe=False, sp=False):
+                          theta, is_moe=False, sp=False, place=(None, None)):
         """One attention layer; ``sp``: the stream is sequence-parallel
-        (a tensor-parallel layout only)."""
+        (a tensor-parallel layout only); ``place``: ``cache_placement``'s
+        (seq, data)."""
         cfg = self.cfg
         lay = self.layout
+        seq, data = place
         ln_in = tp.enter(rms_norm(h, lp["ln1"], cfg.norm_eps), lay, sp)
         if cfg.kv_lora_rank and is_moe:
             if mode == "decode":
                 a, cache = attention.mla_decode(lp["attn"], ln_in, cfg,
-                                                cache, cache_len)
+                                                cache, cache_len, seq=seq)
             else:
                 a, cache = attention.mla_full(lp["attn"], ln_in, cfg,
-                                              cache=cache)
+                                              cache=cache, seq=seq)
         elif mode == "decode":
             a, cache = attention.gqa_decode(lp["attn"], ln_in, cfg, cache,
                                             cache_len, window=window,
-                                            theta=theta)
+                                            theta=theta, seq=seq)
         else:
             a, cache = attention.gqa_full(lp["attn"], ln_in, cfg,
                                           window=window, theta=theta,
-                                          cache=cache)
+                                          cache=cache, seq=seq)
         h = h + tp.leave(a, lay, sp)
         ln2 = tp.enter(rms_norm(h, lp["ln2"], cfg.norm_eps), lay, sp)
         if is_moe:
             # the routed and the shared experts' partial sums, left once
-            y = moe.moe_apply(lp["ffn"], ln2, cfg, layout=lay)
+            y = moe.moe_apply(lp["ffn"], ln2, cfg, layout=lay, data=data)
         else:
             y = mlp.swiglu_apply(lp["ffn"], ln2)
         return h + tp.leave(y, lay, sp), cache
 
     def _attn_stack(self, name, h, mode, caches, cache_len, lo=0, hi=None,
-                    flags=None, is_moe=False, sp=False):
+                    flags=None, is_moe=False, sp=False, place=(None, None)):
         """Layers ``lo:hi`` of the stack ``name``."""
         cfg = self.cfg
         stack = getattr(self, name)
@@ -479,7 +541,7 @@ class DecoderModel(StackedModel):
                     else flags[i]
                 h, _ = self._attn_layer_apply(
                     stack[i], h, mode, layer_cache(caches, name, i),
-                    cache_len, win, theta, is_moe, sp)
+                    cache_len, win, theta, is_moe, sp, place)
             return h
 
         # grouped remat where the group divides the stack, as the
@@ -533,19 +595,18 @@ class DecoderModel(StackedModel):
                 image_embeds=None, return_hidden=False):
         """tokens: (B, S) integers (S = 1 for decode); ``cache_len`` a host
         int.  Returns (logits, or the final hidden states with
-        ``return_hidden``, and the caches, updated in place)."""
+        ``return_hidden``, and the caches, updated in place).  On a mesh
+        ``tokens`` are the rows this rank serves (module docstring); the
+        logits are over the full vocabulary, the hidden states this rank's
+        block of the sequence where the stream is sequence-parallel."""
         cfg = self.cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         lay = self.layout
+        place = self.cache_placement(caches)
         sp = False
         if lay is None:
             h = F.embedding(tokens, self.embed).to(dt)
         else:
-            if caches is not None or not return_hidden:
-                raise NotImplementedError(
-                    "serving under a model axis past 1 is not ported: a "
-                    "tensor-parallel model runs the train step's forward "
-                    "(to the hidden states), not prefill or decode")
             sp = lay.seq_parallel(cfg, tokens.shape[1])
             h = tp.embed_lookup(tokens, self.embed, lay, sp).to(dt)
         if getattr(cfg, "embed_scale", False):   # gemma: h *= sqrt(d)
@@ -554,13 +615,14 @@ class DecoderModel(StackedModel):
         fam = cfg.family
         if fam == "dense":
             h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                 flags=self._layer_flags(), sp=sp)
+                                 flags=self._layer_flags(), sp=sp,
+                                 place=place)
         elif fam == "moe":
             if cfg.first_dense_layers:
                 h = self._attn_stack("dense_layers", h, mode, caches,
-                                     cache_len, sp=sp)
+                                     cache_len, sp=sp, place=place)
             h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                 is_moe=True, sp=sp)
+                                 is_moe=True, sp=sp, place=place)
         elif fam == "hybrid":
             for a, (lo, hi) in enumerate(segment_bounds(
                     cfg.n_layers, cfg.shared_attn_every)):
@@ -569,7 +631,7 @@ class DecoderModel(StackedModel):
                 h, _ = self._attn_layer_apply(
                     self.shared_attn, h, mode,
                     layer_cache(caches, "shared_attn", a), cache_len, None,
-                    None, sp=sp)
+                    None, sp=sp, place=place)
                 h = self._mamba_stack(h, mode, caches, lo, hi, sp)
         elif fam == "ssm":
             per_seg = cfg.slstm_period - 1
@@ -603,7 +665,8 @@ class DecoderModel(StackedModel):
                     h = h + tp.leave(mlp.swiglu_apply(cp["ffn"], ln2), lay,
                                      sp)
                 h = self._attn_stack("layers", h, mode, caches, cache_len,
-                                     ci * period, (ci + 1) * period, sp=sp)
+                                     ci * period, (ci + 1) * period, sp=sp,
+                                     place=place)
         else:
             raise ValueError(fam)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
@@ -612,10 +675,9 @@ class DecoderModel(StackedModel):
         return self.unembed(h), caches
 
     def unembed(self, h):
-        """float32 logits of hidden states (B, S, d)."""
-        w, transpose = self.unembed_weights()
-        w = w.to(h.dtype)
-        return matmul(h, w.T if transpose else w).float()
+        """float32 logits of hidden states (B, S, d), over the full
+        vocabulary (``_logits``)."""
+        return self._logits(h, *self.unembed_weights())
 
     def unembed_weights(self):
         """(W, transpose) such that logits = h @ (W.T if transpose else

@@ -25,7 +25,9 @@ own length (the encoder's frames, the decoder's tokens), and then each
 rank adds the rows of ``pos_enc``/``pos_dec`` of its own positions.  The
 encoder's output is made whole over ``model`` once for the decoder (the
 frames gathered, or, whole already, marked for the sum of its gradient),
-and every cross attention reads it.
+and every cross attention reads it.  Serving runs on the same layout,
+the decoder's KV caches split as ``transformer``'s module docstring
+says.
 """
 from __future__ import annotations
 
@@ -163,15 +165,17 @@ class EncDecModel(StackedModel):
             % cfg.max_target_positions
         return self._positions(h, pos[idx], sp)
 
-    def _dec_layer(self, lp, h, enc_out, mode, cache, cache_len, sp=False):
+    def _dec_layer(self, lp, h, enc_out, mode, cache, cache_len, sp=False,
+                   seq=None):
         cfg = self.cfg
         lay = self.layout
         ln = tp.enter(rms_norm(h, lp["ln1"], cfg.norm_eps), lay, sp)
         if mode == "decode":
             a, _ = attention.gqa_decode(lp["attn"], ln, cfg, cache,
-                                        cache_len)
+                                        cache_len, seq=seq)
         else:
-            a, _ = attention.gqa_full(lp["attn"], ln, cfg, cache=cache)
+            a, _ = attention.gqa_full(lp["attn"], ln, cfg, cache=cache,
+                                      seq=seq)
         h = h + tp.leave(a, lay, sp)
         lnx = tp.enter(rms_norm(h, lp["lnx"], cfg.norm_eps), lay, sp)
         h = h + tp.leave(attention.cross_apply(lp["xattn"], lnx, enc_out,
@@ -180,63 +184,52 @@ class EncDecModel(StackedModel):
         return h + mlp.gelu_apply(lp["ffn"], ln2, self._leave(sp))
 
     def decode_stack(self, tokens, enc_out, *, mode="train", caches=None,
-                     cache_len=None):
-        """The decoder over ``caches`` ({"dec_layers": ...}; prefill or
-        decode)."""
-        if caches is None:
-            raise ValueError("decode_stack requires caches (prefill/decode)")
-        h = self._embed(tokens, enc_out, mode, cache_len)
-        for i, lp in enumerate(self.dec_layers):
-            h = self._dec_layer(lp, h, enc_out, mode,
-                                layer_cache(caches, "dec_layers", i),
-                                cache_len)
-        return h, caches
-
-    def _no_cache_stack(self, tokens, enc_out, enc_sp=False):
+                     cache_len=None, enc_sp=False):
+        """The decoder over the encoder's states ``enc_out`` (this rank's
+        block of the frames under ``enc_sp``): with ``caches``
+        ({"dec_layers": ...}) a prefill or decode step that writes them,
+        without them the train forward (under remat there).  Returns (the
+        hidden states, the caches)."""
         lay = self.layout
+        if caches is None:
+            mode = "train"
         sp = self._sp(tokens.shape[1])
+        seq, _ = self.cache_placement(caches)
         if lay is not None:
             # the encoder's output whole over model, once for every cross
             # attention: its frames gathered, or its gradient summed
             enc_out = tp.gather(enc_out, lay.model) if enc_sp \
                 else tp.copy(enc_out, lay.model)
-        h = self._embed(tokens, enc_out, "train", None, sp)
+        h = self._embed(tokens, enc_out, mode, cache_len, sp)
 
         def run(h, a, b):
-            for lp in self.dec_layers[a:b]:
-                h = self._dec_layer(lp, h, enc_out, "train", None, None, sp)
+            for i in range(a, b):
+                h = self._dec_layer(self.dec_layers[i], h, enc_out, mode,
+                                    layer_cache(caches, "dec_layers", i),
+                                    cache_len, sp, seq)
             return h
 
-        return self._run_layers(run, h, 0, len(self.dec_layers), "train",
-                                None), None
+        return self._run_layers(run, h, 0, len(self.dec_layers), mode,
+                                caches), caches
 
     def forward(self, tokens, *, audio_embeds, mode="train", caches=None,
                 cache_len=None, return_hidden=False, **_):
         """tokens: (B, S) integers; ``audio_embeds`` (B, n_frames, d);
         ``cache_len`` a host int.  Returns (logits, or the final hidden
         states with ``return_hidden``, and the caches, updated in
-        place)."""
+        place); on a mesh as ``transformer.DecoderModel.forward``."""
         cfg = self.cfg
-        if self.layout is not None and (caches is not None
-                                        or not return_hidden):
-            raise NotImplementedError(
-                "serving under a model axis past 1 is not ported: a "
-                "tensor-parallel model runs the train step's forward (to "
-                "the hidden states), not prefill or decode")
         enc_out = self.encode(audio_embeds, mode)
-        if caches is None:
-            h, _ = self._no_cache_stack(tokens, enc_out,
-                                        self._sp(audio_embeds.shape[1]))
-        else:
-            h, _ = self.decode_stack(tokens, enc_out, mode=mode,
-                                     caches=caches, cache_len=cache_len)
+        h, _ = self.decode_stack(tokens, enc_out, mode=mode, caches=caches,
+                                 cache_len=cache_len,
+                                 enc_sp=self._sp(audio_embeds.shape[1]))
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         if return_hidden:
             return h, caches
         return self.unembed(h), caches
 
     def unembed(self, h):
-        return matmul(h, self.embed.to(h.dtype).T).float()
+        return self._logits(h, self.embed, True)
 
     def unembed_weights(self):
         return self.embed, True

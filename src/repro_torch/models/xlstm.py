@@ -30,7 +30,10 @@ over the input gates and ``r_gates``' rows, not once a step
 and ``w_out``'s rows expect a contiguous block of ``d``: it is gathered
 and sliced (``_d_block``).  ``w_out`` gives a partial sum, summed by the
 caller; ``wi``/``wf`` are whole, their gradients partial on each rank
-(``lm.reduce_grads`` sums them).  The widths are read from the
+(``lm.reduce_grads`` sums them).  The decode state follows the caches'
+specs: mLSTM's ``C`` on its last dim and ``n`` on ``hd`` (gathered when
+read, since the recurrence keeps ``n`` whole, and this rank's block
+written back), sLSTM's ``c``, ``n`` and ``h`` on ``hd``, ``m`` whole.  The widths are read from the
 parameters, so the same code runs a block or the whole.
 """
 from __future__ import annotations
@@ -203,6 +206,11 @@ def mlstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
         torch.zeros((B, H, hd, hl), dtype=f32, device=dev),
         torch.zeros((B, H, hd), dtype=f32, device=dev),
         torch.full((B, H), _NEG, dtype=f32, device=dev)))
+    if cache is not None and layout is not None:
+        # the cache holds this rank's block of n's hd (its spec); the
+        # recurrence keeps n whole, as it does q and k
+        state = (state[0], tp.all_gather(state[1], layout.model, -1),
+                 state[2])
     if decode:
         state, h = _mlstm_step(state, (q[:, 0], k[:, 0] / math.sqrt(hd),
                                        v[:, 0], i_pre[:, 0], f_pre[:, 0]))
@@ -215,6 +223,10 @@ def mlstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
             hs, state = _mlstm_core(q, k, v, i_pre, f_pre, state)
     hs = _d_block(hs, layout).to(x.dtype)
     out = matmul(hs * torch.sigmoid(matmul(x, p["wo"])), p["w_out"])
+    if cache is not None and layout is not None:
+        n = state[1]
+        state = (state[0], n[..., layout.m * hl:(layout.m + 1) * hl],
+                 state[2])
     return out, _write(cache, ("C", "n", "m"), state)
 
 

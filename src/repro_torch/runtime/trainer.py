@@ -33,8 +33,9 @@ over ``data`` and whole over ``model``, the gradients summed over
 loss over the gathered unembed under ``"fsdp"`` (``models.lm``,
 ``sharding.tensor_parallel``).  A ``model`` axis past 1 runs tensor
 parallelism for every family (``models.transformer``); a dimension the
-axis does not divide raises ``ValueError`` (``transformer.check_layout``),
-and serving under such an axis is not ported.  Every rank reads the
+axis does not divide raises ``ValueError`` (``transformer.check_layout``);
+serving on such an axis is ``launch.serve.generate`` on a model built
+with the layout.  Every rank reads the
 metrics, which are the same on each; process 0 writes the log.  A checkpoint holds the full arrays in the reference's
 layout, gathered over ``model`` on every rank and written by process 0;
 a restore reads each rank's blocks from them, so a checkpoint resumes on

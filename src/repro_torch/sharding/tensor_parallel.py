@@ -60,6 +60,8 @@ class Layout:
         self.data = MeshGroup(mesh.get_group("data"), "data")
         self.model = MeshGroup(mesh.get_group("model"), "model")
 
+    axis_names = ("data", "model")
+
     @property
     def shape(self) -> dict:
         return {"data": self.D, "model": self.M}
@@ -141,6 +143,11 @@ def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``collectives.all_reduce`` of a copy of ``x`` (no autograd)."""
     return collectives.all_reduce(x.detach().clone(), group, op)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's blocks of ``x`` along ``dim`` (no autograd)."""
+    return _all_gather(x.detach(), group, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -273,6 +273,47 @@ def test_abstract_inputs_match_jax(jax_ref, tag, shape_name):
     assert n_cells == (4 if shape_name == "long_500k" else 10)
 
 
+@pytest.mark.parametrize("tag,shape_name", [
+    ("1x4", "prefill_32k"), ("1x4", "decode_32k"), ("2x2", "long_500k"),
+    ("4x1", "long_500k")])
+def test_init_cache_blocks_are_the_dryruns(tag, shape_name):
+    """A rank's blocks of ``init_cache(layout=)`` hold the bytes a card of
+    the dry-run's caches (``input_specs``) holds, float32 on both sides,
+    for every runnable architecture: the prefill and decode cells on (1,
+    4), and long_500k at batch 1 below a data axis of 2 and of 4 (the KV
+    caches' sequence over ``data``).  The blocks are meta tensors, so
+    nothing is allocated."""
+    from repro_torch.configs import SHAPES as T_SHAPES
+    from repro_torch.configs.base import cell_is_runnable, tp_pad_config
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.models import common, lm
+    import torch
+
+    from repro_torch.sharding import tensor_parallel as tp
+    mesh = _port_mesh(tag)
+    lay = tp.Layout.__new__(tp.Layout)
+    lay.D, lay.M = mesh.sizes
+    lay.d = lay.m = 0
+    shape = T_SHAPES[shape_name]
+    n_cells = 0
+    for arch in sorted(ARCHS):
+        cfg = get_arch(arch)
+        if not cell_is_runnable(cfg, shape)[0]:
+            continue
+        cfg, _ = tp_pad_config(cfg, mesh.shape["model"])
+        _, caches, _, _ = lm.input_specs(cfg, shape, mesh)
+        want = sum(4 * math.prod(common.shard_shape(t.shape, t.spec, mesh))
+                   for t in _flat(caches).values())
+        blocks = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="meta", layout=lay)
+        got = _flat(blocks)
+        assert sum(t.numel() * t.element_size() for t in got.values()) \
+            == want, arch
+        assert all(t.dtype == torch.float32 for t in got.values())
+        n_cells += 1
+    assert n_cells == (4 if shape_name == "long_500k" else 10)
+
+
 def test_dryrun_main_records(tmp_path, capsys):
     """launch.dryrun.main over every architecture and dglmnet on the
     meshes of 1 and 4 cards: no failure; parameter counts equal

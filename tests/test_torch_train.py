@@ -18,6 +18,7 @@ Tolerances, each stated where it is used:
   learning bar alone (tests/test_system.py).
 """
 import json
+import pathlib
 import shutil
 
 import jax
@@ -376,26 +377,56 @@ def test_launch_train_main_in_process(tmp_path, capsys):
     assert len((tmp_path / "train.jsonl").read_text().splitlines()) == 3
 
 
+_PREFILL_WORLD = """
+import json, pathlib, sys
+sys.path.insert(0, sys.argv[2])
+import torch
+from repro_torch.configs import registry
+from repro_torch.dist import bootstrap
+from repro_torch.models import lm
+from repro_torch.sharding import tensor_parallel as tp
+torch.set_num_threads(1)
+ctx = bootstrap.initialize(backend="gloo", device="cpu")
+lay = tp.Layout(bootstrap.make_dist_mesh(1, 2))
+out = {}
+for arch in ("deepseek-v2-lite-16b", "whisper-tiny"):
+    cfg = registry.smoke_variant(arch)
+    model = lm.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                           layout=lay)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.zeros((2, cfg.n_audio_frames,
+                                             cfg.d_model))
+    caches = lm.init_cache(cfg, 2, 8, device="cpu", layout=lay)
+    with torch.no_grad():
+        logits, _ = lm.make_prefill_step(model)(caches, batch)
+    out[arch] = [list(logits.shape), cfg.vocab_size,
+                 bool(torch.isfinite(logits).all())]
+pathlib.Path(sys.argv[1], f"rank{ctx.process_id}.json").write_text(
+    json.dumps(out))
+bootstrap.shutdown()
+"""
+
+
 def test_no_mesh_yet(tmp_path):
-    """What a mesh does not run yet raises, naming why; no fallback to one
-    process or to the CPU: serving (prefill or decode) under a model axis
-    of 2, for a decoder and for whisper (training there runs:
-    tests/test_torch_train_sharded_families.py); KV heads that a model
-    axis does not divide (xlstm's, which no GQA reads, do not count); and
-    ``--devices`` over NCCL with more ranks than cards."""
-    from repro_torch.sharding import tensor_parallel as tp
-    lay = tp.Layout(_Mesh({"data": 1, "model": 2}))
-    for arch in ("deepseek-v2-lite-16b", "whisper-tiny"):
-        cfg = t_reg.smoke_variant(arch)
-        model = t_lm.build_model(cfg, generator=torch.Generator()
-                                 .manual_seed(0), layout=lay)
-        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
-        if cfg.family == "audio":
-            batch["audio_embeds"] = torch.zeros(
-                (2, cfg.n_audio_frames, cfg.d_model))
-        caches = t_lm.init_cache(cfg, 2, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="serving"):
-            t_lm.make_prefill_step(model)(caches, batch)
+    """What a mesh runs and what it refuses: serving (prefill) under a
+    model axis of 2, for a decoder and for whisper, runs in a gloo world
+    of two processes and returns the full (B, V) logits on each rank
+    (parity with JAX: tests/test_torch_serve_sharded.py); KV heads that a
+    model axis does not divide (xlstm's, which no GQA reads, do not count)
+    raise, and so does ``--devices`` over NCCL with more ranks than cards,
+    naming why, with no fallback to one process or to the CPU."""
+    from repro_torch.dist import launcher
+    script = tmp_path / "prefill_world.py"
+    script.write_text(_PREFILL_WORLD)
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    res = launcher.run_local(2, script, args=[str(tmp_path), src],
+                             timeout_s=120, grace_s=5)
+    assert res.ok, res.summary()
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        for arch, (shape, vocab, finite) in got.items():
+            assert shape == [2, vocab] and finite, (arch, shape)
     four = _Mesh({"data": 1, "model": 4})
     with pytest.raises(ValueError, match="n_kv_heads = 2"):
         Trainer(t_reg.smoke_variant("mixtral-8x7b"), t_adamw.AdamWConfig(),
