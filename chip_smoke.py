@@ -4840,8 +4840,15 @@ def train_full_width(np, torch, dev, card) -> dict:
         opt_state.m[k] = host_m[k].to(dev)
         opt_state.v[k] = host_v[k].to(dev)
     del host_m, host_v
-    _, m_first = trainer.train_step(opt_state, batch)
+    (_, m_first), step_mem = step_memory(
+        torch, lambda: trainer.train_step(opt_state, batch),
+        card_bytes_of(torch, params, opt_state))
     loss_first = float(m_first["loss"])
+    # that step against its traced dry-run on one card
+    traced = traced_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ, (1, 1))
+    rec["traced_peak"] = peak_against_trace("train", step_mem, traced)
+    rec["traced_peak"]["trace_s"] = traced["trace_s"]
+    emit({"phase": "train_traced", **rec["traced_peak"]})
     check(abs(loss_restored - loss_first) <= RESUME_RTOL * abs(loss_first),
           f"train: the step after the restore gives {loss_restored}, the "
           f"first trainer's {loss_first}")
@@ -5111,6 +5118,15 @@ TRAIN_DIST_LAYERS = 2
 TRAIN_DIST_BATCH, TRAIN_DIST_SEQ, TRAIN_DIST_STEPS = 2, 512, 3
 TRAIN_DIST_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 TRAIN_DIST_MEM_TOL = 0.01         # requested after placement / dry-run
+# a step's peak on the card (max_memory_allocated over the step, less what
+# the card held beside its arguments) against the traced dry-run's
+# peak_bytes_est.  Both count the same tensors: max_memory_allocated counts
+# requested blocks rounded to 512 B, not the allocator's 2 MB segments, and
+# cuBLAS's workspace is made before the step.  The card has read 4.6-31.8
+# KB below the trace (|rel| <= 8.7e-7: small host-made scalars and the
+# int32 batch); the bar is a hundred times that, so that a trace missing
+# one layer's activation (~50 MB at 2 x 2,048 x 3,072 float32) fails
+TRAIN_PEAK_TOL = 1e-4
 TRAIN_DIST_TIMEOUT_S = 600
 # (b)'s other families at full width on (1, 2): {arch: (layers or None
 # for all of them, sequence length, other config fields)}; batch 2, 2
@@ -5197,10 +5213,21 @@ def train_dist_run(torch, trainer, capture: bool = False) -> dict:
                                    trainer.device)
         _, out["grads0"] = lm.loss_and_grads(trainer.model, params, batch)
         del batch
-    metrics, secs = [], []
+    metrics, secs, peaks = [], [], []
     with collectives.collective_trace() as ev:
         for step in range(TRAIN_DIST_STEPS):
-            (opt, host), s = timed(trainer.step_at, opt, step)
+            if step == 1:
+                # the second step alone: its peak on the card and its
+                # collectives, for the traced dry-run
+                peaks.append(torch.cuda.max_memory_allocated())
+                n_ev = len(ev)
+                ((opt, host), s), mem = step_memory(
+                    torch, lambda: timed(trainer.step_at, opt, step),
+                    card_bytes_of(torch, params, opt))
+                out["step_memory"] = mem
+                out["step_collectives"] = [list(e) for e in ev[n_ev:]]
+            else:
+                (opt, host), s = timed(trainer.step_at, opt, step)
             metrics.append(host)
             secs.append(s)
             if capture and step == 0:
@@ -5208,7 +5235,7 @@ def train_dist_run(torch, trainer, capture: bool = False) -> dict:
                                   for k, p in params.items()}
     out.update(params=params, metrics=metrics, step_s=secs,
                placed_bytes=placed,
-               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_bytes=max(peaks + [torch.cuda.max_memory_allocated()]),
                collectives=[list(e) for e in ev])
     return out
 
@@ -5412,6 +5439,75 @@ def requested_bytes(torch) -> int:
     return stats["requested_bytes.all.current"]
 
 
+def card_bytes_of(torch, *trees) -> int:
+    """Bytes of the distinct storages of the tensors in ``trees`` (dicts,
+    lists, tuples, named tuples)."""
+    seen = {}
+
+    def walk(t):
+        if torch.is_tensor(t):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
+
+
+def step_memory(torch, step, args_card: int):
+    """``step()`` once with the card's peak reset: (its result, {"before":
+    bytes allocated before it, "peak": the most allocated during it,
+    "args": ``args_card``, the bytes of the step's arguments, "step_peak":
+    the peak less what the card held beside the arguments})."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"before": before, "peak": peak, "args": args_card,
+                 "step_peak": peak - before + args_card}
+
+
+def traced_train_step(cfg, batch: int, seq: int, mesh_shape) -> dict:
+    """``launch.dryrun.lower_cell`` of ``cfg`` (its arch with ``cfg``'s
+    depth, dtype, remat, attention and parallelism) at ``batch`` x
+    ``seq`` tokens on rank 0 of ``mesh_shape``'s dry world, traced on the
+    CPU: its memory, profile (the collectives by kind among them) and
+    trace seconds."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    shape = ShapeSpec(f"train_{batch}x{seq}", seq, batch, "train")
+    mesh = AbstractMesh(tuple(mesh_shape))
+    over = {k: getattr(cfg, k) for k in (
+        "n_layers", "dtype", "remat", "attn_impl", "seq_shard",
+        "parallelism", "ssm_chunk")}
+    rec = dryrun.lower_cell(cfg.name, shape, mesh, overrides=over)
+    check(rec["status"] == "ok", f"the traced dry-run of {cfg.name} at "
+          f"{mesh_shape}: {rec.get('error', rec['status'])}")
+    return {k: rec[k] for k in ("memory", "profile", "trace_s")}
+
+
+def peak_against_trace(what: str, card: dict, traced: dict) -> dict:
+    """The card's step peak against the traced ``peak_bytes_est`` within
+    ``TRAIN_PEAK_TOL``: the record, checked."""
+    want = traced["memory"]["peak_bytes_est"]
+    rel = (card["step_peak"] - want) / want
+    out = {"card_step_peak": card["step_peak"], "traced_peak": want,
+           "rel": rel, "bar": TRAIN_PEAK_TOL, "card": card,
+           "traced_memory": traced["memory"]}
+    check(abs(rel) <= TRAIN_PEAK_TOL,
+          f"{what}: the card's step peak {card['step_peak']} against the "
+          f"traced {want} ({rel:+.3g}, bar {TRAIN_PEAK_TOL})")
+    return out
+
+
 def train_dist_family_cfg(arch: str):
     """(b)'s config of ``arch``: full width, its depth cut, float32, remat,
     flash attention, tensor parallel with sequence parallelism, padded
@@ -5612,9 +5708,11 @@ def train_dist_first_step(torch, cfg, layout, params: dict, p0: dict,
 
 
 def train_dist_dryrun(tdir: pathlib.Path) -> dict:
-    """``launch.dryrun.main`` in process over every architecture and
-    dglmnet on the meshes of 1 and 4 cards: the counts by status and the
-    largest per-card bytes."""
+    """``launch.dryrun.main --no-compile`` in process over every
+    architecture and dglmnet on the meshes of 1 and 4 cards (the
+    arguments' records; the traced step is held against the card by
+    ``traced_train_step``): the counts by status and the largest per-card
+    bytes."""
     import contextlib
     import io
 
@@ -5622,12 +5720,12 @@ def train_dist_dryrun(tdir: pathlib.Path) -> dict:
     out = tdir / "dryrun"
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rcs = [dryrun.main(["--arch", arch, "--mesh", "both", "--out",
-                            str(out)]) for arch in ("all", "dglmnet")]
+        rcs = [dryrun.main(["--arch", arch, "--mesh", "both", "--no-compile",
+                            "--out", str(out)]) for arch in ("all", "dglmnet")]
     recs = [json.loads(f.read_text()) for f in sorted(out.rglob("*.json"))]
     counts = {st: sum(r["status"] == st for r in recs)
-              for st in ("ok", "skipped", "failed")}
-    ok = [r for r in recs if r["status"] == "ok"]
+              for st in ("lowered", "skipped", "failed")}
+    ok = [r for r in recs if r["status"] == "lowered"]
     big = max(ok, key=lambda r: r["bytes_per_card"]["total"])
     return {"rcs": rcs, "cells": len(recs), **counts,
             "largest_per_card_bytes": big["bytes_per_card"]["total"],
@@ -5746,6 +5844,12 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     rec["single"] = {**{k: r[k] for k in ("metrics", "step_s")},
                      "peak_gb": r["peak_bytes"] / 1e9,
                      "part_s": time.perf_counter() - t0}
+    traced11 = traced_train_step(cfg, TRAIN_DIST_BATCH, TRAIN_DIST_SEQ,
+                                 (1, 1))
+    rec["single"]["traced_peak"] = peak_against_trace(
+        "train_dist single", r["step_memory"], traced11)
+    emit({"phase": "train_dist_traced", "mesh": [1, 1],
+          **rec["single"]["traced_peak"], "trace_s": traced11["trace_s"]})
     del r
     gc.collect()
     torch.cuda.empty_cache()
@@ -5874,6 +5978,27 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     mem_rel = [abs(r["placed_bytes"] - want_bytes) / want_bytes
                for r in ranks]
     same_seq = ranks[0]["collectives"] == ranks[1]["collectives"]
+    # rank 0's second step against its traced step on the dry (1, 2)
+    from repro_torch.roofline import hlo
+    traced12 = traced_train_step(cfg, TRAIN_DIST_BATCH, TRAIN_DIST_SEQ,
+                                 (1, 2))
+    kinds = ("collective_bytes", "collective_counts",
+             "collective_bytes_by_kind")
+    card_stats = hlo.collective_stats(
+        [tuple(e) for e in ranks[0]["step_collectives"]]).as_dict()
+    card_coll = {k: card_stats[k] for k in kinds}
+    trace_coll = {k: traced12["profile"][k] for k in kinds}
+    traced_rec = {
+        "peak": peak_against_trace("train_dist (b) rank 0",
+                                   ranks[0]["step_memory"], traced12),
+        "card_collectives": card_coll, "traced_collectives": trace_coll,
+        "collectives_equal": card_coll == trace_coll,
+        "traced_profile": traced12["profile"],
+        "trace_s": traced12["trace_s"]}
+    emit({"phase": "train_dist_traced", "mesh": [1, 2], **traced_rec})
+    check(card_coll == trace_coll and card_coll["collective_counts"],
+          f"train_dist (b): rank 0's step collectives {card_coll} against "
+          f"the traced {trace_coll}")
     rec["b_gloo_1x2"] = {
         "metrics": ranks[0]["metrics"],
         "metrics_rank1_equal": ranks[0]["metrics"] == ranks[1]["metrics"],
@@ -5887,6 +6012,7 @@ def train_dist_phase(np, torch, dev, card) -> dict:
         "dryrun_params_moments_bytes": want_bytes,
         "memory_rel": mem_rel,
         "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+        "traced": traced_rec,
         "collectives_per_rank": [len(r["collectives"]) for r in ranks],
         "same_collectives": same_seq,
         "launched": [r["launched"] for r in ranks],

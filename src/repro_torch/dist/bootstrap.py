@@ -56,6 +56,9 @@ ENV_NPROCS = "REPRO_DIST_NPROCS"
 ENV_PROCID = "REPRO_DIST_PROCID"
 DEFAULT_BACKEND = "cpu:gloo,cuda:nccl"
 
+# how long a rank waits at shutdown for its peers to arrive
+SHUTDOWN_TIMEOUT_S = 120.0
+
 _CONTEXT: Optional["DistContext"] = None
 _STORE = None
 
@@ -160,11 +163,30 @@ def initialize(*, coordinator: Optional[str] = None,
 
 
 def shutdown():
-    """Destroy the process group and drop the store (the end of a run)."""
+    """Destroy the process group and drop the store (the end of a run).
+
+    In a world of several processes every rank calls it.  The ranks meet
+    on the store first, so that none tears its gloo pairs down while a
+    peer still works over them; each then destroys its groups and checks
+    out on the store, and process 0, whose process serves the store,
+    drops it only once every rank has checked out."""
     global _CONTEXT, _STORE
     import torch.distributed as dist
+    ctx = _CONTEXT
+    handshake = _STORE is not None and ctx is not None and \
+        ctx.multiprocess and dist.is_initialized()
+    wait = datetime.timedelta(seconds=SHUTDOWN_TIMEOUT_S)
+    if handshake:
+        if _STORE.add("repro/shutdown/in", 1) == ctx.num_processes:
+            _STORE.set("repro/shutdown/in/go", "1")
+        _STORE.wait(["repro/shutdown/in/go"], wait)
     if dist.is_initialized():
         dist.destroy_process_group()
+    if handshake:
+        if _STORE.add("repro/shutdown/out", 1) == ctx.num_processes:
+            _STORE.set("repro/shutdown/out/go", "1")
+        if ctx.is_coordinator:
+            _STORE.wait(["repro/shutdown/out/go"], wait)
     _STORE = None
     _CONTEXT = None
 

@@ -20,6 +20,15 @@ as a larger one.  ``all_reduce``, ``all_reduce_many`` and
 call.  A group is named by wrapping it in a ``MeshGroup`` (the solver
 wraps its mesh's groups): a torch ``DeviceMesh`` may hand out one process
 group for two dims.
+
+A ``DryGroup`` is a group that does not communicate: the dry-run's world
+(``tensor_parallel.Layout.dry``), rank 0 of a mesh traced alone with no
+process group.  Every collective over it is recorded as over a live group
+of its size, runs the allocations and copies of the live path, and skips
+the exchange itself: an all-reduce returns its input, an all-gather the
+right shape (its blocks never filled), a reduce-scatter this rank's block
+of its input.  Only shapes and counts mean anything there.  No live path
+builds one.
 """
 from __future__ import annotations
 
@@ -42,10 +51,31 @@ class MeshGroup(NamedTuple):
     dim: str
 
 
+class DryGroup:
+    """``size`` ranks that never exchange a byte; this process is rank 0
+    of them (module docstring)."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"DryGroup(size={self.size})"
+
+
 def raw_group(group):
     """The torch.distributed process group of ``group`` (a MeshGroup or a
     group; None stays None)."""
     return group.group if isinstance(group, MeshGroup) else group
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (a group, a MeshGroup, a
+    DryGroup)."""
+    group = raw_group(group)
+    if isinstance(group, DryGroup):
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank(group)
 
 
 def group_size(group) -> int:
@@ -53,6 +83,8 @@ def group_size(group) -> int:
     group = raw_group(group)
     if group is None:
         return 1
+    if isinstance(group, DryGroup):
+        return group.size
     n = _SIZE.get(id(group))
     if n is None:
         import torch.distributed as dist
@@ -102,7 +134,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 
 def _all_reduce(x, group, op="sum"):
-    if group_size(group) == 1:
+    if group_size(group) == 1 or isinstance(raw_group(group), DryGroup):
         return x
     import torch.distributed as dist
     rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX

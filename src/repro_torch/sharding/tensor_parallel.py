@@ -62,6 +62,18 @@ class Layout:
 
     axis_names = ("data", "model")
 
+    @classmethod
+    def dry(cls, sizes) -> "Layout":
+        """Rank 0 of a (data, model) mesh of ``sizes`` with no process
+        group: its groups are ``collectives.DryGroup``s, which record every
+        collective and exchange nothing (the dry-run's world)."""
+        lay = cls.__new__(cls)
+        lay.mesh = None
+        (lay.D, lay.M), lay.d, lay.m = sizes, 0, 0
+        lay.data = MeshGroup(collectives.DryGroup(lay.D), "data")
+        lay.model = MeshGroup(collectives.DryGroup(lay.M), "model")
+        return lay
+
     @property
     def shape(self) -> dict:
         return {"data": self.D, "model": self.M}
@@ -110,10 +122,12 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = collectives.group_size(group)
     if n == 1:
         return x.view_as(x)
-    import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=collectives.raw_group(group))
+    raw = collectives.raw_group(group)
+    if not isinstance(raw, collectives.DryGroup):
+        import torch.distributed as dist
+        dist.all_gather(parts, x, group=raw)
     return torch.cat(parts, dim=dim)
 
 
@@ -124,10 +138,9 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = collectives.group_size(group)
     if n == 1:
         return x.view_as(x)
-    import torch.distributed as dist
     s = x.contiguous().clone()
     collectives._all_reduce(s, group)
-    r = dist.get_rank(collectives.raw_group(group))
+    r = collectives.group_rank(group)
     return s.chunk(n, dim=dim)[r].contiguous()
 
 
@@ -135,8 +148,7 @@ def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = collectives.group_size(group)
     if n == 1:
         return x.view_as(x)
-    import torch.distributed as dist
-    r = dist.get_rank(collectives.raw_group(group))
+    r = collectives.group_rank(group)
     return x.chunk(n, dim=dim)[r].contiguous()
 
 

@@ -315,11 +315,12 @@ def test_init_cache_blocks_are_the_dryruns(tag, shape_name):
 
 
 def test_dryrun_main_records(tmp_path, capsys):
-    """launch.dryrun.main over every architecture and dglmnet on the
-    meshes of 1 and 4 cards: no failure; parameter counts equal
-    roofline.model.count_params of the placed config; per-card bytes equal
-    the sum of the leaves' blocks, which on one card are the whole leaves
-    and on four sum, over the cards, to each leaf's bytes once a split."""
+    """launch.dryrun.main --no-compile over every architecture and
+    dglmnet on the meshes of 1 and 4 cards: no failure; parameter counts
+    equal roofline.model.count_params of the placed config; per-card
+    bytes equal the sum of the leaves' blocks, which on one card are the
+    whole leaves and on four sum, over the cards, to each leaf's bytes
+    once a split."""
     from repro_torch.configs import SHAPES as T_SHAPES
     from repro_torch.configs.base import tp_pad_config
     from repro_torch.configs.registry import ARCHS, get_arch
@@ -328,10 +329,10 @@ def test_dryrun_main_records(tmp_path, capsys):
     from repro_torch.models import common, lm
     from repro_torch.roofline import model as roof
 
-    assert dryrun.main(["--arch", "all", "--mesh", "both", "--out",
-                        str(tmp_path)]) == 0
-    assert dryrun.main(["--arch", "dglmnet", "--mesh", "both", "--out",
-                        str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "all", "--mesh", "both", "--no-compile",
+                        "--out", str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "dglmnet", "--mesh", "both",
+                        "--no-compile", "--out", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "failed=0" in out
     n_ok = 0
@@ -343,7 +344,7 @@ def test_dryrun_main_records(tmp_path, capsys):
                                   f"{arch}__{shape_name}.json").read_text())
                 if rec["status"] == "skipped":
                     continue
-                assert rec["status"] == "ok", rec
+                assert rec["status"] == "lowered", rec
                 cfg, _ = tp_pad_config(get_arch(arch), n)
                 shape = T_SHAPES[shape_name]
                 assert rec["param_count"] == roof.count_params(cfg)[0]
@@ -381,12 +382,65 @@ def test_dryrun_main_records(tmp_path, capsys):
         for shape_name in ("glm_web", "glm_tall", "glm_sparse"):
             rec = json.loads((tmp_path / mesh.tag /
                               f"dglmnet__{shape_name}.json").read_text())
-            assert rec["status"] == "ok"
+            assert rec["status"] == "lowered"
             assert rec["design"] == ("bricks" if shape_name == "glm_sparse"
                                      else "dense")
             b = rec["bytes_per_card"]
             assert b["total"] == sum(v for k, v in b.items() if k != "total")
     assert n_ok == 2 * 34           # 10 architectures x 4 shapes, 6 skipped
+
+
+# one architecture a family, each at a depth of two blocks of its kinds
+TRACED_CELLS = [("phi4-mini-3.8b", "train_4k", {"n_layers": 2}),
+                ("deepseek-v2-lite-16b", "prefill_32k", {"n_layers": 2}),
+                ("zamba2-1.2b", "decode_32k", {"n_layers": 7}),
+                ("xlstm-1.3b", "long_500k", {"n_layers": 16}),
+                ("llama-3.2-vision-11b", "decode_32k", {"n_layers": 10}),
+                ("whisper-tiny", "train_4k", {})]
+
+
+@pytest.mark.parametrize("arch,shape_name,overrides", TRACED_CELLS,
+                         ids=[c[0] for c in TRACED_CELLS])
+def test_traced_cell_records(arch, shape_name, overrides):
+    """A traced cell of each family on (1, 1), its depth cut to two blocks
+    of each kind: the reference's fields (``memory``, ``profile``,
+    ``roofline``, ``model_flops``, ``hlo_flops_total``,
+    ``useful_compute_ratio``), ``fits`` from the peak, the arguments the
+    placement's bytes, and the roofline terms from the profile."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES,
+                                         NVLINK_BW_PER_LINK, PEAK_FLOPS_FP32,
+                                         abstract_mesh)
+    rec = dryrun.lower_cell(arch, shape_name, abstract_mesh(1),
+                            overrides=overrides)
+    assert rec["status"] == "ok", rec.get("error")
+    mem, prof, roof = rec["memory"], rec["profile"], rec["roofline"]
+    assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
+                        "alias_bytes", "peak_bytes_est"}
+    assert mem["peak_bytes_est"] == mem["argument_bytes"] + \
+        mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+    assert rec["fits"] == (mem["peak_bytes_est"] <= HBM_BYTES)
+    # a decode's cache length is a host int: the placement counts its 4
+    # bytes, the trace does not
+    assert mem["argument_bytes"] == rec["bytes_per_card"]["total"] - (
+        4 if rec["kind"] == "decode" else 0)
+    assert mem["temp_bytes"] > 0
+    if rec["kind"] == "train":
+        # parameters and moments updated in place
+        assert mem["alias_bytes"] >= rec["bytes_per_card"]["params"] + \
+            rec["bytes_per_card"]["moments"] - 4
+    assert prof["flops"] > 0 and prof["bytes_accessed"] > 0
+    assert prof["collective_bytes"] == 0 and prof["collective_counts"] == {}
+    assert rec["hlo_flops_total"] == prof["flops"]
+    assert rec["useful_compute_ratio"] == pytest.approx(
+        rec["model_flops"] / prof["flops"])
+    assert roof["compute_s"] == pytest.approx(prof["flops"] /
+                                              PEAK_FLOPS_FP32)
+    assert roof["memory_s"] == pytest.approx(prof["bytes_accessed"] /
+                                             HBM_BW)
+    assert roof["collective_s"] == 0 * NVLINK_BW_PER_LINK
+    assert roof["bound_s"] == max(roof["compute_s"], roof["memory_s"])
+    assert "not_counted" not in rec
 
 
 if __name__ == "__main__":
