@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from a checkout (it imports ``src/repro_torch`` beside it) on a machine
-with a CUDA card and ``nvcc``.  It builds the nine hand-written CUDA
+with a CUDA card and ``nvcc``.  It builds the twelve hand-written CUDA
 kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
 PyTorch version on the card at its path's shapes and times both, then
 drives each path through the entry points a user calls and checks it:
@@ -128,7 +128,7 @@ drives each path through the entry points a user calls and checks it:
     rows): 2 processes over their chunk ranges equal 1 within 1e-6.
     Gloo stages the card's tensors through the host: its times are not
     NCCL's.
-  * analysis (its line after dist's; ``repro_torch.analysis``): the lint
+  * analysis (its line after lm_families'; ``repro_torch.analysis``): the lint
     gate of this checkout (0 new findings, 0 stale baseline entries); on
     the sparse session's bricks and the dense session's design, fused and
     unfused Jacobi supersteps built on them: 2 and 5 logical units (the
@@ -136,7 +136,7 @@ drives each path through the entry points a user calls and checks it:
     ``ops.CUDA_FUNCTIONS`` one profiler record a logical launch and the
     device's kernel records the host's launch calls; a warm 3-lambda path
     of the sparse session with 0 superstep builds, nvcc builds and library
-    loads; after the baselines, every kernel of the nine sources within
+    loads; after lm_families, every kernel of the twelve sources within
     the card's shared memory and register limits, as ptxas reported it,
     the spilling ones named; the collective sequence of the (1, 2) gloo
     world's sparse session, the same in two supersteps and on both ranks.
@@ -170,10 +170,11 @@ drives each path through the entry points a user calls and checks it:
     xlstm-1.3b (ssm), llama-3.2-vision-11b (vlm, 1,601 image tokens) and
     whisper-tiny (audio, 1,500 frames).  ``serve.generate`` at batch 2, a
     1,408-token prompt (zamba2 and xlstm 704, whisper 320) and 128 greedy
-    tokens, timed (the plain scans' seconds inside the hybrid and ssm
-    prefills); at capacity for every MoE token, decode against one full
-    forward at full depth (reported beside the forward's floor) and on a
-    cut of one block of each kind, held to the reference's _DECODE_TOL
+    tokens, timed (the scan kernels' seconds inside the hybrid and ssm
+    prefills, beside the plain loops' earlier figures); at capacity for
+    every MoE token, decode against one full forward at full depth
+    (reported beside the forward's floor) and on a cut of one block of
+    each kind, held to the reference's _DECODE_TOL
     (1e-3; zamba2 5e-3, xlstm 2e-2) or twice the cut's own forward floor,
     the larger, with greedy tokens equal but for ties and a decode one
     position off past the bar (an MoE cut past the bar at one position
@@ -184,11 +185,25 @@ drives each path through the entry points a user calls and checks it:
     its inputs), with a state one token short as the fault control.  On
     deepseek's features, the head probe by the fused Jacobi superstep
     (1,024 sequences of 32 tokens, 800 train rows, tile 256; K5 and K6
-    launched) held against the same fit on the CPU.
+    launched) held against the same fit on the CPU.  zamba2's and
+    xlstm's serve checks run their recurrences through the scan kernels
+    (ssm_scan, mlstm_scan, slstm_scan): each launched exactly once a
+    recurrent layer a call (the prefill, each decode step, the forward
+    and row 0's), no ``/plain`` call.  Then the scans part: on each of
+    the two models, layer 0's recurrent mixers on the normed embeddings
+    of the prompts (the sLSTM's a tenth of them), each scan kernel
+    against its plain version on the card at those full-width arguments
+    (zamba2 B 2, S 704, H 64, hd 64, ds 64; xlstm B 2, S 704, H 4, hd
+    512) within 1e-5 of the largest |value| of each output and final
+    state, the non-finite positions equal, timed beside its bound and
+    beside the same kernel on one (batch row, head): its dependency
+    chain alone on the card.
   * train (``train_phase``, which ``train_phase(np, torch, dev,
-    card)`` also runs alone): LM training, no hand-written kernel on its
-    path (every launch count stays 0).  phi4-mini-3.8b at full width, 4
-    of its 32 layers (1,631,874,048 parameters; 32 layers' parameters,
+    card)`` also runs alone): LM training, no GLM kernel on its path
+    (their launch counts stay 0); the recurrences' scans run their plain
+    loops under a gradient (no backward kernel yet): the scan kernels at
+    0, every call on the card counted ``"<scan>/plain"``.
+    phi4-mini-3.8b at full width, 4 of its 32 layers (1,631,874,048 parameters; 32 layers' parameters,
     gradients and AdamW moments take 71.2 GB of float32, and 16 layers'
     save, 57 s, then 8 layers' beside train_dist's six families, kept the
     whole run past its 900 s), float32 with remat
@@ -215,7 +230,9 @@ drives each path through the entry points a user calls and checks it:
     the largest entry, updated parameters 1e-7 where AdamW's step is not
     near sign(g).
   * train_dist (after train; ``train_dist_phase``): sharded LM training
-    and the dry-run, no hand-written kernel on its path.  phi4-mini-3.8b
+    and the dry-run, no GLM kernel on its path, the scans' training calls
+    on the plain loops (counted) and their serving calls on the kernels
+    (on (1, 2) the sLSTM's once a time step).  phi4-mini-3.8b
     at full width, 2 of 32 layers (1,430,535,168 parameters), float32 with
     remat, batch 2 x 512, 3 AdamW steps (lr 1e-3) from the tests' parity
     weights (the trainer's draw rescaled to N(0, 0.02^2)): the
@@ -259,7 +276,8 @@ drives each path through the entry points a user calls and checks it:
     process over every architecture and
     shape and dglmnet on the meshes of 1 and 4 cards: no failed cell, the
     largest per-card bytes.
-No built-in family takes a plain route in any phase.
+No built-in family takes a plain route in any phase; the only plain
+route on the card is the scans' under a gradient (training).
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -3177,7 +3195,7 @@ def analysis_steady_state(solver, lmax) -> dict:
 
 
 def analysis_kernel_smem(dev) -> dict:
-    """Every kernel of the nine sources within the card's shared-memory
+    """Every kernel of the twelve sources within the card's shared-memory
     and register limits, each source launched at least once (this run's
     largest requests), registers and static shared memory as ptxas
     reported them; the kernels that spill, named."""
@@ -4292,46 +4310,102 @@ class RouterLog:
         return layers
 
 
-class ScanTimer:
-    """Device seconds of the plain recurrences (``ssm._ssm_scan``,
-    ``xlstm._mlstm_core``, ``xlstm._slstm_scan``) while installed: CUDA
-    events around each call, by the number of time steps it ran, read
-    once at the end."""
+# the recurrences' scans (ops entries), the steps of a call from its args
+SCAN_NAMES = ("ssm_scan", "mlstm_scan", "slstm_scan")
+# the recurrences' plain loops at the same cells, before the scan kernels
+# (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): prefill seconds, decode ms
+# a step
+PLAIN_LOOP_RECURRENT = {"zamba2-1.2b": {"prefill_s": 5.96},
+                  "xlstm-1.3b": {"prefill_s": 15.15},
+                  "decode_ms_per_step_range": [46.5, 77.3]}
 
-    NAMES = (("ssm", "_ssm_scan"), ("xlstm", "_mlstm_core"),
-             ("xlstm", "_slstm_scan"))
 
-    def __init__(self, torch, ssm, xlstm):
-        self.torch, self.mods = torch, {"ssm": ssm, "xlstm": xlstm}
-        self.events, self.saved = [], {}
+def scan_steps(name: str, args) -> int:
+    """The time steps of one call of ``ops.<name>``."""
+    return args[3] if name == "slstm_scan" else args[0].shape[1]
+
+
+class ScanWatch:
+    """The recurrences' scan entries of ``kernels.ops`` wrapped while
+    installed: the calls on the card by name (``card_calls``, counted
+    here, apart from ops' own launch counts), with ``capture`` the
+    arguments of each entry's first call (``args``: (positional,
+    keyword)), and with ``timed`` CUDA events around each call over more
+    than one time step, by its steps, read once at the end
+    (``seconds``).  The models call
+    ``ops.<name>`` by attribute, so they go through the wrapper."""
+
+    def __init__(self, torch, ops, timed: bool = False,
+                 capture: bool = False):
+        self.torch, self.ops, self.timed = torch, ops, timed
+        self.capture = capture
+        self.events, self.saved, self.args = [], {}, {}
+        self.card_calls = dict.fromkeys(SCAN_NAMES, 0)
 
     def __enter__(self):
         torch = self.torch
-        for mod_name, name in self.NAMES:
-            mod = self.mods[mod_name]
-            inner = self.saved[(mod_name, name)] = getattr(mod, name)
+        for name in SCAN_NAMES:
+            inner = self.saved[name] = getattr(self.ops, name)
 
             def wrapper(*a, _inner=inner, _name=name, **k):
+                if self.capture:
+                    self.args.setdefault(_name, (a, dict(k)))
+                if a[0].is_cuda:
+                    self.card_calls[_name] += 1
+                # a decode step (one time step) is counted, not timed
+                if not self.timed or scan_steps(_name, a) == 1:
+                    return _inner(*a, **k)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 out = _inner(*a, **k)
                 end.record()
-                steps = a[3] if _name == "_slstm_scan" else a[0].shape[1]
-                self.events.append((steps, start, end))
+                self.events.append((scan_steps(_name, a), start, end))
                 return out
-            setattr(mod, name, wrapper)
+            setattr(self.ops, name, wrapper)
         return self
 
     def __exit__(self, *exc):
-        for (mod_name, name), inner in self.saved.items():
-            setattr(self.mods[mod_name], name, inner)
+        for name, inner in self.saved.items():
+            setattr(self.ops, name, inner)
 
     def seconds(self, steps: int) -> tuple:
         """(device seconds, calls) of the scans over ``steps`` steps."""
         self.torch.cuda.synchronize()
         ev = [(a, b) for n, a, b in self.events if n == steps]
         return sum(a.elapsed_time(b) for a, b in ev) / 1e3, len(ev)
+
+
+def scan_gates(tag: str, counts: dict, card_calls: dict, training: bool,
+               want=None) -> dict:
+    """The scans' launch gates of one run, from ops' counts and the card
+    calls that ``ScanWatch`` saw: training, every card call ran the plain
+    loop (``"<name>/plain"`` equal to the calls, no kernel launched);
+    serving, every card call launched its kernel (no ``/plain``).  With
+    ``want`` ({name: calls}), the calls must be those too.  The GLM
+    kernels launch nowhere on these paths."""
+    glm = {k: v for k, v in counts.items()
+           if v and k.split("/")[0] not in SCAN_NAMES}
+    check(not glm, f"{tag}: GLM kernels launched {glm}")
+    rec = {}
+    for name in SCAN_NAMES:
+        calls, k, plain = (card_calls[name], counts.get(name, 0),
+                           counts.get(f"{name}/plain", 0))
+        rec[name] = {"card_calls": calls, "launches": k, "plain": plain}
+        if training:
+            check(k == 0 and plain == calls,
+                  f"{tag}: {name} launched {k} times in training, ran "
+                  f"the plain loop {plain} times for {calls} calls")
+        else:
+            check(plain == 0 and k == calls,
+                  f"{tag}: {name} launched {k} times for {calls} calls, "
+                  f"the plain loop {plain} times")
+        if want is not None:
+            rec[name]["want"] = want.get(name, 0)
+            check(calls == want.get(name, 0),
+                  f"{tag}: {name} called {calls} times on the card, the "
+                  f"recurrent layers need {want.get(name, 0)}")
+    return rec
 
 
 def xlstm_block_checks(torch, xlstm, common, model, prompts, gen: int,
@@ -4474,7 +4548,7 @@ def family_check(torch, serve, lm, moe, model, cut_spec, prompts, extra,
     return out
 
 
-def lm_families_phase(np, torch, dev, card) -> dict:
+def lm_families_phase(np, torch, dev, card, report, parity) -> tuple:
     """The LM template's moe (deepseek-v2-lite-16b at full width, 9 of its
     27 layers, mixtral-8x7b at 8 of its 32 layers), hybrid (zamba2-1.2b), ssm
     (xlstm-1.3b), vlm (llama-3.2-vision-11b) and audio (whisper-tiny)
@@ -4485,34 +4559,261 @@ def lm_families_phase(np, torch, dev, card) -> dict:
     on a cut of one block of each kind (held, with a fault control), and
     freed.  While deepseek is on the card, the head probe of
     ``examples/lm_head_probe.py`` on its pooled features through the
-    fused Jacobi fit (K5, K6), held against the CPU's.  Returns the
-    probe's launch counts."""
+    fused Jacobi fit (K5, K6), held against the CPU's.  The hybrid and
+    ssm models' serve checks go through the scan kernels (each launched
+    once a recurrent layer a call, no plain route), and on each the scans
+    part holds its kernels against their plain versions at full width
+    (``lmf_scans``).  Returns (the probe's launch counts, the scans'
+    launches of the serve checks)."""
     import gc
 
     t_phase = time.perf_counter()
-    probe_counts, names = None, []
+    probe_counts, names, scan_counts = None, [], {}
     for spec in LMF_MODELS:
         gc.collect()
         torch.cuda.empty_cache()
-        rec, counts = lmf_model(np, torch, dev, card, *spec)
+        rec, counts = lmf_model(np, torch, dev, card, report, parity,
+                                scan_counts, *spec)
         emit(rec)
         names.append(spec[0])
         probe_counts = counts or probe_counts
     gc.collect()
     torch.cuda.empty_cache()
+    check(sorted(scan_counts) == sorted(SCAN_NAMES),
+          f"lm_families: scan kernels launched {scan_counts}")
     emit({"phase": "lm_families", "card": card, "models": names,
+          "scan_launches": scan_counts,
           "phase_s": time.perf_counter() - t_phase})
-    return probe_counts
+    return probe_counts, scan_counts
 
 
-def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
-              keep, replace) -> tuple:
+# the scans part: each recurrence's kernel against its plain version on
+# one layer's call at full width, within 1e-5 of the largest |value| of
+# each output and final state (float32, the sums in another order) where
+# both are finite, the non-finite positions equal; or, where the plain
+# version's own float32 result is further than that from the same
+# formulas in float64 on the same inputs (its floor), within twice that
+# floor, with the kernel no further from float64 than the plain version
+# (or 1e-5).  The mLSTM's readout at xlstm's layer 0 has such a floor:
+# h up to 3.9e4 from q.C / max(|q.n|, e^-m), the plain version 3.2e-5 of
+# the largest off float64 on an H100 (700 W), its state bit for bit
+SCAN_TOL = 1e-5
+SCAN_FLOOR_FACTOR = 2.0
+SCAN_REPS = 5
+# the reference's scans each kernel replaces (no Pallas kernel)
+SCAN_SRC = {"ssm_scan": "src/repro/models/ssm.py:48",
+            "mlstm_scan": "src/repro/models/xlstm.py:69",
+            "slstm_scan": "src/repro/models/xlstm.py:242"}
+
+
+def scan_cost(name: str, a) -> tuple:
+    """(bytes, flops) one call of the scan ``name`` on args ``a`` needs:
+    every input read once and every output written once; the flops of
+    its formulas (a product, a sum, an exp or a division one each)."""
+    if name == "ssm_scan":
+        xh, Bm, Cm, dt, A, D, s0 = a[:7]
+        B, S, H, hd = xh.shape
+        ds = Bm.shape[-1]
+        n_in = sum(t.numel() for t in (xh, Bm, Cm, dt, A, D, s0))
+        n_out = xh.numel() + s0.numel()
+        # per (b, h, t): the decay (2), x dt (hd), (x dt) B, h decay, the
+        # sum, y's product and sum (5 hd ds), D x and its sum (2 hd)
+        flops = B * H * S * (2 + 3 * hd + 5 * hd * ds)
+    elif name == "mlstm_scan":
+        q, k, v, i_pre, f_pre, (C, n, m) = a[:6]
+        B, S, H, hd_k = q.shape
+        hd_v = v.shape[-1]
+        n_in = sum(t.numel() for t in (q, k, v, i_pre, f_pre, C, n, m))
+        n_out = B * S * H * hd_v + C.numel() + n.numel() + m.numel()
+        # per (b, h, t): C's update (4 hd_k hd_v) and readout (2), n's
+        # update (4 hd_k) and q.n (2), the gates (~10), h (hd_v)
+        flops = B * H * S * (6 * hd_k * hd_v + 6 * hd_k + hd_v + 10)
+    else:
+        r, (c, n, h, m), gates, steps = a[:4]
+        B, _, _, H, hd_v = gates.shape
+        hd_k = r.shape[2]
+        n_in = r.numel() + B * steps * 4 * H * hd_v + sum(
+            t.numel() for t in (c, n, h, m))
+        n_out = B * steps * H * hd_v + 3 * B * H * hd_v + m.numel()
+        # per (b, h, t): h r (8 hd_k hd_v), the gates' sums (4 hd_v), the
+        # means (2 hd_v), the cell's elementwise work (~14 hd_v)
+        flops = B * H * steps * (8 * hd_k * hd_v + 20 * hd_v)
+    return 4.0 * (n_in + n_out), float(flops)
+
+
+def scan_one_chain(name: str, a) -> tuple:
+    """The args of the same call cut to one (batch row, head): one chain
+    of the scan's steps, alone on the card."""
+    def c(t):
+        return t.contiguous()
+    if name == "ssm_scan":
+        xh, Bm, Cm, dt, A, D, s0 = a[:7]
+        return (c(xh[:1, :, :1]), c(Bm[:1]), c(Cm[:1]), c(dt[:1, :, :1]),
+                c(A[:1]), c(D[:1]), c(s0[:1, :1]))
+    if name == "mlstm_scan":
+        q, k, v, i_pre, f_pre, st = a[:6]
+        return (c(q[:1, :, :1]), c(k[:1, :, :1]), c(v[:1, :, :1]),
+                c(i_pre[:1, :, :1]), c(f_pre[:1, :, :1]),
+                tuple(c(t[:1, :1]) for t in st))
+    r, st, gates, steps = a[:4]
+    return (c(r[:1]), tuple(c(t[:1, :1]) for t in st),
+            c(gates[:1, :, :, :1]), steps)
+
+
+def scan_outputs(out) -> list:
+    """An ops scan's result flattened: the outputs, then the final
+    state's leaves."""
+    y, st = out
+    return [y, *(st if isinstance(st, tuple) else (st,))]
+
+
+def scan_err(torch, got, want) -> tuple:
+    """(the largest |difference| over the positions where both are
+    finite, the same over each tensor's largest finite |value|, the
+    largest of those relative errors, whether the non-finite positions
+    are equal) of two flattened results."""
+    worst_abs, worst_rel, same = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        fin_g, fin_w = torch.isfinite(g), torch.isfinite(w)
+        same = same and bool(torch.equal(fin_g, fin_w))
+        both = fin_g & fin_w
+        if not bool(both.any()):
+            continue
+        d = float((g - w).abs()[both].max())
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / max(float(w.abs()[both].max()),
+                                           1e-30))
+    return worst_abs, worst_rel, same
+
+
+def scan_float64(torch, x):
+    """``x`` (a tensor, a tuple of them, or anything else) in float64."""
+    if isinstance(x, tuple):
+        return tuple(scan_float64(torch, t) for t in x)
+    return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+
+def scan_off_float64(torch, got, want64) -> float:
+    """The largest |got - want64| over each tensor's largest |want64|,
+    where both are finite (float64 overflows nowhere float32 does)."""
+    worst = 0.0
+    for g, w in zip(got, want64):
+        g = g.double()
+        both = torch.isfinite(g) & torch.isfinite(w)
+        if bool(both.any()):
+            worst = max(worst, float((g - w).abs()[both].max()
+                                     / w.abs()[both].max().clamp_min(1e-300)))
+    return worst
+
+
+def lmf_scans(np, torch, model, cfg, prompts, report, parity) -> dict:
+    """The scans part, on the model on the card: layer 0's recurrent
+    mixers on the model's normed embeddings of the prompts (the sLSTM's
+    scaled by ``LMF_SLSTM_INPUT_SCALE``: its own inputs overflow it, as in
+    the reference), their scans' arguments captured; each kernel (its
+    wrapper's ``launch``) against its plain version on the card at those
+    arguments, timed beside its bound and beside the same kernel on one
+    (batch row, head), its dependency chain alone on the card."""
+    from repro_torch.kernels import mlstm_scan as mlstm_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm_scan as slstm_k
+    from repro_torch.kernels import ssm_scan as ssm_k
+    from repro_torch.models import common, ssm, xlstm
+
+    emb = torch.nn.functional.embedding(prompts, model.embed)
+    if cfg.family == "hybrid":
+        lp = model.layers[0]
+        blocks = (("ssm_scan", ssm.mamba_full, lp, 1.0),)
+    else:
+        blocks = (("mlstm_scan", xlstm.mlstm_apply, model.layers[0], 1.0),
+                  ("slstm_scan", xlstm.slstm_apply, model.slstm[0],
+                   LMF_SLSTM_INPUT_SCALE))
+    kern = {"ssm_scan": ssm_k.launch, "mlstm_scan": mlstm_k.launch,
+            "slstm_scan": slstm_k.launch}
+    plain = {"ssm_scan": ref.ssm_scan, "mlstm_scan": ref.mlstm_scan,
+             "slstm_scan": ref.slstm_scan}
+    out = {}
+    for name, apply_fn, lp, scale in blocks:
+        x = common.rms_norm(emb, lp["ln"], cfg.norm_eps) * scale
+        with torch.no_grad(), ScanWatch(torch, ops, capture=True) as cap:
+            apply_fn(lp["mixer"], x, cfg)
+        a, kw = cap.args[name]
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        del x
+        got = scan_outputs(kern[name](*a, **kw))
+        torch.cuda.synchronize()
+        plain_ms, want = plain_call(torch, lambda: plain[name](*a, **kw))
+        want = scan_outputs(want)
+        err, rel, same = scan_err(torch, got, want)
+        # the plain version's own float32 floor, against its formulas in
+        # float64 on the same inputs
+        want64 = scan_outputs(plain[name](*scan_float64(torch, a), **{
+            k: scan_float64(torch, v) for k, v in kw.items()}))
+        floor64 = scan_off_float64(torch, want, want64)
+        kern64 = scan_off_float64(torch, got, want64)
+        del want64
+        bar = max(SCAN_TOL, SCAN_FLOOR_FACTOR * floor64)
+        parity[name] = rel
+        nonfinite = sum(int((~torch.isfinite(w)).sum()) for w in want)
+        check(same and rel <= bar and kern64 <= max(SCAN_TOL, floor64),
+              f"scans: {name}: kernel {rel} of the largest |value| off its "
+              f"plain version (bar {bar}), {kern64} off float64 (the plain "
+              f"version {floor64}), non-finite positions equal: {same}")
+        ms = time_ms(torch, lambda: kern[name](*a, **kw), SCAN_REPS)
+        one = scan_one_chain(name, a)
+        floor = time_ms(torch, lambda: kern[name](*one, **kw), SCAN_REPS)
+        by, fl = scan_cost(name, a)
+        b_ms, b_by = bound_ms(by, fl)
+        steps = scan_steps(name, a)
+        shapes = {k: list(t.shape) for k, t in zip(
+            ("x", "B", "C", "dt") if name == "ssm_scan" else
+            ("q", "k", "v", "i") if name == "mlstm_scan" else
+            ("r", "state", "gates"), a) if torch.is_tensor(t)}
+        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=b_ms / ms, library_ms=None,
+                   max_abs_err=err, max_rel_err=rel, bar=bar,
+                   plain_off_float64=floor64, kernel_off_float64=kern64,
+                   nonfinite_same_positions=same, nonfinite_plain=nonfinite,
+                   bytes=by, flops=fl,
+                   bytes_bound_ms=by / H100_BYTES_PER_S * 1e3,
+                   flops_bound_ms=fl / H100_FP32_FLOPS * 1e3,
+                   dependency_floor_ms=floor,
+                   share_of_dependency_floor=floor / ms,
+                   dependency_steps=steps, step_us=ms * 1e3 / steps,
+                   floor_step_us=floor * 1e3 / steps,
+                   plain_over_kernel=plain_ms / ms, shapes=shapes,
+                   input_scale=scale)
+        if name == "slstm_scan":
+            rec["cluster"] = dict(zip(("columns", "blocks"),
+                                      slstm_k.plan(a[2].shape[-1])))
+        report[name] = out[name] = rec
+        del got, want, a, kw, one, cap
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_layers(cfg) -> dict:
+    """{scan: the layers of ``cfg`` that call it once a forward}."""
+    if cfg.family == "hybrid":
+        return {"ssm_scan": cfg.n_layers}
+    if cfg.family == "ssm":
+        groups = cfg.n_layers // cfg.slstm_period
+        return {"mlstm_scan": groups * (cfg.slstm_period - 1),
+                "slstm_scan": groups}
+    return {}
+
+
+def lmf_model(np, torch, dev, card, report, parity, scan_counts, name,
+              keep_layers, n_ref, prompt_len, keep, replace) -> tuple:
     """One model of the ``lm_families`` phase: (its record, the probe's
-    launch counts or None).  Everything it put on the card is freed when
-    it returns."""
+    launch counts or None).  The scans' launches of its serve check go
+    into ``scan_counts``, the scans part's records into ``report`` and
+    ``parity``.  Everything it put on the card is freed when it
+    returns."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import common, lm, moe, ssm, xlstm
+    from repro_torch.models import common, lm, moe, xlstm
 
     t_model = time.perf_counter()
     free_b, total_b = torch.cuda.mem_get_info()
@@ -4567,16 +4868,18 @@ def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             capacity_factor=moe.CAPACITY_FACTOR)
     # ---- the check at full depth, at capacity for every token (for the
-    # other families its generate is the serve record too, with the plain
-    # scans' seconds inside its prefill)
+    # other families its generate is the serve record too, with the scan
+    # kernels' seconds inside its prefill)
     old_cap = moe.CAPACITY_FACTOR
     moe.CAPACITY_FACTOR = LMF_NO_DROP
     try:
         torch.cuda.reset_peak_memory_stats()
-        with ScanTimer(torch, ssm, xlstm) as scans:
+        ops.reset_launch_counts()
+        with ScanWatch(torch, ops, timed=True) as scans:
             served, full = decode_vs_forward(
                 torch, serve, model, prompts, LMF_GEN, extra=extra,
                 whole=True)
+        launched = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         if cfg.family != "moe":
             rec["serve"] = {k: served[k] for k in keys}
@@ -4587,7 +4890,18 @@ def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
             rec["serve"]["prefill_scans"] = {
                 "scan_s": scan_s, "scans": n_scans,
                 "share_of_prefill": scan_s / served["prefill_s"],
-                "steps_a_scan": prompt_len}
+                "steps_a_scan": prompt_len, "route": "kernels"}
+            rec["serve"]["plain_loops_before"] = {
+                "prefill_s": PLAIN_LOOP_RECURRENT[name]["prefill_s"],
+                "decode_ms_per_step_range":
+                    PLAIN_LOOP_RECURRENT["decode_ms_per_step_range"]}
+            # a prefill, the decode steps, the forward and row 0's
+            calls = 1 + served["decode_steps"] + 2
+            rec["scan_launches"] = scan_gates(
+                f"lm_families: {name}", launched, scans.card_calls, False,
+                {k: n * calls for k, n in recurrent_layers(cfg).items()})
+            scan_counts.update({k: launched[k] for k in SCAN_NAMES
+                                if launched[k]})
         del scans
         check(full["nonfinite_same_positions"],
               f"lm_families: {name}: decode and forward are not finite at "
@@ -4604,6 +4918,11 @@ def lmf_model(np, torch, dev, card, name, keep_layers, n_ref, prompt_len,
         if cfg.family == "ssm":
             rec["blocks"] = xlstm_block_checks(torch, xlstm, common, model,
                                                prompts, LMF_GEN, tol)
+        if cfg.family in ("hybrid", "ssm"):
+            rec["scans"] = lmf_scans(np, torch, model, cfg, prompts, report,
+                                     parity)
+            emit({"phase": "scans", "arch": name, "card": card,
+                  "tolerance": SCAN_TOL, **rec["scans"]})
     finally:
         moe.CAPACITY_FACTOR = old_cap
     counts = None
@@ -5083,8 +5402,10 @@ def train_phase(np, torch, dev, card) -> dict:
     """LM training on the card (after every phase but train_dist, each of
     which freed its memory): the full-width trainer, the flash backward,
     learning and kill-and-restart, every architecture's step against the
-    CPU.  No
-    hand-written kernel lies on this path: the launch counts stay 0."""
+    CPU.  No GLM kernel lies on this path (its launch counts stay 0), and
+    the recurrences' scans run their plain loops (no backward kernel
+    yet): the scan kernels stay at 0, their ``/plain`` counts equal to
+    the calls on the card."""
     import gc
 
     from repro_torch.kernels import ops
@@ -5094,22 +5415,25 @@ def train_phase(np, torch, dev, card) -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     recs = {}
-    for part, fn in (("train_full_width", train_full_width),
-                     ("train_flash", train_flash),
-                     ("train_learning", train_learning),
-                     ("train_card_vs_cpu", train_card_vs_cpu)):
-        t0 = time.perf_counter()
-        rec = fn(np, torch, dev, card)
-        rec["part_s"] = time.perf_counter() - t0
-        emit({"phase": part, **rec})
-        recs[part] = rec
-        gc.collect()
-        torch.cuda.empty_cache()
-    launched = {k: v for k, v in ops.launch_counts().items() if v}
-    check(not launched, f"train: kernels launched on the training path "
-          f"{launched}")
-    emit({"phase": "train", "card": card, "kernel_launches": 0,
-          "phase_s": time.perf_counter() - t_phase})
+    with ScanWatch(torch, ops) as watch:
+        for part, fn in (("train_full_width", train_full_width),
+                         ("train_flash", train_flash),
+                         ("train_learning", train_learning),
+                         ("train_card_vs_cpu", train_card_vs_cpu)):
+            t0 = time.perf_counter()
+            rec = fn(np, torch, dev, card)
+            rec["part_s"] = time.perf_counter() - t0
+            emit({"phase": part, **rec})
+            recs[part] = rec
+            gc.collect()
+            torch.cuda.empty_cache()
+    # the recurrent smoke models' steps (train_card_vs_cpu) call the scans
+    # with gradients on: the plain loop, counted, every call
+    scans = scan_gates("train", ops.launch_counts(), watch.card_calls, True)
+    check(all(v["card_calls"] for v in scans.values()),
+          f"train: a scan was never called on the card {scans}")
+    emit({"phase": "train", "card": card, "glm_kernel_launches": 0,
+          "scans": scans, "phase_s": time.perf_counter() - t_phase})
     return recs
 
 
@@ -5349,8 +5673,10 @@ def serve_dist_rank(torch, spec: dict, mesh) -> dict:
         cfg, batch, shape = serve_dist_case(key)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        r = serve_dist_run(torch, cfg, tp.Layout(meshes[shape]), dev, batch,
-                           shape)
+        with ScanWatch(torch, ops) as watch:
+            r = serve_dist_run(torch, cfg, tp.Layout(meshes[shape]), dev,
+                               batch, shape)
+        r["scan_calls"] = watch.card_calls
         want = torch.load(ref / f"{key}.pt")
         r["logits_rel"] = logits_rel(torch, r.pop("logits").cpu(),
                                      want["logits"])
@@ -5389,8 +5715,10 @@ def train_dist_worker(spec_path: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    r = train_dist_run(torch, train_dist_trainer(
-        cfg, mesh, None, str(out / "ckpt")), capture=True)
+    with ScanWatch(torch, ops) as watch:
+        r = train_dist_run(torch, train_dist_trainer(
+            cfg, mesh, None, str(out / "ckpt")), capture=True)
+    r["scan_calls"] = watch.card_calls
     r["serve"] = serve
     blocks = out / f"rank{ctx.process_id}"
     blocks.mkdir()
@@ -5407,9 +5735,11 @@ def train_dist_worker(spec_path: str) -> None:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         fcfg = train_dist_family_cfg(arch)
-        f = train_dist_family_run(
-            torch, fcfg, mesh, None, str(out / f"ckpt_{arch}"),
-            out / "kept" / arch)
+        with ScanWatch(torch, ops) as watch:
+            f = train_dist_family_run(
+                torch, fcfg, mesh, None, str(out / f"ckpt_{arch}"),
+                out / "kept" / arch)
+        f["scan_calls"] = watch.card_calls
         f["part_s"] = time.perf_counter() - t0
         f["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
         r["families"][arch] = f
@@ -5740,7 +6070,9 @@ def serve_dist_gates(single: dict, ranks: list) -> dict:
     largest |logit| (or ``SERVE_DIST_CONTROL_X`` times the single run's
     float32 control where that is the larger) and its tokens, the same
     collectives on both ranks (some), each rank's bytes after placement
-    the dry-run's, no kernel launched."""
+    the dry-run's, no GLM kernel launched, and the recurrences' scan
+    kernels launched once a call on the card (``serve_dist_scan_calls``),
+    no plain route."""
     from repro_torch.configs.registry import get_arch
     out = {}
     for key, one in single.items():
@@ -5778,9 +6110,33 @@ def serve_dist_gates(single: dict, ranks: list) -> dict:
         check(all(f["placed_bytes"] == f["dryrun_bytes"] for f in fr),
               f"serve_dist {key}: bytes after placement "
               f"{frec['placed_bytes']} against {frec['dryrun_bytes']}")
-        check(not any(frec["launched"]),
-              f"serve_dist {key}: kernels launched {frec['launched']}")
+        frec["scans"] = [scan_gates(
+            f"serve_dist {key} rank {i}", f["launched"], f["scan_calls"],
+            False, serve_dist_scan_calls(cfg, shape, 1))
+            for i, f in enumerate(fr)]
+        emit({"phase": "serve_dist_scans", "key": key,
+              "scans": frec["scans"]})
     return out
+
+
+def serve_dist_scan_calls(cfg, shape, runs: int) -> dict:
+    """{scan: its calls on the card} of ``runs`` ``serve_dist_run``
+    requests of ``cfg`` on a mesh of ``shape`` (None: one card): each
+    recurrent layer once a call, the prefill's and each decode step's;
+    the mLSTM's prefill not where its chunkwise form runs; on a model
+    axis past 1 the sLSTM's once a time step (its h gathered over ranks
+    every step)."""
+    seq = TRAIN_DIST_SEQ if cfg.name == TRAIN_ARCH \
+        else TRAIN_DIST_FAMILIES[cfg.name][1]
+    decode = SERVE_DIST_GEN - 1
+    chunk = getattr(cfg, "ssm_chunk", 0)
+    prefill = {"ssm_scan": 1,
+               "mlstm_scan": 0 if chunk and seq % chunk == 0
+               and seq > chunk else 1,
+               "slstm_scan": seq if shape is not None and shape[1] > 1
+               else 1}
+    return {k: n * (prefill[k] + decode) * runs
+            for k, n in recurrent_layers(cfg).items()}
 
 
 def train_dist_phase(np, torch, dev, card) -> dict:
@@ -5804,7 +6160,9 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     every time; before the training, serving in the same world
     (``serve_dist_rank``, ``serve_dist_gates``) against single-card runs
     made before it; (c) ``launch.dryrun`` over every cell: no failure.
-    No kernel launched."""
+    No GLM kernel launched; the scans' training calls ran their plain
+    loops, counted, and their serving calls launched the kernels
+    (``scan_gates``)."""
     import gc
     import math
     import shutil
@@ -5884,16 +6242,24 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     out = tdir / "b"
     out.mkdir()
     fam_single = {}
+    ops.reset_launch_counts()
     for arch in TRAIN_DIST_FAMILIES:
         t0 = time.perf_counter()
         fcfg = train_dist_family_cfg(arch)
-        r = train_dist_family_run(
-            torch, fcfg, None, dev, str(tdir / f"single_{arch}"),
-            out / "kept" / arch)
+        with ScanWatch(torch, ops) as watch:
+            r = train_dist_family_run(
+                torch, fcfg, None, dev, str(tdir / f"single_{arch}"),
+                out / "kept" / arch)
+        r["scans"] = scan_gates(f"train_dist single {arch}",
+                                ops.launch_counts(), watch.card_calls, True)
+        check(bool(recurrent_layers(fcfg)) == any(
+            v["card_calls"] for v in r["scans"].values()),
+              f"train_dist single {arch}: scans called {r['scans']}")
+        ops.reset_launch_counts()
         fam_single[arch] = {
             k: r[k] for k in ("metrics", "step_s", "placed_bytes",
                               "resident_bytes", "kept", "entries",
-                              "router_margin")}
+                              "router_margin", "scans")}
         fam_single[arch].update(
             params=common.param_count(lm.param_defs(fcfg)),
             peak_gb=r["peak_bytes"] / 1e9,
@@ -5911,8 +6277,15 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     for key in serve_dist_archs():
         t0 = time.perf_counter()
         scfg, batch, _ = serve_dist_case(key)
-        r = serve_dist_run(torch, scfg, None, dev, batch, (1, 1),
-                           control=True)
+        with ScanWatch(torch, ops) as watch:
+            r = serve_dist_run(torch, scfg, None, dev, batch, (1, 1),
+                               control=True)
+        # serving: every scan call on the card launched its kernel (the
+        # request and its float32 control: twice a layer a call)
+        r["scans"] = scan_gates(f"serve_dist single {key}",
+                                ops.launch_counts(), watch.card_calls, False,
+                                serve_dist_scan_calls(scfg, None, 2))
+        ops.reset_launch_counts()
         torch.save({"logits": r.pop("logits").cpu(),
                     "tokens": r.pop("tokens")}, serve_ref / f"{key}.pt")
         r.pop("collectives")
@@ -6027,8 +6400,9 @@ def train_dist_phase(np, torch, dev, card) -> dict:
           "train_dist (b): the ranks' collectives or metrics differ")
     check(max(mem_rel) <= TRAIN_DIST_MEM_TOL,
           f"train_dist (b): memory after placement {rec['b_gloo_1x2']}")
-    check(not any(r["launched"] for r in ranks),
-          f"train_dist (b): kernels launched {ranks[0]['launched']}")
+    for i, r in enumerate(ranks):
+        scan_gates(f"train_dist (b) rank {i}", r["launched"],
+                   r["scan_calls"], True, {})
     rec["b_families"] = {}
     for arch, single in fam_single.items():
         fcfg = train_dist_family_cfg(arch)
@@ -6081,8 +6455,16 @@ def train_dist_phase(np, torch, dev, card) -> dict:
               "differ")
         check(max(mem) <= TRAIN_DIST_MEM_TOL,
               f"train_dist (b) {arch}: memory after placement {mem}")
-        check(not any(f["launched"] for f in fr),
-              f"train_dist (b) {arch}: kernels launched {fr[0]['launched']}")
+        # the recurrent families' steps run the scans' plain loops on
+        # every rank, each card call counted
+        frec["scans"] = [scan_gates(
+            f"train_dist (b) {arch} rank {i}", f["launched"],
+            f["scan_calls"], True) for i, f in enumerate(fr)]
+        check(all(bool(recurrent_layers(fcfg)) == any(
+            v["card_calls"] for v in sc.values()) for sc in frec["scans"]),
+              f"train_dist (b) {arch}: scans called {frec['scans']}")
+        emit({"phase": "train_dist_b_scans", "arch": arch,
+              "scans": frec["scans"]})
 
     # ---- (c) the dry-run over every cell
     t0 = time.perf_counter()
@@ -6092,9 +6474,10 @@ def train_dist_phase(np, torch, dev, card) -> dict:
     check(dr["failed"] == 0 and dr["rcs"] == [0, 0],
           f"train_dist (c): dry-run cells failed {dr['failed_cells']}")
     shutil.rmtree(tdir, ignore_errors=True)
+    # since serve_dist's single runs: nothing in this process launched
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     check(not launched, f"train_dist: kernels launched {launched}")
-    rec["kernel_launches"] = 0
+    rec["kernel_launches_after_singles"] = 0
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
@@ -6590,8 +6973,6 @@ def main() -> None:
     baseline_counts = baselines_phase(np, torch, dd, dev, report, parity,
                                       card)
     torch.cuda.empty_cache()
-    # every kernel of the nine sources has launched by now
-    analysis["kernel_smem"] = analysis_kernel_smem(dev)
     # the dist phase streams the dense train split from a .npy
     dist_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-npy-")
     dense_npy = (str(pathlib.Path(dist_tmp.name) / "X.npy"),
@@ -6607,13 +6988,17 @@ def main() -> None:
                              LAM1_FRACTION * lmax_dense, card,
                              analysis=analysis)
     dist_tmp.cleanup()
-    analysis_phase(analysis, card)
     # the LM template's serving path and the head probe, last: every
     # earlier phase's tensors are freed before its 47 GB of weights
     probe_counts = lm_phase(np, torch, dev, card)
     # the other five families of the LM template after the dense one, and
     # the fused Jacobi probe on deepseek-v2-lite's features
-    families_counts = lm_families_phase(np, torch, dev, card)
+    families_counts, scan_counts = lm_families_phase(np, torch, dev, card,
+                                                     report, parity)
+    # every kernel of the twelve sources has launched by now (the scans in
+    # lm_families)
+    analysis["kernel_smem"] = analysis_kernel_smem(dev)
+    analysis_phase(analysis, card)
     # LM training on the card: no hand-written kernel on its path
     train_phase(np, torch, dev, card)
     # sharded LM training and the dry-run, last
@@ -6663,7 +7048,9 @@ def main() -> None:
            # the two scans of the competing algorithms: no Pallas kernel,
            # the reference's loops that XLA compiles
            "admm_shooting": "src/repro/baselines/admm.py:36",
-           "online_tg": "src/repro/baselines/online_tg.py:37"}
+           "online_tg": "src/repro/baselines/online_tg.py:37",
+           # the recurrences' lax.scans of the LM template
+           **SCAN_SRC}
     # each kernel's launches come from the run of its own path
     main_path = {"glm_stats": sparse_counts, "cd_tile_solve": sparse_counts,
                  "tile_gram": sparse_counts, "alpha_search": sparse_counts,
@@ -6673,7 +7060,9 @@ def main() -> None:
                  "margin_ls_bf16": bf16_counts,
                  "tile_gram_bf16": sparse_jacobi["bf16"][0],
                  "admm_shooting": baseline_counts[0],
-                 "online_tg": baseline_counts[1]}
+                 "online_tg": baseline_counts[1],
+                 # lm_families' zamba2 and xlstm serve checks
+                 **{k: scan_counts for k in SCAN_NAMES}}
     # what each source's launched kernels ask of the card (the analysis
     # phase's kernel_smem read the same records)
     resources = {stem: [{k: r[k] for k in (
@@ -6731,7 +7120,13 @@ def main() -> None:
                                    "dependency_steps", "step_us",
                                    "floor_step_us", "cluster",
                                    "r_in_shared_memory",
-                                   "w_in_shared_memory")
+                                   "w_in_shared_memory", "max_rel_err",
+                                   "nonfinite_same_positions",
+                                   "nonfinite_plain", "flops_bound_ms",
+                                   "plain_over_kernel", "input_scale",
+                                   "bar",
+                                   "plain_off_float64",
+                                   "kernel_off_float64")
                if k in rep}})
     emit({"kernels": kernels})
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,

@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("glm_stats.cu", "cd_tile_solve.cu", "tile_gram.cu",
            "alpha_search.cu", "stats_gram_solve.cu", "margin_ls.cu",
-           "predict_tile.cu", "admm_shooting.cu", "online_tg.cu")
+           "predict_tile.cu", "admm_shooting.cu", "online_tg.cu",
+           "ssm_scan.cu", "mlstm_scan.cu", "slstm_scan.cu")
 HEADERS = ("glm_family.cuh", "cd_chain.cuh", "gram_tc.cuh", "mbarrier.cuh",
            "resources.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -227,3 +228,25 @@ def check_cuda(name: str, dtype, *tensors) -> None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: inputs on {dev} and {t.device}")
+
+
+def out_buffer(out, shape, like):
+    """The tensor a kernel writes a result of ``shape`` into: ``out``
+    itself where it is a contiguous float32 tensor of that shape on
+    ``like``'s device (written in place), else a new one, which the
+    caller copies into ``out`` when there is one."""
+    import torch
+    if out is not None and out.dtype == torch.float32 \
+            and out.is_contiguous() and tuple(out.shape) == tuple(shape) \
+            and out.device == like.device:
+        return out
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def into(out, t):
+    """``t`` copied into ``out`` (returned), or ``t`` where there is no
+    ``out`` or it is ``t`` already."""
+    if out is None or out is t:
+        return t
+    out.copy_(t)
+    return out

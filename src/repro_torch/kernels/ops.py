@@ -19,6 +19,13 @@ each dispatcher in call order, under the reference's names, on either
 device (``record_launch``).  ``CUDA_FUNCTIONS`` names the CUDA functions
 behind one logical launch of each kernel (what a profile of the card
 shows), and ``kernel_resources()`` what each of them asks of the card.
+
+The recurrences' scans (``ssm_scan``, ``mlstm_scan``, ``slstm_scan``)
+have forward kernels only: a call on the card launches the kernel unless
+grad mode is on and an input requires a gradient (a training step), which
+runs the plain loop, whose autograd gives the backward, counted as
+``"<name>/plain"``.  Serving takes the kernel: the models' parameters are
+frozen as built.
 """
 from __future__ import annotations
 
@@ -31,12 +38,16 @@ import torch
 from repro_torch.core import glm as glm_lib
 from repro_torch.kernels import admm_shooting as admm_shooting_k
 from repro_torch.kernels import alpha_search as alpha_search_k
+from repro_torch.kernels import build
 from repro_torch.kernels import cd_tile_solve as cd_tile_solve_k
 from repro_torch.kernels import glm_stats as glm_stats_k
 from repro_torch.kernels import margin_ls as margin_ls_k
+from repro_torch.kernels import mlstm_scan as mlstm_scan_k
 from repro_torch.kernels import online_tg as online_tg_k
 from repro_torch.kernels import predict_tile as predict_tile_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as slstm_scan_k
+from repro_torch.kernels import ssm_scan as ssm_scan_k
 from repro_torch.kernels import stats_gram_solve as stats_gram_solve_k
 from repro_torch.kernels import tile_gram as tile_gram_k
 
@@ -57,6 +68,10 @@ KERNELS = {
     # counterpart)
     "admm_shooting": admm_shooting_k.KERNEL,
     "online_tg": online_tg_k.KERNEL,
+    # the LM template's recurrences (no Pallas counterpart)
+    "ssm_scan": ssm_scan_k.KERNEL,
+    "mlstm_scan": mlstm_scan_k.KERNEL,
+    "slstm_scan": slstm_scan_k.KERNEL,
 }
 
 
@@ -74,6 +89,9 @@ CUDA_FUNCTIONS = {
     "predict_tile": ("predict_tile_kernel",),
     "admm_shooting": ("admm_shooting_kernel",),
     "online_tg": ("online_tg_kernel",),
+    "ssm_scan": ("ssm_scan_kernel",),
+    "mlstm_scan": ("mlstm_scan_kernel",),
+    "slstm_scan": ("slstm_scan_kernel",),
 }
 
 
@@ -85,22 +103,25 @@ def kernel_resources() -> dict:
     and the most dynamic shared bytes and threads a block that any of its
     launches asked for since the library was loaded (``launches``: how
     many).  Card only: it loads the library."""
-    from repro_torch.kernels import build
     return {pathlib.Path(src).stem: build.resources(pathlib.Path(src).stem)
             for src in build.SOURCES}
 
 
-# calls on the card that ran a kernel's plain version because the family
-# has no body in it, by kernel
+# calls on the card that ran a kernel's plain version, by kernel: the GLM
+# kernels' for a family without a body in them, the recurrences' scans'
+# for an input that requires a gradient (training: the plain loop's
+# autograd gives the backward, until the scans have backward kernels)
 PLAIN_ROUTES = ("glm_stats", "alpha_search", "stats_gram_solve",
-                "margin_ls", "predict_tile")
+                "margin_ls", "predict_tile", "ssm_scan", "mlstm_scan",
+                "slstm_scan")
 _plain_calls = dict.fromkeys(PLAIN_ROUTES, 0)
 
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last reset, and under
     ``"<kernel>/plain"`` the calls on the card that ran its plain version
-    for a family without a body in it."""
+    for a family without a body in it, or (a scan) for an input that
+    requires a gradient."""
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts.update({f"{k}/plain": v for k, v in _plain_calls.items()})
     return counts
@@ -177,6 +198,29 @@ def _launches(t, kernel: str, family: str, codes) -> bool:
         return True
     _plain_calls[kernel] += 1
     return False
+
+
+def _scan_launches(name: str, *tensors) -> bool:
+    """True when a recurrence's scan launches its kernel: its tensors lie
+    on the card and no gradient is asked of them.  While grad mode is on
+    and an input requires a gradient (a training step; the serving
+    models' parameters are frozen), the card runs the plain loop, counted
+    as ``"<name>/plain"``."""
+    if not _on_card(tensors[0]):
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        _plain_calls[name] += 1
+        return False
+    return True
+
+
+def _into(out, state):
+    """The plain version's final state written into ``out``'s given
+    leaves (a cache's, in place), as the kernels write it."""
+    if out is None:
+        return state
+    return tuple(build.into(o, s) for o, s in zip(out, state))
 
 
 def solve_params(mu, nu, lam1, lam2, like):
@@ -415,3 +459,44 @@ def online_tg_epoch(X_sh, y_sh, w0, t0, family, *, lr, power, lam1, lam2):
                                    lam2)
     return online_tg_k.launch(X_sh, y_sh, w0, t0, fam.name, lr, power, lam1,
                               lam2)
+
+
+def ssm_scan(xh, Bm, Cm, dt, A, D, state0, *, out=None):
+    """Mamba2's selective scan (one launch on the card); see
+    kernels/ssm_scan.py.  xh (B, S, H, hd), Bm and Cm (B, S, ds), dt (B,
+    S, H), A and D (H,), state0 (B, H, hd, ds), all float32; returns (y
+    (B, S, H, hd), the final state).  ``out``: a cache's state, which
+    takes the final state in place."""
+    record_launch("ssm_scan")
+    if not _scan_launches("ssm_scan", xh, Bm, Cm, dt, A, D, state0):
+        y, h = ref.ssm_scan(xh, Bm, Cm, dt, A, D, state0)
+        return y, build.into(out, h)
+    return ssm_scan_k.launch(xh, Bm, Cm, dt, A, D, state0, out=out)
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, state, *, out=None):
+    """The mLSTM step scan (one launch on the card); see
+    kernels/mlstm_scan.py.  q, k (B, S, H, hd_k), k scaled by 1/sqrt(hd);
+    v (B, S, H, hd_v); gates (B, S, H); state (C, n, m); returns (h (B,
+    S, H, hd_v), (C, n, m)).  ``out``: (C, n, m), each a cache's leaf or
+    None, the leaves given taking the final state in place."""
+    record_launch("mlstm_scan")
+    if not _scan_launches("mlstm_scan", q, k, v, i_pre, f_pre, *state):
+        hs, st = ref.mlstm_scan(q, k, v, i_pre, f_pre, state)
+        return hs, _into(out, st)
+    return mlstm_scan_k.launch(q, k, v, i_pre, f_pre, state, out=out)
+
+
+def slstm_scan(r, state, gates_in, steps: int, *, sc=None, out=None):
+    """The sLSTM scan over the first ``steps`` positions of gates_in (B,
+    S, 4, H, hd_v) (one launch on the card); see kernels/slstm_scan.py.
+    r (H, 4, hd_k, hd_v); state (c, n, h, m), h (B, H, hd_k) the whole
+    previous output; ``sc`` (B, 2, H) the head-level stabilizers of one
+    step of a block of hd; returns (h (B, steps, H, hd_v), (c, n, h, m)).
+    ``out``: (c, n, h, m), each a cache's leaf or None, the leaves given
+    taking the final state in place."""
+    record_launch("slstm_scan")
+    if not _scan_launches("slstm_scan", r, gates_in, sc, *state):
+        hs, st = ref.slstm_scan(r, state, gates_in, steps, sc=sc)
+        return hs, _into(out, st)
+    return slstm_scan_k.launch(r, state, gates_in, steps, sc=sc, out=out)

@@ -3,7 +3,9 @@
 They mirror ``repro/kernels/ref.py`` (the JAX oracles) operation for
 operation.  ``kernels/ops.py`` runs them for tensors on the CPU, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  Nothing
-on the solver's path calls them for a CUDA tensor.
+on the solver's path calls them for a CUDA tensor; the recurrences' scans
+run them on the card for a call whose input requires a gradient
+(training: ``ops.py``), counted apart.
 
 ``tile_live`` arguments are optional host (n_tiles,) bool masks: only the
 live tiles' Grams are formed, and dead tiles get G = g = 0 and a zero step
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import glm as glm_lib
 
@@ -351,3 +354,100 @@ def online_tg_epoch(X_sh, y_sh, w0, t0, family, lr, power, lam1, lam2):
         w = w * (1.0 - eta * lam2)
         w = glm_lib.soft_threshold(w, eta * lam1)
     return torch.mean(w, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' scans of the LM template (no Pallas counterpart: the
+# reference runs each as a lax.scan, which XLA compiles into one loop)
+# ---------------------------------------------------------------------------
+
+def _log_sigmoid(x):
+    """log sigmoid(x) as the reference writes it, -softplus(-x)."""
+    return -F.softplus(-x)
+
+
+def ssm_scan(xh, Bm, Cm, dt, A, D, state0):
+    """Mamba2's selective scan, the reference's ``_ssm_scan``
+    (``repro/models/ssm.py``).  xh (B, S, H, hd); Bm, Cm (B, S, ds); dt
+    (B, S, H); A, D (H,); state0 (B, H, hd, ds), all float32.  For each
+    step, decay = exp(-dt A), h = h decay + (x dt) B, y = h C + D x.
+    Returns (y (B, S, H, hd), the final state)."""
+    h = state0
+    ys = []
+    for t in range(xh.shape[1]):
+        xt, Bt, Ct, dtt = xh[:, t], Bm[:, t], Cm[:, t], dt[:, t]
+        decay = torch.exp(-dtt * A)                          # (B, H)
+        upd = (xt * dtt[..., None])[..., None] * Bt[:, None, None, :]
+        h = h * decay[..., None, None] + upd
+        ys.append((h @ Ct[:, None, :, None])[..., 0]
+                  + D[None, :, None] * xt)
+    return torch.stack(ys, dim=1), h
+
+
+def mlstm_step(state, q, k, v, i_pre, f_pre):
+    """One mLSTM step, the reference's ``_mlstm_step``
+    (``repro/models/xlstm.py``): state (C (B, H, hd, hd_v), n (B, H, hd),
+    m (B, H)); q, k (B, H, hd), k scaled by 1/sqrt(hd); v (B, H, hd_v);
+    gates (B, H).  The memory's update k v^T and the normalizer q.n are
+    matrix products, as the reference's einsums are.  Returns (state,
+    h (B, H, hd_v))."""
+    C, n, m = state
+    log_f = _log_sigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    kv = k[..., :, None] @ v[..., None, :]               # (hd, 1) x (1, hd_v)
+    C = C * f_g[..., None, None] + i_g[..., None, None] * kv
+    n = n * f_g[..., None] + i_g[..., None] * k
+    num = (q[..., None, :] @ C)[..., 0, :]               # (B, H, hd_v)
+    qn = (q[..., None, :] @ n[..., :, None])[..., 0, 0]  # (B, H)
+    den = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return (C, n, m_new), num / den[..., None]
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, state):
+    """The mLSTM step scan, the reference's ``_mlstm_core`` over its
+    scaled keys: q, k (B, S, H, hd), k scaled by 1/sqrt(hd); v (B, S, H,
+    hd_v); gates (B, S, H); state (C, n, m) as ``mlstm_step``'s.  Returns
+    (h (B, S, H, hd_v), the final state)."""
+    hs = []
+    for t in range(q.shape[1]):
+        state, h = mlstm_step(state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                              f_pre[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def slstm_scan(r, state, gates_in, steps: int, sc=None):
+    """The sLSTM scan, a ``lax.scan`` over the reference's ``_slstm_step``
+    (``repro/models/xlstm.py``), over the first ``steps`` positions of
+    gates_in (B, S, 4, H, hd_v) with r (H, 4, hd_k, hd_v) the recurrent
+    gates.  state: (c, n (B, H, hd_v), h (B, H, hd_k), m (B, H)), h the
+    whole previous output.  The head-level stabilizers are the means of
+    i_pre and f_pre over hd; with ``sc`` (B, 2, H) given (one step of a
+    block of hd, ``steps`` 1) they are its two rows instead.  Returns
+    (h (B, steps, H, hd_v), (c, n, h, m))."""
+    c, n, h, m = state
+    hs = []
+    for t in range(steps):
+        rec = torch.einsum("bhk,hgkv->bghv", h, r)        # (B, 4, H, hd_v)
+        g_in = gates_in[:, t]
+        z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i]
+                                      for i in range(4)]
+        if sc is None:
+            i_sc = i_pre.mean(dim=-1)                     # head-level
+            f_sc = f_pre.mean(dim=-1)                     # stabilization
+        else:
+            i_sc, f_sc = sc[:, 0], sc[:, 1]
+        log_f = _log_sigmoid(f_sc)
+        m_new = torch.maximum(log_f + m, i_sc)
+        i_g = torch.exp(i_pre - m_new[..., None])
+        f_g = torch.exp(log_f[..., None] + (m - m_new)[..., None])
+        z = torch.tanh(z_pre)
+        o = torch.sigmoid(o_pre)
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        h = o * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h, m)

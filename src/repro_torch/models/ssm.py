@@ -6,11 +6,13 @@ state-space recurrence (a scalar A per head, Mamba2) in float32 with
 ``exp(-dt A)`` decay and the ``D`` skip term, SiLU(z) gating, the output
 projection.
 
-The full-sequence form runs the recurrence as a Python loop over time
-(the reference's ``lax.scan``), always from a zero state and an empty conv
-history whatever the cache holds; it leaves the last ``K - 1``
-pre-activation inputs as the conv state.  Decode is the O(1) single step.
-Each form writes the cache in place, when there is one, and returns it.
+The full-sequence form runs the recurrence through ``ops.ssm_scan`` (the
+reference's ``lax.scan``: one kernel launch on the card, the plain loop
+on the CPU and for a training step), always from a zero state and an
+empty conv history whatever the cache holds; it leaves the last ``K - 1``
+pre-activation inputs as the conv state.  Decode is the same scan over
+one step from the cache's state.  Each form writes the cache in place,
+when there is one, and returns it.
 
 State cache: {"conv": (B, K-1, d_inner), "state": (B, H, hd, ds)}.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, matmul
 
 
@@ -75,27 +78,6 @@ def mamba_cache_defs(cfg, batch):
     }
 
 
-def _ssm_step(h, xt, Bt, Ct, dtt, A, D):
-    """One step: h (B,H,hd,ds); xt (B,H,hd); Bt, Ct (B,ds); dtt (B,H).
-    Returns (h, yt (B,H,hd))."""
-    decay = torch.exp(-dtt * A)                          # (B, H)
-    upd = (xt * dtt[..., None])[..., None] * Bt[:, None, None, :]
-    h = h * decay[..., None, None] + upd
-    yt = (h @ Ct[:, None, :, None])[..., 0] + D[None, :, None] * xt
-    return h, yt
-
-
-def _ssm_scan(xh, Bm, Cm, dt, A, D, state0):
-    """xh: (B,S,H,hd); Bm/Cm: (B,S,ds); dt: (B,S,H); A: (H,) > 0.
-    Returns (y (B,S,H,hd), final state (B,H,hd,ds))."""
-    h = state0
-    ys = []
-    for t in range(xh.shape[1]):
-        h, yt = _ssm_step(h, xh[:, t], Bm[:, t], Cm[:, t], dt[:, t], A, D)
-        ys.append(yt)
-    return torch.stack(ys, dim=1), h
-
-
 def _conv_causal(x, conv_w, conv_state=None):
     """Depthwise causal conv; x: (B, S, d_inner); conv_w: (K, d_inner)."""
     K = conv_w.shape[0]
@@ -122,10 +104,11 @@ def _inputs(p, x, cfg, conv_state):
     return z, xc, conv_state, Bm, Cm, dt, A
 
 
-def _write(cache, conv_state, state):
+def _write(cache, conv_state):
+    """The conv state into the cache (the scan writes its state there
+    itself)."""
     if cache is not None:
         cache["conv"].copy_(conv_state)
-        cache["state"].copy_(state)
     return cache
 
 
@@ -140,10 +123,11 @@ def mamba_full(p, x, cfg, cache=None):
     xh = xc.reshape(B, S, H, hd)
     state0 = torch.zeros((B, H, hd, ds), dtype=torch.float32,
                          device=x.device)
-    y, h_final = _ssm_scan(xh.float(), Bm.float(), Cm.float(), dt.float(),
-                           A, p["D"].float(), state0)
+    y, _ = ops.ssm_scan(xh.float(), Bm.float(), Cm.float(), dt.float(), A,
+                        p["D"].float(), state0,
+                        out=None if cache is None else cache["state"])
     y = y.reshape(B, S, d_inner).to(x.dtype) * F.silu(z)
-    return matmul(y, p["w_out"]), _write(cache, conv_state, h_final)
+    return matmul(y, p["w_out"]), _write(cache, conv_state)
 
 
 def mamba_decode(p, x, cfg, cache):
@@ -152,9 +136,9 @@ def mamba_decode(p, x, cfg, cache):
     d_inner, H = _local_dims(p)
     hd = cfg.ssm_head_dim
     z, xc, conv_state, Bm, Cm, dt, A = _inputs(p, x, cfg, cache["conv"])
-    xh = xc.reshape(B, H, hd).float()
-    h, yt = _ssm_step(cache["state"].float(), xh, Bm.float()[:, 0],
-                      Cm.float()[:, 0], dt.float()[:, 0], A,
-                      p["D"].float())
-    y = yt.reshape(B, 1, d_inner).to(x.dtype) * F.silu(z)
-    return matmul(y, p["w_out"]), _write(cache, conv_state, h)
+    xh = xc.reshape(B, 1, H, hd).float()
+    y, _ = ops.ssm_scan(xh, Bm.float(), Cm.float(), dt.float(), A,
+                        p["D"].float(), cache["state"].float(),
+                        out=cache["state"])
+    y = y.reshape(B, 1, d_inner).to(x.dtype) * F.silu(z)
+    return matmul(y, p["w_out"]), _write(cache, conv_state)

@@ -7,11 +7,13 @@ matrix memory, n (B, H, hd) normalizer, m (B, H) gate stabilizer, which
 starts at -1e30; sLSTM state: c, n, h (B, H, hd), m (B, H).  Both are
 O(1) per decoded token.
 
-The full-sequence forms run the recurrence as a Python loop over time
-(the reference's ``lax.scan``); the mLSTM's chunkwise-parallel form runs
-where ``ssm_chunk > 0``, ``S % ssm_chunk == 0`` and ``S > ssm_chunk``, as
-the reference's does.  Each form starts from the cache's state when there
-is a cache, writes the final state into it in place, and returns it.
+The full-sequence forms run the recurrence through ``ops.mlstm_scan`` and
+``ops.slstm_scan`` (the reference's ``lax.scan``: one kernel launch on the
+card, the plain loop on the CPU and for a training step); decode is the
+same scan over one step.  The mLSTM's chunkwise-parallel form runs where
+``ssm_chunk > 0``, ``S % ssm_chunk == 0`` and ``S > ssm_chunk``, as the
+reference's does.  Each form starts from the cache's state when there is
+a cache, writes the final state into it in place, and returns it.
 
 Tensor parallelism (``layout``, a ``model`` axis past 1) splits the head
 dim ``hd``, as the reference's specs do (``P(None, None, "model")`` on
@@ -43,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, matmul
 from repro_torch.sharding import tensor_parallel as tp
 
@@ -87,31 +90,12 @@ def mlstm_cache_defs(cfg, batch):
     }
 
 
-def _mlstm_step(state, inp):
-    C, n, m = state
-    q, k, v, i_pre, f_pre = inp            # (B,H,hd) x3, (B,H) x2
-    log_f = _log_sigmoid(f_pre)
-    m_new = torch.maximum(log_f + m, i_pre)
-    i_g = torch.exp(i_pre - m_new)
-    f_g = torch.exp(log_f + m - m_new)
-    C = C * f_g[..., None, None] + i_g[..., None, None] \
-        * (k[..., :, None] * v[..., None, :])
-    n = n * f_g[..., None] + i_g[..., None] * k
-    num = (q[..., None, :] @ C)[..., 0, :]               # (B, H, hd_v)
-    den = torch.maximum((q * n).sum(dim=-1).abs(), torch.exp(-m_new))
-    h = num / den[..., None]
-    return (C, n, m_new), h
-
-
-def _mlstm_core(q, k, v, i_pre, f_pre, state):
-    """Loop over time.  q/k/v: (B,S,H,hd); gates (B,S,H)."""
+def _mlstm_core(q, k, v, i_pre, f_pre, state, out=None):
+    """The step recurrence over time (``ops.mlstm_scan``).  q/k: (B,S,H,
+    hd); v: (B,S,H,hd_v); gates (B,S,H).  ``out``: the cache's leaves
+    that take the final state in place."""
     k = k / math.sqrt(q.shape[-1])
-    hs = []
-    for t in range(q.shape[1]):
-        state, h = _mlstm_step(state, (q[:, t], k[:, t], v[:, t],
-                                       i_pre[:, t], f_pre[:, t]))
-        hs.append(h)
-    return torch.stack(hs, dim=1), state
+    return ops.mlstm_scan(q, k, v, i_pre, f_pre, state, out=out)
 
 
 def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int):
@@ -169,9 +153,12 @@ def _state(cache, names, zeros):
 
 
 def _write(cache, names, state):
+    """The final state into the cache, but the leaves the scan wrote in
+    place."""
     if cache is not None:
         for k, s in zip(names, state):
-            cache[k].copy_(s)
+            if s is not cache[k]:
+                cache[k].copy_(s)
     return cache
 
 
@@ -211,16 +198,15 @@ def mlstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
         # recurrence keeps n whole, as it does q and k
         state = (state[0], tp.all_gather(state[1], layout.model, -1),
                  state[2])
-    if decode:
-        state, h = _mlstm_step(state, (q[:, 0], k[:, 0] / math.sqrt(hd),
-                                       v[:, 0], i_pre[:, 0], f_pre[:, 0]))
-        hs = h[:, None]
-    else:
-        cw = getattr(cfg, "ssm_chunk", 0)
-        if cw and S % cw == 0 and S > cw:
-            hs, state = _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, cw)
-        else:
-            hs, state = _mlstm_core(q, k, v, i_pre, f_pre, state)
+    # the cache's leaves the scan writes in place (on a layout n is
+    # whole in the recurrence and a block in the cache)
+    dst = None if cache is None else (
+        cache["C"], cache["n"] if layout is None else None, cache["m"])
+    cw = getattr(cfg, "ssm_chunk", 0)
+    if not decode and cw and S % cw == 0 and S > cw:
+        hs, state = _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, cw)
+    else:           # decode: the same scan over one step
+        hs, state = _mlstm_core(q, k, v, i_pre, f_pre, state, dst)
     hs = _d_block(hs, layout).to(x.dtype)
     out = matmul(hs * torch.sigmoid(matmul(x, p["wo"])), p["w_out"])
     if cache is not None and layout is not None:
@@ -263,46 +249,28 @@ def _head_sums(p_r, gates_in, layout):
     return g_sum, r_sum
 
 
-def _slstm_step(p_r, state, g_in, layout=None, sums=None):
-    """p_r: (H, 4, hd, hd_v); g_in: (B, 4, H, hd_v), hd_v this rank's
-    block of hd on a ``layout``, with ``sums`` this step's
-    (``_head_sums``: (B, 2, H) and (H, 2, hd))."""
-    c, n, h, m = state
-    if layout is not None:
-        h = tp.gather(h, layout.model, -1)                # the whole h
-    rec = torch.einsum("bhk,hgkv->bghv", h, p_r)          # (B, 4, H, hd_v)
-    z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i] for i in range(4)]
+def _slstm_scan(p_r, state, gates_in, steps: int, layout=None, out=None):
+    """The first ``steps`` positions of gates_in (B,S,4,H,hd) through
+    ``ops.slstm_scan``.  Returns (hs (B,steps,H,hd), state).  On a
+    ``layout`` every step gathers the whole ``h_{t-1}`` for ``r_gates``'
+    block (p_r (H, 4, hd, hd_v)), so the scan runs one step at a time,
+    its head-level means from ``_head_sums`` (no collective a step but
+    the gather).  ``out``: the cache's leaves that take the final state
+    in place."""
     if layout is None:
-        i_sc = i_pre.mean(dim=-1)                         # head-level
-        f_sc = f_pre.mean(dim=-1)                         # stabilization
-    else:
-        # the means over the whole hd: no collective a step
-        g_sum, r_sum = sums
-        tot = g_sum + torch.einsum("bhk,hgk->bgh", h, r_sum)
-        i_sc, f_sc = tot[:, 0] / p_r.shape[2], tot[:, 1] / p_r.shape[2]
-    log_f = _log_sigmoid(f_sc)
-    m_new = torch.maximum(log_f + m, i_sc)
-    i_g = torch.exp(i_pre - m_new[..., None])
-    f_g = torch.exp(log_f[..., None] + (m - m_new)[..., None])
-    z = torch.tanh(z_pre)
-    o = torch.sigmoid(o_pre)
-    c = f_g * c + i_g * z
-    n = f_g * n + i_g
-    h = o * c / torch.clamp_min(n, 1e-6)
-    return (c, n, h, m_new), h
-
-
-def _slstm_scan(p_r, state, gates_in, steps: int, layout=None):
-    """Loop over the first ``steps`` positions of gates_in (B,S,4,H,hd).
-    Returns (hs (B,steps,H,hd), state)."""
-    sums = None if layout is None else _head_sums(p_r, gates_in, layout)
+        return ops.slstm_scan(p_r, state, gates_in, steps, out=out)
+    g_sum, r_sum = _head_sums(p_r, gates_in, layout)
     hs = []
     for t in range(steps):
-        state, h = _slstm_step(p_r, state, gates_in[:, t], layout,
-                               None if sums is None
-                               else (sums[0][:, t], sums[1]))
-        hs.append(h)
-    return torch.stack(hs, dim=1), state
+        c, n, h, m = state
+        h = tp.gather(h, layout.model, -1)                # the whole h
+        # the means over the whole hd
+        tot = g_sum[:, t] + torch.einsum("bhk,hgk->bgh", h, r_sum)
+        h_t, state = ops.slstm_scan(
+            p_r, (c, n, h, m), gates_in[:, t:t + 1], 1,
+            sc=tot / p_r.shape[2], out=out if t == steps - 1 else None)
+        hs.append(h_t)
+    return torch.cat(hs, dim=1), state
 
 
 def slstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
@@ -313,11 +281,13 @@ def slstm_apply(p, x, cfg, cache=None, decode=False, layout=None):
     gates_in = matmul(x, p["w_gates"].reshape(d, 4 * H * hl)).reshape(
         B, S, 4, H, hl).float()
     zeros = torch.zeros((B, H, hl), dtype=f32, device=dev)
-    state = _state(cache, ("c", "n", "h", "m"), (
+    names = ("c", "n", "h", "m")
+    state = _state(cache, names, (
         zeros, zeros, zeros, torch.full((B, H), _NEG, dtype=f32,
                                         device=dev)))
     steps = 1 if decode else S
-    hs, state = _slstm_scan(p["r_gates"].float(), state, gates_in, steps,
-                            layout)
+    hs, state = _slstm_scan(
+        p["r_gates"].float(), state, gates_in, steps, layout,
+        None if cache is None else tuple(cache[k] for k in names))
     out = matmul(_d_block(hs, layout).to(x.dtype), p["w_out"])
-    return out, _write(cache, ("c", "n", "h", "m"), state)
+    return out, _write(cache, names, state)

@@ -24,6 +24,10 @@ bit, and its spans must be ``torch.profiler`` ranges that hold the host
 launches of K1-K4, with one NVTX push and pop a span.
 The audits of ``repro_torch.analysis`` pass on the card (kernel_smem runs
 there: every kernel within the card's limits, as ptxas reported it).
+The recurrences' scans (ssm_scan, mlstm_scan, slstm_scan) are held at 1e-5
+of the largest |value| where both are finite, the non-finite positions
+equal, at small and ragged shapes, and their routing: frozen inputs
+launch, an input that requires a gradient runs the plain loop, counted.
 """
 import json
 import time
@@ -1426,3 +1430,176 @@ def test_train_step_on_the_card(cuda, name):
         assert float((gradg[k] - want).abs().max()) <= \
             1e-4 * max(float(want.abs().max()), 1e-30), k
     assert all(not torch.equal(pg[k], state[k]) for k in pg)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' scans (ssm_scan, mlstm_scan, slstm_scan): each kernel
+# against its plain version on the card, within 1e-5 of the largest
+# |value| (float32, the sums in another order) where both are finite, the
+# non-finite positions equal; the final state also written into a cache's
+# leaves in place
+# ---------------------------------------------------------------------------
+
+def _scan_rel(got, want) -> float:
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    if not bool(fin.any()):
+        return 0.0
+    return float((got - want).abs()[fin].max()
+                 / want.abs()[fin].max().clamp_min(1e-30))
+
+
+def _scan_close(got, want, tol=1e-5):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert _scan_rel(g, w) <= tol
+
+
+def _randn(rng, shape, dev, scale=1.0, shift=0.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale + shift)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds,warm", [
+    (2, 37, 3, 64, 64, True), (2, 37, 3, 64, 64, False),
+    (1, 1, 2, 24, 5, True), (1, 9, 1, 100, 100, True)])
+def test_ssm_scan_kernel(cuda, B, S, H, hd, ds, warm):
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(S + hd)
+    xh = _randn(rng, (B, S, H, hd), cuda)
+    Bm, Cm = _randn(rng, (B, S, ds), cuda), _randn(rng, (B, S, ds), cuda)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), cuda))
+    A = torch.exp(_randn(rng, (H,), cuda, 0.5))
+    D = _randn(rng, (H,), cuda)
+    s0 = _randn(rng, (B, H, hd, ds), cuda) if warm \
+        else torch.zeros((B, H, hd, ds), device=cuda)
+    want = ref.ssm_scan(xh, Bm, Cm, dt, A, D, s0)
+    got = ssm_scan.launch(xh, Bm, Cm, dt, A, D, s0)
+    torch.cuda.synchronize()
+    _scan_close(got[0], want[0])
+    _scan_close(got[1], want[1])
+    cache = s0.clone()
+    y, st = ssm_scan.launch(xh, Bm, Cm, dt, A, D, cache, out=cache)
+    assert st is cache
+    _scan_close(y, want[0])
+    _scan_close(cache, want[1])
+
+
+@pytest.mark.parametrize("B,S,H,hd_k,hd_v,warm", [
+    (2, 17, 2, 64, 64, True), (2, 17, 2, 64, 64, False),
+    (1, 1, 1, 24, 24, True), (1, 9, 2, 48, 24, True),
+    (1, 5, 1, 512, 80, True)])
+def test_mlstm_scan_kernel(cuda, B, S, H, hd_k, hd_v, warm):
+    from repro_torch.kernels import mlstm_scan
+    rng = np.random.default_rng(S + hd_k + hd_v)
+    q = _randn(rng, (B, S, H, hd_k), cuda)
+    k = _randn(rng, (B, S, H, hd_k), cuda) / hd_k ** 0.5
+    v = _randn(rng, (B, S, H, hd_v), cuda)
+    i_pre = _randn(rng, (B, S, H), cuda, 2.0)
+    f_pre = _randn(rng, (B, S, H), cuda, 2.0, 1.0)
+    if warm:
+        state = (_randn(rng, (B, H, hd_k, hd_v), cuda),
+                 _randn(rng, (B, H, hd_k), cuda), _randn(rng, (B, H), cuda))
+    else:
+        state = (torch.zeros((B, H, hd_k, hd_v), device=cuda),
+                 torch.zeros((B, H, hd_k), device=cuda),
+                 torch.full((B, H), -1e30, device=cuda))
+    want = ref.mlstm_scan(q, k, v, i_pre, f_pre, state)
+    got = mlstm_scan.launch(q, k, v, i_pre, f_pre, state)
+    torch.cuda.synchronize()
+    _scan_close(got[0], want[0])
+    _scan_close(got[1], want[1])
+    cache = tuple(s.clone() for s in state)
+    hs, st = mlstm_scan.launch(q, k, v, i_pre, f_pre, cache, out=cache)
+    assert all(a is b for a, b in zip(st, cache))
+    _scan_close(hs, want[0])
+    _scan_close(cache, want[1])
+
+
+@pytest.mark.parametrize("B,S,H,hd,warm,scale", [
+    (2, 13, 2, 64, True, 1.0), (2, 13, 2, 64, False, 1.0),
+    (1, 1, 1, 24, True, 1.0), (1, 7, 1, 512, True, 1.0),
+    (2, 9, 2, 40, False, 60.0)])
+def test_slstm_scan_kernel(cuda, B, S, H, hd, warm, scale):
+    from repro_torch.kernels import slstm_scan
+    rng = np.random.default_rng(S + hd)
+    r = _randn(rng, (H, 4, hd, hd), cuda, 0.3 / hd ** 0.5)
+    gates = _randn(rng, (B, S, 4, H, hd), cuda, scale)
+    if warm:
+        state = (_randn(rng, (B, H, hd), cuda),
+                 _randn(rng, (B, H, hd), cuda).abs() + 0.5,
+                 _randn(rng, (B, H, hd), cuda), _randn(rng, (B, H), cuda))
+    else:
+        z = torch.zeros((B, H, hd), device=cuda)
+        state = (z, z.clone(), z.clone(),
+                 torch.full((B, H), -1e30, device=cuda))
+    want = ref.slstm_scan(r, state, gates, S)
+    got = slstm_scan.launch(r, state, gates, S)
+    torch.cuda.synchronize()
+    _scan_close(got[0], want[0])
+    _scan_close(got[1], want[1])
+    if scale > 1:
+        assert not bool(torch.isfinite(want[0]).all())
+    cache = tuple(s.clone() for s in state)
+    hs, st = slstm_scan.launch(r, cache, gates, S, out=cache)
+    assert all(a is b for a, b in zip(st, cache))
+    _scan_close(hs, want[0])
+    _scan_close(cache, want[1])
+
+
+def test_slstm_scan_kernel_block_with_given_stabilizers(cuda):
+    """One step of a block of hd (hd_v = hd / 2, the whole h in, the
+    head-level means given), what a rank of a model axis past 1 runs."""
+    from repro_torch.kernels import slstm_scan
+    rng = np.random.default_rng(9)
+    B, H, hd, half = 2, 2, 64, 32
+    r = _randn(rng, (H, 4, hd, half), cuda, 0.3 / hd ** 0.5)
+    gates = _randn(rng, (B, 3, 4, H, half), cuda)
+    state = (_randn(rng, (B, H, half), cuda),
+             _randn(rng, (B, H, half), cuda).abs() + 0.5,
+             _randn(rng, (B, H, hd), cuda), _randn(rng, (B, H), cuda))
+    sc = _randn(rng, (B, 2, H), cuda)
+    want = ref.slstm_scan(r, state, gates[:, 1:2], 1, sc=sc)
+    got = slstm_scan.launch(r, state, gates[:, 1:2], 1, sc=sc)
+    torch.cuda.synchronize()
+    _scan_close(got[0], want[0])
+    _scan_close(got[1], want[1])
+
+
+def test_scan_routing_on_the_card(cuda):
+    """Frozen inputs launch the kernel; an input that requires a gradient
+    under grad mode runs the plain loop, counted ``"<name>/plain"``, and
+    its output carries the gradient; under no_grad it launches."""
+    rng = np.random.default_rng(10)
+    B, S, H, hd = 1, 4, 2, 16
+    r = _randn(rng, (H, 4, hd, hd), cuda, 0.1)
+    gates = _randn(rng, (B, S, 4, H, hd), cuda)
+    z = torch.zeros((B, H, hd), device=cuda)
+    state = (z, z, z, torch.full((B, H), -1e30, device=cuda))
+    ops.reset_launch_counts()
+    ops.slstm_scan(r, state, gates, S)
+    assert ops.launch_counts()["slstm_scan"] == 1
+    g = gates.clone().requires_grad_(True)
+    hs, _ = ops.slstm_scan(r, state, g, S)
+    counts = ops.launch_counts()
+    assert counts["slstm_scan"] == 1 and counts["slstm_scan/plain"] == 1
+    hs.sum().backward()
+    assert g.grad is not None and bool(torch.isfinite(g.grad).all())
+    with torch.no_grad():
+        ops.slstm_scan(r, state, g, S)
+    assert ops.launch_counts()["slstm_scan"] == 2
+    x = _randn(rng, (B, S, H, hd), cuda).requires_grad_(True)
+    Bm = _randn(rng, (B, S, 8), cuda)
+    ops.ssm_scan(x, Bm, Bm, torch.ones((B, S, H), device=cuda),
+                 torch.ones(H, device=cuda), torch.ones(H, device=cuda),
+                 torch.zeros((B, H, hd, 8), device=cuda))
+    q = _randn(rng, (B, S, H, hd), cuda).requires_grad_(True)
+    gt = _randn(rng, (B, S, H), cuda)
+    ops.mlstm_scan(q, q.detach(), q.detach(), gt, gt, (
+        torch.zeros((B, H, hd, hd), device=cuda),
+        torch.zeros((B, H, hd), device=cuda),
+        torch.full((B, H), -1e30, device=cuda)))
+    counts = ops.launch_counts()
+    assert counts["ssm_scan"] == counts["mlstm_scan"] == 0
+    assert counts["ssm_scan/plain"] == counts["mlstm_scan/plain"] == 1

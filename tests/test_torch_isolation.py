@@ -47,7 +47,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core.solver",
            "repro_torch.optim.adamw", "repro_torch.runtime.trainer",
            "repro_torch.launch.train", "repro_torch.roofline.model",
            "repro_torch.sharding.tensor_parallel",
-           "repro_torch.launch.dryrun"]
+           "repro_torch.launch.dryrun", "repro_torch.kernels.ssm_scan",
+           "repro_torch.kernels.mlstm_scan",
+           "repro_torch.kernels.slstm_scan"]
 
 
 def _port_files():
