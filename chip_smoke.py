@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from a checkout (it imports ``src/repro_torch`` beside it) on a machine
-with a CUDA card and ``nvcc``.  It builds the twelve hand-written CUDA
+with a CUDA card and ``nvcc``.  It builds the fifteen hand-written CUDA
 kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
 PyTorch version on the card at its path's shapes and times both, then
 drives each path through the entry points a user calls and checks it:
@@ -136,7 +136,7 @@ drives each path through the entry points a user calls and checks it:
     ``ops.CUDA_FUNCTIONS`` one profiler record a logical launch and the
     device's kernel records the host's launch calls; a warm 3-lambda path
     of the sparse session with 0 superstep builds, nvcc builds and library
-    loads; after lm_families, every kernel of the twelve sources within
+    loads; after lm_families, every kernel of the fifteen sources within
     the card's shared memory and register limits, as ptxas reported it,
     the spilling ones named; the collective sequence of the (1, 2) gloo
     world's sparse session, the same in two supersteps and on both ranks.
@@ -197,12 +197,30 @@ drives each path through the entry points a user calls and checks it:
     512) within 1e-5 of the largest |value| of each output and final
     state, the non-finite positions equal, timed beside its bound and
     beside the same kernel on one (batch row, head): its dependency
-    chain alone on the card.
+    chain alone on the card.  Then the scans' backward part on the same
+    layers, the mixers run with a gradient asked of their input: each
+    backward kernel (ssm_scan_bwd, mlstm_scan_bwd, slstm_scan_bwd) on the
+    forward kernel's training-mode output and seeded cotangents, against
+    the plain backward on the card within 1e-5 of each gradient's
+    largest |entry| (the mLSTM's: or twice the plain backward's own
+    distance from float64, the kernel no further from float64), the same
+    bits twice, a fault control (checkpoints one segment off; the
+    sLSTM's saved c and n one step off) past the bar, timed beside its
+    bound and its one-chain floor.
   * train (``train_phase``, which ``train_phase(np, torch, dev,
     card)`` also runs alone): LM training, no GLM kernel on its path
-    (their launch counts stay 0); the recurrences' scans run their plain
-    loops under a gradient (no backward kernel yet): the scan kernels at
-    0, every call on the card counted ``"<scan>/plain"``.
+    (their launch counts stay 0); every scan call under a gradient
+    launches its forward kernel in its training mode and, where its
+    backward runs, its backward kernel (``"<scan>/plain"`` 0).  First
+    train_scans: zamba2-1.2b (2 of 38 Mamba layers and the shared block,
+    batch 2 x 1,024) and xlstm-1.3b (8 of 48 layers, 7 mLSTM by the step
+    scan and 1 sLSTM, batch 2 x 512) at full width from N(0, 0.02^2)
+    weights, remat, 3 ``make_train_step`` steps (each step's seconds,
+    tokens/s, peak memory; the forward kernels twice a recurrent layer a
+    step, the backward kernels once), then one step of the plain route
+    (the plain loops under grad, in that part only) from the same
+    weights: loss 1e-5, grad norm 1e-4, each gradient leaf 1e-4 of its
+    largest entry against the kernels' first step.
     phi4-mini-3.8b at full width, 4 of its 32 layers (1,631,874,048 parameters; 32 layers' parameters,
     gradients and AdamW moments take 71.2 GB of float32, and 16 layers'
     save, 57 s, then 8 layers' beside train_dist's six families, kept the
@@ -231,8 +249,8 @@ drives each path through the entry points a user calls and checks it:
     near sign(g).
   * train_dist (after train; ``train_dist_phase``): sharded LM training
     and the dry-run, no GLM kernel on its path, the scans' training calls
-    on the plain loops (counted) and their serving calls on the kernels
-    (on (1, 2) the sLSTM's once a time step).  phi4-mini-3.8b
+    on their forward and backward kernels and their serving calls on the
+    forward kernels (on (1, 2) the sLSTM's once a time step).  phi4-mini-3.8b
     at full width, 2 of 32 layers (1,430,535,168 parameters), float32 with
     remat, batch 2 x 512, 3 AdamW steps (lr 1e-3) from the tests' parity
     weights (the trainer's draw rescaled to N(0, 0.02^2)): the
@@ -276,8 +294,8 @@ drives each path through the entry points a user calls and checks it:
     process over every architecture and
     shape and dglmnet on the meshes of 1 and 4 cards: no failed cell, the
     largest per-card bytes.
-No built-in family takes a plain route in any phase; the only plain
-route on the card is the scans' under a gradient (training).
+No built-in family takes a plain route in any phase, and no scan call
+on the card does (training launches the scans' backward kernels).
 
 K3 and K5 run on the tensor cores (3xTF32): their report gives both bounds,
 the fp32 FMA one and the tensor-core one, with the share of each and the
@@ -3195,7 +3213,7 @@ def analysis_steady_state(solver, lmax) -> dict:
 
 
 def analysis_kernel_smem(dev) -> dict:
-    """Every kernel of the twelve sources within the card's shared-memory
+    """Every kernel of the fifteen sources within the card's shared-memory
     and register limits, each source launched at least once (this run's
     largest requests), registers and static shared memory as ptxas
     reported them; the kernels that spill, named."""
@@ -4328,7 +4346,10 @@ def scan_steps(name: str, args) -> int:
 class ScanWatch:
     """The recurrences' scan entries of ``kernels.ops`` wrapped while
     installed: the calls on the card by name (``card_calls``, counted
-    here, apart from ops' own launch counts), with ``capture`` the
+    here, apart from ops' own launch counts), and of those the calls
+    whose backward ran (``bwd_calls``: a hook on the output's autograd
+    node, which runs once a backward through it; under remat the
+    recomputed forward's node never runs), with ``capture`` the
     arguments of each entry's first call (``args``: (positional,
     keyword)), and with ``timed`` CUDA events around each call over more
     than one time step, by its steps, read once at the end
@@ -4341,6 +4362,14 @@ class ScanWatch:
         self.capture = capture
         self.events, self.saved, self.args = [], {}, {}
         self.card_calls = dict.fromkeys(SCAN_NAMES, 0)
+        self.bwd_calls = dict.fromkeys(SCAN_NAMES, 0)
+
+    def _hook(self, name, out):
+        node = out[0].grad_fn
+        if node is not None:
+            def ran(*_):
+                self.bwd_calls[name] += 1
+            node.register_hook(ran)
 
     def __enter__(self):
         torch = self.torch
@@ -4350,17 +4379,21 @@ class ScanWatch:
             def wrapper(*a, _inner=inner, _name=name, **k):
                 if self.capture:
                     self.args.setdefault(_name, (a, dict(k)))
-                if a[0].is_cuda:
+                card = a[0].is_cuda
+                if card:
                     self.card_calls[_name] += 1
                 # a decode step (one time step) is counted, not timed
                 if not self.timed or scan_steps(_name, a) == 1:
-                    return _inner(*a, **k)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = _inner(*a, **k)
-                end.record()
-                self.events.append((scan_steps(_name, a), start, end))
+                    out = _inner(*a, **k)
+                else:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = _inner(*a, **k)
+                    end.record()
+                    self.events.append((scan_steps(_name, a), start, end))
+                if card:
+                    self._hook(_name, out)
                 return out
             setattr(self.ops, name, wrapper)
         return self
@@ -4377,34 +4410,40 @@ class ScanWatch:
 
 
 def scan_gates(tag: str, counts: dict, card_calls: dict, training: bool,
-               want=None) -> dict:
-    """The scans' launch gates of one run, from ops' counts and the card
-    calls that ``ScanWatch`` saw: training, every card call ran the plain
-    loop (``"<name>/plain"`` equal to the calls, no kernel launched);
-    serving, every card call launched its kernel (no ``/plain``).  With
-    ``want`` ({name: calls}), the calls must be those too.  The GLM
-    kernels launch nowhere on these paths."""
+               want=None, bwd_calls=None, want_bwd=None) -> dict:
+    """The scans' launch gates of one run, from ops' counts and the calls
+    that ``ScanWatch`` saw: every card call launched its forward kernel
+    and none ran the plain loop (``"<name>/plain"`` 0); training, the
+    backward kernel launched once a call whose backward ran
+    (``bwd_calls``; under remat the forward runs twice a backward);
+    serving, no backward kernel.  With ``want`` ({name: calls}) and
+    ``want_bwd``, the calls must be those too.  The GLM kernels launch
+    nowhere on these paths."""
     glm = {k: v for k, v in counts.items()
-           if v and k.split("/")[0] not in SCAN_NAMES}
+           if v and k.split("/")[0].removesuffix("_bwd") not in SCAN_NAMES}
     check(not glm, f"{tag}: GLM kernels launched {glm}")
     rec = {}
     for name in SCAN_NAMES:
-        calls, k, plain = (card_calls[name], counts.get(name, 0),
-                           counts.get(f"{name}/plain", 0))
-        rec[name] = {"card_calls": calls, "launches": k, "plain": plain}
-        if training:
-            check(k == 0 and plain == calls,
-                  f"{tag}: {name} launched {k} times in training, ran "
-                  f"the plain loop {plain} times for {calls} calls")
-        else:
-            check(plain == 0 and k == calls,
-                  f"{tag}: {name} launched {k} times for {calls} calls, "
-                  f"the plain loop {plain} times")
+        calls, k, kb, plain = (card_calls[name], counts.get(name, 0),
+                               counts.get(f"{name}_bwd", 0),
+                               counts.get(f"{name}/plain", 0))
+        bwd = bwd_calls[name] if training else 0
+        rec[name] = {"card_calls": calls, "launches": k, "plain": plain,
+                     "bwd_calls": bwd, "bwd_launches": kb}
+        check(plain == 0 and k == calls and kb == bwd,
+              f"{tag}: {name} launched {k} times for {calls} calls, its "
+              f"backward {kb} times for {bwd} backward calls, the plain "
+              f"loop {plain} times")
         if want is not None:
             rec[name]["want"] = want.get(name, 0)
             check(calls == want.get(name, 0),
                   f"{tag}: {name} called {calls} times on the card, the "
                   f"recurrent layers need {want.get(name, 0)}")
+        if want_bwd is not None:
+            rec[name]["want_bwd"] = want_bwd.get(name, 0)
+            check(bwd == want_bwd.get(name, 0),
+                  f"{tag}: {name}'s backward ran {bwd} times, the "
+                  f"recurrent layers need {want_bwd.get(name, 0)}")
     return rec
 
 
@@ -4792,6 +4831,220 @@ def lmf_scans(np, torch, model, cfg, prompts, report, parity) -> dict:
     return out
 
 
+# the scans' backward part: each backward kernel on layer 0's own
+# full-width training arguments (the forward kernel's training mode on
+# them, seeded N(0, 1) cotangents on the card) against the plain backward
+# on the card, within 1e-5 of each gradient's largest |entry|; the mLSTM's
+# within SCAN_FLOOR_FACTOR times the plain backward's own distance from
+# its float64 formulas where that is larger (the readout's floor, as the
+# forward gate's), the kernel no further from float64 than the plain
+# version (or 1e-5).  Two runs must give the same bits, and a fault
+# control (the checkpoints one segment off; the sLSTM's saved c and n one
+# step off) must fail the bar
+SCAN_BWD_FAULT = {"ssm_scan": "checkpoints one segment off",
+                  "mlstm_scan": "checkpoints one segment off",
+                  "slstm_scan": "saved c and n one step off"}
+
+
+def scan_fwd_train(name: str, kernel: bool, a, kw) -> tuple:
+    """(outputs, saved) of the forward's training mode on the captured
+    args ``a``: the kernel's, or the plain version's (kernels/ref.py)."""
+    from repro_torch.kernels import mlstm_scan as mlstm_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as slstm_k
+    from repro_torch.kernels import ssm_scan as ssm_k
+    L = ref.CKPT_EVERY
+    if name == "ssm_scan":
+        y, h, ck = (ssm_k.launch if kernel else ref.ssm_scan)(
+            *a[:7], ckpt_every=L)
+        return (y, h), ck
+    if name == "mlstm_scan":
+        hs, st, saved = (mlstm_k.launch if kernel else ref.mlstm_scan)(
+            *a[:6], ckpt_every=L)
+        return (hs, *st), saved
+    hs, st, saved = (slstm_k.launch if kernel else ref.slstm_scan)(
+        *a[:4], sc=kw.get("sc"), save=True)
+    return (hs, *st), saved
+
+
+def scan_bwd(name: str, kernel: bool, a, kw, outs, saved, cots) -> tuple:
+    """Every gradient of the scan ``name`` from its training forward's
+    ``outs`` and ``saved`` and the cotangents ``cots``: the backward
+    kernel's, or the plain backward's (the sLSTM's dr and, on a block,
+    dsc with them)."""
+    from repro_torch.kernels import mlstm_scan as mlstm_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as slstm_k
+    from repro_torch.kernels import ssm_scan as ssm_k
+    L = ref.CKPT_EVERY
+    if name == "ssm_scan":
+        return tuple((ssm_k.launch_bwd if kernel else ref.ssm_scan_bwd)(
+            *a[:6], saved, *cots, L))
+    if name == "mlstm_scan":
+        q, k, v, i_pre, f_pre, st = a[:6]
+        return tuple((mlstm_k.launch_bwd if kernel else ref.mlstm_scan_bwd)(
+            q, k, v, i_pre, f_pre, st[2], saved, outs[0], *cots, L))
+    dpre, dr, dst, dsc = (slstm_k.launch_bwd if kernel
+                          else ref.slstm_scan_bwd)(
+        a[0], a[1], kw.get("sc"), saved, outs[0], *cots)
+    return (dpre, dr, *dst) + (() if dsc is None else (dsc,))
+
+
+def scan_bwd_cost(name: str, a, kw, saved, outs, grads) -> tuple:
+    """(bytes, flops) of one backward launch: what it reads (the forward's
+    inputs it takes, the saved values, the output it reads, a cotangent
+    for each output) once and its gradients written once; the flops of
+    its formulas, the segments' recompute included (per (b, h, t): Mamba2
+    14 hd ds, the mLSTM 15 hd_k hd_v, the sLSTM 16 hd_k hd_v: its dh_{t-1}
+    = sum_g r_g dpre_g and the launch's dr_gates product, each plus its
+    vector work)."""
+    saved = saved if isinstance(saved, tuple) else (saved,)
+    if name == "ssm_scan":
+        read = list(a[:6])
+        B, S, H, hd = a[0].shape
+        ds = a[1].shape[-1]
+        flops = B * H * S * (14 * hd * ds + 8 * hd + 10)
+    elif name == "mlstm_scan":
+        read = [*a[:5], a[5][2], outs[0]]
+        B, S, H, hd_k = a[0].shape
+        hd_v = a[2].shape[-1]
+        flops = B * H * S * (15 * hd_k * hd_v + 10 * hd_k + 6 * hd_v + 30)
+    else:
+        c0, n0, _, m0 = a[1]
+        read = [a[0], c0, n0, m0, outs[0]] + (
+            [kw["sc"]] if kw.get("sc") is not None else [])
+        B, S, _, H, hd_v = saved[0].shape
+        hd_k = a[0].shape[2]
+        flops = B * H * S * (16 * hd_k * hd_v + 30 * hd_v)
+    n_in = sum(t.numel() for t in (*read, *saved, *outs))
+    n_out = sum(g.numel() for g in grads)
+    return 4.0 * (n_in + n_out), float(flops)
+
+
+def lmf_scans_bwd(np, torch, model, cfg, prompts, report, parity) -> dict:
+    """The scans' backward part, on the model on the card: layer 0's
+    recurrent mixers on the normed embeddings of the prompts (the
+    sLSTM's scaled by ``LMF_SLSTM_INPUT_SCALE``) with a gradient asked of
+    them, their scans' training arguments captured; each backward kernel
+    against the plain backward on the card (``SCAN_TOL``, the mLSTM's
+    float64 floor), twice for its bits, with a fault control; timed
+    beside its bound and beside the same kernel on one (batch row, head),
+    its dependency chain alone on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, ssm, xlstm
+
+    emb = torch.nn.functional.embedding(prompts, model.embed)
+    if cfg.family == "hybrid":
+        blocks = (("ssm_scan", ssm.mamba_full, model.layers[0], 1.0),)
+    else:
+        blocks = (("mlstm_scan", xlstm.mlstm_apply, model.layers[0], 1.0),
+                  ("slstm_scan", xlstm.slstm_apply, model.slstm[0],
+                   LMF_SLSTM_INPUT_SCALE))
+    gen = torch.Generator(device=emb.device).manual_seed(SEED)
+
+    def detach(x):
+        if isinstance(x, tuple):
+            return tuple(detach(t) for t in x)
+        return x.detach() if torch.is_tensor(x) else x
+    out = {}
+    for name, apply_fn, lp, scale in blocks:
+        x = (common.rms_norm(emb, lp["ln"], cfg.norm_eps) * scale).detach()
+        x.requires_grad_(True)
+        with torch.enable_grad(), ScanWatch(torch, ops, capture=True) as cap:
+            apply_fn(lp["mixer"], x, cfg)
+        a, kw = cap.args[name]
+        a = detach(a)
+        kw = {k: detach(v) for k, v in kw.items() if k != "out"}
+        del x, cap
+        outs, saved = scan_fwd_train(name, True, a, kw)
+        cots = tuple(torch.randn(o.shape, generator=gen, device=o.device)
+                     for o in outs)
+        got = scan_bwd(name, True, a, kw, outs, saved, cots)
+        again = scan_bwd(name, True, a, kw, outs, saved, cots)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(g, h) for g, h in zip(got, again))
+        del again
+        outs_p, saved_p = scan_fwd_train(name, False, a, kw)
+        plain_ms, want = plain_call(torch, lambda: scan_bwd(
+            name, False, a, kw, outs_p, saved_p, cots))
+        a64, kw64 = scan_float64(torch, a), {
+            k: scan_float64(torch, v) for k, v in kw.items()}
+        outs64, saved64 = scan_fwd_train(name, False, a64, kw64)
+        want64 = scan_bwd(name, False, a64, kw64, outs64, saved64,
+                          scan_float64(torch, cots))
+        del a64, kw64, outs64, saved64, outs_p, saved_p
+        rels, floors, kern64, bars = [], [], [], []
+        for g, w, w64 in zip(got, want, want64):
+            scale64 = max(float(w64.abs().max()), 1e-30)
+            rels.append(float((g - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+            floors.append(float((w.double() - w64).abs().max()) / scale64)
+            kern64.append(float((g.double() - w64).abs().max()) / scale64)
+            bars.append(max(SCAN_TOL, SCAN_FLOOR_FACTOR * floors[-1])
+                        if name == "mlstm_scan" else SCAN_TOL)
+        del want64
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        # the fault control: the same kernel on saved values one segment
+        # (the sLSTM's one step) off
+        if name == "slstm_scan":
+            bad = (saved[0], torch.roll(saved[1], 1, 1),
+                   torch.roll(saved[2], 1, 1), saved[3])
+        elif name == "mlstm_scan":
+            bad = (torch.roll(saved[0], 1, 0), torch.roll(saved[1], 1, 0),
+                   *saved[2:])
+        else:
+            bad = torch.roll(saved, 1, 0)
+        fault = scan_bwd(name, True, a, kw, outs, bad, cots)
+        fault_ratio = max(
+            float((f - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            / bar for f, w, bar in zip(fault, want, bars))
+        del fault, bad
+        parity[f"{name}_bwd"] = max(rels)
+        check(finite and bits and all(r <= b for r, b in zip(rels, bars))
+              and (name != "mlstm_scan" or all(
+                  k <= max(SCAN_TOL, f) for k, f in zip(kern64, floors)))
+              and fault_ratio > 1.0,
+              f"scans_bwd: {name}: gradients {rels} of their largest "
+              f"|entry| off the plain backward (bars {bars}), {kern64} off "
+              f"float64 (the plain backward {floors}), finite {finite}, "
+              f"the same bits twice {bits}, the fault control at "
+              f"{fault_ratio} of its bar")
+        ms = time_ms(torch, lambda: scan_bwd(name, True, a, kw, outs, saved,
+                                             cots), SCAN_REPS)
+        one = scan_one_chain(name, a)
+        outs1, saved1 = scan_fwd_train(name, True, one, kw)
+        cots1 = tuple(torch.randn(o.shape, generator=gen, device=o.device)
+                      for o in outs1)
+        floor = time_ms(torch, lambda: scan_bwd(name, True, one, kw, outs1,
+                                                saved1, cots1), SCAN_REPS)
+        by, fl = scan_bwd_cost(name, a, kw, saved, outs, got)
+        b_ms, b_by = bound_ms(by, fl)
+        steps = scan_steps(name, a)
+        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=b_ms / ms, library_ms=None,
+                   max_abs_err=err, max_rel_err=max(rels),
+                   grad_rel_errs=rels, bar=max(bars), bars=bars,
+                   plain_off_float64=max(floors), plain_off_float64_each=floors,
+                   kernel_off_float64=max(kern64),
+                   kernel_off_float64_each=kern64,
+                   bits_equal_twice=bits, fault_control=SCAN_BWD_FAULT[name],
+                   fault_over_bar=fault_ratio, bytes=by, flops=fl,
+                   bytes_bound_ms=by / H100_BYTES_PER_S * 1e3,
+                   flops_bound_ms=fl / H100_FP32_FLOPS * 1e3,
+                   dependency_floor_ms=floor,
+                   share_of_dependency_floor=floor / ms,
+                   dependency_steps=steps, step_us=ms * 1e3 / steps,
+                   floor_step_us=floor * 1e3 / steps,
+                   plain_over_kernel=plain_ms / ms,
+                   checkpoint_every=ops.ref.CKPT_EVERY,
+                   shapes=[list(g.shape) for g in got], input_scale=scale)
+        report[f"{name}_bwd"] = out[f"{name}_bwd"] = rec
+        del got, want, a, kw, one, outs, saved, outs1, saved1, cots, cots1
+        torch.cuda.empty_cache()
+    return out
+
+
 def recurrent_layers(cfg) -> dict:
     """{scan: the layers of ``cfg`` that call it once a forward}."""
     if cfg.family == "hybrid":
@@ -4923,6 +5176,10 @@ def lmf_model(np, torch, dev, card, report, parity, scan_counts, name,
                                      parity)
             emit({"phase": "scans", "arch": name, "card": card,
                   "tolerance": SCAN_TOL, **rec["scans"]})
+            rec["scans_bwd"] = lmf_scans_bwd(np, torch, model, cfg, prompts,
+                                             report, parity)
+            emit({"phase": "scans_bwd", "arch": name, "card": card,
+                  "tolerance": SCAN_TOL, **rec["scans_bwd"]})
     finally:
         moe.CAPACITY_FACTOR = old_cap
     counts = None
@@ -5398,14 +5655,206 @@ def train_card_vs_cpu(np, torch, dev, card) -> dict:
     return out
 
 
+# train_scans: the recurrences trained at full width through the scans'
+# forward and backward kernels, {arch: (layers, sequence length, other
+# config fields)}, batch 2, remat, 3 make_train_step steps from
+# smoke_weights' N(0, 0.02^2) matrices (the reference's init overflows
+# the sLSTM at full width), against one step of the plain route.  Each
+# bar is the train bar, or TRAIN_SCANS_CONTROL_X times float32's own
+# control where that is larger: the plain step again from the weights
+# times (1 + 1e-7 N(0, 1)), as serve_dist's.  xlstm's first gradient is
+# float32-sensitive (tools/xlstm_first_step.py: its leaves move 7.6e-5 to
+# 1.3e-4 of their largest entry under that perturbation), and the plain
+# step scan's backward is itself 1.2e-4 off float64 at layer 0's
+# arguments where the kernel is 5.4e-5 off (the scans_bwd part)
+TRAIN_SCANS = {
+    "zamba2-1.2b": (2, 1024, {}),               # 2 of 38, the shared block
+    "xlstm-1.3b": (8, 512, dict(ssm_chunk=0))}  # 7 mLSTM (step scan), 1 sLSTM
+TRAIN_SCANS_BATCH, TRAIN_SCANS_STEPS = 2, 3
+TRAIN_SCANS_CONTROL_X = 4.0
+
+
+class PlainScans:
+    """While installed, ``kernels.ops``' scan entries are the plain loops
+    of ``kernels/ref.py`` on either device, autograd through them giving
+    the backward: the plain route, installed by ``train_scans`` alone, for
+    its comparison."""
+
+    def __init__(self, ops, ref):
+        self.ops, self.ref, self.saved = ops, ref, {}
+
+    def __enter__(self):
+        ops, ref = self.ops, self.ref
+
+        def ssm_scan(xh, Bm, Cm, dt, A, D, state0, *, out=None):
+            y, h = ref.ssm_scan(xh, Bm, Cm, dt, A, D, state0)
+            return y, ops.build.into(out, h)
+
+        def mlstm_scan(q, k, v, i_pre, f_pre, state, *, out=None):
+            hs, st = ref.mlstm_scan(q, k, v, i_pre, f_pre, state)
+            return hs, ops._into(out, st)
+
+        def slstm_scan(r, state, gates_in, steps, *, sc=None, out=None):
+            hs, st = ref.slstm_scan(r, state, gates_in, steps, sc=sc)
+            return hs, ops._into(out, st)
+        for name, fn in (("ssm_scan", ssm_scan), ("mlstm_scan", mlstm_scan),
+                         ("slstm_scan", slstm_scan)):
+            self.saved[name] = getattr(ops, name)
+            setattr(ops, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+def train_scans(np, torch, dev, card) -> dict:
+    """zamba2-1.2b and xlstm-1.3b (``TRAIN_SCANS``) at full width, each
+    built from smoke_weights on the card: ``TRAIN_SCANS_STEPS``
+    make_train_step steps through the scans' kernels (each step's
+    seconds, tokens/s, peak memory; every scan call its forward kernel,
+    twice a layer a step under remat, and its backward kernel once),
+    then one step of the plain route from the same weights and batch
+    (``PlainScans``), held to the first kernel step: loss, grad norm and
+    each gradient leaf (AdamW's first moment over 1 - b1) at the train
+    bars, or ``TRAIN_SCANS_CONTROL_X`` times float32's control (the plain
+    step from the weights times (1 + 1e-7 N(0, 1))) where that is
+    larger."""
+    import gc
+
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import common, lm
+    from repro_torch.optim import adamw
+
+    out = {"card": card, "bars": {"loss": STEP_LOSS_TOL,
+                                  "grad_norm": STEP_GNORM_TOL,
+                                  "grad_leaf": STEP_GRAD_TOL},
+           "checkpoint_every": ref.CKPT_EVERY, "launches": {}}
+    B, n_steps = TRAIN_SCANS_BATCH, TRAIN_SCANS_STEPS
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    for i, (arch, (layers, seq, extra)) in enumerate(TRAIN_SCANS.items()):
+        cfg = get_arch(arch).replace(n_layers=layers, dtype="float32",
+                                     remat=True, attn_impl="flash", **extra)
+        model = lm.build_model(cfg, state=convert.lm_params_from_numpy(
+            cfg, smoke_weights(np, lm, common, cfg, SEED + i), device=dev))
+        step = lm.make_train_step(model, opt_cfg)
+        params = lm.trainable_params(model)
+        p0 = {k: p.detach().clone() for k, p in params.items()}
+        rng = np.random.default_rng(SEED + i)
+        batches = [{
+            "tokens": rng.integers(0, cfg.vocab_size, (B, seq))
+            .astype(np.int32),
+            "targets": rng.integers(0, cfg.vocab_size, (B, seq))
+            .astype(np.int32),
+            "loss_mask": np.ones((B, seq), np.float32)}
+            for _ in range(n_steps)]
+
+        def run(opt, batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            opt, m = step(opt, batch)
+            loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+            m = {"loss": loss, "grad_norm": gnorm}
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            return opt, dict(m, seconds=sec, tokens_per_s=B * seq / sec,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        def moments(opt):
+            return {k: opt.m[k] / (1.0 - opt_cfg.b1) for k in params}
+        ops.reset_launch_counts()
+        with ScanWatch(torch, ops) as watch:
+            opt = adamw.adamw_init(params)
+            kernel_steps = []
+            for j in range(n_steps):
+                opt, m = run(opt, batches[j])
+                kernel_steps.append(m)
+                if j == 0:
+                    g_k = moments(opt)
+        counts = ops.launch_counts()
+        need = recurrent_layers(cfg)
+        gates = scan_gates(
+            f"train_scans {arch}", counts, watch.card_calls, True,
+            {k: 2 * n * n_steps for k, n in need.items()}, watch.bwd_calls,
+            {k: n * n_steps for k, n in need.items()})
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        del opt
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(p0[k])
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        with PlainScans(ops, ref):
+            opt, plain = run(adamw.adamw_init(params), batches[0])
+            g_p = moments(opt)
+            del opt
+            gen = torch.Generator(device=dev).manual_seed(SEED + i)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(p0[k] * (1.0 + 1e-7 * torch.randn(
+                        p.shape, generator=gen, device=dev)))
+            del p0
+            opt, ctrl = run(adamw.adamw_init(params), batches[0])
+        g_c = moments(opt)
+        plain_counts = {k: v for k, v in ops.launch_counts().items() if v}
+
+        def leaf_rel(g):
+            return float(torch.stack([
+                (g[k] - g_p[k]).abs().max()
+                / g_p[k].abs().max().clamp_min(1e-30) for k in g_p]).max())
+        grad_rel, control = leaf_rel(g_k), {"grad_leaf": leaf_rel(g_c)}
+        del g_c
+        for key in ("loss", "grad_norm"):
+            control[key] = abs(ctrl[key] - plain[key]) / abs(plain[key])
+        bars = {key: max(tol, TRAIN_SCANS_CONTROL_X * control[key])
+                for key, tol in out["bars"].items()}
+        first = kernel_steps[0]
+        r = {"arch": arch, "n_layers": layers, "seq_len": seq, "batch": B,
+             "config": {k: v for k, v in extra.items()},
+             "recurrent_layers": need, "remat": True,
+             "kernel_steps": kernel_steps, "plain_step": plain,
+             "loss_rel": abs(first["loss"] - plain["loss"])
+             / abs(plain["loss"]),
+             "grad_norm_rel": abs(first["grad_norm"] - plain["grad_norm"])
+             / plain["grad_norm"],
+             "grad_leaf_rel": grad_rel, "control": control, "bars": bars,
+             "scans": gates,
+             "plain_route_launches": plain_counts,
+             "plain_over_kernel_s": plain["seconds"]
+             / min(m["seconds"] for m in kernel_steps),
+             "params": common.param_count(lm.param_defs(cfg))}
+        out[arch] = r
+        check(not plain_counts,
+              f"train_scans {arch}: the plain route launched {plain_counts}")
+        check(all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+                  for m in kernel_steps)
+              and r["loss_rel"] <= bars["loss"]
+              and r["grad_norm_rel"] <= bars["grad_norm"]
+              and grad_rel <= bars["grad_leaf"],
+              f"train_scans {arch}: the kernels' first step against the "
+              f"plain route's: loss {r['loss_rel']}, grad norm "
+              f"{r['grad_norm_rel']}, leaves {grad_rel}; bars {bars}, "
+              f"float32's control {control}")
+        del model, step, params, opt, g_k, g_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(np, torch, dev, card) -> dict:
     """LM training on the card (after every phase but train_dist, each of
-    which freed its memory): the full-width trainer, the flash backward,
-    learning and kill-and-restart, every architecture's step against the
-    CPU.  No GLM kernel lies on this path (its launch counts stay 0), and
-    the recurrences' scans run their plain loops (no backward kernel
-    yet): the scan kernels stay at 0, their ``/plain`` counts equal to
-    the calls on the card."""
+    which freed its memory): the recurrences' full-width training through
+    the scans' kernels against the plain route (``train_scans``), the
+    full-width trainer, the flash backward, learning and
+    kill-and-restart, every architecture's step against the CPU.  No GLM
+    kernel lies on this path (its launch counts stay 0), and every scan
+    call on the card launches its forward kernel and, where its backward
+    runs, its backward kernel: no ``/plain`` call."""
     import gc
 
     from repro_torch.kernels import ops
@@ -5413,8 +5862,15 @@ def train_phase(np, torch, dev, card) -> dict:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    ops.reset_launch_counts()
     recs = {}
+    t0 = time.perf_counter()
+    rec = train_scans(np, torch, dev, card)
+    rec["part_s"] = time.perf_counter() - t0
+    emit({"phase": "train_scans", **rec})
+    recs["train_scans"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
     with ScanWatch(torch, ops) as watch:
         for part, fn in (("train_full_width", train_full_width),
                          ("train_flash", train_flash),
@@ -5428,8 +5884,9 @@ def train_phase(np, torch, dev, card) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     # the recurrent smoke models' steps (train_card_vs_cpu) call the scans
-    # with gradients on: the plain loop, counted, every call
-    scans = scan_gates("train", ops.launch_counts(), watch.card_calls, True)
+    # with gradients on: their forward and backward kernels
+    scans = scan_gates("train", ops.launch_counts(), watch.card_calls, True,
+                       bwd_calls=watch.bwd_calls)
     check(all(v["card_calls"] for v in scans.values()),
           f"train: a scan was never called on the card {scans}")
     emit({"phase": "train", "card": card, "glm_kernel_launches": 0,
@@ -5454,9 +5911,10 @@ TRAIN_PEAK_TOL = 1e-4
 TRAIN_DIST_TIMEOUT_S = 600
 # (b)'s other families at full width on (1, 2): {arch: (layers or None
 # for all of them, sequence length, other config fields)}; batch 2, 2
-# steps.  xlstm's mLSTM by its chunkwise form (ssm_chunk): the step scan
-# costs 15 s a step there (host-bound autograd over 512 steps a layer),
-# the chunkwise 2.3 s; the sLSTM steps either way
+# steps.  xlstm's mLSTM by its chunkwise form (ssm_chunk), the form the
+# sharded CPU tests hold against JAX's; its step scan trains on the scan
+# kernels in train's train_scans.  The sLSTM steps either way (its
+# kernels, one step a launch on (1, 2))
 TRAIN_DIST_FAMILIES = {
     "deepseek-v2-lite-16b": (2, 512, {}),       # 1 dense and 1 MoE layer
     "mixtral-8x7b": (1, 512, {}),
@@ -5719,6 +6177,7 @@ def train_dist_worker(spec_path: str) -> None:
         r = train_dist_run(torch, train_dist_trainer(
             cfg, mesh, None, str(out / "ckpt")), capture=True)
     r["scan_calls"] = watch.card_calls
+    r["scan_bwd_calls"] = watch.bwd_calls
     r["serve"] = serve
     blocks = out / f"rank{ctx.process_id}"
     blocks.mkdir()
@@ -5740,6 +6199,7 @@ def train_dist_worker(spec_path: str) -> None:
                 torch, fcfg, mesh, None, str(out / f"ckpt_{arch}"),
                 out / "kept" / arch)
         f["scan_calls"] = watch.card_calls
+        f["scan_bwd_calls"] = watch.bwd_calls
         f["part_s"] = time.perf_counter() - t0
         f["launched"] = {k: v for k, v in ops.launch_counts().items() if v}
         r["families"][arch] = f
@@ -6251,7 +6711,8 @@ def train_dist_phase(np, torch, dev, card) -> dict:
                 torch, fcfg, None, dev, str(tdir / f"single_{arch}"),
                 out / "kept" / arch)
         r["scans"] = scan_gates(f"train_dist single {arch}",
-                                ops.launch_counts(), watch.card_calls, True)
+                                ops.launch_counts(), watch.card_calls, True,
+                                bwd_calls=watch.bwd_calls)
         check(bool(recurrent_layers(fcfg)) == any(
             v["card_calls"] for v in r["scans"].values()),
               f"train_dist single {arch}: scans called {r['scans']}")
@@ -6402,7 +6863,7 @@ def train_dist_phase(np, torch, dev, card) -> dict:
           f"train_dist (b): memory after placement {rec['b_gloo_1x2']}")
     for i, r in enumerate(ranks):
         scan_gates(f"train_dist (b) rank {i}", r["launched"],
-                   r["scan_calls"], True, {})
+                   r["scan_calls"], True, {}, r["scan_bwd_calls"], {})
     rec["b_families"] = {}
     for arch, single in fam_single.items():
         fcfg = train_dist_family_cfg(arch)
@@ -6455,11 +6916,12 @@ def train_dist_phase(np, torch, dev, card) -> dict:
               "differ")
         check(max(mem) <= TRAIN_DIST_MEM_TOL,
               f"train_dist (b) {arch}: memory after placement {mem}")
-        # the recurrent families' steps run the scans' plain loops on
-        # every rank, each card call counted
+        # the recurrent families' steps run the scans' forward and
+        # backward kernels on every rank (the sLSTM's once a time step)
         frec["scans"] = [scan_gates(
             f"train_dist (b) {arch} rank {i}", f["launched"],
-            f["scan_calls"], True) for i, f in enumerate(fr)]
+            f["scan_calls"], True, bwd_calls=f["scan_bwd_calls"])
+            for i, f in enumerate(fr)]
         check(all(bool(recurrent_layers(fcfg)) == any(
             v["card_calls"] for v in sc.values()) for sc in frec["scans"]),
               f"train_dist (b) {arch}: scans called {frec['scans']}")
@@ -6995,12 +7457,12 @@ def main() -> None:
     # the fused Jacobi probe on deepseek-v2-lite's features
     families_counts, scan_counts = lm_families_phase(np, torch, dev, card,
                                                      report, parity)
-    # every kernel of the twelve sources has launched by now (the scans in
-    # lm_families)
+    # every kernel of the fifteen sources has launched by now (the scans'
+    # forward and backward kernels in lm_families)
     analysis["kernel_smem"] = analysis_kernel_smem(dev)
     analysis_phase(analysis, card)
-    # LM training on the card: no hand-written kernel on its path
-    train_phase(np, torch, dev, card)
+    # LM training on the card: the scans' forward and backward kernels
+    train = train_phase(np, torch, dev, card)
     # sharded LM training and the dry-run, last
     train_dist_phase(np, torch, dev, card)
     for name in ("glm_stats", "cd_tile_solve", "alpha_search"):
@@ -7049,8 +7511,9 @@ def main() -> None:
            # the reference's loops that XLA compiles
            "admm_shooting": "src/repro/baselines/admm.py:36",
            "online_tg": "src/repro/baselines/online_tg.py:37",
-           # the recurrences' lax.scans of the LM template
-           **SCAN_SRC}
+           # the recurrences' lax.scans of the LM template, and the
+           # reverse-time loops XLA makes of them for their gradients
+           **SCAN_SRC, **{f"{k}_bwd": v for k, v in SCAN_SRC.items()}}
     # each kernel's launches come from the run of its own path
     main_path = {"glm_stats": sparse_counts, "cd_tile_solve": sparse_counts,
                  "tile_gram": sparse_counts, "alpha_search": sparse_counts,
@@ -7062,7 +7525,10 @@ def main() -> None:
                  "admm_shooting": baseline_counts[0],
                  "online_tg": baseline_counts[1],
                  # lm_families' zamba2 and xlstm serve checks
-                 **{k: scan_counts for k in SCAN_NAMES}}
+                 **{k: scan_counts for k in SCAN_NAMES},
+                 # train's full-width zamba2 and xlstm steps
+                 **{f"{k}_bwd": train["train_scans"]["launches"]
+                    for k in SCAN_NAMES}}
     # what each source's launched kernels ask of the card (the analysis
     # phase's kernel_smem read the same records)
     resources = {stem: [{k: r[k] for k in (
@@ -7126,7 +7592,10 @@ def main() -> None:
                                    "plain_over_kernel", "input_scale",
                                    "bar",
                                    "plain_off_float64",
-                                   "kernel_off_float64")
+                                   "kernel_off_float64", "grad_rel_errs",
+                                   "bars", "bits_equal_twice",
+                                   "fault_control", "fault_over_bar",
+                                   "checkpoint_every")
                if k in rep}})
     emit({"kernels": kernels})
     emit({"phase": "wall", "wall_s": time.perf_counter() - t_start,

@@ -31,7 +31,8 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("glm_stats.cu", "cd_tile_solve.cu", "tile_gram.cu",
            "alpha_search.cu", "stats_gram_solve.cu", "margin_ls.cu",
            "predict_tile.cu", "admm_shooting.cu", "online_tg.cu",
-           "ssm_scan.cu", "mlstm_scan.cu", "slstm_scan.cu")
+           "ssm_scan.cu", "mlstm_scan.cu", "slstm_scan.cu",
+           "ssm_scan_bwd.cu", "mlstm_scan_bwd.cu", "slstm_scan_bwd.cu")
 HEADERS = ("glm_family.cuh", "cd_chain.cuh", "gram_tc.cuh", "mbarrier.cuh",
            "resources.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]

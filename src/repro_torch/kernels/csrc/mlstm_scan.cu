@@ -28,7 +28,10 @@
 // q C and q.n, and reduces them across the 8 warps (two barriers).  The
 // updates are rounded as the plain version's (products and sums apart: no
 // fused multiply-add); q C and q.n are float32 sums in another order.
-// max propagates NaN, as torch.maximum does.
+// max propagates NaN, as torch.maximum does.  Training mode (Cck not
+// null): C and n before every L-th step, (ceil(S / L), B, H, hd_k, hd_v)
+// and (ceil(S / L), B, H, hd_k), and every step's m and q.n (B, S, H) are
+// also written, for mlstm_scan_bwd.cu; serving passes null.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -69,8 +72,10 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ n_in,
                       const float* __restrict__ m_in, float* __restrict__ hs,
                       float* C_out, float* __restrict__ n_out,
-                      float* __restrict__ m_out, int S, int H, int hd_k,
-                      int hd_v) {
+                      float* __restrict__ m_out, float* __restrict__ Cck,
+                      float* __restrict__ nck, float* __restrict__ ms,
+                      float* __restrict__ qns, int S, int H, int hd_k,
+                      int hd_v, int L) {
   __shared__ float qk[2][2][kMaxHdK];      // q_t, k_t by step parity
   __shared__ float red_num[kWarps][kCols];
   __shared__ float red_qn[kWarps];
@@ -122,6 +127,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < S; ++t) {
     const float vv = vn, ipre = in_, fpre = fn_;
     if (t + 1 < S) load(t + 1);
+    if (Cck != nullptr && t % L == 0) {
+      const long long slot = (long long)(t / L) * gridDim.y + bh;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int row = warp + kWarps * r;
+        if (row < hd_k && col_ok)
+          Cck[slot * hd_k * hd_v + (long long)row * hd_v + col] = Creg[r];
+      }
+      if (cb == 0) {
+#pragma unroll
+        for (int j = 0; j < kNPer; ++j) {
+          const int kk = tid + kThreads * j;
+          if (kk < hd_k) nck[slot * hd_k + kk] = nreg[j];
+        }
+      }
+    }
     __syncthreads();   // q_t, k_t staged; last step's sums read
     const float* qs = qk[t & 1][0];
     const float* ks = qk[t & 1][1];
@@ -165,6 +186,10 @@ __global__ void __launch_bounds__(kThreads)
       const float den = nan_max(fabsf(qn_all), expf(-m_new));
       if (col_ok)
         hs[(((long long)b * S + t) * H + h) * hd_v + col] = tot / den;
+      if (Cck != nullptr && cb == 0 && lane == 0) {
+        ms[((long long)b * S + t) * H + h] = m_new;
+        qns[((long long)b * S + t) * H + h] = qn_all;
+      }
     }
     m = m_new;
   }
@@ -203,22 +228,28 @@ const void* kernel_of(int hd_k) {
 // hd_k), m_out (B, H): the scan of q, k (B, S, H, hd_k), v (B, S, H, hd_v),
 // i and f (B, S, H) from C_in, n_in, m_in.  C_out may be C_in (a block
 // reads its columns before it writes them); n_out and m_out must not be
-// n_in and m_in (every block reads them, one block writes them).
+// n_in and m_in (every block reads them, one block writes them).  Cck,
+// nck, ms, qns: null, or the training mode's checkpoints every L steps
+// and every step's m and q.n.
 extern "C" int repro_mlstm_scan(const float* q, const float* k, const float* v,
                                 const float* ig, const float* fg,
                                 const float* C_in, const float* n_in,
                                 const float* m_in, float* hs, float* C_out,
-                                float* n_out, float* m_out, int B, int S,
-                                int H, int hd_k, int hd_v, void* stream) {
+                                float* n_out, float* m_out, float* Cck,
+                                float* nck, float* ms, float* qns, int B,
+                                int S, int H, int hd_k, int hd_v, int L,
+                                void* stream) {
   if (B < 1 || S < 1 || H < 1 || hd_k < 1 || hd_v < 1 || hd_k > kMaxHdK ||
-      n_in == n_out || m_in == m_out)
+      n_in == n_out || m_in == m_out ||
+      (Cck != nullptr && (L < 1 || !nck || !ms || !qns)))
     return (int)cudaErrorInvalidValue;
   const void* fn = kernel_of(hd_k);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = repro::note_launch(kSlots, kMax, fn, 0, kThreads);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&q,    &k,     &v,     &ig, &fg, &C_in, &n_in, &m_in, &hs,
-                  &C_out, &n_out, &m_out, &S, &H, &hd_k, &hd_v};
+  void* args[] = {&q,     &k,     &v,     &ig,  &fg,   &C_in, &n_in,
+                  &m_in,  &hs,    &C_out, &n_out, &m_out, &Cck, &nck,
+                  &ms,    &qns,   &S,     &H,   &hd_k, &hd_v, &L};
   const dim3 grid((hd_v + kCols - 1) / kCols, B * H);
   err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, 0,
                          static_cast<cudaStream_t>(stream));

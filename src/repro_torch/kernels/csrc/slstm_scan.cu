@@ -34,7 +34,9 @@
 // fused multiply-add); the products with r and the means are float32
 // sums in another order.  max propagates NaN, as torch.maximum and
 // torch.clamp_min do, so exp's overflows give the plain loop's inf and
-// NaN.
+// NaN.  Training mode (pre not null): every step's gate pre-activations
+// (B, steps, 4, H, hd_v), c and n (B, steps, H, hd_v) and m (B, steps, H)
+// are also written, for slstm_scan_bwd.cu; serving passes null.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,7 +74,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const float* n_in, const float* h_in,
                       const float* m_in, const float* __restrict__ sc,
                       float* __restrict__ hs, float* c_out, float* n_out,
-                      float* h_out, float* m_out, int S, int steps, int H,
+                      float* h_out, float* m_out, float* __restrict__ pre,
+                      float* __restrict__ cs, float* __restrict__ ns,
+                      float* __restrict__ ms, int S, int steps, int H,
                       int hd_k, int hd_v) {
   constexpr int KP = kThreads / (4 * W);   // 2 (W 32) or 1 (W 64)
   cg::cluster_group cluster = cg::this_cluster();
@@ -129,6 +133,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long long gi =
           ((((long long)b * S + t) * 4 + g) * H + h) * hd_v + col;
       pre_s[g][vl] = col_ok ? __fadd_rn(gates[gi], acc) : 0.f;
+      if (pre != nullptr && col_ok)
+        pre[((((long long)b * steps + t) * 4 + g) * H + h) * hd_v + col] =
+            pre_s[g][vl];
     }
     __syncthreads();
     if (sc == nullptr && warp < 2) {   // warp 0: pre_i, warp 1: pre_f
@@ -165,8 +172,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float nc = isnan(n) ? n : fmaxf(n, 1e-6f);
       hv = __fmul_rn(o, c) / nc;
       hslice[vl] = hv;
-      hs[(((long long)b * steps + t) * H + h) * hd_v + col] = hv;
+      const long long at = (((long long)b * steps + t) * H + h) * hd_v + col;
+      hs[at] = hv;
+      if (pre != nullptr) {
+        cs[at] = c;
+        ns[at] = n;
+      }
     }
+    if (pre != nullptr && rank == 0 && tid == 0)
+      ms[((long long)b * steps + t) * H + h] = m_new;
     m = m_new;
     if (t + 1 < steps) {
       cluster.sync();            // every block's h slice written
@@ -247,17 +261,20 @@ cudaError_t plan(int hd_v, int& W, int& C) {
 // (B, H, hd_k: the whole h) and m_in (B, H).  sc (B, 2, H), or null: the
 // head-level i and f of one step (steps 1), given where a block of hd runs
 // here.  The outputs may be the inputs (every read of an input precedes a
-// cluster barrier that precedes every write).
+// cluster barrier that precedes every write).  pre, cs, ns, ms: null, or
+// the training mode's every step's gate pre-activations, c, n and m.
 extern "C" int repro_slstm_scan(const float* gates, const float* r,
                                 const float* c_in, const float* n_in,
                                 const float* h_in, const float* m_in,
                                 const float* sc, float* hs, float* c_out,
                                 float* n_out, float* h_out, float* m_out,
+                                float* pre, float* cs, float* ns, float* ms,
                                 int B, int S, int steps, int H, int hd_k,
                                 int hd_v, void* stream) {
   if (B < 1 || S < 1 || steps < 1 || steps > S || H < 1 || hd_k < 1 ||
       hd_v < 1 || hd_k > kMaxHdK || (sc == nullptr && hd_k != hd_v) ||
-      (sc != nullptr && steps != 1))
+      (sc != nullptr && steps != 1) ||
+      (pre != nullptr && (!cs || !ns || !ms)))
     return (int)cudaErrorInvalidValue;
   int W = 32, C = 1;
   cudaError_t err = plan(hd_v, W, C);
@@ -272,7 +289,8 @@ extern "C" int repro_slstm_scan(const float* gates, const float* r,
       config(C, B * H, static_cast<cudaStream_t>(stream), attr);
   void* args[] = {&gates, &r,     &c_in,  &n_in,  &h_in, &m_in,
                   &sc,    &hs,    &c_out, &n_out, &h_out, &m_out,
-                  &S,     &steps, &H,     &hd_k,  &hd_v};
+                  &pre,   &cs,    &ns,    &ms,    &S,    &steps,
+                  &H,     &hd_k,  &hd_v};
   err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -20,6 +20,9 @@
 // step's x, dt, B and C are loaded while this step computes.  The update
 // is rounded as the plain version's (products and sums apart: no fused
 // multiply-add); y's sum over ds is a float32 sum in another order.
+// Training mode (ckpt not null): the state before every L-th step is
+// also written, (ceil(S / L), B, H, hd, ds), for ssm_scan_bwd.cu; serving
+// passes null and writes nothing more.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,7 +46,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ Cm, const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ D,
                     const float* s_in, float* __restrict__ y, float* s_out,
-                    int S, int H, int hd, int ds) {
+                    float* __restrict__ ckpt, int S, int H, int hd, int ds,
+                    int L) {
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -91,6 +95,18 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float dtc = dtn;
     if (t + 1 < S) load(t + 1);
+    if (ckpt != nullptr && t % L == 0) {
+      float* ck = ckpt + ((long long)(t / L) * gridDim.x) * hd * ds + sbase;
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int p = warp + kWarps * r;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = lane + 32 * j;
+          if (p < hd && s < ds) ck[(long long)p * ds + s] = st[r][j];
+        }
+      }
+    }
     const float decay = expf(__fmul_rn(-dtc, a));
     float* yt = y + (((long long)b * S + t) * H + h) * hd;
 #pragma unroll
@@ -165,12 +181,15 @@ int pow2_at_least(int v) {
 // y (B, S, H, hd) and s_out (B, H, hd, ds): the scan of x (B, S, H, hd),
 // Bm and Cm (B, S, ds), dt (B, S, H), A and D (H,) from s_in (B, H, hd,
 // ds).  s_out may be s_in (each block reads its state before it writes).
+// ckpt: null, or (ceil(S / L), B, H, hd, ds) for the states before steps
+// 0, L, 2L, ...
 extern "C" int repro_ssm_scan(const float* x, const float* Bm, const float* Cm,
                               const float* dt, const float* A, const float* D,
-                              const float* s_in, float* y, float* s_out, int B,
-                              int S, int H, int hd, int ds, void* stream) {
+                              const float* s_in, float* y, float* s_out,
+                              float* ckpt, int B, int S, int H, int hd, int ds,
+                              int L, void* stream) {
   if (B < 1 || S < 1 || H < 1 || hd < 1 || ds < 1 || hd > 16 * kWarps ||
-      ds > 128)
+      ds > 128 || (ckpt != nullptr && L < 1))
     return (int)cudaErrorInvalidValue;
   const int rpw = pow2_at_least((hd + kWarps - 1) / kWarps);
   const int spl = pow2_at_least((ds + 31) / 32);
@@ -179,7 +198,7 @@ extern "C" int repro_ssm_scan(const float* x, const float* Bm, const float* Cm,
   cudaError_t err = repro::note_launch(kSlots, kMax, fn, 0, kThreads);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&x, &Bm, &Cm, &dt, &A, &D, &s_in, &y, &s_out,
-                  &S, &H, &hd, &ds};
+                  &ckpt, &S, &H, &hd, &ds, &L};
   err = cudaLaunchKernel(fn, dim3(B * H), dim3(kThreads), args, 0,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

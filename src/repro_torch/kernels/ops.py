@@ -21,11 +21,16 @@ behind one logical launch of each kernel (what a profile of the card
 shows), and ``kernel_resources()`` what each of them asks of the card.
 
 The recurrences' scans (``ssm_scan``, ``mlstm_scan``, ``slstm_scan``)
-have forward kernels only: a call on the card launches the kernel unless
-grad mode is on and an input requires a gradient (a training step), which
-runs the plain loop, whose autograd gives the backward, counted as
-``"<name>/plain"``.  Serving takes the kernel: the models' parameters are
-frozen as built.
+have a forward and a backward kernel each.  A call whose input requires
+a gradient under grad mode (a training step) goes through a
+``torch.autograd.Function`` (``SsmScan``, ``MlstmScan``, ``SlstmScan``):
+on the card its forward launches the forward kernel in its training mode
+(which also writes what the backward reads) and its backward launches the
+``<name>_bwd`` kernel; on the CPU the same Function runs the plain forward
+and the plain backward of ``kernels/ref.py``.  Any other call launches the
+forward kernel alone on the card (serving: the models' parameters are
+frozen as built), or runs the plain loop on the CPU.  No scan call on the
+card takes a plain route: their ``"<name>/plain"`` counts stay 0.
 """
 from __future__ import annotations
 
@@ -72,6 +77,9 @@ KERNELS = {
     "ssm_scan": ssm_scan_k.KERNEL,
     "mlstm_scan": mlstm_scan_k.KERNEL,
     "slstm_scan": slstm_scan_k.KERNEL,
+    "ssm_scan_bwd": ssm_scan_k.KERNEL_BWD,
+    "mlstm_scan_bwd": mlstm_scan_k.KERNEL_BWD,
+    "slstm_scan_bwd": slstm_scan_k.KERNEL_BWD,
 }
 
 
@@ -92,6 +100,9 @@ CUDA_FUNCTIONS = {
     "ssm_scan": ("ssm_scan_kernel",),
     "mlstm_scan": ("mlstm_scan_kernel",),
     "slstm_scan": ("slstm_scan_kernel",),
+    "ssm_scan_bwd": ("ssm_scan_bwd_kernel", "ssm_scan_bwd_reduce"),
+    "mlstm_scan_bwd": ("mlstm_scan_bwd_kernel", "mlstm_scan_bwd_reduce"),
+    "slstm_scan_bwd": ("slstm_scan_bwd_kernel",),
 }
 
 
@@ -108,9 +119,9 @@ def kernel_resources() -> dict:
 
 
 # calls on the card that ran a kernel's plain version, by kernel: the GLM
-# kernels' for a family without a body in them, the recurrences' scans'
-# for an input that requires a gradient (training: the plain loop's
-# autograd gives the backward, until the scans have backward kernels)
+# kernels' for a family without a body in them.  The recurrences' scans
+# have none (training launches their backward kernels); their keys stay,
+# held at 0, so that a run shows it
 PLAIN_ROUTES = ("glm_stats", "alpha_search", "stats_gram_solve",
                 "margin_ls", "predict_tile", "ssm_scan", "mlstm_scan",
                 "slstm_scan")
@@ -120,8 +131,7 @@ _plain_calls = dict.fromkeys(PLAIN_ROUTES, 0)
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last reset, and under
     ``"<kernel>/plain"`` the calls on the card that ran its plain version
-    for a family without a body in it, or (a scan) for an input that
-    requires a gradient."""
+    for a family without a body in it (a scan's stays 0)."""
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts.update({f"{k}/plain": v for k, v in _plain_calls.items()})
     return counts
@@ -200,19 +210,105 @@ def _launches(t, kernel: str, family: str, codes) -> bool:
     return False
 
 
-def _scan_launches(name: str, *tensors) -> bool:
-    """True when a recurrence's scan launches its kernel: its tensors lie
-    on the card and no gradient is asked of them.  While grad mode is on
-    and an input requires a gradient (a training step; the serving
-    models' parameters are frozen), the card runs the plain loop, counted
-    as ``"<name>/plain"``."""
-    if not _on_card(tensors[0]):
-        return False
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        _plain_calls[name] += 1
-        return False
-    return True
+def _differentiated(*tensors) -> bool:
+    """True when a recurrence's scan call carries a gradient: grad mode
+    is on and one of its inputs requires a gradient (a training step)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class SsmScan(torch.autograd.Function):
+    """``ssm_scan`` with its backward: the forward keeps the state every
+    ``ref.CKPT_EVERY`` steps; the backward recomputes each segment from
+    its checkpoint and runs it in reverse (the ``ssm_scan_bwd`` kernel on
+    the card, ``ref.ssm_scan_bwd`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, xh, Bm, Cm, dt, A, D, state0):
+        L = ref.CKPT_EVERY
+        if _on_card(xh):
+            y, h, ckpts = ssm_scan_k.launch(xh, Bm, Cm, dt, A, D, state0,
+                                            ckpt_every=L)
+        else:
+            y, h, ckpts = ref.ssm_scan(xh, Bm, Cm, dt, A, D, state0,
+                                       ckpt_every=L)
+        ctx.save_for_backward(xh, Bm, Cm, dt, A, D, ckpts)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        args = (*ctx.saved_tensors, dy.contiguous(), dh.contiguous(),
+                ref.CKPT_EVERY)
+        if args[0].is_cuda:
+            return ssm_scan_k.launch_bwd(*args)
+        return ref.ssm_scan_bwd(*args)
+
+
+class MlstmScan(torch.autograd.Function):
+    """``mlstm_scan`` with its backward: the forward keeps (C, n) every
+    ``ref.CKPT_EVERY`` steps and every step's m and q.n; the backward
+    recomputes each segment's (C, n) from its checkpoint and runs it in
+    reverse (the ``mlstm_scan_bwd`` kernel on the card,
+    ``ref.mlstm_scan_bwd`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0):
+        L = ref.CKPT_EVERY
+        if _on_card(q):
+            hs, st, saved = mlstm_scan_k.launch(
+                q, k, v, i_pre, f_pre, (C0, n0, m0), ckpt_every=L)
+        else:
+            hs, st, saved = ref.mlstm_scan(q, k, v, i_pre, f_pre,
+                                           (C0, n0, m0), ckpt_every=L)
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, m0, *saved, hs)
+        return (hs, *st)
+
+    @staticmethod
+    def backward(ctx, dhs, dC, dn, dm):
+        q, k, v, i_pre, f_pre, m0, *saved, hs = ctx.saved_tensors
+        args = (q, k, v, i_pre, f_pre, m0, tuple(saved), hs,
+                dhs.contiguous(), dC.contiguous(), dn.contiguous(),
+                dm.contiguous(), ref.CKPT_EVERY)
+        if q.is_cuda:
+            return mlstm_scan_k.launch_bwd(*args)
+        return ref.mlstm_scan_bwd(*args)
+
+
+class SlstmScan(torch.autograd.Function):
+    """``slstm_scan`` with its backward: the forward keeps every step's
+    gate pre-activations, c, n and m; the backward runs the steps in
+    reverse (the ``slstm_scan_bwd`` kernel on the card,
+    ``ref.slstm_scan_bwd`` on the CPU), and dr_gates = sum over rows and
+    steps of h_{t-1} dpre_t is one product after it."""
+
+    @staticmethod
+    def forward(ctx, r, c0, n0, h0, m0, gates_in, sc, steps):
+        state = (c0, n0, h0, m0)
+        if _on_card(r):
+            hs, st, saved = slstm_scan_k.launch(r, state, gates_in, steps,
+                                                sc=sc, save=True)
+        else:
+            hs, st, saved = ref.slstm_scan(r, state, gates_in, steps, sc=sc,
+                                           save=True)
+        ctx.save_for_backward(r, c0, n0, h0, m0, sc, *saved, hs)
+        ctx.gates_shape = gates_in.shape
+        return (hs, *st)
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        r, c0, n0, h0, m0, sc, *saved, hs = ctx.saved_tensors
+        args = (r, (c0, n0, h0, m0), sc, tuple(saved), hs, dhs.contiguous(),
+                dc.contiguous(), dn.contiguous(), dh.contiguous(),
+                dm.contiguous())
+        if r.is_cuda:
+            dpres, dr, dstate, dsc = slstm_scan_k.launch_bwd(*args)
+        else:
+            dpres, dr, dstate, dsc = ref.slstm_scan_bwd(*args)
+        dgates = dpres
+        if dpres.shape[1] != ctx.gates_shape[1]:
+            dgates = dpres.new_zeros(ctx.gates_shape)
+            dgates[:, :dpres.shape[1]] = dpres
+        return (dr, *dstate, dgates, dsc, None)
 
 
 def _into(out, state):
@@ -466,9 +562,13 @@ def ssm_scan(xh, Bm, Cm, dt, A, D, state0, *, out=None):
     kernels/ssm_scan.py.  xh (B, S, H, hd), Bm and Cm (B, S, ds), dt (B,
     S, H), A and D (H,), state0 (B, H, hd, ds), all float32; returns (y
     (B, S, H, hd), the final state).  ``out``: a cache's state, which
-    takes the final state in place."""
+    takes the final state in place.  A call that carries a gradient goes
+    through ``SsmScan``."""
     record_launch("ssm_scan")
-    if not _scan_launches("ssm_scan", xh, Bm, Cm, dt, A, D, state0):
+    if _differentiated(xh, Bm, Cm, dt, A, D, state0):
+        y, h = SsmScan.apply(xh, Bm, Cm, dt, A, D, state0)
+        return y, build.into(out, h)
+    if not _on_card(xh):
         y, h = ref.ssm_scan(xh, Bm, Cm, dt, A, D, state0)
         return y, build.into(out, h)
     return ssm_scan_k.launch(xh, Bm, Cm, dt, A, D, state0, out=out)
@@ -479,9 +579,13 @@ def mlstm_scan(q, k, v, i_pre, f_pre, state, *, out=None):
     kernels/mlstm_scan.py.  q, k (B, S, H, hd_k), k scaled by 1/sqrt(hd);
     v (B, S, H, hd_v); gates (B, S, H); state (C, n, m); returns (h (B,
     S, H, hd_v), (C, n, m)).  ``out``: (C, n, m), each a cache's leaf or
-    None, the leaves given taking the final state in place."""
+    None, the leaves given taking the final state in place.  A call that
+    carries a gradient goes through ``MlstmScan``."""
     record_launch("mlstm_scan")
-    if not _scan_launches("mlstm_scan", q, k, v, i_pre, f_pre, *state):
+    if _differentiated(q, k, v, i_pre, f_pre, *state):
+        hs, *st = MlstmScan.apply(q, k, v, i_pre, f_pre, *state)
+        return hs, _into(out, tuple(st))
+    if not _on_card(q):
         hs, st = ref.mlstm_scan(q, k, v, i_pre, f_pre, state)
         return hs, _into(out, st)
     return mlstm_scan_k.launch(q, k, v, i_pre, f_pre, state, out=out)
@@ -494,9 +598,13 @@ def slstm_scan(r, state, gates_in, steps: int, *, sc=None, out=None):
     previous output; ``sc`` (B, 2, H) the head-level stabilizers of one
     step of a block of hd; returns (h (B, steps, H, hd_v), (c, n, h, m)).
     ``out``: (c, n, h, m), each a cache's leaf or None, the leaves given
-    taking the final state in place."""
+    taking the final state in place.  A call that carries a gradient goes
+    through ``SlstmScan``."""
     record_launch("slstm_scan")
-    if not _scan_launches("slstm_scan", r, gates_in, sc, *state):
+    if _differentiated(r, gates_in, sc, *state):
+        hs, *st = SlstmScan.apply(r, *state, gates_in, sc, steps)
+        return hs, _into(out, tuple(st))
+    if not _on_card(r):
         hs, st = ref.slstm_scan(r, state, gates_in, steps, sc=sc)
         return hs, _into(out, st)
     return slstm_scan_k.launch(r, state, gates_in, steps, sc=sc, out=out)

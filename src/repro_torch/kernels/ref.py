@@ -366,22 +366,121 @@ def _log_sigmoid(x):
     return -F.softplus(-x)
 
 
-def ssm_scan(xh, Bm, Cm, dt, A, D, state0):
+# The training forms save what the backward needs.  Mamba2's and the
+# mLSTM's states are large ((hd, ds) and (hd_k, hd_v) a head), so the
+# forward keeps the state before every CKPT_EVERY-th step and the backward
+# recomputes a segment's states from its checkpoint, with the forward's own
+# step, then runs that segment in reverse.  16 steps: the checkpoints of a
+# 1,024-step Mamba2 call are 1/16 of its states (128 MB at zamba2's B 2, H
+# 64, hd 64, ds 64), and the kernel's segment of 17 states a (b, h) is 35
+# MB there, inside the card's 50 MB L2.  The sLSTM's state is small: its
+# forward saves every step's c, n, m and gate pre-activations.  The
+# backward oracles below are explicit reverse-time loops, no autograd;
+# they follow the plain loops' autograd at torch.maximum (half the
+# gradient to each side at a tie), abs (0 at 0), clamp_min (the whole
+# gradient at the bound) and softplus (its threshold of 20).
+CKPT_EVERY = 16
+
+
+def _max_weights(a, b):
+    """The shares of torch.maximum(a, b)'s gradient that go to a and b."""
+    wa = (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
+    return wa, 1.0 - wa
+
+
+def _dlog_sigmoid(x):
+    """d/dx of ``_log_sigmoid``: softplus'(-x), 1 past torch's threshold."""
+    z = torch.exp(-x)
+    return torch.where(-x > 20, torch.ones_like(x), z / (z + 1))
+
+
+def _ssm_step(h, xt, Bt, dtt, A):
+    """One step of Mamba2's state: h decay + (x dt) B."""
+    decay = torch.exp(-dtt * A)                          # (B, H)
+    upd = (xt * dtt[..., None])[..., None] * Bt[:, None, None, :]
+    return h * decay[..., None, None] + upd
+
+
+def ssm_scan(xh, Bm, Cm, dt, A, D, state0, ckpt_every: int = 0):
     """Mamba2's selective scan, the reference's ``_ssm_scan``
     (``repro/models/ssm.py``).  xh (B, S, H, hd); Bm, Cm (B, S, ds); dt
     (B, S, H); A, D (H,); state0 (B, H, hd, ds), all float32.  For each
     step, decay = exp(-dt A), h = h decay + (x dt) B, y = h C + D x.
-    Returns (y (B, S, H, hd), the final state)."""
+    Returns (y (B, S, H, hd), the final state); with ``ckpt_every`` L
+    also the states before steps 0, L, 2L, ... stacked (ceil(S / L), B,
+    H, hd, ds), what ``ssm_scan_bwd`` reads."""
     h = state0
-    ys = []
+    ys, ckpts = [], []
     for t in range(xh.shape[1]):
-        xt, Bt, Ct, dtt = xh[:, t], Bm[:, t], Cm[:, t], dt[:, t]
-        decay = torch.exp(-dtt * A)                          # (B, H)
-        upd = (xt * dtt[..., None])[..., None] * Bt[:, None, None, :]
-        h = h * decay[..., None, None] + upd
+        if ckpt_every and t % ckpt_every == 0:
+            ckpts.append(h)
+        xt, Ct = xh[:, t], Cm[:, t]
+        h = _ssm_step(h, xt, Bm[:, t], dt[:, t], A)
         ys.append((h @ Ct[:, None, :, None])[..., 0]
                   + D[None, :, None] * xt)
+    if ckpt_every:
+        return torch.stack(ys, dim=1), h, torch.stack(ckpts)
     return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_bwd(xh, Bm, Cm, dt, A, D, ckpts, dy, dh, ckpt_every: int):
+    """The gradients of ``ssm_scan`` (dxh, dBm, dCm, ddt, dA, dD,
+    dstate0) from its inputs, its checkpoints and the cotangents of y
+    (dy) and of the final state (dh).  Segment by segment from the last,
+    the states are recomputed from the checkpoint, then
+    G = dL/dh_t runs back: G += dy_t C_t, the step's gradients from G,
+    h_{t-1} and h_t, then G *= decay_t."""
+    L = ckpt_every
+    S = xh.shape[1]
+    G = dh
+    dx, ddt = torch.empty_like(xh), torch.empty_like(dt)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA, dD = torch.zeros_like(A), torch.zeros_like(D)
+    for seg in reversed(range(ckpts.shape[0])):
+        t0, t1 = seg * L, min(S, seg * L + L)
+        hs = [ckpts[seg]]
+        for t in range(t0, t1):
+            hs.append(_ssm_step(hs[-1], xh[:, t], Bm[:, t], dt[:, t], A))
+        for t in reversed(range(t0, t1)):
+            h_t, h_p = hs[t - t0 + 1], hs[t - t0]
+            xt, Bt, Ct, dtt, dyt = xh[:, t], Bm[:, t], Cm[:, t], dt[:, t], \
+                dy[:, t]
+            G = G + dyt[..., None] * Ct[:, None, None, :]
+            dC[:, t] = torch.einsum("bhps,bhp->bs", h_t, dyt)
+            dD = dD + (dyt * xt).sum(dim=(0, 2))
+            decay = torch.exp(-dtt * A)
+            dxdt = torch.einsum("bhps,bs->bhp", G, Bt)
+            dB[:, t] = torch.einsum("bhps,bhp->bs", G, xt * dtt[..., None])
+            dx[:, t] = dxdt * dtt[..., None] + D[None, :, None] * dyt
+            du = (G * h_p).sum(dim=(-2, -1)) * decay         # d(-dt A)
+            ddt[:, t] = (dxdt * xt).sum(dim=-1) - du * A
+            dA = dA - (du * dtt).sum(dim=0)
+            G = G * decay[..., None, None]
+    return dx, dB, dC, ddt, dA, dD, G
+
+
+def _mlstm_update(state, k, v, i_pre, f_pre):
+    """The mLSTM's state update (C, n, m) of one step: the forward's and
+    the backward's recompute (the same operations, the same bits)."""
+    C, n, m = state
+    log_f = _log_sigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(log_f + m - m_new)
+    kv = k[..., :, None] @ v[..., None, :]               # (hd, 1) x (1, hd_v)
+    C = C * f_g[..., None, None] + i_g[..., None, None] * kv
+    n = n * f_g[..., None] + i_g[..., None] * k
+    return C, n, m_new
+
+
+def _mlstm_step(state, q, k, v, i_pre, f_pre):
+    """``mlstm_step`` that also returns q.n (the normalizer's sign and
+    branch, what the backward reads)."""
+    C, n, m_new = _mlstm_update(state, k, v, i_pre, f_pre)
+    num = (q[..., None, :] @ C)[..., 0, :]               # (B, H, hd_v)
+    qn = (q[..., None, :] @ n[..., :, None])[..., 0, 0]  # (B, H)
+    den = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return (C, n, m_new), num / den[..., None], qn
 
 
 def mlstm_step(state, q, k, v, i_pre, f_pre):
@@ -391,34 +490,117 @@ def mlstm_step(state, q, k, v, i_pre, f_pre):
     gates (B, H).  The memory's update k v^T and the normalizer q.n are
     matrix products, as the reference's einsums are.  Returns (state,
     h (B, H, hd_v))."""
-    C, n, m = state
-    log_f = _log_sigmoid(f_pre)
-    m_new = torch.maximum(log_f + m, i_pre)
-    i_g = torch.exp(i_pre - m_new)
-    f_g = torch.exp(log_f + m - m_new)
-    kv = k[..., :, None] @ v[..., None, :]               # (hd, 1) x (1, hd_v)
-    C = C * f_g[..., None, None] + i_g[..., None, None] * kv
-    n = n * f_g[..., None] + i_g[..., None] * k
-    num = (q[..., None, :] @ C)[..., 0, :]               # (B, H, hd_v)
-    qn = (q[..., None, :] @ n[..., :, None])[..., 0, 0]  # (B, H)
-    den = torch.maximum(qn.abs(), torch.exp(-m_new))
-    return (C, n, m_new), num / den[..., None]
+    state, h, _ = _mlstm_step(state, q, k, v, i_pre, f_pre)
+    return state, h
 
 
-def mlstm_scan(q, k, v, i_pre, f_pre, state):
+def mlstm_scan(q, k, v, i_pre, f_pre, state, ckpt_every: int = 0):
     """The mLSTM step scan, the reference's ``_mlstm_core`` over its
     scaled keys: q, k (B, S, H, hd), k scaled by 1/sqrt(hd); v (B, S, H,
     hd_v); gates (B, S, H); state (C, n, m) as ``mlstm_step``'s.  Returns
-    (h (B, S, H, hd_v), the final state)."""
-    hs = []
+    (h (B, S, H, hd_v), the final state); with ``ckpt_every`` L also
+    (C and n before steps 0, L, 2L, ... stacked, every step's m and q.n
+    (B, S, H)), what ``mlstm_scan_bwd`` reads."""
+    hs, Cs, ns, ms, qns = [], [], [], [], []
     for t in range(q.shape[1]):
-        state, h = mlstm_step(state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
-                              f_pre[:, t])
+        if ckpt_every and t % ckpt_every == 0:
+            Cs.append(state[0])
+            ns.append(state[1])
+        state, h, qn = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
+                                   i_pre[:, t], f_pre[:, t])
         hs.append(h)
+        ms.append(state[2])
+        qns.append(qn)
+    if ckpt_every:
+        return torch.stack(hs, dim=1), state, (
+            torch.stack(Cs), torch.stack(ns), torch.stack(ms, dim=1),
+            torch.stack(qns, dim=1))
     return torch.stack(hs, dim=1), state
 
 
-def slstm_scan(r, state, gates_in, steps: int, sc=None):
+def mlstm_scan_bwd(q, k, v, i_pre, f_pre, m0, saved, hs, dhs, dC, dn, dm,
+                   ckpt_every: int):
+    """The gradients of ``mlstm_scan`` (dq, dk, dv, di_pre, df_pre, dC0,
+    dn0, dm0) from its inputs, m0, its saved (C and n checkpoints, ms,
+    qns), its output hs and the cotangents of hs and of the final (C, n,
+    m).  Segment by segment from the last, (C, n) are recomputed from the
+    checkpoint by the forward's state update; then, with den = max(|q.n|, e^-m),
+    dC_{t-1} = f_g (dC_t + q_t dnum_t^T) with dnum = dh / den, the same
+    for dn with q_t d(q.n)_t, and the stabilizer's scalar chain through
+    the maxes."""
+    L = ckpt_every
+    C_ck, n_ck, ms, qns = saved
+    S = q.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di_pre, df_pre = torch.empty_like(i_pre), torch.empty_like(f_pre)
+    for seg in reversed(range(C_ck.shape[0])):
+        t0, t1 = seg * L, min(S, seg * L + L)
+        m_p = ms[:, t0 - 1] if t0 else m0
+        sts = [(C_ck[seg], n_ck[seg], m_p)]
+        for t in range(t0, t1):
+            sts.append(_mlstm_update(sts[-1], k[:, t], v[:, t], i_pre[:, t],
+                                     f_pre[:, t]))
+        for t in reversed(range(t0, t1)):
+            (C_p, n_p, m_p), (C_t, n_t, m_t) = sts[t - t0], sts[t - t0 + 1]
+            qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], i_pre[:, t], \
+                f_pre[:, t]
+            log_f = _log_sigmoid(ft)
+            a = log_f + m_p
+            i_g = torch.exp(it - m_t)
+            f_g = torch.exp(a - m_t)
+            qn, e = qns[:, t], torch.exp(-m_t)
+            den = torch.maximum(qn.abs(), e)
+            dh = dhs[:, t]
+            dnum = dh / den[..., None]
+            dden = -(dh * hs[:, t]).sum(dim=-1) / den
+            w_q, w_e = _max_weights(qn.abs(), e)
+            dqn = dden * w_q * torch.sign(qn)
+            dm = dm - e * (dden * w_e)
+            dC = dC + qt[..., :, None] * dnum[..., None, :]
+            dn = dn + qt * dqn[..., None]
+            dq[:, t] = (C_t @ dnum[..., None])[..., 0] + n_t * dqn[..., None]
+            dCv = (dC @ vt[..., None])[..., 0] + dn           # (B, H, hd_k)
+            dk[:, t] = i_g[..., None] * dCv
+            dv[:, t] = i_g[..., None] * (kt[..., None, :] @ dC)[..., 0, :]
+            dig = (kt * dCv).sum(dim=-1)
+            dfg = (dC * C_p).sum(dim=(-2, -1)) + (dn * n_p).sum(dim=-1)
+            dC = dC * f_g[..., None, None]
+            dn = dn * f_g[..., None]
+            di = dig * i_g
+            da = dfg * f_g
+            dm = dm - di - da
+            w_a, w_i = _max_weights(a, it)
+            da = da + dm * w_a
+            di_pre[:, t] = di + dm * w_i
+            df_pre[:, t] = da * _dlog_sigmoid(ft)
+            dm = da
+    return dq, dk, dv, di_pre, df_pre, dC, dn, dm
+
+
+def _slstm_step(r, state, g_in, sc):
+    """One sLSTM step: (the new state (c, n, h, m), the gate
+    pre-activations (B, 4, H, hd_v))."""
+    c, n, h, m = state
+    rec = torch.einsum("bhk,hgkv->bghv", h, r)            # (B, 4, H, hd_v)
+    z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i] for i in range(4)]
+    if sc is None:
+        i_sc = i_pre.mean(dim=-1)                         # head-level
+        f_sc = f_pre.mean(dim=-1)                         # stabilization
+    else:
+        i_sc, f_sc = sc[:, 0], sc[:, 1]
+    log_f = _log_sigmoid(f_sc)
+    m_new = torch.maximum(log_f + m, i_sc)
+    i_g = torch.exp(i_pre - m_new[..., None])
+    f_g = torch.exp(log_f[..., None] + (m - m_new)[..., None])
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    c = f_g * c + i_g * z
+    n = f_g * n + i_g
+    h = o * c / torch.clamp_min(n, 1e-6)
+    return (c, n, h, m_new), (z_pre, i_pre, f_pre, o_pre)
+
+
+def slstm_scan(r, state, gates_in, steps: int, sc=None, save: bool = False):
     """The sLSTM scan, a ``lax.scan`` over the reference's ``_slstm_step``
     (``repro/models/xlstm.py``), over the first ``steps`` positions of
     gates_in (B, S, 4, H, hd_v) with r (H, 4, hd_k, hd_v) the recurrent
@@ -426,28 +608,83 @@ def slstm_scan(r, state, gates_in, steps: int, sc=None):
     whole previous output.  The head-level stabilizers are the means of
     i_pre and f_pre over hd; with ``sc`` (B, 2, H) given (one step of a
     block of hd, ``steps`` 1) they are its two rows instead.  Returns
-    (h (B, steps, H, hd_v), (c, n, h, m))."""
-    c, n, h, m = state
-    hs = []
+    (h (B, steps, H, hd_v), (c, n, h, m)); with ``save`` also every
+    step's (gate pre-activations (B, steps, 4, H, hd_v), c, n (B, steps,
+    H, hd_v), m (B, steps, H)), what ``slstm_scan_bwd`` reads."""
+    hs, pres, cs, ns, ms = [], [], [], [], []
     for t in range(steps):
-        rec = torch.einsum("bhk,hgkv->bghv", h, r)        # (B, 4, H, hd_v)
-        g_in = gates_in[:, t]
-        z_pre, i_pre, f_pre, o_pre = [g_in[:, i] + rec[:, i]
-                                      for i in range(4)]
+        state, pre = _slstm_step(r, state, gates_in[:, t], sc)
+        hs.append(state[2])
+        if save:
+            pres.append(torch.stack(pre, dim=1))
+            cs.append(state[0])
+            ns.append(state[1])
+            ms.append(state[3])
+    if save:
+        return torch.stack(hs, dim=1), state, (
+            torch.stack(pres, dim=1), torch.stack(cs, dim=1),
+            torch.stack(ns, dim=1), torch.stack(ms, dim=1))
+    return torch.stack(hs, dim=1), state
+
+
+def slstm_scan_bwd(r, state0, sc, saved, hs, dhs, dc, dn, dh, dm):
+    """The gradients of ``slstm_scan`` from r, the initial state, sc, its
+    saved (pre, c, n, m a step), its output hs and the cotangents of hs
+    and of the final (c, n, h, m): (dpre (B, steps, 4, H, hd_v), the
+    gates' gradient on those positions; dr; dc0, dn0, dh0, dm0; dsc (B,
+    2, H) or None).  Step by step from the last: the cell's gradients
+    from the saved values, the head-level stabilizer's scalar chain
+    (through the means, or into dsc), dh_{t-1} = sum_g r_g dpre_g,t."""
+    c0, n0, h0, m0 = state0
+    pres, cs, ns, ms = saved
+    steps, hd = pres.shape[1], pres.shape[-1]
+    dpres = torch.empty_like(pres)
+    dh_rec, dsc = dh, None
+    for t in reversed(range(steps)):
+        z_pre, i_pre, f_pre, o_pre = pres[:, t].unbind(dim=1)
         if sc is None:
-            i_sc = i_pre.mean(dim=-1)                     # head-level
-            f_sc = f_pre.mean(dim=-1)                     # stabilization
+            i_sc, f_sc = i_pre.mean(dim=-1), f_pre.mean(dim=-1)
         else:
             i_sc, f_sc = sc[:, 0], sc[:, 1]
+        m_t, c_t, n_t = ms[:, t], cs[:, t], ns[:, t]
+        m_p, c_p, n_p = (ms[:, t - 1], cs[:, t - 1], ns[:, t - 1]) if t \
+            else (m0, c0, n0)
         log_f = _log_sigmoid(f_sc)
-        m_new = torch.maximum(log_f + m, i_sc)
-        i_g = torch.exp(i_pre - m_new[..., None])
-        f_g = torch.exp(log_f[..., None] + (m - m_new)[..., None])
-        z = torch.tanh(z_pre)
-        o = torch.sigmoid(o_pre)
-        c = f_g * c + i_g * z
-        n = f_g * n + i_g
-        h = o * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h, m)
+        a = log_f + m_p
+        i_g = torch.exp(i_pre - m_t[..., None])
+        f_g = torch.exp(log_f + (m_p - m_t))                  # (B, H)
+        z, o = torch.tanh(z_pre), torch.sigmoid(o_pre)
+        nc = torch.clamp_min(n_t, 1e-6)
+        dht = dhs[:, t] + dh_rec
+        dc = dc + dht * o / nc
+        dn = dn - dht * hs[:, t] / nc * (n_t >= 1e-6).to(n_t.dtype)
+        dpre_o = dht * c_t / nc * (o * (1 - o))
+        dfg = (dc * c_p).sum(dim=-1) + (dn * n_p).sum(dim=-1)
+        dpre_z = dc * i_g * (1 - z * z)
+        dpre_i = (dc * z + dn) * i_g
+        dc = dc * f_g[..., None]
+        dn = dn * f_g[..., None]
+        ds = dfg * f_g
+        dm = dm - dpre_i.sum(dim=-1) - ds
+        w_a, w_i = _max_weights(a, i_sc)
+        da, di_sc = dm * w_a, dm * w_i
+        df_sc = (ds + da) * _dlog_sigmoid(f_sc)
+        if sc is None:
+            dpre_i = dpre_i + (di_sc / hd)[..., None]
+            dpre_f = (df_sc / hd)[..., None].expand_as(dpre_i)
+        else:
+            dpre_f = torch.zeros_like(dpre_i)
+            dsc = torch.stack([di_sc, df_sc], dim=1)
+        dpre = torch.stack([dpre_z, dpre_i, dpre_f, dpre_o], dim=1)
+        dpres[:, t] = dpre
+        dh_rec = torch.einsum("bghv,hgkv->bhk", dpre, r)
+        dm = ds + da
+    return dpres, slstm_dr(h0, hs, dpres), (dc, dn, dh_rec, dm), dsc
+
+
+def slstm_dr(h0, hs, dpres):
+    """The sLSTM's dr_gates: the sum over rows and steps of h_{t-1}
+    dpre_t, h_{-1} = h0 (the whole h: one step with ``sc`` given)."""
+    hprev = h0[:, None] if dpres.shape[1] == 1 else torch.cat(
+        [h0[:, None], hs[:, :-1]], dim=1)
+    return torch.einsum("bthk,btghv->hgkv", hprev, dpres)

@@ -70,6 +70,7 @@ from repro_torch.configs import GLM_SHAPES, SHAPES
 from repro_torch.configs.base import ShapeSpec, cell_is_runnable, \
     tp_pad_config
 from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.kernels import ref
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_FP32,
                                      abstract_mesh)
 from repro_torch.models import common, lm
@@ -291,8 +292,9 @@ def fit_plan(cfg, shape, mesh) -> Optional[FitPlan]:
     (Mamba2) and ``ssm`` (xLSTM), in train and prefill.  The unit length
     keeps every chunk whole at every point: the attention's chunk count,
     the sequence split over ``model``, the vocab-parallel loss's
-    ``lm.CE_CHUNK`` tokens (a multiple of them a point) and
-    ``ssm_chunk``."""
+    ``lm.CE_CHUNK`` tokens (a multiple of them a point), ``ssm_chunk``
+    and the scans' checkpoint stride (``kernels.ref.CKPT_EVERY``: a
+    training step's scans keep ceil(S / L) checkpoints)."""
     if cfg.family not in ("hybrid", "ssm") or shape.kind == "decode":
         return None
     S, M = shape.seq_len, mesh.shape["model"]
@@ -305,6 +307,7 @@ def fit_plan(cfg, shape, mesh) -> Optional[FitPlan]:
         unit = math.lcm(unit, n_attn)
     if cfg.ssm_chunk:
         unit = math.lcm(unit, cfg.ssm_chunk)
+    unit = math.lcm(unit, ref.CKPT_EVERY)
     if shape.kind == "train" and M > 1:
         # the vocab-parallel loss's chunks of tokens, kept as many
         rows = shape.global_batch // mesh.shape["data"]

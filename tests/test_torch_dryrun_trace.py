@@ -406,11 +406,12 @@ def test_fake_trace_equals_the_real_cpu_step():
 
 # the smoke configs with a shorter period, so that the depth holds two
 # and a half shared blocks (zamba2) or two mLSTM + sLSTM groups (xlstm);
-# 24 tokens, the shortest length past the fit's five units of 4 (zamba2's
-# attention in two chunks of 12)
-EXTRAPOLATED = [("zamba2-1.2b", 24, {"n_layers": 5, "shared_attn_every": 2,
-                                     "attn_chunk": 12}),
-                ("xlstm-1.3b", 24, {"n_layers": 4, "slstm_period": 2})]
+# 96 tokens, the shortest length past the fit's five units of 16 (the
+# scans' checkpoint stride, ``kernels.ref.CKPT_EVERY``; zamba2's
+# attention in two chunks of 48)
+EXTRAPOLATED = [("zamba2-1.2b", 96, {"n_layers": 5, "shared_attn_every": 2,
+                                     "attn_chunk": 48}),
+                ("xlstm-1.3b", 96, {"n_layers": 4, "slstm_period": 2})]
 
 
 @pytest.mark.parametrize("arch,seq,over", EXTRAPOLATED,

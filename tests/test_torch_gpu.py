@@ -26,8 +26,13 @@ The audits of ``repro_torch.analysis`` pass on the card (kernel_smem runs
 there: every kernel within the card's limits, as ptxas reported it).
 The recurrences' scans (ssm_scan, mlstm_scan, slstm_scan) are held at 1e-5
 of the largest |value| where both are finite, the non-finite positions
-equal, at small and ragged shapes, and their routing: frozen inputs
-launch, an input that requires a gradient runs the plain loop, counted.
+equal, at small and ragged shapes; their backward kernels (the training
+modes' saved values, then every gradient) at 1e-5 of each gradient's
+largest |entry| against the plain backward on the card, at hd 512, a
+checkpoint stride that does not divide S and warm states, two runs the
+same bits; and their routing: frozen inputs launch the forward kernel, an
+input that requires a gradient the forward and, on backward, the
+backward kernel, never the plain route.
 """
 import json
 import time
@@ -1567,12 +1572,183 @@ def test_slstm_scan_kernel_block_with_given_stabilizers(cuda):
     _scan_close(got[1], want[1])
 
 
+def _grads_close(got, want, tol=1e-5):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())
+        assert float((g - w).abs().max()) <= \
+            tol * max(float(w.abs().max()), 1e-30)
+
+
+def _grads_close_floor(got, want, want64, tol=1e-5, factor=2.0):
+    """``_grads_close`` with each gradient's bar raised to ``factor``
+    times the plain version's own distance from its float64 formulas
+    where that is larger (an ill-conditioned mLSTM readout), and the
+    kernel no further from float64 than the plain version (or tol)."""
+    for g, w, w64 in zip(got, want, want64):
+        scale = max(float(w64.abs().max()), 1e-30)
+        floor = float((w.double() - w64).abs().max()) / scale
+        bar = max(tol, factor * floor)
+        assert float((g - w).abs().max()) <= bar * scale
+        assert float((g.double() - w64).abs().max()) <= max(tol, floor) * scale
+
+
+def _same_bits(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("B,S,H,hd,ds,warm", [
+    (2, 37, 3, 64, 64, True), (2, 16, 3, 64, 64, False),
+    (1, 1, 2, 24, 5, True), (1, 40, 1, 100, 100, True)])
+def test_ssm_scan_bwd_kernel(cuda, B, S, H, hd, ds, warm):
+    """The training mode's checkpoints and the backward kernel against
+    the plain ones on the card (L = ref.CKPT_EVERY: 37 and 40 steps end
+    in a short segment); two backward runs give the same bits."""
+    from repro_torch.kernels import ssm_scan
+    L = ref.CKPT_EVERY
+    rng = np.random.default_rng(S + hd + 1)
+    xh = _randn(rng, (B, S, H, hd), cuda)
+    Bm, Cm = _randn(rng, (B, S, ds), cuda), _randn(rng, (B, S, ds), cuda)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), cuda)) * 0.5
+    A = torch.exp(_randn(rng, (H,), cuda, 0.5))
+    D = _randn(rng, (H,), cuda)
+    s0 = _randn(rng, (B, H, hd, ds), cuda) if warm \
+        else torch.zeros((B, H, hd, ds), device=cuda)
+    dy, dh = _randn(rng, (B, S, H, hd), cuda), _randn(rng, s0.shape, cuda)
+    y, h, ck = ssm_scan.launch(xh, Bm, Cm, dt, A, D, s0, ckpt_every=L)
+    want_y, want_h, want_ck = ref.ssm_scan(xh, Bm, Cm, dt, A, D, s0,
+                                           ckpt_every=L)
+    torch.cuda.synchronize()
+    _scan_close((y, h, ck), (want_y, want_h, want_ck))
+    args = (xh, Bm, Cm, dt, A, D)
+    got = ssm_scan.launch_bwd(*args, ck, dy, dh, L)
+    again = ssm_scan.launch_bwd(*args, ck, dy, dh, L)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    _grads_close(got, ref.ssm_scan_bwd(*args, want_ck, dy, dh, L))
+
+
+@pytest.mark.parametrize("B,S,H,hd_k,hd_v,warm", [
+    (2, 37, 2, 64, 64, True), (2, 17, 2, 64, 64, False),
+    (1, 1, 1, 24, 24, True), (1, 20, 2, 48, 24, True),
+    (1, 21, 1, 512, 512, True)])
+def test_mlstm_scan_bwd_kernel(cuda, B, S, H, hd_k, hd_v, warm):
+    """The training mode's checkpoints, m and q.n, and the backward
+    kernels against the plain ones on the card (hd_v < hd_k a block of
+    hd; hd 512 xlstm's); two backward runs give the same bits.  The bar
+    is 1e-5, or twice the plain backward's own distance from float64
+    where the readout h = q C / max(|q.n|, e^-m) makes that larger (the
+    48 x 24 case: the plain version 8.5e-5 off float64 in dq, the kernel
+    2.1e-5 on an H100)."""
+    from repro_torch.kernels import mlstm_scan
+    L = ref.CKPT_EVERY
+    rng = np.random.default_rng(S + hd_k + hd_v + 1)
+    q = _randn(rng, (B, S, H, hd_k), cuda)
+    k = _randn(rng, (B, S, H, hd_k), cuda) / hd_k ** 0.5
+    v = _randn(rng, (B, S, H, hd_v), cuda)
+    i_pre = _randn(rng, (B, S, H), cuda, 2.0)
+    f_pre = _randn(rng, (B, S, H), cuda, 2.0, 1.0)
+    if warm:
+        state = (_randn(rng, (B, H, hd_k, hd_v), cuda),
+                 _randn(rng, (B, H, hd_k), cuda), _randn(rng, (B, H), cuda))
+    else:
+        state = (torch.zeros((B, H, hd_k, hd_v), device=cuda),
+                 torch.zeros((B, H, hd_k), device=cuda),
+                 torch.full((B, H), -1e30, device=cuda))
+    cots = (_randn(rng, (B, S, H, hd_v), cuda),
+            *(_randn(rng, s.shape, cuda) for s in state))
+    hs, st, saved = mlstm_scan.launch(q, k, v, i_pre, f_pre, state,
+                                      ckpt_every=L)
+    want_hs, want_st, want_saved = ref.mlstm_scan(q, k, v, i_pre, f_pre,
+                                                  state, ckpt_every=L)
+    torch.cuda.synchronize()
+    _scan_close((hs, *st, *saved), (want_hs, *want_st, *want_saved))
+    args = (q, k, v, i_pre, f_pre, state[2])
+    got = mlstm_scan.launch_bwd(*args, saved, hs, *cots, L)
+    again = mlstm_scan.launch_bwd(*args, saved, hs, *cots, L)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    want = ref.mlstm_scan_bwd(*args, want_saved, want_hs, *cots, L)
+    d = [t.double() for t in (*args, want_hs, *cots)]
+    hs64, _, saved64 = ref.mlstm_scan(*d[:5], tuple(
+        t.double() for t in state), ckpt_every=L)
+    want64 = ref.mlstm_scan_bwd(*d[:6], saved64, hs64, *d[7:], L)
+    _grads_close_floor(got, want, want64)
+
+
+@pytest.mark.parametrize("B,S,H,hd,warm", [
+    (2, 13, 2, 64, True), (2, 13, 2, 64, False), (1, 1, 1, 24, True),
+    (1, 7, 1, 512, True), (2, 9, 2, 40, False)])
+def test_slstm_scan_bwd_kernel(cuda, B, S, H, hd, warm):
+    """The training mode's saved steps and the backward kernel against the
+    plain ones on the card (hd 512 xlstm's; hd 40 a ragged cluster); two
+    backward runs give the same bits."""
+    from repro_torch.kernels import slstm_scan
+    rng = np.random.default_rng(S + hd + 1)
+    r = _randn(rng, (H, 4, hd, hd), cuda, 0.3 / hd ** 0.5)
+    gates = _randn(rng, (B, S, 4, H, hd), cuda)
+    if warm:
+        state = (_randn(rng, (B, H, hd), cuda),
+                 _randn(rng, (B, H, hd), cuda).abs() + 0.5,
+                 _randn(rng, (B, H, hd), cuda), _randn(rng, (B, H), cuda))
+    else:
+        z = torch.zeros((B, H, hd), device=cuda)
+        state = (z, z.clone(), z.clone(),
+                 torch.full((B, H), -1e30, device=cuda))
+    cots = (_randn(rng, (B, S, H, hd), cuda),
+            *(_randn(rng, s.shape, cuda) for s in state))
+    hs, st, saved = slstm_scan.launch(r, state, gates, S, save=True)
+    want_hs, want_st, want_saved = ref.slstm_scan(r, state, gates, S,
+                                                  save=True)
+    torch.cuda.synchronize()
+    _scan_close((hs, *st, *saved), (want_hs, *want_st, *want_saved))
+    got = slstm_scan.launch_bwd(r, state, None, saved, hs, *cots)
+    again = slstm_scan.launch_bwd(r, state, None, saved, hs, *cots)
+    torch.cuda.synchronize()
+    flat = (got[0], got[1], *got[2])
+    assert _same_bits(flat, (again[0], again[1], *again[2]))
+    want = ref.slstm_scan_bwd(r, state, None, want_saved, want_hs, *cots)
+    _grads_close(flat, (want[0], want[1], *want[2]))
+    assert got[3] is None
+
+
+def test_slstm_scan_bwd_kernel_block_with_given_stabilizers(cuda):
+    """One step of a block of hd with sc given (hd_v = hd / 2, the whole
+    h in): dpre, the state's gradients (dh0 over the whole hd) and dsc."""
+    from repro_torch.kernels import slstm_scan
+    rng = np.random.default_rng(19)
+    B, H, hd, half = 2, 2, 64, 32
+    r = _randn(rng, (H, 4, hd, half), cuda, 0.3 / hd ** 0.5)
+    gates = _randn(rng, (B, 1, 4, H, half), cuda)
+    state = (_randn(rng, (B, H, half), cuda),
+             _randn(rng, (B, H, half), cuda).abs() + 0.5,
+             _randn(rng, (B, H, hd), cuda), _randn(rng, (B, H), cuda))
+    sc = _randn(rng, (B, 2, H), cuda)
+    cots = (_randn(rng, (B, 1, H, half), cuda),
+            *(_randn(rng, (B, H, half), cuda) for _ in range(3)),
+            _randn(rng, (B, H), cuda))
+    hs, _, saved = slstm_scan.launch(r, state, gates, 1, sc=sc, save=True)
+    want_hs, _, want_saved = ref.slstm_scan(r, state, gates, 1, sc=sc,
+                                            save=True)
+    got = slstm_scan.launch_bwd(r, state, sc, saved, hs, *cots)
+    torch.cuda.synchronize()
+    want = ref.slstm_scan_bwd(r, state, sc, want_saved, want_hs, *cots)
+    _grads_close((got[0], got[1], *got[2], got[3]),
+                 (want[0], want[1], *want[2], want[3]))
+
+
 def test_scan_routing_on_the_card(cuda):
-    """Frozen inputs launch the kernel; an input that requires a gradient
-    under grad mode runs the plain loop, counted ``"<name>/plain"``, and
-    its output carries the gradient; under no_grad it launches."""
+    """Frozen inputs launch the forward kernel; an input that requires a
+    gradient under grad mode launches the forward kernel in its training
+    mode and, on backward, the backward kernel (no plain route), the
+    gradients those of autograd through the plain loop on the card; under
+    no_grad the forward kernel alone."""
     rng = np.random.default_rng(10)
-    B, S, H, hd = 1, 4, 2, 16
+    B, S, H, hd = 1, 20, 2, 16
     r = _randn(rng, (H, 4, hd, hd), cuda, 0.1)
     gates = _randn(rng, (B, S, 4, H, hd), cuda)
     z = torch.zeros((B, H, hd), device=cuda)
@@ -1583,23 +1759,29 @@ def test_scan_routing_on_the_card(cuda):
     g = gates.clone().requires_grad_(True)
     hs, _ = ops.slstm_scan(r, state, g, S)
     counts = ops.launch_counts()
-    assert counts["slstm_scan"] == 1 and counts["slstm_scan/plain"] == 1
+    assert counts["slstm_scan"] == 2 and counts["slstm_scan_bwd"] == 0
     hs.sum().backward()
-    assert g.grad is not None and bool(torch.isfinite(g.grad).all())
+    assert ops.launch_counts()["slstm_scan_bwd"] == 1
+    g2 = gates.clone().requires_grad_(True)
+    ref.slstm_scan(r, state, g2, S)[0].sum().backward()
+    _grads_close((g.grad,), (g2.grad,))
     with torch.no_grad():
         ops.slstm_scan(r, state, g, S)
-    assert ops.launch_counts()["slstm_scan"] == 2
+    assert ops.launch_counts()["slstm_scan"] == 3
     x = _randn(rng, (B, S, H, hd), cuda).requires_grad_(True)
     Bm = _randn(rng, (B, S, 8), cuda)
-    ops.ssm_scan(x, Bm, Bm, torch.ones((B, S, H), device=cuda),
-                 torch.ones(H, device=cuda), torch.ones(H, device=cuda),
-                 torch.zeros((B, H, hd, 8), device=cuda))
+    y, _ = ops.ssm_scan(x, Bm, Bm, torch.ones((B, S, H), device=cuda),
+                        torch.ones(H, device=cuda), torch.ones(H, device=cuda),
+                        torch.zeros((B, H, hd, 8), device=cuda))
     q = _randn(rng, (B, S, H, hd), cuda).requires_grad_(True)
     gt = _randn(rng, (B, S, H), cuda)
-    ops.mlstm_scan(q, q.detach(), q.detach(), gt, gt, (
+    hq, _ = ops.mlstm_scan(q, q.detach(), q.detach(), gt, gt, (
         torch.zeros((B, H, hd, hd), device=cuda),
         torch.zeros((B, H, hd), device=cuda),
         torch.full((B, H), -1e30, device=cuda)))
+    (y.sum() + hq.sum()).backward()
     counts = ops.launch_counts()
-    assert counts["ssm_scan"] == counts["mlstm_scan"] == 0
-    assert counts["ssm_scan/plain"] == counts["mlstm_scan/plain"] == 1
+    assert counts["ssm_scan"] == counts["mlstm_scan"] == 1
+    assert counts["ssm_scan_bwd"] == counts["mlstm_scan_bwd"] == 1
+    assert all(counts[f"{n}/plain"] == 0
+               for n in ("ssm_scan", "mlstm_scan", "slstm_scan"))
